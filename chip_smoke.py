@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: build its CUDA kernels,
-hold each against its plain PyTorch version, and serve resnet18 at full
-width through them.
+hold each against its plain PyTorch version, serve resnet18 and train it
+at full width through them.
 
     python3 chip_smoke.py
 
@@ -9,16 +9,34 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build the kernel library from ``mpi_pytorch_tpu_torch/csrc`` (nvcc,
    sm_90a) into the git-ignored ``build/kernels``;
-3. each kernel against its plain version on the card, at the serving
-   path's shapes, then timed beside its plain version, a one-call PyTorch
-   yardstick where one exists, and its roofline bound;
+3. each kernel against its plain version on the card, at its path's
+   shapes, then timed beside its plain version, a one-call PyTorch
+   yardstick where one exists, and its roofline bound: the stem's eval
+   forward (K1), training forward with the window index (K2) and index
+   backward (K3), and the predict head in bf16 (K4) and f32 (K4 f32);
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
    requests one at a time; every answer is checked against the plain path
    (same weights, plain stem and plain head: ≥ 99 % equal, and equal on
    every row not within ``E2E_GAP`` of a tie) and both kernels' launch
-   counts must have risen during the run.
+   counts must have risen during the run;
+5. the same server in f32 (the f32 head kernel's path), checked the same
+   way against the plain f32 path;
+6. training: ``train.trainer.train`` (what ``python -m
+   mpi_pytorch_tpu_torch.train`` runs) on resnet18, 64 500 classes, 128 px,
+   batch 128, bf16, Adam 4e-4, fused stem, synthetic data, the DEBUG
+   sample of 3 200 rows (20 steps an epoch), two epochs, validation, one
+   checkpoint kept: K2 and K3 must launch on every step and the loss must
+   fall; then the same run with the plain stem (step-1 loss within 1e-3);
+7. K2/K3 inside the real train step, f32 (TF32 off), same weights and
+   batches: against the stem's plain versions, losses, step-1 stem
+   gradients and ``bn1`` after three steps rtol 1e-4; against the plain
+   stem, losses rtol 1e-4; and the device time of one bf16 train step on
+   a resident batch, fused and plain, in turns;
+8. where a training step's time goes: the host loader alone, the host's
+   enqueue time against the card's, and a ``torch.profiler`` breakdown of
+   the card's busy time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
@@ -29,23 +47,40 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 V, D = 64500, 512  # the headline head: 64 500 classes over 512 features
 STEM_SHAPE = (512, 64, 64, 64)  # conv1 output at bucket 512, 128 px, NHWC
-HEAD_BATCHES = (1, 8, 512)
+STEM_TRAIN_SHAPE = (128, 64, 64, 64)  # conv1 output at the training batch, NHWC
 FLOOD, SINGLES = 1000, 16
 # A served answer must equal the plain path's wherever the plain top-2 gap
 # exceeds this share of |max|: a little above one bf16 rounding step
 # (2^-7 = 7.8e-3 relative), the resolution the activations carry.
 E2E_GAP = 1e-2
+# The f32 path's answers carry f32 rounding only (TF32 off): a much finer
+# gap separates a real disagreement from a near tie.
+E2E_GAP_F32 = 1e-4
+F32_SERVE_IMAGES = 72
+IMG = 128  # pixels a side, serving and training
+TRAIN_BATCH = 128
+LR = 4e-4
+TRAIN_ROWS = 3200  # DEBUG sample: 2 560 train rows = 20 steps of 128
+TRAIN_STEPS_PER_EPOCH = 20
+# Two epochs: the DEBUG sample's 2 560 train rows hold 2 337 classes, so in
+# a first epoch nearly every batch brings classes never seen and the step
+# loss only hovers near ln(64 500); the second epoch revisits them.
+TRAIN_EPOCHS = 2
 SEED = 0
+REPO = Path(__file__).resolve().parent
 
 
 def log(obj) -> None:
@@ -67,6 +102,23 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _ulp_check(got, ref, what: str) -> float:
+    """Within one bf16 ulp (2^-7 relative) plus 1e-6 absolute, NaN where
+    the plain version has NaN; returns the max abs error on finite values."""
+    g, r = got.float(), ref.float()
+    if not torch.equal(torch.isnan(g), torch.isnan(r)):
+        raise AssertionError(f"{what}: NaN positions differ from the plain version")
+    fin = ~torch.isnan(r)
+    err = (g[fin] - r[fin]).abs()
+    tol = 2.0**-7 * torch.maximum(g[fin].abs(), r[fin].abs()) + 1e-6
+    if bool((err > tol).any()):
+        raise AssertionError(
+            f"{what}: {int((err > tol).sum())} values beyond one bf16 ulp, "
+            f"max err {float(err.max())}"
+        )
+    return float(err.max()) if err.numel() else 0.0
+
+
 def check_stem(dev, gen) -> dict:
     """K1 against its plain version: within one bf16 ulp (2^-7 relative),
     plus 1e-6 absolute for values the f32 FMA-vs-mul+add gap moves across
@@ -85,18 +137,7 @@ def check_stem(dev, gen) -> dict:
         got = fs.stem_affine_relu_pool(inp, a, b)
         torch.cuda.synchronize()
         ref = fs.stem_affine_relu_pool_reference(inp, a, b)
-        g, r = got.float(), ref.float()
-        if not torch.equal(torch.isnan(g), torch.isnan(r)):
-            raise AssertionError(f"fused stem ({name}): NaN positions differ from the plain version")
-        fin = ~torch.isnan(r)
-        err = (g[fin] - r[fin]).abs()
-        tol = 2.0**-7 * torch.maximum(g[fin].abs(), r[fin].abs()) + 1e-6
-        if bool((err > tol).any()):
-            raise AssertionError(
-                f"fused stem ({name}): {int((err > tol).sum())} values beyond one "
-                f"bf16 ulp, max err {float(err.max())}"
-            )
-        max_err = max(max_err, float(err.max()))
+        max_err = max(max_err, _ulp_check(got, ref, f"fused stem ({name})"))
     n_in, n_out = y.numel(), y.numel() // 4
     moved = 2 * n_in + 2 * n_out + 8 * c  # bf16 y read, bf16 out written, f32 a, b
     ops = 3 * n_in + 8 * n_out  # fma + relu per input, 8 max per window
@@ -116,19 +157,130 @@ def check_stem(dev, gen) -> dict:
     return row
 
 
-def check_head(dev, gen) -> dict:
-    """K4 against its plain version at each batch: loss rtol 1e-3; preds
-    equal wherever the plain top-2 gap exceeds 1e-3·|max|, and on at least
-    99% of rows overall."""
-    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, bound_ms
+def _stem_train_inputs(dev, gen):
+    """(a, b, random y, tie-heavy y with a NaN) at the training shape."""
+    c = STEM_TRAIN_SHAPE[-1]
+    a = (0.5 + torch.rand(c, generator=gen)).to(dev)
+    b = (0.5 * torch.randn(c, generator=gen)).to(dev)
+    y = torch.randn(STEM_TRAIN_SHAPE, generator=gen).to(dev, torch.bfloat16)
+    ties = torch.randint(-2, 3, STEM_TRAIN_SHAPE, generator=gen).to(dev, torch.bfloat16)
+    ties[0, 5, 7, 3] = float("nan")
+    return a, b, y, ties
+
+
+def check_stem_argmax(dev, gen) -> dict:
+    """K2 against its plain version at the training shape, on random and on
+    tie-heavy inputs with a NaN: pooled within one bf16 ulp (NaN where the
+    plain version has NaN), the window index k exactly equal on every
+    window whose plain value is finite."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_F32_FLOPS, bound_ms
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+
+    a, b, y, ties = _stem_train_inputs(dev, gen)
+    max_err = 0.0
+    for name, inp in (("random", y), ("tie_heavy_nan", ties)):
+        pooled, k = fs.stem_pool_argmax(inp, a, b)
+        torch.cuda.synchronize()
+        ref_p, ref_k = fs.stem_pool_argmax_reference(inp, a, b)
+        max_err = max(max_err, _ulp_check(pooled, ref_p, f"stem argmax ({name})"))
+        fin = ~torch.isnan(ref_p.float())
+        if not torch.equal(k[fin], ref_k[fin]):
+            raise AssertionError(
+                f"stem argmax ({name}): k differs on {int((k[fin] != ref_k[fin]).sum())} "
+                "finite windows"
+            )
+    n_in, n_out = y.numel(), y.numel() // 4
+    c = y.shape[-1]
+    moved = 2 * n_in + 2 * n_out + n_out + 8 * c  # y, pooled (bf16), k (int8), a, b
+    ops = 3 * n_in + 16 * n_out  # mul, add, relu per input; max + index per window
+    bound, by = bound_ms(moved, ops, H100_PEAK_F32_FLOPS)
+    row = {
+        "name": "stem_pool_argmax", "route": "cuda",
+        "source": "mpi_pytorch_tpu_torch/csrc/fused_stem.cu",
+        "replaces": "mpi_pytorch_tpu/ops/fused_stem.py:257",
+        "shape": list(STEM_TRAIN_SHAPE), "dtype": "bfloat16", "max_abs_err": max_err,
+        "kernel_ms": time_ms(lambda: fs.stem_pool_argmax(y, a, b), 50),
+        "plain_ms": time_ms(lambda: fs.stem_pool_argmax_reference(y, a, b), 10),
+        "bound_ms": bound, "bound_by": by,
+        # No one PyTorch call gives (pooled, k) from y, a, b.
+        "library_ms": None,
+    }
+    log({"kernel_check": row})
+    return row
+
+
+def check_stem_backward(dev, gen) -> dict:
+    """K3 against its plain version on the same (g, k, pooled, y, a) at the
+    training shape: dy within one bf16 ulp, da and db rtol 1e-3 plus 1e-3
+    absolute (sums of 2^19 terms per channel, taken in another order), and
+    two calls bitwise equal (no atomics)."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_F32_FLOPS, bound_ms
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+
+    a, b, y, _ = _stem_train_inputs(dev, gen)
+    pooled, k = fs.stem_pool_argmax(y, a, b)
+    g = torch.randn(pooled.shape, generator=gen).to(dev, torch.bfloat16)
+    dy, da, db = fs.stem_pool_backward(g, k, pooled, y, a)
+    dy2, da2, db2 = fs.stem_pool_backward(g, k, pooled, y, a)
+    torch.cuda.synchronize()
+    if not (torch.equal(dy, dy2) and torch.equal(da, da2) and torch.equal(db, db2)):
+        raise AssertionError("stem backward: two calls on the same inputs differ")
+    ref_dy, ref_da, ref_db = fs.stem_pool_backward_reference(g, k, pooled, y, a)
+    max_err = _ulp_check(dy, ref_dy, "stem backward dy")
+    for name, got, ref in (("da", da, ref_da), ("db", db, ref_db)):
+        if not torch.allclose(got, ref, rtol=1e-3, atol=1e-3):
+            raise AssertionError(
+                f"stem backward {name}: off by {float((got - ref).abs().max())}"
+            )
+        max_err = max(max_err, float((got - ref).abs().max()))
+    n_in, n_out = y.numel(), y.numel() // 4
+    c = y.shape[-1]
+    # g, pooled (bf16) and k (int8) read; y read and dy written (bf16); a
+    # read, da and db written (f32).
+    moved = 2 * n_out + 2 * n_out + n_out + 2 * n_in + 2 * n_in + 4 * c + 8 * c
+    ops = 4 * n_out + 5 * n_in  # mask + route per window; du·a, du·y + sum, sum du
+    bound, by = bound_ms(moved, ops, H100_PEAK_F32_FLOPS)
+    row = {
+        "name": "stem_pool_backward", "route": "cuda",
+        "source": "mpi_pytorch_tpu_torch/csrc/fused_stem.cu",
+        "replaces": "mpi_pytorch_tpu/ops/fused_stem.py:279",
+        "shape": list(STEM_TRAIN_SHAPE), "dtype": "bfloat16", "max_abs_err": max_err,
+        "kernel_ms": time_ms(lambda: fs.stem_pool_backward(g, k, pooled, y, a), 50),
+        "plain_ms": time_ms(lambda: fs.stem_pool_backward_reference(g, k, pooled, y, a), 10),
+        "bound_ms": bound, "bound_by": by,
+        # No one PyTorch call gives (dy, da, db) from (g, k, pooled, y, a).
+        "library_ms": None,
+    }
+    log({"kernel_check": row})
+    return row
+
+
+# Per head dtype: batches, loss rtol, the top-2 gap (share of |max|) above
+# which argmax must agree, the least share of rows agreeing overall, the
+# peak its operations are bounded by, and the kernel row's name.
+HEAD_CHECKS = {
+    torch.bfloat16: ((1, 8, 512), 1e-3, 1e-3, 0.99, "bf16", "head_predict"),
+    torch.float32: ((8, 512), 1e-5, 1e-5, 1.0, "f32", "head_predict_f32"),
+}
+
+
+def check_head(dev, gen, dtype) -> dict:
+    """K4 against its plain version (f32 logits over the same W) at each
+    batch: loss within the dtype's rtol, argmax equal wherever the plain
+    top-2 gap exceeds the dtype's share of |max| (bf16 1e-3, f32 1e-5 —
+    f32 logits carry f32 rounding only, TF32 off) and on at least the
+    dtype's share of rows overall. Returns the largest batch's row."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, H100_PEAK_F32_FLOPS, bound_ms
     from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
 
-    w = (0.05 * torch.randn(V, D, generator=gen)).to(dev, torch.bfloat16)
+    batches, rtol, gap, min_agree, peak, name = HEAD_CHECKS[dtype]
+    peak = {"bf16": H100_PEAK_BF16_FLOPS, "f32": H100_PEAK_F32_FLOPS}[peak]
+    size = torch.finfo(dtype).bits // 8
+    w = (0.05 * torch.randn(V, D, generator=gen)).to(dev, dtype)
     bias = (0.1 * torch.randn(V, generator=gen)).to(dev)
-    w_lib, b_lib = w, bias.to(torch.bfloat16)
     rows = []
-    for bsz in HEAD_BATCHES:
-        feats = torch.randn(bsz, D, generator=gen).abs().to(dev, torch.bfloat16)
+    for bsz in batches:
+        feats = torch.randn(bsz, D, generator=gen).abs().to(dev, dtype)
         labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
         labels[::7] = -1
         labels = labels.to(dev)
@@ -136,22 +288,22 @@ def check_head(dev, gen) -> dict:
         torch.cuda.synchronize()
         ref_loss, ref_pred = fh.head_predict_reference(feats, w, bias, labels)
         top2 = torch.topk(fh._logits(feats, w, bias), 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-3 * top2[:, 0].abs()
+        clear = (top2[:, 0] - top2[:, 1]) > gap * top2[:, 0].abs()
         agree = pred == ref_pred
         if not bool(agree[clear].all()):
-            raise AssertionError(f"head_predict B={bsz}: argmax differs on a clear row")
-        if float(agree.float().mean()) < 0.99:
-            raise AssertionError(f"head_predict B={bsz}: only {float(agree.float().mean())} agree")
-        if not torch.allclose(loss, ref_loss, rtol=1e-3, atol=0):
+            raise AssertionError(f"{name} B={bsz}: argmax differs on a clear row")
+        if float(agree.float().mean()) < min_agree:
+            raise AssertionError(f"{name} B={bsz}: only {float(agree.float().mean())} agree")
+        if not torch.allclose(loss, ref_loss, rtol=rtol, atol=0):
             raise AssertionError(
-                f"head_predict B={bsz}: loss off by {float((loss - ref_loss).abs().max())}"
+                f"{name} B={bsz}: loss off by {float((loss - ref_loss).abs().max())}"
             )
         if not bool((loss[labels < 0] == 0).all()):
-            raise AssertionError(f"head_predict B={bsz}: padding rows carry loss")
-        moved = 2 * bsz * D + 2 * V * D + 4 * V + 12 * bsz
-        bound, by = bound_ms(moved, 2 * bsz * D * V, H100_PEAK_BF16_FLOPS)
+            raise AssertionError(f"{name} B={bsz}: padding rows carry loss")
+        moved = size * bsz * D + size * V * D + 4 * V + 12 * bsz
+        bound, by = bound_ms(moved, 2 * bsz * D * V, peak)
         row = {
-            "name": "head_predict", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "mpi_pytorch_tpu_torch/csrc/fused_head_ce.cu",
             "replaces": "mpi_pytorch_tpu/ops/fused_head_ce.py:313",
             "batch": bsz, "max_abs_err": float((loss - ref_loss).abs().max()),
@@ -159,12 +311,15 @@ def check_head(dev, gen) -> dict:
             "kernel_ms": time_ms(lambda: fh.head_predict(feats, w, bias, labels), 50),
             "plain_ms": time_ms(lambda: fh.head_predict_reference(feats, w, bias, labels), 10),
             "bound_ms": bound, "bound_by": by,
-            # Yardstick only, never called by the port: cuBLAS logits GEMM.
-            "library_ms": time_ms(lambda: torch.nn.functional.linear(feats, w_lib, b_lib), 50),
+            # Yardstick only, never called by the port: the cuBLAS logits
+            # GEMM in the same dtype.
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.linear(feats, w, bias.to(dtype)), 50
+            ),
         }
         log({"kernel_check": row})
         rows.append(row)
-    return rows[-1]  # B = 512, the largest bucket
+    return rows[-1]
 
 
 def serve_resnet18(dev) -> dict:
@@ -280,6 +435,270 @@ def serve_resnet18(dev) -> dict:
     return launches
 
 
+def serve_resnet18_f32(dev) -> int:
+    """The f32 model through ``InferenceServer`` with the fused stem and the
+    fused head, whose f32 kernel it runs; returns that kernel's launches.
+    Answers against the plain f32 path: ≥ 99 % equal, and equal wherever
+    the plain top-2 gap exceeds ``E2E_GAP_F32``·|max|."""
+    from mpi_pytorch_tpu_torch import Config
+    from mpi_pytorch_tpu_torch.evaluate import build_inference, head_weights
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce
+    from mpi_pytorch_tpu_torch.serve import InferenceServer
+    from mpi_pytorch_tpu_torch.train.step import ingest_images
+
+    cfg = Config(
+        model_name="resnet18", num_classes=V, width=IMG, height=IMG,
+        compute_dtype="float32", input_dtype="uint8", fused_stem=True,
+        fused_head_eval=True, serve_topk=1, serve_buckets="8,64", seed=SEED,
+    )
+    images = np.random.default_rng(SEED + 2).integers(
+        0, 256, size=(F32_SERVE_IMAGES, IMG, IMG, 3), dtype=np.uint8
+    )
+    srv = InferenceServer(cfg, device=dev)
+    try:
+        fused_head_ce.counter_f32.reset()
+        preds = srv.predict_batch(images, timeout=600)[:, 0]
+        launches = fused_head_ce.counter_f32.count
+    finally:
+        srv.close()
+    if launches < 1:
+        raise AssertionError("the f32 serving run did not go through the f32 head kernel")
+    plain = build_inference(dataclasses.replace(cfg, fused_stem=False, fused_head_eval=False), dev)
+    w, b = head_weights(plain, torch.float32)
+    with torch.no_grad():
+        x = torch.from_numpy(images).to(dev)
+        feats = plain.features(ingest_images(x, torch.float32).permute(0, 3, 1, 2))
+        top2 = torch.topk(feats @ w.t() + b, 2, dim=-1)
+    ref = top2.indices[:, 0].cpu().numpy()
+    v = top2.values.cpu().numpy()
+    clear = (v[:, 0] - v[:, 1]) / np.abs(v[:, 0]) > E2E_GAP_F32
+    agree = preds == ref
+    if not agree[clear].all() or agree.mean() < 0.99:
+        raise AssertionError(
+            f"f32 served top-1 vs plain path: {int(agree.sum())}/{len(images)} agree, "
+            f"{int(agree[clear].sum())}/{int(clear.sum())} clear rows"
+        )
+    log({"serve_f32": {"requests": len(images), "launches": launches,
+                       "top1_agree_plain": float(agree.mean()), "clear_rows": int(clear.sum())}})
+    return launches
+
+
+def _train_cfg(tmp: str, **kw):
+    from mpi_pytorch_tpu_torch import Config
+
+    return Config(
+        model_name="resnet18", num_classes=V, width=IMG, height=IMG, batch_size=TRAIN_BATCH,
+        compute_dtype="bfloat16", learning_rate=LR, optimizer="adam",
+        synthetic_data=True, debug=True, debug_sample_size=TRAIN_ROWS,
+        test_csv=str(REPO / "data" / "test_sample.csv"), num_epochs=TRAIN_EPOCHS, validate=True,
+        checkpoint_dir=os.path.join(tmp, "checkpoints"), keep_checkpoints=1,
+        log_file=os.path.join(tmp, "training.log"),
+        metrics_file=os.path.join(tmp, "metrics.jsonl"), log_every_steps=5, seed=SEED, **kw,
+    )
+
+
+def train_resnet18(dev) -> dict:
+    """The training path at full width through ``trainer.train``, fused
+    stem then plain stem; returns K2's and K3's launches in the fused run."""
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.ops import fused_stem
+    from mpi_pytorch_tpu_torch.train.trainer import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        labels = load_manifests(_train_cfg(tmp))[0].labels
+    log({"train_data": {"rows": len(labels), "classes": len(np.unique(labels))}})
+    runs = {}
+    for name, fused in (("fused", True), ("plain", False)):
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = _train_cfg(tmp, fused_stem=fused)
+            fused_stem.argmax_counter.reset()
+            fused_stem.backward_counter.reset()
+            t0 = time.perf_counter()
+            summary = train(cfg, device=dev)
+            wall = time.perf_counter() - t0
+            launches = {
+                "stem_pool_argmax": fused_stem.argmax_counter.count,
+                "stem_pool_backward": fused_stem.backward_counter.count,
+            }
+            saved = sorted(os.listdir(cfg.checkpoint_dir))
+        losses = summary.step_losses
+        if len(losses) != TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name} training: step losses {losses}")
+        if saved != [f"ckpt_{TRAIN_EPOCHS - 1:05d}.pt"] or summary.val_accuracy is None:
+            raise AssertionError(f"{name} training: checkpoints {saved}, val {summary.val_accuracy}")
+        runs[name] = {
+            "step_losses": losses, "wall_s": wall,
+            "epoch_losses": summary.epoch_losses, "epoch_times_s": summary.epoch_times,
+            "ms_per_step_last_epoch": 1e3 * summary.epoch_times[-1] / TRAIN_STEPS_PER_EPOCH,
+            "img_per_s": summary.images_per_sec, "val_accuracy": summary.val_accuracy,
+            "launches": launches,
+        }
+        log({"train": {"stem": name, **runs[name]}})
+    fused, plain = runs["fused"], runs["plain"]
+    if min(fused["launches"].values()) < len(fused["step_losses"]):
+        raise AssertionError(f"training did not go through K2/K3 every step: {fused['launches']}")
+    if max(plain["launches"].values()) != 0:
+        raise AssertionError(f"the plain-stem run launched the stem kernels: {plain['launches']}")
+    if not (fused["step_losses"][-1] < fused["step_losses"][0]
+            and fused["epoch_losses"][-1] < fused["epoch_losses"][0]):
+        raise AssertionError(
+            f"training loss did not fall: steps {fused['step_losses']}, "
+            f"epochs {fused['epoch_losses']}"
+        )
+    gaps = [abs(f / p - 1) for f, p in zip(fused["step_losses"], plain["step_losses"])]
+    # bf16 convolutions pick their algorithms by batch content, so only
+    # the first step (same weights, same batch) is held tight.
+    if gaps[0] > 1e-3:
+        raise AssertionError(f"step-1 loss, fused vs plain stem: relative gap {gaps[0]}")
+    log({"train_fused_vs_plain_bf16": {"step_rel_gap": gaps}})
+    return fused["launches"]
+
+
+def _train_state(dev, fused: bool):
+    from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+    from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+
+    bundle = create_model_bundle("resnet18", V, seed=SEED, fused_stem=fused)
+    model = prepare_for_training(bundle.model, dev)
+    opt, schedule = make_optimizer(model, LR)
+    return TrainState(model=model, optimizer=opt, schedule=schedule)
+
+
+def _resident_batches(dev, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [
+        (
+            torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMG, IMG, 3), dtype=np.uint8)).to(dev),
+            torch.from_numpy(rng.integers(0, V, (TRAIN_BATCH,), dtype=np.int32)).to(dev),
+        )
+        for _ in range(n)
+    ]
+
+
+def train_step_checks(dev) -> None:
+    """K2/K3 inside the real train step, in f32 (TF32 off), from the same
+    seeded weights on the same three batches, three ways: the fused model
+    through the kernels; the same model with the stem's plain versions in
+    their place; and the plain-stem model (batchnorm, relu, max-pool).
+
+    Kernels against plain versions: the forward values are the same bits,
+    so this isolates the kernels — losses and the stem parameters' step-1
+    gradients (norm-wise) rtol 1e-4, and ``bn1``'s parameters after three
+    Adam steps rtol 1e-4 plus one Adam step (lr) absolute. Kernels against the plain stem: losses rtol 1e-4; the
+    gradients are logged, not held — the two stems round the batchnorm
+    affine differently (a folded ``y·a + b`` against ``(y − μ)·m + β``),
+    and 16 more batchnorm layers amplify that ulp-level forward gap into a
+    per-mille gradient gap at the stem.
+
+    Then the device time of one bf16 train step on a resident batch,
+    fused and plain stem, timed in turns (plain, fused, fused, plain)."""
+    from unittest import mock
+
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    stem_params = ("conv1.weight", "bn1.weight", "bn1.bias")
+    batches = _resident_batches(dev, 3, SEED + 3)
+    step = make_train_step(torch.float32)
+
+    def run(fused: bool):
+        state = _train_state(dev, fused)
+        params = dict(state.model.named_parameters())
+        losses = [float(step(state, *batches[0])["loss"])]
+        grads = {n: params[n].grad.detach().clone() for n in stem_params}
+        losses += [float(step(state, *b)["loss"]) for b in batches[1:]]
+        return losses, grads, {n: params[n].detach().clone() for n in stem_params[1:]}
+
+    # cuDNN's heuristics and deterministic algorithms: every run convolves
+    # alike (with benchmarking each run would time its own picks).
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        kernels = run(True)
+        with mock.patch.object(fs, "stem_pool_argmax", fs.stem_pool_argmax_reference), \
+                mock.patch.object(fs, "stem_pool_backward", fs.stem_pool_backward_reference):
+            plain_versions = run(True)
+        plain_stem = run(False)
+
+    def gaps(a, b):
+        return {
+            "losses": (a[0], b[0]),
+            "step1_grad_rel_l2": {n: float((a[1][n] - b[1][n]).norm() / b[1][n].norm())
+                                  for n in stem_params},
+            "bn1_after_3_steps_max_abs": {n: float((a[2][n] - b[2][n]).abs().max()) for n in a[2]},
+        }
+
+    log({"train_f32_kernels_vs_plain_versions": gaps(kernels, plain_versions),
+         "train_f32_kernels_vs_plain_stem": gaps(kernels, plain_stem)})
+    for other, what in ((plain_versions, "plain versions"), (plain_stem, "plain stem")):
+        if not np.allclose(kernels[0], other[0], rtol=1e-4, atol=0):
+            raise AssertionError(f"f32 train steps, kernels vs {what}: losses {kernels[0]} vs {other[0]}")
+    rel = gaps(kernels, plain_versions)["step1_grad_rel_l2"]
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"f32 step-1 stem gradients, kernels vs plain versions: {rel}")
+    for n in kernels[2]:
+        # Plus one Adam step (lr) absolute: Adam's early updates are ±lr
+        # per element whatever the gradient's size, so a channel whose
+        # gradient sums to near zero may step either way on rounding.
+        if not torch.allclose(kernels[2][n], plain_versions[2][n], rtol=1e-4, atol=LR):
+            raise AssertionError(f"f32 train steps: {n} after 3 steps, kernels vs plain versions")
+
+    (images, labels), = _resident_batches(dev, 1, SEED + 4)
+    step = make_train_step(torch.bfloat16)
+    states = {"plain": _train_state(dev, False), "fused": _train_state(dev, True)}
+    times = {"plain": [], "fused": []}
+    for name in ("plain", "fused", "fused", "plain"):
+        times[name].append(time_ms(lambda n=name: step(states[n], images, labels), 10))
+    log({"train_step_ms": {"batch": TRAIN_BATCH, "dtype": "bfloat16", **{f"{k}_ms": v for k, v in times.items()}}})
+
+
+def train_time_breakdown(dev) -> None:
+    """Where a training step's time goes, fused stem, bf16, batch 128: the
+    host loader alone (ms per batch into device memory: synthetic f32 rows
+    from the row cache the training phase filled, stacked, pinned and
+    copied); the host's time to enqueue one step against the time until
+    the card has run it; and the card's busy time per step from
+    ``torch.profiler`` (kernel time summed, three steps), with the kernels
+    that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.train import trainer
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _train_cfg(tmp, fused_stem=True)
+        loader = trainer.make_loader(cfg, load_manifests(cfg)[0], train=True)
+        t0, n = time.perf_counter(), 0
+        for images, labels in loader.epoch(0):
+            trainer.to_device(images, labels, dev)
+            n += 1
+        torch.cuda.synchronize()
+        out["loader_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / n
+    state = _train_state(dev, True)
+    (images, labels), = _resident_batches(dev, 1, SEED + 5)
+    step = make_train_step(torch.bfloat16)
+    for _ in range(3):
+        step(state, images, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state, images, labels)
+    out["step_host_enqueue_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    torch.cuda.synchronize()
+    out["step_enqueue_to_done_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(state, images, labels)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out["step_device_busy_ms"] = sum(e.self_device_time_total for e in kernels) / 3e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    out["top_kernels_ms_per_step"] = [[e.key[:80], e.self_device_time_total / 3e3] for e in top]
+    log({"train_breakdown": out})
+
+
 def predict_step_times(cfg, fused_model, plain_cfg, plain_model, dev) -> None:
     """Device time of one predict step at the smallest and largest bucket:
     the plain path (cuDNN stem tail, logits + CE + argmax) against the
@@ -327,15 +746,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     stem = check_stem(dev, gen)
-    head = check_head(dev, gen)
+    stem_argmax = check_stem_argmax(dev, gen)
+    stem_backward = check_stem_backward(dev, gen)
+    head = check_head(dev, gen, torch.bfloat16)
+    head_f32 = check_head(dev, gen, torch.float32)
     launches = serve_resnet18(dev)
     stem["launches"], head["launches"] = launches["stem"], launches["head"]
+    head_f32["launches"] = serve_resnet18_f32(dev)
+    train_launches = train_resnet18(dev)
+    stem_argmax["launches"] = train_launches["stem_pool_argmax"]
+    stem_backward["launches"] = train_launches["stem_pool_backward"]
+    train_step_checks(dev)
+    train_time_breakdown(dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = (stem, stem_argmax, stem_backward, head, head_f32)
     print(smi, flush=True)
-    for row in (stem, head):
+    for row in rows:
         row["ms"] = row["kernel_ms"]
-    log({"kernels": [{k: row[k] for k in keys} for row in (stem, head)]})
+    log({"kernels": [{k: row[k] for k in keys} for row in rows]})
     log({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,15 +5,24 @@ its counterpart's name, and the tests in ``tests/test_torch_*.py`` hold
 each one against it on the CPU. This package imports torch and numpy only,
 never jax or the JAX package.
 
-What is ported so far is the serving path of resnet18/34:
-``serve.InferenceServer.submit`` → preprocess → ``DynamicBatcher`` →
-per-bucket predict step (``evaluate.make_predict_step``) → top-1 class,
-through two hand-written CUDA kernels in ``csrc/``:
+What is ported so far, for resnet18/34 on one device:
+
+- serving: ``serve.InferenceServer.submit`` → preprocess →
+  ``DynamicBatcher`` → per-bucket predict step
+  (``evaluate.make_predict_step``) → top-1 class;
+- training: ``python -m mpi_pytorch_tpu_torch.train`` → ``train.train``:
+  manifests → ``DataLoader`` → train step (forward, masked CE, backward,
+  Adam/SGD/AdamW) → per-epoch checkpoint → validation.
+
+Hand-written CUDA kernels in ``csrc/`` carry both:
 
 - ``ops.fused_stem.stem_affine_relu_pool`` — BN affine + ReLU + 3×3/s2/p1
-  max-pool in one pass over the stem conv's output;
+  max-pool in one pass over the stem conv's output; in training its
+  forward also writes the window index and its backward routes the
+  gradient through it (a ``torch.autograd.Function``);
 - ``ops.fused_head_ce.head_predict`` — the classifier head's per-row
-  cross-entropy and argmax without storing the [B, V] logits.
+  cross-entropy and argmax without storing the [B, V] logits (bf16 or
+  f32).
 
 Every entry point takes ``device`` (default ``"cuda"``; ``MPT_PLATFORM=cpu``
 selects the CPU). On the CPU each kernel wrapper runs its plain PyTorch

@@ -1,15 +1,19 @@
-"""Serving configuration — the subset of ``mpi_pytorch_tpu.config.Config``
-this port reads, under the same field names and defaults.
+"""Configuration — the subset of ``mpi_pytorch_tpu.config.Config`` this
+port reads, under the same field names and defaults, and ``parse_config``
+with the same strict ``--kebab-case`` flags.
 
-Only the fields the serving path uses are carried; ``validate_config``
-carries the matching checks (model family, fused-stem geometry, serve
-buckets and top-k). Fields are added here as later slices port the code
-that reads them.
+Only the fields the ported paths use are carried (serving, and the single
+device trainer); ``validate_config`` carries the matching checks. Fields
+are added here as later slices port the code that reads them.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import os
 from dataclasses import dataclass
+from typing import Any, Sequence
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -19,31 +23,76 @@ SUPPORTED_MODELS = ("resnet18", "resnet34")
 
 @dataclass
 class Config:
-    """Serving knobs. Defaults mirror the JAX package's ``Config``."""
+    """Serving and training knobs. Defaults mirror the JAX package's
+    ``Config``."""
 
     # --- model ---
     model_name: str = "resnet18"
     num_classes: int = 64500
+    feature_extract: bool = False
     width: int = 128
     height: int = 128
+
+    # --- run mode ---
+    from_checkpoint: bool = False
+    validate: bool = True
+    debug: bool = True
+    debug_sample_size: int = 1000  # DEBUG samples this many rows, seed cfg.seed
+
+    # --- data ---
+    train_csv: str = "data/train_sample.csv"
+    test_csv: str = "data/test_sample.csv"
+    train_img_dir: str = "data/img/train"
+    test_img_dir: str = "data/img/test"
+    checkpoint_dir: str = "checkpoints"
+    synthetic_data: bool = True  # the Herbarium images are not shipped
+
+    # --- optimization ---
+    batch_size: int = 128
+    learning_rate: float = 4e-4
+    num_epochs: int = 10
+    optimizer: str = "adam"  # adam | sgd | adamw
+    lr_schedule: str = "constant"  # constant | cosine | warmup_cosine
+    warmup_steps: int = 0
+    weight_decay: float = 0.0
 
     # --- precision ---
     compute_dtype: str = "bfloat16"  # params stay float32
     # Host batch dtype: float32 rows arrive normalized; uint8 ships raw
-    # pixels and the predict step normalizes on the device
+    # pixels and the step normalizes on the device
     # (train/step.py ingest_images).
     input_dtype: str = "float32"
 
     # --- kernels ---
-    # bn1 + relu + maxpool(3, 2, 1) as one kernel (ops/fused_stem.py).
+    # bn1 + relu + maxpool(3, 2, 1) as one kernel (ops/fused_stem.py); in
+    # training its forward with the window index and its index backward.
     fused_stem: bool = False
     # Predict head as one streaming kernel: per-row loss + argmax without
     # the [B, num_classes] logits (ops/fused_head_ce.py head_predict).
     fused_head_eval: bool = False
 
     # --- input pipeline ---
+    shuffle: bool = True
     seed: int = 0
     loader_workers: int = 8
+    prefetch_batches: int = 2
+    drop_remainder: bool = True  # fixed batch shapes; see the trainer
+
+    # --- validation: the reference validates on the TRAIN split ---
+    val_on_train: bool = True
+
+    # --- checkpoint ---
+    keep_checkpoints: int = 3
+
+    # --- recovery: abort (raise on a non-finite step) | skip (discard it) ---
+    bad_step_policy: str = "abort"
+    # skip: consecutive discarded steps before aborting anyway.
+    max_skipped_steps: int = 10
+
+    # --- observability ---
+    log_file: str = "training.log"
+    metrics_file: str = "metrics.jsonl"  # structured JSONL metrics; "" disables
+    log_every_steps: int = 10
 
     # --- online serving ---
     serve_buckets: str = "1,8,32,128,512"
@@ -59,6 +108,39 @@ class Config:
             )
         if self.num_classes < 2:
             raise ValueError(f"num_classes must be >= 2, got {self.num_classes}")
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        if self.learning_rate <= 0:
+            raise ValueError(f"learning_rate must be > 0, got {self.learning_rate}")
+        if self.optimizer not in ("adam", "sgd", "adamw"):
+            raise ValueError(f"optimizer must be adam|sgd|adamw, got {self.optimizer!r}")
+        if self.lr_schedule not in ("constant", "cosine", "warmup_cosine"):
+            raise ValueError(
+                "lr_schedule must be constant|cosine|warmup_cosine, "
+                f"got {self.lr_schedule!r}"
+            )
+        # A knob that would be silently ignored is worse than an error.
+        if self.weight_decay != 0.0 and self.optimizer != "adamw":
+            raise ValueError(
+                f"weight_decay={self.weight_decay} only applies to "
+                f"optimizer='adamw' (got {self.optimizer!r})"
+            )
+        if self.warmup_steps != 0 and self.lr_schedule != "warmup_cosine":
+            raise ValueError(
+                f"warmup_steps={self.warmup_steps} only applies to "
+                f"lr_schedule='warmup_cosine' (got {self.lr_schedule!r})"
+            )
+        if self.warmup_steps < 0:
+            raise ValueError(f"warmup_steps must be >= 0, got {self.warmup_steps}")
+        if self.bad_step_policy not in ("abort", "skip"):
+            raise ValueError(
+                f"bad_step_policy must be abort|skip, got {self.bad_step_policy!r} "
+                "(rollback is not ported yet)"
+            )
+        if self.max_skipped_steps < 1:
+            raise ValueError(
+                f"max_skipped_steps must be >= 1, got {self.max_skipped_steps}"
+            )
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype}"
@@ -136,3 +218,60 @@ class Config:
                 f"{self.serve_buckets!r}"
             )
         return tuple(buckets)
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls: type) -> None:
+    for f in dataclasses.fields(cls):
+        name = f"--{f.name.replace('_', '-')}"
+        if f.type in (bool, "bool"):
+            parser.add_argument(name, type=_str2bool, default=None, metavar="BOOL")
+        elif f.type in (int, "int"):
+            parser.add_argument(name, type=int, default=None)
+        elif f.type in (float, "float"):
+            parser.add_argument(name, type=float, default=None)
+        elif f.type in (str, "str"):
+            parser.add_argument(name, type=str, default=None)
+
+
+def _str2bool(v: str) -> bool:
+    if v.lower() in ("1", "true", "yes", "on"):
+        return True
+    if v.lower() in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected boolean, got {v!r}")
+
+
+def parse_config(argv: Sequence[str] | None = None, **overrides: Any) -> Config:
+    """A Config from defaults < env (``MPT_<FIELD>``) < CLI flags < explicit
+    overrides, as the JAX package's ``parse_config``. Flags parse STRICTLY:
+    an unknown flag is an error, not silently dropped. ``--image-size N``
+    (and ``MPT_IMAGE_SIZE``) sets width and height; the per-dimension form
+    wins for its dimension."""
+    cfg = Config()
+    casters = {bool: _str2bool, "bool": _str2bool, int: int, "int": int,
+               float: float, "float": float, str: str, "str": str}
+    for f in dataclasses.fields(Config):
+        env_key = f"MPT_{f.name.upper()}"
+        if env_key in os.environ and f.type in casters:
+            setattr(cfg, f.name, casters[f.type](os.environ[env_key]))
+    if "MPT_IMAGE_SIZE" in os.environ:
+        size = int(os.environ["MPT_IMAGE_SIZE"])
+        if "MPT_WIDTH" not in os.environ:
+            cfg.width = size
+        if "MPT_HEIGHT" not in os.environ:
+            cfg.height = size
+
+    parser = argparse.ArgumentParser(description="mpi_pytorch_tpu_torch")
+    _add_dataclass_args(parser, Config)
+    parser.add_argument("--image-size", type=int, default=None, dest="image_size_alias")
+    ns = vars(parser.parse_args(argv))
+    alias = ns.pop("image_size_alias", None)
+    if alias is not None:
+        cfg.width = cfg.height = alias
+    for key, val in ns.items():
+        if val is not None:
+            setattr(cfg, key, val)
+    for key, val in overrides.items():
+        setattr(cfg, key, val)
+    cfg.validate_config()
+    return cfg

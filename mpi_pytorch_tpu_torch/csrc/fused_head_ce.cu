@@ -13,6 +13,13 @@
 // 66 MB, ~20 us at 3.35 TB/s); at batch 512 the tensor-core operations
 // (2 * 512 * 512 * 64500 = 33.8 GFLOP, ~34 us at 989 TFLOP/s bf16).
 //
+// An f32 model keeps its head in f32, as the JAX head_predict does (f32
+// features select an f32 kernel there): the f32 variant takes f32 feats and
+// an f32 W and accumulates with plain FFMA on the CUDA cores -- no TF32, so
+// the logits are exact f32 products. Its bound at batch 512 is those
+// operations at the f32 peak (33.8 GFLOP at 67 TFLOP/s, ~0.5 ms); at
+// batch 8 the bytes of the f32 W (132 MB, ~39 us).
+//
 // Design. A GPU grid has no sequential accumulator like the TPU grid's
 // vocab sweep, so the reduction runs in two passes:
 //  1. Grid (row tile of BM rows) x (vocab split). Each CTA walks its split in
@@ -28,6 +35,8 @@
 // first one brings it in from DRAM. Enough splits are chosen (by the
 // wrapper) that even batch 1 puts ~2 CTAs on each of the 132 SMs. The
 // ragged vocab edge is masked in-kernel: W is never padded or copied.
+// The f32 variant has the same two passes and epilogue; its tile product is
+// a shared-memory SIMT GEMM (each thread 4 rows x 8 vocab columns of FFMA).
 // This is the simple first version: no TMA, no wgmma, no software
 // pipelining of the K loop.
 #include <cuda_runtime.h>
@@ -49,6 +58,86 @@ constexpr int LDC = BN + 4;   // f32 pitch of the epilogue tile
 constexpr int kStageBytes = (BM + BN) * LDS * 2;
 constexpr int kTileBytes = BM * LDC * 4;
 constexpr int kSmemBytes = kStageBytes > kTileBytes ? kStageBytes : kTileBytes;
+// f32 variant: K chunk and pitch (pitch 33: conflict-free column reads).
+constexpr int BK32 = 32;
+constexpr int LDS32 = BK32 + 1;
+constexpr int kStageBytes32 = (BM + BN) * LDS32 * 4;
+constexpr int kSmemBytes32 = kStageBytes32 > kTileBytes ? kStageBytes32 : kTileBytes;
+
+// Fold one [BM, BN] f32 tile of logits (Cs, before the bias) for vocab rows
+// n0.. into the per-row online state (max, first argmax, sum of exp
+// relative to the max, picked label logit). Shared by both variants.
+__device__ __forceinline__ void fold_tile(const float* Cs, const float* __restrict__ bias,
+                                          const int* __restrict__ labels, float* s_m,
+                                          float* s_l, float* s_pick, int* s_arg, int row0,
+                                          int n0, int v_end, int B, int warp, int lane) {
+  // Warp `warp` owns rows warp*8 .. warp*8+7 of the tile; lane `lane` takes
+  // columns lane, lane+32, lane+64, lane+96.
+  for (int rr = 0; rr < BM / 8; ++rr) {
+    const int r = warp * (BM / 8) + rr;
+    const int grow = row0 + r;
+    if (grow >= B) break;  // warp-uniform
+    float vals[BN / 32];
+    float best = -INFINITY;
+    int bcol = -1;  // -1: this lane holds no valid column
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      const int gc = n0 + lane + 32 * j;
+      vals[j] = -INFINITY;
+      if (gc < v_end) {
+        vals[j] = Cs[r * LDC + lane + 32 * j] + bias[gc];
+        if (bcol < 0 || vals[j] > best) {  // strict: first column keeps a tie
+          best = vals[j];
+          bcol = gc;
+        }
+      }
+    }
+    // Warp argmax: larger value wins, a tie goes to the smaller column.
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oc = __shfl_xor_sync(0xffffffffu, bcol, off);
+      if (oc >= 0 && (bcol < 0 || ob > best || (ob == best && oc < bcol))) {
+        best = ob;
+        bcol = oc;
+      }
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j)
+      if (n0 + lane + 32 * j < v_end) sum += expf(vals[j] - best);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      const int lab = labels[grow];
+      if (lab >= n0 && lab < n0 + BN && lab < v_end)
+        s_pick[r] += Cs[r * LDC + (lab - n0)] + bias[lab];
+      const float m = s_m[r];
+      if (best > m) s_arg[r] = bcol;  // strict: an earlier tile keeps a tie
+      const float mn = fmaxf(m, best);
+      s_l[r] = (m == -INFINITY ? 0.f : s_l[r] * expf(m - mn)) + sum * expf(best - mn);
+      s_m[r] = mn;
+    }
+  }
+}
+
+// Write one split's per-row state to the [n_split, B] scratch.
+__device__ __forceinline__ void store_partials(const float* s_m, const float* s_l,
+                                               const float* s_pick, const int* s_arg,
+                                               float* __restrict__ part_mlp,
+                                               int* __restrict__ part_arg, int row0,
+                                               int split, int n_split, int B, int tid) {
+  for (int r = tid; r < BM; r += kThreads) {
+    const int grow = row0 + r;
+    if (grow >= B) continue;
+    const size_t o = static_cast<size_t>(split) * B + grow;
+    const size_t plane = static_cast<size_t>(n_split) * B;
+    part_mlp[o] = s_m[r];
+    part_mlp[plane + o] = s_l[r];
+    part_mlp[2 * plane + o] = s_pick[r];
+    part_arg[o] = s_arg[r];
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 head_partial_kernel(const __nv_bfloat16* __restrict__ feats,  // [B, D]
@@ -134,67 +223,97 @@ head_partial_kernel(const __nv_bfloat16* __restrict__ feats,  // [B, D]
                                 acc[i][j], LDC, wmma::mem_row_major);
     __syncthreads();
 
-    // Epilogue: warp `warp` owns rows warp*8 .. warp*8+7 of the tile; lane
-    // `lane` takes columns lane, lane+32, lane+64, lane+96.
-    for (int rr = 0; rr < BM / 8; ++rr) {
-      const int r = warp * (BM / 8) + rr;
-      const int grow = row0 + r;
-      if (grow >= B) break;  // warp-uniform
-      float vals[BN / 32];
-      float best = -INFINITY;
-      int bcol = -1;  // -1: this lane holds no valid column
-#pragma unroll
-      for (int j = 0; j < BN / 32; ++j) {
-        const int gc = n0 + lane + 32 * j;
-        vals[j] = -INFINITY;
-        if (gc < v_end) {
-          vals[j] = Cs[r * LDC + lane + 32 * j] + bias[gc];
-          if (bcol < 0 || vals[j] > best) {  // strict: first column keeps a tie
-            best = vals[j];
-            bcol = gc;
-          }
-        }
-      }
-      // Warp argmax: larger value wins, a tie goes to the smaller column.
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, bcol, off);
-        if (oc >= 0 && (bcol < 0 || ob > best || (ob == best && oc < bcol))) {
-          best = ob;
-          bcol = oc;
-        }
-      }
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 32; ++j)
-        if (n0 + lane + 32 * j < v_end) s += expf(vals[j] - best);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        const int lab = labels[grow];
-        if (lab >= n0 && lab < n0 + BN && lab < v_end)
-          s_pick[r] += Cs[r * LDC + (lab - n0)] + bias[lab];
-        const float m = s_m[r];
-        if (best > m) s_arg[r] = bcol;  // strict: an earlier tile keeps a tie
-        const float mn = fmaxf(m, best);
-        s_l[r] = (m == -INFINITY ? 0.f : s_l[r] * expf(m - mn)) + s * expf(best - mn);
-        s_m[r] = mn;
-      }
-    }
+    fold_tile(Cs, bias, labels, s_m, s_l, s_pick, s_arg, row0, n0, v_end, B, warp, lane);
     __syncthreads();  // the next tile's staging overwrites Cs
   }
 
-  for (int r = tid; r < BM; r += kThreads) {
-    const int grow = row0 + r;
-    if (grow >= B) continue;
-    const size_t o = static_cast<size_t>(split) * B + grow;
-    const size_t plane = static_cast<size_t>(n_split) * B;
-    part_mlp[o] = s_m[r];
-    part_mlp[plane + o] = s_l[r];
-    part_mlp[2 * plane + o] = s_pick[r];
-    part_arg[o] = s_arg[r];
+  store_partials(s_m, s_l, s_pick, s_arg, part_mlp, part_arg, row0, split, n_split, B, tid);
+}
+
+__global__ void __launch_bounds__(kThreads)
+head_partial_f32_kernel(const float* __restrict__ feats,  // [B, D]
+                        const float* __restrict__ w,      // [V, D]
+                        const float* __restrict__ bias,   // [V]
+                        const int* __restrict__ labels,   // [B]
+                        float* __restrict__ part_mlp,     // [3, n_split, B]
+                        int* __restrict__ part_arg,       // [n_split, B]
+                        int B, int D, int V, int tiles_per_split) {
+  // Staging buffers and the epilogue tile share one buffer, as above.
+  __shared__ __align__(128) unsigned char smem[kSmemBytes32];
+  __shared__ float s_m[BM], s_l[BM], s_pick[BM];
+  __shared__ int s_arg[BM];
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + BM * LDS32;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tx = tid % 16, ty = tid / 16;  // 16 x 16 threads over the tile
+  const int row0 = blockIdx.x * BM;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int v_begin = split * tiles_per_split * BN;
+  const int v_end = min(V, v_begin + tiles_per_split * BN);
+
+  if (tid < BM) {
+    s_m[tid] = -INFINITY;
+    s_l[tid] = 0.f;
+    s_pick[tid] = 0.f;
+    s_arg[tid] = 0;
   }
+
+  for (int n0 = v_begin; n0 < v_end; n0 += BN) {
+    // Thread (ty, tx) computes rows ty*4 .. ty*4+3 and vocab columns
+    // tx, tx+16, ..., tx+112 of the tile.
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < D; k0 += BK32) {
+      // Stage feats[row0:+BM, k0:+BK32] and w[n0:+BN, k0:+BK32] with 16-byte
+      // loads; rows past B / v_end and columns past D are zero.
+      for (int i = tid; i < BM * (BK32 / 4); i += kThreads) {
+        const int r = i / (BK32 / 4), c = (i % (BK32 / 4)) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 + r < B && k0 + c < D)
+          v = *reinterpret_cast<const float4*>(feats + static_cast<size_t>(row0 + r) * D + k0 + c);
+        float* d = As + r * LDS32 + c;
+        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+      }
+      for (int i = tid; i < BN * (BK32 / 4); i += kThreads) {
+        const int r = i / (BK32 / 4), c = (i % (BK32 / 4)) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (n0 + r < v_end && k0 + c < D)
+          v = *reinterpret_cast<const float4*>(w + static_cast<size_t>(n0 + r) * D + k0 + c);
+        float* d = Bs + r * LDS32 + c;
+        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < BK32; ++kk) {
+        float av[4], bv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[(ty * 4 + i) * LDS32 + kk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = Bs[(tx + 16 * j) * LDS32 + kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * LDC + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+    fold_tile(Cs, bias, labels, s_m, s_l, s_pick, s_arg, row0, n0, v_end, B, warp, lane);
+    __syncthreads();  // the next tile's staging overwrites Cs
+  }
+
+  store_partials(s_m, s_l, s_pick, s_arg, part_mlp, part_arg, row0, split, n_split, B, tid);
 }
 
 __global__ void head_merge_kernel(const float* __restrict__ part_mlp,
@@ -226,14 +345,14 @@ __global__ void head_merge_kernel(const float* __restrict__ part_mlp,
 
 }  // namespace
 
-// feats bf16 [B, D] and w bf16 [V, D] row-major (D % 16 == 0, 16-byte
-// aligned); bias f32 [V]; labels i32 [B]; loss f32 [B]; pred i32 [B].
-// Scratch: part_mlp f32 [3, n_split, B], part_arg i32 [n_split, B]. The
-// split geometry must cover V with no empty split.
+// feats and w [V, D] row-major in one dtype (0 = f32, 1 = bf16; D % 16 == 0,
+// 16-byte aligned); bias f32 [V]; labels i32 [B]; loss f32 [B]; pred i32
+// [B]. Scratch: part_mlp f32 [3, n_split, B], part_arg i32 [n_split, B].
+// The split geometry must cover V with no empty split.
 extern "C" int mpt_head_predict(const void* feats, const void* w, const void* bias,
                                 const void* labels, void* loss, void* pred,
                                 void* part_mlp, void* part_arg, int B, int D, int V,
-                                int n_split, int tiles_per_split, void* stream) {
+                                int n_split, int tiles_per_split, int dtype, void* stream) {
   if (B < 1 || V < 1 || D < 16 || D % 16 != 0 || n_split < 1 || tiles_per_split < 1)
     return cudaErrorInvalidValue;
   const long long span = static_cast<long long>(tiles_per_split) * BN;
@@ -242,10 +361,19 @@ extern "C" int mpt_head_predict(const void* feats, const void* w, const void* bi
   if (n_split > 65535) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + BM - 1) / BM, n_split);
-  head_partial_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(feats), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(labels),
-      static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
+  if (dtype == 1) {
+    head_partial_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(feats), static_cast<const __nv_bfloat16*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(labels),
+        static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
+  } else if (dtype == 0) {
+    head_partial_f32_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(feats), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(labels),
+        static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   head_merge_kernel<<<(B + 255) / 256, 256, 0, s>>>(

@@ -32,9 +32,7 @@ from mpi_pytorch_tpu_torch.models.registry import (
     prepare_for_inference,
 )
 from mpi_pytorch_tpu_torch.ops.fused_head_ce import head_predict
-from mpi_pytorch_tpu_torch.train.step import ingest_images, metrics_from_logits
-
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from mpi_pytorch_tpu_torch.train.step import COMPUTE_DTYPES, ingest_images, metrics_from_logits
 
 
 def build_inference(

@@ -1,11 +1,13 @@
 """Shared building blocks of the port's CNNs (``mpi_pytorch_tpu/models/
-common.py``): eval-mode batchnorm, the fused stem module, pools and the
-classifier head.
+common.py``): batchnorm, the fused stem module, convolutions, pools and
+the classifier head.
 
 Activations are NCHW tensors in channels_last memory end to end, so a
 conv output viewed with ``permute(0, 2, 3, 1)`` is NHWC memory with no
-copy — the layout the fused stem kernel reads. Convolutions run in the
-compute dtype; batchnorm parameters and running statistics stay f32.
+copy — the layout the fused stem kernels read. Parameters are f32 masters:
+each convolution and the head cast their weights to the input's (compute)
+dtype per call, as flax's ``dtype=`` does, so a bf16 model rounds where the
+JAX model rounds. Batchnorm parameters and running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -21,37 +23,96 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
-def batch_norm(num_features: int, eps: float = BN_EPS) -> nn.BatchNorm2d:
-    """BatchNorm matching torch defaults. The serving path runs it in eval
-    mode (running statistics); f32 parameters work on a bf16 input."""
-    return nn.BatchNorm2d(num_features, eps=eps, momentum=BN_MOMENTUM)
+def _channel_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 batch mean and ``E[x²] − mean²`` per channel of an NCHW tensor,
+    with autograd attached (the gradient through the statistics reaches
+    ``x``, as it does in JAX)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square()
 
 
-class FusedStemBNReluPool(nn.BatchNorm2d):
-    """BatchNorm + ReLU + 3×3/s2/p1 max-pool as ONE op — the resnet stem
-    tail (torchvision ``bn1``/``relu``/``maxpool``) through the fused stem
-    kernel (``ops/fused_stem.py``).
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    return t.view(1, -1, 1, 1)
 
-    Same parameters and buffers as ``batch_norm`` (it IS a BatchNorm2d),
-    so state dicts move freely between the fused and unfused stem. Eval
-    only in this slice: it folds ``a = γ·rsqrt(var+ε)``, ``b = β − μ·a`` in
-    f32 from the running statistics, as the JAX module does, hands the
-    conv output to the kernel as NHWC and returns channels_last NCHW in
-    the input's dtype."""
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with torch's defaults and state names (``weight``,
+    ``bias``, ``running_mean``, ``running_var``) and flax's training
+    arithmetic.
+
+    Eval mode normalizes with the running statistics (``nn.BatchNorm2d``;
+    f32 parameters work on a bf16 input). Training mode follows flax
+    ``BatchNorm`` (``_compute_stats``/``_normalize``): the batch mean and
+    fast variance ``E[x²] − mean²`` in f32, clipped at 0; the output
+    ``(x − mean)·(rsqrt(var+ε)·γ) + β`` in f32, cast to the input's dtype;
+    and the running statistics updated with momentum 0.1 and the BIASED
+    batch variance (``nn.BatchNorm2d`` would use the unbiased one).
+    ``num_batches_tracked`` stays as torch made it: the momentum is fixed."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
 
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``ra = (1 − m)·ra + m·stat`` with the batch mean and biased
+        variance (flax's ``momentum·ra + (1 − momentum)·stat``)."""
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean, var = _channel_stats(x)
+        var = var.clamp_min(0.0)
+        self.update_running_stats(mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x.float() - _per_channel(mean)) * _per_channel(mul) + _per_channel(self.bias.float())
+        return y.to(x.dtype)
+
+
+def batch_norm(num_features: int, eps: float = BN_EPS) -> BatchNorm:
+    """The port's batchnorm (see :class:`BatchNorm`)."""
+    return BatchNorm(num_features, eps=eps)
+
+
+class FusedStemBNReluPool(BatchNorm):
+    """BatchNorm + ReLU + 3×3/s2/p1 max-pool as ONE op — the resnet stem
+    tail (torchvision ``bn1``/``relu``/``maxpool``) through the fused stem
+    kernels (``ops/fused_stem.py``).
+
+    Same parameters and buffers as ``batch_norm``, so state dicts move
+    freely between the fused and unfused stem. It folds
+    ``a = γ·rsqrt(var+ε)``, ``b = β − μ·a`` in f32 — from the running
+    statistics in eval mode, from the batch in training mode — hands the
+    conv output to the kernels as NHWC and returns channels_last NCHW in
+    the input's dtype.
+
+    Training mirrors the JAX module: f32 batch mean and ``E[y²] − mean²``,
+    NOT clipped (the fused module does not clip), the biased running
+    update, and ``a``/``b`` folded with autograd attached, so the gradient
+    through the statistics reaches ``y`` beside the kernel's own ``dy``."""
+
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "the fused stem's training mode (batch statistics + index "
-                "backward) is ported with the training slice; call .eval()"
-            )
-        a = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        b = self.bias.float() - self.running_mean.float() * a
+            mean, var = _channel_stats(y)
+            self.update_running_stats(mean, var)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        a = self.weight.float() * torch.rsqrt(var + self.eps)
+        b = self.bias.float() - mean * a
         out = stem_affine_relu_pool(y.permute(0, 2, 3, 1), a, b)
         return out.permute(0, 3, 1, 2)
+
+
+class Conv2d(nn.Conv2d):
+    """A convolution whose f32 master weight is cast to the input's dtype
+    per call (a no-op once ``prepare_for_inference`` has cast it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:

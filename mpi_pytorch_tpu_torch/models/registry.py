@@ -1,8 +1,11 @@
 """Model factory (``mpi_pytorch_tpu/models/registry.py``) for the ported
 architectures: dispatch on a name, build with a ``num_classes`` head,
-optionally with the fused stem, and place the module for serving."""
+optionally with the fused stem, and place the module for serving or for
+training."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -40,6 +43,46 @@ def initialize_model(
     return factory(num_classes, fused_stem=fused_stem), input_size
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    """What the training and eval drivers need to know about a model."""
+
+    model: nn.Module
+    input_size: int
+    name: str
+    # parameter name → trains; None = all train (``feature_extract`` keeps
+    # only the head, as the JAX ``head_filter`` does).
+    trainable_mask: dict[str, bool] | None
+
+
+def head_filter(name: str) -> bool:
+    """True for the parameters of the classification head (``fc``), the
+    part that stays trainable under ``feature_extract``."""
+    return name.split(".")[0] == "fc"
+
+
+def create_model_bundle(
+    model_name: str,
+    num_classes: int,
+    feature_extract: bool = False,
+    *,
+    seed: int = 0,
+    image_size: int | None = None,
+    fused_stem: bool = False,
+) -> ModelBundle:
+    """The model with seeded random weights (:func:`init_weights` from
+    ``seed``), its input size (``image_size``, else 128, as the JAX factory
+    does) and the trainable mask."""
+    model, _ = initialize_model(model_name, num_classes, fused_stem=fused_stem)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    mask = None
+    if feature_extract:
+        mask = {name: head_filter(name) for name, _ in model.named_parameters()}
+    return ModelBundle(
+        model=model, input_size=image_size or 128, name=model_name, trainable_mask=mask
+    )
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights, drawn on the CPU from ``generator``: He-normal
     convs (fan-out, as torchvision's resnet), a N(0, 0.01²) head with zero
@@ -74,3 +117,12 @@ def prepare_for_inference(
         if isinstance(m, nn.Conv2d):
             m.to(dtype=compute_dtype)
     return model
+
+
+def prepare_for_training(model: nn.Module, device: torch.device) -> nn.Module:
+    """Train mode on ``device``: 4-D weights in channels_last memory, every
+    parameter an f32 master (convolutions and the head cast to the compute
+    dtype per call), gradients on."""
+    model = model.to(device=device, dtype=torch.float32, memory_format=torch.channels_last)
+    model.requires_grad_(True)
+    return model.train()

@@ -18,6 +18,7 @@ from torch import nn
 
 from mpi_pytorch_tpu_torch.models.common import (
     Classifier,
+    Conv2d,
     FusedStemBNReluPool,
     batch_norm,
     global_avg_pool,
@@ -25,8 +26,8 @@ from mpi_pytorch_tpu_torch.models.common import (
 )
 
 
-def _conv(cin: int, cout: int, k: int, stride: int, pad: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int, pad: int) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=pad, bias=False)
 
 
 class BasicBlock(nn.Module):

@@ -43,9 +43,15 @@ _I = ctypes.c_int
 SIGNATURES = {
     # y, a, b, out, B, H, W, C, dtype (0 = f32, 1 = bf16), stream
     "mpt_stem_pool_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # y, a, b, out, idx, B, H, W, C, dtype, stream
+    "mpt_stem_pool_argmax": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # g, idx, pooled, y, a, dy, dadb, part, B, H, W, C, dtype, stream
+    "mpt_stem_pool_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the backward's scratch rows for B, H, W, C
+    "mpt_stem_bwd_parts": (_I, _I, _I, _I),
     # feats, w, bias, labels, loss, pred, part_mlp, part_arg,
-    # B, D, V, n_split, tiles_per_split, stream
-    "mpt_head_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # B, D, V, n_split, tiles_per_split, dtype (0 = f32, 1 = bf16), stream
+    "mpt_head_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the head kernel's tile geometry: rows per CTA, vocab rows per tile
     "mpt_head_tile_rows": (),
     "mpt_head_tile_vocab": (),

@@ -14,9 +14,11 @@ built once instead of re-casting per call. The training kernels of the
 JAX module (``fused_head_ce``'s forward and backward) are not ported yet.
 
 On a CUDA tensor :func:`head_predict` launches the kernel in
-``csrc/fused_head_ce.cu`` (bf16 feats and W, f32 bias, int32 labels) or
-raises; on a CPU tensor it runs :func:`head_predict_reference`, the plain
-PyTorch version, which also takes f32.
+``csrc/fused_head_ce.cu`` or raises: bf16 feats and W through the tensor
+cores, or f32 feats and W through the f32 variant (plain FFMA, no TF32:
+an f32 model keeps an exact f32 head, as the JAX function's f32 kernel
+does), with f32 bias and int32 labels. On a CPU tensor it runs
+:func:`head_predict_reference`, the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ import torch.nn.functional as F
 
 from mpi_pytorch_tpu_torch.ops import _build
 
-# Launches of the CUDA kernel pair (one per head_predict call on the card).
+# Launches of the CUDA kernel pair (one per head_predict call on the card):
+# the bf16 variant, and the f32 variant.
 counter = _build.LaunchCounter()
+counter_f32 = _build.LaunchCounter()
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # CTAs to aim for when choosing the number of vocab splits: about two per
 # SM of an H100 (132 SMs), so that even batch 1 fills the card.
@@ -106,10 +112,10 @@ def head_predict(
             "head_predict is forward-only; the training CE kernels "
             "(fused_head_ce forward/backward) are not ported yet"
         )
-    if feats.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"head_predict's CUDA kernel takes bf16 feats and W (got "
-            f"{feats.dtype}, {w.dtype}); the f32 variant is not ported yet"
+    if feats.dtype not in _DTYPE_CODE or w.dtype != feats.dtype:
+        raise TypeError(
+            f"head_predict's CUDA kernel takes bf16 or f32 feats and W of the "
+            f"same dtype, got {feats.dtype} and {w.dtype}"
         )
     if b.dtype != torch.float32 or labels.dtype != torch.int32:
         raise TypeError(f"head_predict needs f32 b and int32 labels, got {b.dtype}, {labels.dtype}")
@@ -134,8 +140,8 @@ def head_predict(
         code = lib.mpt_head_predict(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), pred.data_ptr(), part_mlp.data_ptr(), part_arg.data_ptr(),
-            bsz, d, vocab, n_split, tiles_per_split, stream,
+            bsz, d, vocab, n_split, tiles_per_split, _DTYPE_CODE[feats.dtype], stream,
         )
     _build.check(code, "head_predict")
-    counter.add()
+    (counter if feats.dtype == torch.bfloat16 else counter_f32).add()
     return loss, pred

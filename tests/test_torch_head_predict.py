@@ -88,3 +88,43 @@ def test_head_shape_guards_and_no_fallback_off_cpu():
         port.head_predict(f.to("meta"), w.to("meta"), b.to("meta"), lab.to("meta"))
     port.head_predict(f, w, b, lab)
     assert port.counter.count == before
+
+
+def test_plain_head_matches_jax_reference_in_f32():
+    """The f32 path (what the f32 kernel is held against on the card): the
+    plain version on f32 feats and an f32 W against the JAX
+    ``head_predict_reference`` — predictions exact, loss rtol 1e-5."""
+    from mpi_pytorch_tpu.ops.fused_head_ce import head_predict_reference as jax_reference
+
+    feats, w, b, labels = _inputs(2)
+    ref_loss, ref_pred = jax_reference(
+        jnp.asarray(feats), jnp.asarray(w), jnp.asarray(b), jnp.asarray(labels)
+    )
+    loss, pred = port.head_predict(
+        torch.from_numpy(feats), torch.from_numpy(w.T.copy()), torch.from_numpy(b),
+        torch.from_numpy(labels),
+    )
+    assert loss.dtype == torch.float32 and pred.dtype == torch.int32
+    assert tuple(loss.shape) == tuple(pred.shape) == (B,)
+    np.testing.assert_array_equal(pred.numpy(), np.asarray(ref_pred))
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=0)
+
+
+def test_head_kernel_operand_checks_for_f32(monkeypatch):
+    """On a card the wrapper takes bf16 or f32 feats with W of the same
+    dtype (an f32 model keeps its head in f32) and refuses a mix; the
+    check runs before anything is built or launched. A CUDA device is
+    faked (no card here): the refusal comes before any device work."""
+    f, w = torch.zeros(4, 32), torch.zeros(10, 32, dtype=torch.bfloat16)
+    b, lab = torch.zeros(10), torch.zeros(4, dtype=torch.int32)
+
+    class FakeCuda:
+        type = "cuda"
+
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: FakeCuda()))
+    before = port.counter.count, port.counter_f32.count
+    with pytest.raises(TypeError, match="same dtype"):
+        port.head_predict(f, w, b, lab)
+    with pytest.raises(TypeError, match="same dtype"):
+        port.head_predict(f.double(), w.double(), b, lab)
+    assert (port.counter.count, port.counter_f32.count) == before

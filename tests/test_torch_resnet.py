@@ -151,7 +151,23 @@ def test_ingest_and_metrics_match_jax():
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-6)
 
 
-def test_fused_stem_module_refuses_training_mode():
-    model, _ = initialize_model("resnet18", 10, fused_stem=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 3, SIZE, SIZE))
+def test_fused_stem_module_refuses_training_mode(monkeypatch):
+    """The fused stem now trains: the whole model in training mode (batch
+    statistics, the stem's window-index forward) against the JAX model's
+    ``train=True`` apply, logits atol/rtol 1e-4 and every updated running
+    statistic rtol 1e-5 plus atol 1e-6 (means near zero carry the deep
+    layers' f32 sum-order error)."""
+    from mpi_pytorch_tpu_torch.models.registry import prepare_for_training
+
+    monkeypatch.setenv("MPT_STEM_INTERPRET", "1")
+    model = prepare_for_training(_port_model(fused_stem=True, seed=5), torch.device("cpu"))
+    variables = _jax_variables(model)
+    jax_model = jax_resnet18(NUM_CLASSES, dtype=jnp.float32, fused_stem=True)
+    x = _images(6, n=6) * 2.0 + 0.5
+    ref, upd = jax_model.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got.requires_grad  # the stem ran its differentiable path
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    stats = to_flax_variables(model.state_dict(), "resnet18")["batch_stats"]
+    for a, b in zip(jax.tree_util.tree_leaves(stats), jax.tree_util.tree_leaves(upd["batch_stats"])):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-6)
