@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: build its CUDA kernels,
-hold each against its plain PyTorch version, serve resnet18 and train it
-at full width through them.
+hold each against its plain PyTorch version, serve resnet18 and vit_s16
+and train them at full width through the kernels.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
    shapes, then timed beside its plain version, a one-call PyTorch
    yardstick where one exists, and its roofline bound: the stem's eval
    forward (K1), training forward with the window index (K2) and index
-   backward (K3), and the predict head in bf16 (K4) and f32 (K4 f32);
+   backward (K3), the predict head in bf16 (K4) and f32 (K4 f32), the
+   tiny-S attention forward (K9) and backward (K10) at vit_s16's 128 px
+   shape (and S = 50, 65, causal), and the flash forward (K8) at its
+   224 px shape and a longer causal S;
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
@@ -22,21 +25,30 @@ Phases (any failure raises and the script exits non-zero):
    every row not within ``E2E_GAP`` of a tie) and both kernels' launch
    counts must have risen during the run;
 5. the same server in f32 (the f32 head kernel's path), checked the same
-   way against the plain f32 path;
+   way against the plain f32 path; then vit_s16 at 128 px with the tiny-S
+   attention and the fused head, a flood checked the same way (K9 and K4
+   must launch);
 6. training: ``train.trainer.train`` (what ``python -m
    mpi_pytorch_tpu_torch.train`` runs) on resnet18, 64 500 classes, 128 px,
    batch 128, bf16, Adam 4e-4, fused stem, synthetic data, the DEBUG
    sample of 3 200 rows (20 steps an epoch), two epochs, validation, one
    checkpoint kept: K2 and K3 must launch on every step and the loss must
    fall; then the same run with the plain stem (step-1 loss within 1e-3);
-7. K2/K3 inside the real train step, f32 (TF32 off), same weights and
+7. the same for vit_s16 at full width and depth, two epochs each:
+   ``--attn-impl fused-small`` at 128 px (K9 in every block's forward, K10
+   in every block's backward) and ``flash`` at 224 px (K8), each with its
+   launches counted exactly and its step-1 loss within 1e-3 of an
+   ``attn_impl="full"`` twin's;
+8. K2/K3 inside the real train step, f32 (TF32 off), same weights and
    batches: against the stem's plain versions, losses, step-1 stem
    gradients and ``bn1`` after three steps rtol 1e-4; against the plain
    stem, losses rtol 1e-4; and the device time of one bf16 train step on
-   a resident batch, fused and plain, in turns;
-8. where a training step's time goes: the host loader alone, the host's
-   enqueue time against the card's, and a ``torch.profiler`` breakdown of
-   the card's busy time.
+   a resident batch, fused and plain, in turns; then K8/K9/K10 inside the
+   f32 vit_s16 step the same way (losses rtol 1e-4, step-1 gradients
+   within ``VIT_GRAD_GAP``);
+9. where a training step's time goes, for resnet18 and both vit_s16
+   configurations: the host loader alone, the host's enqueue time against
+   the card's, and a ``torch.profiler`` breakdown of the card's busy time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import sys
@@ -81,6 +94,23 @@ TRAIN_STEPS_PER_EPOCH = 20
 TRAIN_EPOCHS = 2
 SEED = 0
 REPO = Path(__file__).resolve().parent
+# vit_s16's attention at the training batch, [B, S, H, Dh]: 128 px gives
+# S = 64 tokens (the tiny-S kernels), 224 px S = 196 (flash: two k-blocks
+# of 128, the second padded); a longer causal S for flash's recurrence.
+ATTN_SMALL_SHAPE = (128, 64, 6, 64)
+FLASH_SHAPE = (128, 196, 6, 64)
+FLASH_LONG_SHAPE = (4, 1024, 6, 64)
+# attn_impl → image size of each vit_s16 training configuration.
+VIT_RUNS = {"fused-small": 128, "flash": 224}
+VIT_BLOCKS = 12
+# Two epochs, as for resnet18: the first pays the synthetic rows' making,
+# so the second gives the steady img/s.
+VIT_EPOCHS = 2
+VIT_FLOOD = 256
+# Step-1 gradient gap (relative L2) allowed between the attention kernels
+# and their plain versions inside the f32 vit train step: ten times the
+# largest gap the H100 showed (1.0e-6, patch_embed at 128 px).
+VIT_GRAD_GAP = 1e-5
 
 
 def log(obj) -> None:
@@ -141,7 +171,7 @@ def check_stem(dev, gen) -> dict:
     n_in, n_out = y.numel(), y.numel() // 4
     moved = 2 * n_in + 2 * n_out + 8 * c  # bf16 y read, bf16 out written, f32 a, b
     ops = 3 * n_in + 8 * n_out  # fma + relu per input, 8 max per window
-    bound, by = bound_ms(moved, ops, H100_PEAK_F32_FLOPS)
+    bound, by = bound_ms(moved, (ops, H100_PEAK_F32_FLOPS))
     row = {
         "name": "stem_affine_relu_pool", "route": "cuda",
         "source": "mpi_pytorch_tpu_torch/csrc/fused_stem.cu",
@@ -193,7 +223,7 @@ def check_stem_argmax(dev, gen) -> dict:
     c = y.shape[-1]
     moved = 2 * n_in + 2 * n_out + n_out + 8 * c  # y, pooled (bf16), k (int8), a, b
     ops = 3 * n_in + 16 * n_out  # mul, add, relu per input; max + index per window
-    bound, by = bound_ms(moved, ops, H100_PEAK_F32_FLOPS)
+    bound, by = bound_ms(moved, (ops, H100_PEAK_F32_FLOPS))
     row = {
         "name": "stem_pool_argmax", "route": "cuda",
         "source": "mpi_pytorch_tpu_torch/csrc/fused_stem.cu",
@@ -239,7 +269,7 @@ def check_stem_backward(dev, gen) -> dict:
     # read, da and db written (f32).
     moved = 2 * n_out + 2 * n_out + n_out + 2 * n_in + 2 * n_in + 4 * c + 8 * c
     ops = 4 * n_out + 5 * n_in  # mask + route per window; du·a, du·y + sum, sum du
-    bound, by = bound_ms(moved, ops, H100_PEAK_F32_FLOPS)
+    bound, by = bound_ms(moved, (ops, H100_PEAK_F32_FLOPS))
     row = {
         "name": "stem_pool_backward", "route": "cuda",
         "source": "mpi_pytorch_tpu_torch/csrc/fused_stem.cu",
@@ -301,7 +331,7 @@ def check_head(dev, gen, dtype) -> dict:
         if not bool((loss[labels < 0] == 0).all()):
             raise AssertionError(f"{name} B={bsz}: padding rows carry loss")
         moved = size * bsz * D + size * V * D + 4 * V + 12 * bsz
-        bound, by = bound_ms(moved, 2 * bsz * D * V, peak)
+        bound, by = bound_ms(moved, (2 * bsz * D * V, peak))
         row = {
             "name": name, "route": "cuda",
             "source": "mpi_pytorch_tpu_torch/csrc/fused_head_ce.cu",
@@ -322,14 +352,202 @@ def check_head(dev, gen, dtype) -> dict:
     return rows[-1]
 
 
+def _qkv(gen, shape, dev, n: int = 3):
+    return [torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(n)]
+
+
+def _grad_check(got, ref, what: str) -> float:
+    """bf16 gradients against f32 autograd: within one bf16 ulp of the
+    reference (2^-7 relative) plus 1e-4 of its largest magnitude (f32 sums
+    over S terms in another order, then the bf16 rounding); returns the max
+    abs error."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    tol = 2.0**-7 * r.abs() + 1e-4 * r.abs().max()
+    if not bool(torch.isfinite(g).all()) or bool((err > tol).any()):
+        raise AssertionError(f"{what}: {int((err > tol).sum())} values off, max err {float(err.max())}")
+    return float(err.max())
+
+
+def _attn_work(
+    b: int, s: int, h: int, d: int, *, bf16_products: int, f32_products: int,
+    per_score: int, per_elem: int,
+) -> tuple[tuple[float, float], tuple[float, float]]:
+    """The (operations, peak) pairs of attention's least arithmetic over
+    B·H heads of S rows, for ``hardware.bound_ms``. Each product is one
+    [S, S]·[S, D]-sized multiply, 2·S²·D operations (a multiply-add counts
+    2). A product of two bf16 operands (q·kᵀ, do·vᵀ) is exact in f32 on the
+    bf16 tensor cores, so it is priced at their peak; q·scale stays bf16
+    when the scale D^-0.5 is a power of two (D = 64: 2^-3), else q·kᵀ is
+    priced as f32. A product that takes the f32 p or ds (p·v, pᵀ·do, ds·k,
+    dsᵀ·q) is priced at the f32 peak, with the elementwise work:
+    ``per_score`` operations per score and ``per_elem`` per [S, D]
+    element."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, H100_PEAK_F32_FLOPS
+
+    if math.log2(d) % 2:  # the scale is not a power of two: q·scale is f32
+        bf16_products, f32_products = bf16_products - 1, f32_products + 1
+    product = 2 * s * s * d
+    f32_ops = f32_products * product + per_score * s * s + per_elem * s * d
+    return (b * h * bf16_products * product, H100_PEAK_BF16_FLOPS), (b * h * f32_ops, H100_PEAK_F32_FLOPS)
+
+
+def check_attention_small(dev, gen) -> tuple[dict, dict]:
+    """K9 and K10 against their plain versions at vit_s16's 128 px shape,
+    at a padded S = 50 and S = 65, and causal, bf16: K9 against
+    ``full_attention`` within one bf16 ulp; K10's dq, dk, dv against
+    autograd through ``full_attention`` in f32 (``_grad_check``), and two
+    calls bitwise equal. Then each timed beside its plain version and
+    ``scaled_dot_product_attention`` (its backward for K10)."""
+    from mpi_pytorch_tpu_torch.hardware import bound_ms
+    from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
+    from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
+
+    b, s, h, d = ATTN_SMALL_SHAPE
+    fwd_err = bwd_err = 0.0
+    for seq, causal in ((s, False), (50, False), (65, False), (s, True)):
+        q, k, v, do = _qkv(gen, (b, seq, h, d), dev, 4)
+        out = fas.attention_small_forward(q, k, v, causal)
+        grads = fas.attention_small_backward(q, k, v, do, causal)
+        again = fas.attention_small_backward(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        tag = f"S={seq}{', causal' if causal else ''}"
+        fwd_err = max(fwd_err, _ulp_check(out, full_attention(q, k, v, causal=causal), f"K9 {tag}"))
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"K10 {tag}: two calls on the same inputs differ")
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        full_attention(*leaves, causal=causal).backward(do.float())
+        for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves):
+            bwd_err = max(bwd_err, _grad_check(got, leaf.grad, f"K10 {name} ({tag})"))
+
+    q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4)
+    n = q.numel()
+    # Yardsticks only, never called by the port: SDPA on [B, H, S, D].
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    out_t = sdpa(*leaves)
+    rows = []
+    for name, line, moved, work, fn, plain, library, err in (
+        # q, k, v read, out written (bf16). q·kᵀ (bf16), p·v; per score
+        # mask, max, exp of the difference, sum; per element q·scale, ÷ l.
+        ("attention_small_forward", 135, 8 * n,
+         _attn_work(b, s, h, d, bf16_products=1, f32_products=1, per_score=4, per_elem=2),
+         lambda: fas.attention_small_forward(q, k, v),
+         lambda: full_attention(q, k, v), lambda: sdpa(qt, kt, vt), fwd_err),
+        # q, k, v, do read; dq, dk, dv written (bf16). q·kᵀ and dp = do·vᵀ
+        # (bf16), dv = pᵀ·do, dq = ds·k, dk = dsᵀ·q; per score the softmax
+        # (4) and its normalizing (1), Δ = Σ p·dp (2), ds = p·(dp − Δ) (2) —
+        # Δ needs no recomputed o = p·v; per element q·scale, dq·scale,
+        # dk·scale.
+        ("attention_small_backward", 151, 14 * n,
+         _attn_work(b, s, h, d, bf16_products=2, f32_products=3, per_score=9, per_elem=3),
+         lambda: fas.attention_small_backward(q, k, v, do),
+         lambda: fas.attention_small_backward_reference(q, k, v, do),
+         lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True), bwd_err),
+    ):
+        bound, by = bound_ms(moved, *work)
+        row = {
+            "name": name, "route": "cuda",
+            "source": "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu",
+            "replaces": f"mpi_pytorch_tpu/ops/fused_attention_small.py:{line}",
+            "shape": list(ATTN_SMALL_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
+            "kernel_ms": time_ms(fn, 50), "plain_ms": time_ms(plain, 20),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(library, 50),
+        }
+        log({"kernel_check": row})
+        rows.append(row)
+    return rows[0], rows[1]
+
+
+def check_flash(dev, gen) -> dict:
+    """K8 against its plain version at vit_s16's 224 px shape and at a
+    longer causal S, bf16: the output within one bf16 ulp of
+    ``full_attention``, the lse within rtol/atol 1e-5 of ``torch.logsumexp``
+    of the plain scores. Then timed at the 224 px shape beside its plain
+    version and ``scaled_dot_product_attention``."""
+    from mpi_pytorch_tpu_torch.hardware import bound_ms
+    from mpi_pytorch_tpu_torch.ops import flash_attention as fa
+
+    err = 0.0
+    for shape, causal in ((FLASH_SHAPE, False), (FLASH_LONG_SHAPE, True)):
+        q, k, v = _qkv(gen, shape, dev)
+        blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
+        out, lse = fa.flash_forward(q, k, v, causal, blk, blk)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
+        tag = f"{list(shape)}{', causal' if causal else ''}"
+        err = max(err, _ulp_check(out, ref, f"K8 {tag}"))
+        if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"K8 lse {tag}: off by {float((lse - ref_lse).abs().max())}")
+        err = max(err, float((lse - ref_lse).abs().max()))
+    b, s, h, d = FLASH_SHAPE
+    q, k, v = _qkv(gen, FLASH_SHAPE, dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    moved = 8 * q.numel() + 4 * b * h * s  # q, k, v read, out written (bf16); lse (f32)
+    # As K9's forward: the online recurrence's rescaling is the kernel's
+    # choice, not the function's work.
+    work = _attn_work(b, s, h, d, bf16_products=1, f32_products=1, per_score=4, per_elem=2)
+    bound, by = bound_ms(moved, *work)
+    row = {
+        "name": "flash_forward", "route": "cuda",
+        "source": "mpi_pytorch_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mpi_pytorch_tpu/ops/flash_attention.py:53",
+        "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
+        "kernel_ms": time_ms(lambda: fa.flash_forward(q, k, v, False), 20),
+        "plain_ms": time_ms(lambda: fa.flash_forward_reference(q, k, v), 10),
+        "bound_ms": bound, "bound_by": by,
+        # Yardstick only, never called by the port.
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 50),
+    }
+    log({"kernel_check": row})
+    return row
+
+
+def _plain_top1(model, images: np.ndarray, chunk: int, dev) -> tuple[np.ndarray, np.ndarray]:
+    """(argmax, top-2 gap / |max|) per image through the plain bf16 path —
+    ``model.features``, then f32 logits over the head's bf16 copy of W — in
+    batches of ``chunk``."""
+    from mpi_pytorch_tpu_torch.evaluate import head_weights
+    from mpi_pytorch_tpu_torch.train.step import ingest_images
+
+    w, b = head_weights(model, torch.bfloat16)
+    idx, gap = [], []
+    with torch.no_grad():
+        for s in range(0, len(images), chunk):
+            x = torch.from_numpy(images[s : s + chunk]).to(dev)
+            feats = model.features(ingest_images(x, torch.bfloat16).permute(0, 3, 1, 2))
+            top2 = torch.topk(feats.float() @ w.float().t() + b, 2, dim=-1)
+            idx.append(top2.indices[:, 0].cpu().numpy())
+            v = top2.values.cpu().numpy()
+            gap.append((v[:, 0] - v[:, 1]) / np.abs(v[:, 0]))
+    return np.concatenate(idx), np.concatenate(gap)
+
+
+def _agreement(preds: np.ndarray, ref: np.ndarray, gap: np.ndarray, what: str):
+    """(agree, clear, share agreeing): served top-1 against the plain
+    path's, which must agree on ≥ 99 % of rows and on every row whose
+    plain top-2 gap exceeds ``E2E_GAP``·|max|."""
+    agree = preds == ref
+    clear = gap > E2E_GAP
+    frac = float(agree.mean())
+    if not agree[clear].all() or frac < 0.99:
+        raise AssertionError(
+            f"{what} top-1 vs plain path: {int(agree.sum())}/{len(ref)} agree, "
+            f"{int(agree[clear].sum())}/{int(clear.sum())} on rows with a top-2 gap "
+            f"above {E2E_GAP}·|max|"
+        )
+    return agree, clear, frac
+
+
 def serve_resnet18(dev) -> dict:
     """The slice at full width through ``InferenceServer``; returns the
     launch counts of the main-path run."""
     from mpi_pytorch_tpu_torch import Config
-    from mpi_pytorch_tpu_torch.evaluate import build_inference, head_weights
+    from mpi_pytorch_tpu_torch.evaluate import build_inference
     from mpi_pytorch_tpu_torch.ops import fused_head_ce, fused_stem
     from mpi_pytorch_tpu_torch.serve import InferenceServer
-    from mpi_pytorch_tpu_torch.train.step import ingest_images
 
     cfg = Config(
         model_name="resnet18", num_classes=V, width=128, height=128,
@@ -383,36 +601,13 @@ def serve_resnet18(dev) -> dict:
     # plain head over the same bf16 copy of W.
     plain_cfg = dataclasses.replace(cfg, fused_stem=False, fused_head_eval=False)
     plain = build_inference(plain_cfg, dev)
-    w, b = head_weights(plain, torch.bfloat16)
-
-    def plain_top1(chunk: int) -> tuple[np.ndarray, np.ndarray]:
-        """(argmax, top-2 gap / |max|) per image, in batches of ``chunk``."""
-        idx, gap = [], []
-        with torch.no_grad():
-            for s in range(0, len(images), chunk):
-                x = torch.from_numpy(images[s : s + chunk]).to(dev)
-                feats = plain.features(ingest_images(x, torch.bfloat16).permute(0, 3, 1, 2))
-                top2 = torch.topk(feats.float() @ w.float().t() + b, 2, dim=-1)
-                idx.append(top2.indices[:, 0].cpu().numpy())
-                v = top2.values.cpu().numpy()
-                gap.append((v[:, 0] - v[:, 1]) / np.abs(v[:, 0]))
-        return np.concatenate(idx), np.concatenate(gap)
-
     # The served batches hold other rows than these chunks, and cuDNN picks
     # its convolution algorithms per batch shape, so bf16 activations (and
     # then logits) differ at the bf16 level between the two paths: near
     # ties may flip. The plain path run in two chunkings shows that floor.
-    ref, gap = plain_top1(512)
-    ref32, _ = plain_top1(32)
-    agree = preds[:, 0] == ref
-    clear = gap > E2E_GAP
-    frac = float(agree.mean())
-    if not agree[clear].all() or frac < 0.99:
-        raise AssertionError(
-            f"served top-1 vs plain path: {int(agree.sum())}/{len(images)} agree, "
-            f"{int(agree[clear].sum())}/{int(clear.sum())} on rows with a top-2 gap "
-            f"above {E2E_GAP}·|max|"
-        )
+    ref, gap = _plain_top1(plain, images, 512, dev)
+    ref32, _ = _plain_top1(plain, images, 32, dev)
+    agree, clear, frac = _agreement(preds[:, 0], ref, gap, "served resnet18")
     lat_flood = [1e3 * (done_at[i] - submitted[i]) for i in range(FLOOD)]
     lat_single = [1e3 * (done_at[i] - submitted[i]) for i in range(FLOOD, FLOOD + SINGLES)]
 
@@ -483,18 +678,70 @@ def serve_resnet18_f32(dev) -> int:
     return launches
 
 
+def serve_vit(dev) -> dict:
+    """vit_s16 through ``InferenceServer`` at 128 px, bf16, uint8 input,
+    with the tiny-S attention (K9) and the fused head (K4, D = 384): a flood
+    of seeded images, answers checked against the plain path (full
+    attention, plain head) by the agreement rule; returns both kernels'
+    launches during the flood."""
+    from mpi_pytorch_tpu_torch import Config
+    from mpi_pytorch_tpu_torch.evaluate import build_inference
+    from mpi_pytorch_tpu_torch.ops import fused_attention_small, fused_head_ce
+    from mpi_pytorch_tpu_torch.serve import InferenceServer
+
+    cfg = Config(
+        model_name="vit_s16", num_classes=V, width=IMG, height=IMG, compute_dtype="bfloat16",
+        input_dtype="uint8", attn_impl="fused-small", fused_head_eval=True, serve_topk=1,
+        serve_buckets="1,8,32,128", seed=SEED,
+    )
+    images = np.random.default_rng(SEED + 7).integers(
+        0, 256, size=(VIT_FLOOD, IMG, IMG, 3), dtype=np.uint8
+    )
+    srv = InferenceServer(cfg, device=dev)
+    try:
+        fused_attention_small.forward_counter.reset()
+        fused_head_ce.counter.reset()
+        t0 = time.perf_counter()
+        futs = [srv.submit(im) for im in images]
+        preds = np.stack([f.result(timeout=600) for f in futs])[:, 0]
+        t_flood = time.perf_counter() - t0
+        launches = {"attention_small_forward": fused_attention_small.forward_counter.count,
+                    "head": fused_head_ce.counter.count}
+        stats = srv.stats()
+    finally:
+        srv.close()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the vit serving run did not go through K9 and K4: {launches}")
+    plain = build_inference(dataclasses.replace(cfg, attn_impl="full", fused_head_eval=False), dev)
+    ref, gap = _plain_top1(plain, images, 128, dev)
+    _, clear, frac = _agreement(preds, ref, gap, "served vit_s16")
+    log({"serve_vit": {
+        "model": "vit_s16", "attn_impl": "fused-small", "image": IMG, "requests": VIT_FLOOD,
+        "flood_img_per_s": VIT_FLOOD / t_flood, "batches": stats["batches"],
+        "by_bucket": stats["by_bucket"], "launches": launches,
+        "top1_agree_plain": frac, "clear_rows": int(clear.sum()),
+    }})
+    return launches
+
+
 def _train_cfg(tmp: str, **kw):
     from mpi_pytorch_tpu_torch import Config
 
-    return Config(
+    base = dict(
         model_name="resnet18", num_classes=V, width=IMG, height=IMG, batch_size=TRAIN_BATCH,
         compute_dtype="bfloat16", learning_rate=LR, optimizer="adam",
         synthetic_data=True, debug=True, debug_sample_size=TRAIN_ROWS,
         test_csv=str(REPO / "data" / "test_sample.csv"), num_epochs=TRAIN_EPOCHS, validate=True,
         checkpoint_dir=os.path.join(tmp, "checkpoints"), keep_checkpoints=1,
         log_file=os.path.join(tmp, "training.log"),
-        metrics_file=os.path.join(tmp, "metrics.jsonl"), log_every_steps=5, seed=SEED, **kw,
+        metrics_file=os.path.join(tmp, "metrics.jsonl"), log_every_steps=5, seed=SEED,
     )
+    return Config(**{**base, **kw})
+
+
+def _vit_cfg(tmp: str, attn_impl: str, image: int):
+    return _train_cfg(tmp, model_name="vit_s16", attn_impl=attn_impl, width=image, height=image,
+                      num_epochs=VIT_EPOCHS)
 
 
 def train_resnet18(dev) -> dict:
@@ -554,21 +801,86 @@ def train_resnet18(dev) -> dict:
     return fused["launches"]
 
 
-def _train_state(dev, fused: bool):
+def train_vit(dev) -> dict:
+    """vit_s16 at full width and depth through ``trainer.train``: the
+    tiny-S configuration (K9, K10) at 128 px and the flash configuration
+    (K8) at 224 px, ``VIT_EPOCHS`` epochs of the DEBUG sample each with
+    validation and one checkpoint kept, then each again with
+    ``attn_impl="full"`` on the
+    same seed and rows. The forward kernel must launch once per block in
+    every train step and every validation batch, K10 once per block in
+    every train step, the full runs none; step-1 losses within 1e-3 of the
+    full twin's. Returns the kernels' launches in the kernel runs."""
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.ops import flash_attention, fused_attention_small
+    from mpi_pytorch_tpu_torch.train.trainer import train
+
+    counters = {
+        "attention_small_forward": fused_attention_small.forward_counter,
+        "attention_small_backward": fused_attention_small.backward_counter,
+        "flash_forward": flash_attention.counter,
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = len(load_manifests(_train_cfg(tmp))[0])
+    steps = rows // TRAIN_BATCH * VIT_EPOCHS
+    val_batches = -(-rows // TRAIN_BATCH) * VIT_EPOCHS
+    launches = {}
+    for attn_impl, image in VIT_RUNS.items():
+        runs = {}
+        for impl in (attn_impl, "full"):
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = _vit_cfg(tmp, impl, image)
+                for c in counters.values():
+                    c.reset()
+                t0 = time.perf_counter()
+                summary = train(cfg, device=dev)
+                wall = time.perf_counter() - t0
+                counts = {name: c.count for name, c in counters.items()}
+                saved = sorted(os.listdir(cfg.checkpoint_dir))
+            losses = summary.step_losses
+            if len(losses) != steps or not np.all(np.isfinite(losses)):
+                raise AssertionError(f"vit_s16 {impl} training: step losses {losses}")
+            if saved != [f"ckpt_{VIT_EPOCHS - 1:05d}.pt"] or summary.val_accuracy is None:
+                raise AssertionError(f"vit_s16 {impl}: checkpoints {saved}, val {summary.val_accuracy}")
+            runs[impl] = {"step_losses": losses, "wall_s": wall, "epoch_losses": summary.epoch_losses,
+                          "epoch_times_s": summary.epoch_times,
+                          "ms_per_step_last_epoch": 1e3 * summary.epoch_times[-1] / (steps // VIT_EPOCHS),
+                          "img_per_s_last_epoch": (steps // VIT_EPOCHS) * TRAIN_BATCH / summary.epoch_times[-1],
+                          "img_per_s": summary.images_per_sec,
+                          "val_accuracy": summary.val_accuracy, "launches": counts}
+            log({"train_vit": {"attn_impl": impl, "image": image, **runs[impl]}})
+        fwd = "flash_forward" if attn_impl == "flash" else "attention_small_forward"
+        want = dict.fromkeys(counters, 0)
+        want[fwd] = VIT_BLOCKS * (steps + val_batches)
+        if attn_impl == "fused-small":
+            want["attention_small_backward"] = VIT_BLOCKS * steps
+        if runs[attn_impl]["launches"] != want:
+            raise AssertionError(f"{attn_impl} launches {runs[attn_impl]['launches']}, want {want}")
+        if any(runs["full"]["launches"].values()):
+            raise AssertionError(f"the full-attention run launched a kernel: {runs['full']['launches']}")
+        gap = abs(runs[attn_impl]["step_losses"][0] / runs["full"]["step_losses"][0] - 1)
+        if gap > 1e-3:
+            raise AssertionError(f"vit_s16 {attn_impl}: step-1 loss against full, relative gap {gap}")
+        log({"train_vit_vs_full": {"attn_impl": attn_impl, "step1_rel_gap": gap}})
+        launches.update({k: v for k, v in want.items() if v})
+    return launches
+
+
+def _train_state(dev, fused: bool = False, model_name: str = "resnet18", **bundle_kw):
     from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
     from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
 
-    bundle = create_model_bundle("resnet18", V, seed=SEED, fused_stem=fused)
+    bundle = create_model_bundle(model_name, V, seed=SEED, fused_stem=fused, **bundle_kw)
     model = prepare_for_training(bundle.model, dev)
     opt, schedule = make_optimizer(model, LR)
     return TrainState(model=model, optimizer=opt, schedule=schedule)
 
 
-def _resident_batches(dev, n: int, seed: int):
+def _resident_batches(dev, n: int, seed: int, image: int = IMG):
     rng = np.random.default_rng(seed)
     return [
         (
-            torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMG, IMG, 3), dtype=np.uint8)).to(dev),
+            torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, image, image, 3), dtype=np.uint8)).to(dev),
             torch.from_numpy(rng.integers(0, V, (TRAIN_BATCH,), dtype=np.int32)).to(dev),
         )
         for _ in range(n)
@@ -651,14 +963,86 @@ def train_step_checks(dev) -> None:
     log({"train_step_ms": {"batch": TRAIN_BATCH, "dtype": "bfloat16", **{f"{k}_ms": v for k, v in times.items()}}})
 
 
-def train_time_breakdown(dev) -> None:
-    """Where a training step's time goes, fused stem, bf16, batch 128: the
-    host loader alone (ms per batch into device memory: synthetic f32 rows
-    from the row cache the training phase filled, stacked, pinned and
-    copied); the host's time to enqueue one step against the time until
-    the card has run it; and the card's busy time per step from
-    ``torch.profiler`` (kernel time summed, three steps), with the kernels
-    that take most of it."""
+def vit_step_checks(dev) -> None:
+    """K8, K9 and K10 inside the real vit_s16 train step, in f32 (TF32
+    off), from the same seeded weights on the same three resident batches,
+    three ways per configuration: through the kernels; the same model with
+    the kernels' plain versions in their place; and ``attn_impl="full"``.
+    Losses rtol 1e-4 both ways; the step-1 gradients of ``patch_embed``
+    and block 0's q, k, v and out projections, kernels against plain
+    versions, within ``VIT_GRAD_GAP`` (relative L2). Then the time of one
+    bf16 train step on a resident batch, kernels and full, in turns."""
+    import contextlib
+    from unittest import mock
+
+    from mpi_pytorch_tpu_torch.ops import flash_attention as fa
+    from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
+    from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    watch = ("patch_embed.weight",) + tuple(f"blocks.0.attn.{p}.weight" for p in "qkv") + (
+        "blocks.0.attn.out.weight",)
+    plain_versions = {
+        "fused-small": (
+            (fas, "attention_small_forward",
+             lambda q, k, v, causal=False: full_attention(q, k, v, causal=causal)),
+            (fas, "attention_small_backward", fas.attention_small_backward_reference),
+        ),
+        "flash": (
+            (fa, "flash_forward",
+             lambda q, k, v, causal=False, *blocks: fa.flash_forward_reference(q, k, v, causal)),
+        ),
+    }
+    step = make_train_step(torch.float32)
+    for attn_impl, image in VIT_RUNS.items():
+        batches = _resident_batches(dev, 3, SEED + 6, image)
+
+        def run(impl, patches=()):
+            state = _train_state(dev, model_name="vit_s16", image_size=image, attn_impl=impl)
+            params = dict(state.model.named_parameters())
+            with contextlib.ExitStack() as stack:
+                for target, name, repl in patches:
+                    stack.enter_context(mock.patch.object(target, name, repl))
+                losses = [float(step(state, *batches[0])["loss"])]
+                grads = {n: params[n].grad.detach().clone() for n in watch}
+                losses += [float(step(state, *b)["loss"]) for b in batches[1:]]
+            return losses, grads
+
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            kernels = run(attn_impl)
+            plain = run(attn_impl, plain_versions[attn_impl])
+            full = run("full")
+        rel = {n: float((kernels[1][n] - plain[1][n]).norm() / plain[1][n].norm()) for n in watch}
+        rel_full = {n: float((kernels[1][n] - full[1][n]).norm() / full[1][n].norm()) for n in watch}
+        log({"train_f32_vit": {"attn_impl": attn_impl, "image": image, "losses": kernels[0],
+                               "plain_versions_losses": plain[0], "full_losses": full[0],
+                               "step1_grad_rel_l2_vs_plain_versions": rel,
+                               "step1_grad_rel_l2_vs_full": rel_full}})
+        for other, what in ((plain, "plain versions"), (full, "full attention")):
+            if not np.allclose(kernels[0], other[0], rtol=1e-4, atol=0):
+                raise AssertionError(f"f32 vit {attn_impl} steps vs {what}: {kernels[0]} vs {other[0]}")
+        if max(rel.values()) > VIT_GRAD_GAP:
+            raise AssertionError(f"f32 vit {attn_impl}: step-1 gradients vs plain versions {rel}")
+
+        (images, labels), = _resident_batches(dev, 1, SEED + 8, image)
+        step16 = make_train_step(torch.bfloat16)
+        states = {impl: _train_state(dev, model_name="vit_s16", image_size=image, attn_impl=impl)
+                  for impl in (attn_impl, "full")}
+        times = {impl: [] for impl in states}
+        for impl in ("full", attn_impl, attn_impl, "full"):
+            times[impl].append(time_ms(lambda i=impl: step16(states[i], images, labels), 5))
+        log({"train_step_ms_vit": {"attn_impl": attn_impl, "image": image, "batch": TRAIN_BATCH,
+                                   **{f"{k}_ms": v for k, v in times.items()}}})
+
+
+def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: int) -> None:
+    """Where a training step's time goes, bf16, batch 128: the host loader
+    alone (ms per batch into device memory: synthetic f32 rows from the row
+    cache the training phase filled, stacked, pinned and copied); the
+    host's time to enqueue one step against the time until the card has run
+    it; and the card's busy time per step from ``torch.profiler`` (kernel
+    time summed, three steps), with the kernels that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -666,9 +1050,9 @@ def train_time_breakdown(dev) -> None:
     from mpi_pytorch_tpu_torch.train import trainer
     from mpi_pytorch_tpu_torch.train.step import make_train_step
 
-    out = {}
+    out = {"config": label}
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = _train_cfg(tmp, fused_stem=True)
+        cfg = _train_cfg(tmp, **cfg_kw)
         loader = trainer.make_loader(cfg, load_manifests(cfg)[0], train=True)
         t0, n = time.perf_counter(), 0
         for images, labels in loader.epoch(0):
@@ -676,8 +1060,8 @@ def train_time_breakdown(dev) -> None:
             n += 1
         torch.cuda.synchronize()
         out["loader_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / n
-    state = _train_state(dev, True)
-    (images, labels), = _resident_batches(dev, 1, SEED + 5)
+    state = _train_state(dev, **state_kw)
+    (images, labels), = _resident_batches(dev, 1, SEED + 5, image)
     step = make_train_step(torch.bfloat16)
     for _ in range(3):
         step(state, images, labels)
@@ -750,17 +1134,30 @@ def main() -> int:
     stem_backward = check_stem_backward(dev, gen)
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
+    attn_fwd, attn_bwd = check_attention_small(dev, gen)
+    flash = check_flash(dev, gen)
     launches = serve_resnet18(dev)
     stem["launches"], head["launches"] = launches["stem"], launches["head"]
     head_f32["launches"] = serve_resnet18_f32(dev)
+    serve_vit(dev)
     train_launches = train_resnet18(dev)
     stem_argmax["launches"] = train_launches["stem_pool_argmax"]
     stem_backward["launches"] = train_launches["stem_pool_backward"]
+    vit_launches = train_vit(dev)
+    for row in (attn_fwd, attn_bwd, flash):
+        row["launches"] = vit_launches[row["name"]]
     train_step_checks(dev)
-    train_time_breakdown(dev)
+    vit_step_checks(dev)
+    train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
+    for attn_impl, image in VIT_RUNS.items():
+        train_time_breakdown(
+            dev, f"vit_s16 {attn_impl} {image} px",
+            {"model_name": "vit_s16", "attn_impl": attn_impl, "width": image, "height": image},
+            {"model_name": "vit_s16", "attn_impl": attn_impl, "image_size": image}, image,
+        )
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = (stem, stem_argmax, stem_backward, head, head_f32)
+    rows = (stem, stem_argmax, stem_backward, head, head_f32, flash, attn_fwd, attn_bwd)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["kernel_ms"]

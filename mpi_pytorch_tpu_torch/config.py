@@ -18,7 +18,14 @@ from typing import Any, Sequence
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-SUPPORTED_MODELS = ("resnet18", "resnet34")
+SUPPORTED_MODELS = ("resnet18", "resnet34", "vit_s16", "vit_b16")
+
+# Models of the JAX package that this port refuses, and why.
+NOT_PORTED_MODELS = {
+    "vit_moe_s16": "its MoE MLPs (ops/moe.py) and expert parallelism are not ported yet",
+}
+
+ATTN_IMPLS = ("full", "flash", "fused-small")
 
 
 @dataclass
@@ -70,6 +77,15 @@ class Config:
     # Predict head as one streaming kernel: per-row loss + argmax without
     # the [B, num_classes] logits (ops/fused_head_ce.py head_predict).
     fused_head_eval: bool = False
+    # The vit family's attention: "full" (plain, materializes [B,H,S,S]
+    # scores, ops/ring_attention.py), "flash" (the block-tiled online
+    # softmax kernel and its blocked backward, ops/flash_attention.py) or
+    # "fused-small" (the tiny-S kernel pair, S ≤ 128,
+    # ops/fused_attention_small.py). One function, three executions.
+    attn_impl: str = "full"
+    # The vit family's q/k/v projections as one matmul over the
+    # concatenated weights (same state names, the same math).
+    qkv_fused: bool = False
 
     # --- input pipeline ---
     shuffle: bool = True
@@ -101,6 +117,11 @@ class Config:
     serve_topk: int = 5
 
     def validate_config(self) -> None:
+        if self.model_name in NOT_PORTED_MODELS:
+            raise ValueError(
+                f"model {self.model_name!r} is not supported by the port: "
+                f"{NOT_PORTED_MODELS[self.model_name]}"
+            )
         if self.model_name not in SUPPORTED_MODELS:
             raise ValueError(
                 f"unsupported model {self.model_name!r}; expected one of "
@@ -169,6 +190,24 @@ class Config:
         if self.serve_queue_depth < 1:
             raise ValueError(
                 f"serve_queue_depth must be >= 1, got {self.serve_queue_depth}"
+            )
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl must be full|flash|fused-small, got {self.attn_impl!r}"
+            )
+        from mpi_pytorch_tpu_torch.models.registry import ATTENTION_MODELS
+
+        if (self.attn_impl != "full" or self.qkv_fused) and self.model_name not in ATTENTION_MODELS:
+            what = f"attn_impl={self.attn_impl!r}" if self.attn_impl != "full" else "qkv_fused"
+            raise ValueError(
+                f"{what} applies only to the attention family "
+                f"({', '.join(ATTENTION_MODELS)}); {self.model_name!r} has "
+                "no attention"
+            )
+        if self.model_name in ATTENTION_MODELS and (self.width % 16 or self.height % 16):
+            raise ValueError(
+                f"{self.model_name} cuts 16×16 patches: image {self.width}x"
+                f"{self.height} is not a multiple of 16"
             )
         if self.fused_stem:
             from mpi_pytorch_tpu_torch.models.registry import FUSED_STEM_MODELS

@@ -7,9 +7,10 @@ predictions from the same forward. Two paths:
 
 - plain: the model's logits, recast to f32, then argmax (``topk == 1``)
   or the top-k class indices, best first;
-- fused (``--fused-head-eval``): the model runs up to the pooled [B, 512]
-  features, and ``ops.fused_head_ce.head_predict`` streams the head's
-  weights computing per-row loss and argmax without the [B, V] logits.
+- fused (``--fused-head-eval``): the model runs up to the pooled [B, D]
+  features (``model.features``; every model's head is ``model.fc``), and
+  ``ops.fused_head_ce.head_predict`` streams the head's weights
+  computing per-row loss and argmax without the [B, V] logits.
   It streams argmax only, so ``topk > 1`` with the fused head raises.
 
 Images come in NHWC (the JAX package's layout, and the server's host
@@ -45,7 +46,10 @@ def build_inference(
     seeded random init from ``cfg.seed``."""
     cfg.validate_config()
     dev = resolve_device(device)
-    model, _ = initialize_model(cfg.model_name, cfg.num_classes, fused_stem=cfg.fused_stem)
+    model, _ = initialize_model(
+        cfg.model_name, cfg.num_classes, fused_stem=cfg.fused_stem, attn_impl=cfg.attn_impl,
+        qkv_fused=cfg.qkv_fused, image_size=cfg.image_size,
+    )
     if state_dict is None:
         init_weights(model, torch.Generator().manual_seed(cfg.seed))
     else:

@@ -48,11 +48,12 @@ def card_report() -> str:
     return out.stdout.strip()
 
 
-def bound_ms(bytes_moved: float, ops: float, peak_ops_per_s: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, *work: tuple[float, float]) -> tuple[float, str]:
     """The least time (ms) an H100 SXM could take for work that moves
-    ``bytes_moved`` bytes of device memory and does ``ops`` operations at
-    ``peak_ops_per_s``, and which of the two bounds it:
+    ``bytes_moved`` bytes of device memory and does, for each ``(ops,
+    peak_ops_per_s)`` pair of ``work``, ``ops`` operations at that type's
+    peak (the times of the types add), and which of the two bounds it:
     ``("bytes" | "operations")``."""
     t_bytes = bytes_moved / H100_PEAK_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops_per_s * 1e3
+    t_ops = sum(ops / peak for ops, peak in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -1,13 +1,14 @@
-"""Shared building blocks of the port's CNNs (``mpi_pytorch_tpu/models/
-common.py``): batchnorm, the fused stem module, convolutions, pools and
-the classifier head.
+"""Shared building blocks of the port's models (``mpi_pytorch_tpu/models/
+common.py``): batchnorm, the fused stem module, convolutions, pools, dense
+layers and layer norm.
 
 Activations are NCHW tensors in channels_last memory end to end, so a
 conv output viewed with ``permute(0, 2, 3, 1)`` is NHWC memory with no
 copy — the layout the fused stem kernels read. Parameters are f32 masters:
-each convolution and the head cast their weights to the input's (compute)
-dtype per call, as flax's ``dtype=`` does, so a bf16 model rounds where the
-JAX model rounds. Batchnorm parameters and running statistics stay f32.
+each convolution and dense layer casts its weights to the input's
+(compute) dtype per call, as flax's ``dtype=`` does, so a bf16 model rounds
+where the JAX model rounds. Normalization parameters and running
+statistics stay f32.
 """
 
 from __future__ import annotations
@@ -125,10 +126,33 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
 
 
-class Classifier(nn.Linear):
-    """Final dense head, weight ``[num_classes, in]`` (K-major) and bias in
-    f32. The matmul runs in the input's (compute) dtype, as the JAX head
-    does; the predict step recasts the logits to f32."""
+class Dense(nn.Linear):
+    """flax ``Dense``: weight ``[out, in]`` (K-major) and bias as f32
+    masters, the matmul in the input's (compute) dtype — both cast per call
+    (a no-op once ``prepare_for_inference`` has cast them). As the head, the
+    predict step recasts its logits to f32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+# flax's LayerNorm epsilon (torch's default is 1e-5).
+LN_EPS = 1e-6
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last dim with torch's state names (``weight``,
+    ``bias``, f32) and flax ``LayerNorm``'s arithmetic: ε = 1e-6, the f32
+    mean and fast variance ``E[x²] − mean²`` clipped at 0, then
+    ``(x − mean)·(rsqrt(var + ε)·γ) + β`` in f32, cast to the input's
+    dtype."""
+
+    def __init__(self, num_features: int, eps: float = LN_EPS):
+        super().__init__(num_features, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf.square().mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)

@@ -1,6 +1,8 @@
 """Weights across the two packages: the JAX package's flax variable tree
 (``{"params": ..., "batch_stats": ...}`` as numpy arrays) ↔ this port's
-``state_dict`` for resnet18/34.
+``state_dict``, for resnet18/34 and the vits.
+
+resnet18/34:
 
 - conv kernels: flax HWIO ↔ torch OIHW;
 - batchnorm: ``scale/bias`` + ``mean/var`` ↔ ``weight/bias`` +
@@ -11,6 +13,18 @@ Flax names: ``conv1``, ``bn1``, ``layer{s}_{b}/{conv1,bn1,conv2,bn2,
 downsample_conv,downsample_bn}``, ``head``; torch names: ``conv1``,
 ``bn1``, ``layer{s}.{b}.{conv1,...}``, ``layer{s}.{b}.downsample.{0,1}``,
 ``fc``.
+
+vit_s16/vit_b16 (any depth and width: the depth is read off the tree, the
+head count is the architecture's or ``num_heads``), with an empty
+``batch_stats``:
+
+- ``patch_embed``: HWIO ↔ OIHW, with its bias; ``pos_embed`` as it is;
+- ``block{i}/attn/{q,k,v}``: DenseGeneral kernel [hidden, H, Dh] and bias
+  [H, Dh] ↔ ``blocks.{i}.attn.{q,k,v}`` weight [H·Dh, hidden], bias [H·Dh];
+- ``block{i}/attn/out``: kernel [H, Dh, hidden] ↔ weight [hidden, H·Dh];
+- ``block{i}/{ln1,ln2}`` and ``ln``: ``scale/bias`` ↔ ``weight/bias``;
+- ``block{i}/{mlp1,mlp2}`` and ``head`` (↔ ``fc``): Dense [in, out] ↔
+  [out, in].
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ import numpy as np
 import torch
 
 _STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+_VIT_HEADS = {"vit_s16": 6, "vit_b16": 12}
 
 
 def _module_pairs(arch: str) -> list[tuple[str, str, str]]:
@@ -59,35 +74,116 @@ def _put(tree: dict, path: str, leaves: dict) -> None:
     tree[last] = leaves
 
 
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _vit_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    sd = {
+        "patch_embed.weight": _t(np.transpose(np.asarray(params["patch_embed"]["kernel"]), (3, 2, 0, 1))),
+        "patch_embed.bias": _t(params["patch_embed"]["bias"]),
+        "pos_embed": _t(params["pos_embed"]),
+    }
+
+    def dense(prefix: str, p, flat_in: int) -> None:
+        kernel = np.asarray(p["kernel"])
+        sd[f"{prefix}.weight"] = _t(kernel.reshape(flat_in, -1).T)
+        sd[f"{prefix}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+
+    def norm(prefix: str, p) -> None:
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(p["scale"]), _t(p["bias"])
+
+    depth = sum(1 for key in params if key.startswith("block"))
+    for i in range(depth):
+        f, t = params[f"block{i}"], f"blocks.{i}"
+        norm(f"{t}.ln1", f["ln1"])
+        norm(f"{t}.ln2", f["ln2"])
+        hidden = np.asarray(f["attn"]["q"]["kernel"]).shape[0]
+        for name in ("q", "k", "v"):
+            dense(f"{t}.attn.{name}", f["attn"][name], hidden)
+        out = np.asarray(f["attn"]["out"]["kernel"])
+        dense(f"{t}.attn.out", f["attn"]["out"], out.shape[0] * out.shape[1])
+        dense(f"{t}.mlp1", f["mlp1"], hidden)
+        dense(f"{t}.mlp2", f["mlp2"], np.asarray(f["mlp2"]["kernel"]).shape[0])
+    norm("ln", params["ln"])
+    dense("fc", params["head"], np.asarray(params["head"]["kernel"]).shape[0])
+    return sd
+
+
+def _vit_to_flax(state_dict: Mapping[str, torch.Tensor], num_heads: int) -> dict[str, Any]:
+    def n(key: str) -> np.ndarray:
+        return state_dict[key].detach().float().cpu().numpy()
+
+    def dense(prefix: str) -> dict[str, np.ndarray]:
+        return {"kernel": np.ascontiguousarray(n(f"{prefix}.weight").T), "bias": n(f"{prefix}.bias")}
+
+    def norm(prefix: str) -> dict[str, np.ndarray]:
+        return {"scale": n(f"{prefix}.weight"), "bias": n(f"{prefix}.bias")}
+
+    params: dict[str, Any] = {
+        "patch_embed": {
+            "kernel": np.transpose(n("patch_embed.weight"), (2, 3, 1, 0)),
+            "bias": n("patch_embed.bias"),
+        },
+        "pos_embed": n("pos_embed"),
+    }
+    depth = len({key.split(".")[1] for key in state_dict if key.startswith("blocks.")})
+    for i in range(depth):
+        t = f"blocks.{i}"
+        attn = {}
+        for name in ("q", "k", "v"):
+            p = dense(f"{t}.attn.{name}")
+            hidden = p["kernel"].shape[0]
+            attn[name] = {
+                "kernel": p["kernel"].reshape(hidden, num_heads, -1),
+                "bias": p["bias"].reshape(num_heads, -1),
+            }
+        p = dense(f"{t}.attn.out")
+        attn["out"] = {"kernel": p["kernel"].reshape(num_heads, -1, p["kernel"].shape[1]),
+                       "bias": p["bias"]}
+        params[f"block{i}"] = {
+            "ln1": norm(f"{t}.ln1"), "attn": attn, "ln2": norm(f"{t}.ln2"),
+            "mlp1": dense(f"{t}.mlp1"), "mlp2": dense(f"{t}.mlp2"),
+        }
+    params["ln"] = norm("ln")
+    params["head"] = dense("fc")
+    return {"params": params, "batch_stats": {}}
+
+
 def from_flax_variables(variables: Mapping[str, Any], arch: str) -> dict[str, torch.Tensor]:
     """The JAX ``{"params", "batch_stats"}`` tree → this port's state_dict
     (f32 CPU tensors)."""
+    if arch in _VIT_HEADS:
+        return _vit_from_flax(variables["params"])
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
-
-    def t(x) -> torch.Tensor:
-        return torch.from_numpy(np.array(x, dtype=np.float32))
 
     for fpath, tprefix, kind in _module_pairs(arch):
         p = _get(params, fpath)
         if kind == "conv":
-            sd[f"{tprefix}.weight"] = t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+            sd[f"{tprefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
         elif kind == "bn":
             s = _get(stats, fpath)
-            sd[f"{tprefix}.weight"] = t(p["scale"])
-            sd[f"{tprefix}.bias"] = t(p["bias"])
-            sd[f"{tprefix}.running_mean"] = t(s["mean"])
-            sd[f"{tprefix}.running_var"] = t(s["var"])
+            sd[f"{tprefix}.weight"] = _t(p["scale"])
+            sd[f"{tprefix}.bias"] = _t(p["bias"])
+            sd[f"{tprefix}.running_mean"] = _t(s["mean"])
+            sd[f"{tprefix}.running_var"] = _t(s["var"])
             sd[f"{tprefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
         else:
-            sd[f"{tprefix}.weight"] = t(np.asarray(p["kernel"]).T)
-            sd[f"{tprefix}.bias"] = t(p["bias"])
+            sd[f"{tprefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+            sd[f"{tprefix}.bias"] = _t(p["bias"])
     return sd
 
 
-def to_flax_variables(state_dict: Mapping[str, torch.Tensor], arch: str) -> dict[str, Any]:
+def to_flax_variables(
+    state_dict: Mapping[str, torch.Tensor], arch: str, num_heads: int | None = None
+) -> dict[str, Any]:
     """This port's state_dict → the JAX ``{"params", "batch_stats"}`` tree
-    of numpy f32 arrays (the inverse of :func:`from_flax_variables`)."""
+    of numpy f32 arrays (the inverse of :func:`from_flax_variables`). A vit
+    splits its projections over ``num_heads`` heads (default: the
+    architecture's)."""
+    if arch in _VIT_HEADS:
+        return _vit_to_flax(state_dict, num_heads or _VIT_HEADS[arch])
     params: dict = {}
     stats: dict = {}
 

@@ -17,8 +17,8 @@ import torch
 from torch import nn
 
 from mpi_pytorch_tpu_torch.models.common import (
-    Classifier,
     Conv2d,
+    Dense,
     FusedStemBNReluPool,
     batch_norm,
     global_avg_pool,
@@ -66,7 +66,7 @@ class ResNet(nn.Module):
                 cin = features
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
-        self.fc = Classifier(cin, num_classes)
+        self.fc = Dense(cin, num_classes)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW (channels_last) input in the compute dtype → pooled

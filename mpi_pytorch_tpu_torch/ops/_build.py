@@ -14,7 +14,10 @@ until a kernel is first launched, so importing a kernel module needs no
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code, so a
 refused launch (too many threads, too much shared memory) fails the call
-instead of silently never running.
+instead of silently never running. The wrappers share the rest of their
+launch plumbing here too: :class:`LaunchCounter`, :func:`on_cpu`,
+:func:`stream`, ``DTYPE_CODE`` and the attention kernels'
+:func:`attention_layout`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -38,6 +43,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points → argtypes. Every pointer and the stream are c_void_p (a
 # bare Python int would be passed as a 32-bit int and cut the pointer).
 SIGNATURES = {
@@ -55,7 +62,21 @@ SIGNATURES = {
     # the head kernel's tile geometry: rows per CTA, vocab rows per tile
     "mpt_head_tile_rows": (),
     "mpt_head_tile_vocab": (),
+    # q, k, v, out, q/k/v strides (sb, ss, sh), B, S, H, D, scale, causal,
+    # dtype, stream
+    "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, dout, dq, dk, dv, q/k/v strides, B, S, H, D, scale, causal,
+    # dtype, stream
+    "mpt_attn_small_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _I, _P,
+    ),
+    # q, k, v, out, lse, q/k/v strides, B, S, H, D, block_q, block_k, scale,
+    # causal, dtype, stream
+    "mpt_flash_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
 }
+
+# The dtype argument of every C entry point.
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -174,3 +195,44 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = _lib.mpt_error_string(code).decode() if _lib is not None else "?"
         raise RuntimeError(f"{what}: CUDA launch failed with error {code} ({msg})")
+
+
+def on_cpu(t: torch.Tensor, what: str) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain version), False
+    for a CUDA one (it launches its kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, got {t.device}")
+    return False
+
+
+def stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev``, as the C entry points take it."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def attention_layout(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str, max_head_dim: int
+) -> tuple[tuple[int, int, int], int]:
+    """((sb, ss, sh), dtype code) of q, k, v as an attention kernel reads
+    them: strided [B, S, H, D] views sharing one set of strides (the
+    projections' outputs as they stand), the head dim contiguous, f32 or
+    bf16, D a multiple of 4 up to ``max_head_dim``. Raises on anything
+    else."""
+    if q.dtype not in DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{what} kernel takes f32 or bf16 q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what} kernel needs q, k, v on one device")
+    if k.stride() != q.stride() or v.stride() != q.stride() or q.stride(-1) != 1:
+        raise ValueError(
+            f"{what} kernel needs q, k, v with one set of strides and the head "
+            f"dim contiguous, got {q.stride()}, {k.stride()}, {v.stride()}"
+        )
+    d = q.shape[-1]
+    if d % 4 or d > max_head_dim:
+        raise ValueError(f"{what} kernel needs D % 4 == 0 and D <= {max_head_dim}, got D={d}")
+    return (q.stride(0), q.stride(1), q.stride(2)), DTYPE_CODE[q.dtype]

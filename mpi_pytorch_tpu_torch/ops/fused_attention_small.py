@@ -1,0 +1,156 @@
+"""Fused tiny-S attention: scores, softmax and AV in one pass per (batch,
+head), with a recompute backward.
+
+Counterpart of ``mpi_pytorch_tpu/ops/fused_attention_small.py``. The same
+function as ``full_attention`` over [B, S, H, D] inputs; the envelope is
+the JAX one: S ≤ 128 and D ≤ 128 go through the kernels, anything outside
+it is ``full_attention`` (the function's definition, not a fallback on
+failure). Two CUDA kernels in ``csrc/fused_attention_small.cu`` carry it:
+
+- the forward (TPU ``_fwd_kernel``): the whole row set of one (batch,
+  head) in shared memory, a full-row max/exp/sum, AV, then ÷ l;
+- the backward (TPU ``_bwd_kernel``): recomputes p (normalized before
+  use) and o = p·v, then Δ = Σ do·o, ds = p·(do·vᵀ − Δ), dq = ds·k·scale,
+  dk = dsᵀ·q·scale, dv = pᵀ·do — each (batch, head) writes its own
+  gradients, so no atomics.
+
+They pair up in :class:`_FusedSmall`, whose residuals are q, k and v only,
+as the JAX ``_attn_grouped_fwd`` saves. q, k and v are read as the
+projections give them (strided [B, S, H, D] views); the JAX wrapper's
+transpose to [B·H, S, D], its bh-grouping and its sublane padding of S are
+TPU layout and stay behind. On a CUDA tensor each wrapper launches its
+kernel (f32 or bf16, D % 4 == 0) or raises; on a CPU tensor it runs its
+plain version: ``full_attention`` forward, :func:`attention_small_backward_reference`
+backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpi_pytorch_tpu_torch.ops import _build
+from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
+
+# Launches of each CUDA kernel (the plain versions never count).
+forward_counter = _build.LaunchCounter()
+backward_counter = _build.LaunchCounter()
+
+# The tiny-S envelope (the JAX module's): every per-head score matrix fits
+# one CTA's shared memory whole.
+MAX_SEQ = 128
+MAX_HEAD_DIM = 128
+
+_NEG = -1e30  # the kernels' finite mask value
+
+
+def attention_small_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """The forward inside the envelope: the CUDA kernel for CUDA tensors,
+    ``full_attention`` for CPU tensors. Output [B, S, H, D] in q's dtype,
+    contiguous."""
+    check_qkv(q, k, v)
+    if _build.on_cpu(q, "fused_attention_small"):
+        return full_attention(q, k, v, causal=causal)
+    bsz, s, h, d = q.shape
+    (sb, ss, sh), code = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
+    if s > MAX_SEQ:
+        raise ValueError(f"fused_attention_small kernel needs S <= {MAX_SEQ}, got S={s}")
+    out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.mpt_attn_small_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sb, ss, sh,
+            bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device),
+        )
+    _build.check(rc, "fused_attention_small forward")
+    forward_counter.add()
+    return out
+
+
+def attention_small_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, causal: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward, in the kernel's order and
+    in f32: p recomputed and normalized, o = p·v, Δ = Σ do·o, ds = p·(dp −
+    Δ), dq = ds·k·scale, dk = dsᵀ·q·scale (q unscaled), dv = pᵀ·do; each in
+    its operand's dtype."""
+    s, d = q.shape[1], q.shape[-1]
+    scale = d**-0.5
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # [B, H, S, D]
+    scores = (qf * scale) @ kf.transpose(-1, -2)
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, _NEG)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = p @ vf
+    delta = (dof * o).sum(dim=-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = p.transpose(-1, -2) @ dof
+    return tuple(g.transpose(1, 2).to(t.dtype) for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+def attention_small_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, causal: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), contiguous [B, S, H, D] in q's dtype: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. Deterministic:
+    two calls on the same inputs give the same bits."""
+    check_qkv(q, k, v)
+    if _build.on_cpu(q, "fused_attention_small"):
+        return attention_small_backward_reference(q, k, v, do, causal)
+    bsz, s, h, d = q.shape
+    (sb, ss, sh), code = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
+    if s > MAX_SEQ:
+        raise ValueError(f"fused_attention_small kernel needs S <= {MAX_SEQ}, got S={s}")
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
+        raise ValueError(
+            f"fused_attention_small backward needs do contiguous {tuple(q.shape)} "
+            f"{q.dtype} on {q.device}"
+        )
+    dq, dk, dv = (torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.mpt_attn_small_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sb, ss, sh,
+            bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device),
+        )
+    _build.check(rc, "fused_attention_small backward")
+    backward_counter.add()
+    return dq, dk, dv
+
+
+class _FusedSmall(torch.autograd.Function):
+    """The differentiable tiny-S attention: the forward saves q, k, v only;
+    the backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return attention_small_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_small_backward(q, k, v, do.to(q.dtype).contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def fused_attention_small(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False
+) -> torch.Tensor:
+    """Tiny-S attention over [B, S, H, D] inputs, the same function as
+    ``full_attention``. Inside the envelope (S ≤ 128, D ≤ 128) the forward
+    kernel, and with a gradient to take :class:`_FusedSmall`; outside it
+    ``full_attention``."""
+    check_qkv(q, k, v)
+    if q.shape[1] > MAX_SEQ or q.shape[-1] > MAX_HEAD_DIM:
+        return full_attention(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedSmall.apply(q, k, v, causal)
+    return attention_small_forward(q, k, v, causal)

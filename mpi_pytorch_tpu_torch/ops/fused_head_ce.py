@@ -35,8 +35,6 @@ from mpi_pytorch_tpu_torch.ops import _build
 counter = _build.LaunchCounter()
 counter_f32 = _build.LaunchCounter()
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 # CTAs to aim for when choosing the number of vocab splits: about two per
 # SM of an H100 (132 SMs), so that even batch 1 fills the card.
 _TARGET_CTAS_PER_SM = 2
@@ -103,16 +101,14 @@ def head_predict(
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     Forward only: the predictions path never backpropagates."""
     _check_shapes(feats, w, b, labels)
-    if feats.device.type == "cpu":
+    if _build.on_cpu(feats, "head_predict"):
         return head_predict_reference(feats, w, b, labels)
-    if feats.device.type != "cuda":
-        raise ValueError(f"head_predict runs on cuda or cpu, got {feats.device}")
     if torch.is_grad_enabled() and (feats.requires_grad or w.requires_grad or b.requires_grad):
         raise NotImplementedError(
             "head_predict is forward-only; the training CE kernels "
             "(fused_head_ce forward/backward) are not ported yet"
         )
-    if feats.dtype not in _DTYPE_CODE or w.dtype != feats.dtype:
+    if feats.dtype not in _build.DTYPE_CODE or w.dtype != feats.dtype:
         raise TypeError(
             f"head_predict's CUDA kernel takes bf16 or f32 feats and W of the "
             f"same dtype, got {feats.dtype} and {w.dtype}"
@@ -136,11 +132,11 @@ def head_predict(
     pred = torch.empty((bsz,), dtype=torch.int32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mpt_head_predict(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), pred.data_ptr(), part_mlp.data_ptr(), part_arg.data_ptr(),
-            bsz, d, vocab, n_split, tiles_per_split, _DTYPE_CODE[feats.dtype], stream,
+            bsz, d, vocab, n_split, tiles_per_split, _build.DTYPE_CODE[feats.dtype],
+            _build.stream(dev),
         )
     _build.check(code, "head_predict")
     (counter if feats.dtype == torch.bfloat16 else counter_f32).add()

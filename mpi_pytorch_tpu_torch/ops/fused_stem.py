@@ -38,8 +38,6 @@ counter = _build.LaunchCounter()
 argmax_counter = _build.LaunchCounter()
 backward_counter = _build.LaunchCounter()
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def _check_shapes(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
     if y.dim() != 4:
@@ -53,18 +51,8 @@ def _check_shapes(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
         )
 
 
-def _on_cpu(y: torch.Tensor) -> bool:
-    """True for a CPU tensor (the plain version runs); False for a CUDA
-    one (the kernel runs); raises for any other device."""
-    if y.device.type == "cpu":
-        return True
-    if y.device.type != "cuda":
-        raise ValueError(f"fused stem runs on cuda or cpu, got {y.device}")
-    return False
-
-
 def _check_kernel_operands(y: torch.Tensor, affine: dict[str, torch.Tensor]) -> None:
-    if y.dtype not in _DTYPE_CODE:
+    if y.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fused stem kernel takes bf16 or f32 y, got {y.dtype}")
     if y.shape[-1] % 8:
         raise ValueError(f"fused stem kernel needs C % 8 == 0, got C={y.shape[-1]}")
@@ -78,10 +66,6 @@ def _check_kernel_operands(y: torch.Tensor, affine: dict[str, torch.Tensor]) -> 
             raise ValueError(f"fused stem kernel needs {name} f32 contiguous on {y.device}")
     if y.data_ptr() % 16 or any(t.data_ptr() % 16 for t in affine.values()):
         raise ValueError("fused stem kernel needs 16-byte aligned operands")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _affine_relu(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -155,7 +139,7 @@ def stem_pool_argmax(
     """(pooled, k) of the training forward: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
     _check_shapes(y, a, b)
-    if _on_cpu(y):
+    if _build.on_cpu(y, "fused stem"):
         return stem_pool_argmax_reference(y, a, b)
     _check_kernel_operands(y, {"a": a, "b": b})
     bsz, h, w, c = y.shape
@@ -165,7 +149,7 @@ def stem_pool_argmax(
     with torch.cuda.device(y.device):
         code = lib.mpt_stem_pool_argmax(
             y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), idx.data_ptr(),
-            bsz, h, w, c, _DTYPE_CODE[y.dtype], _stream(y.device),
+            bsz, h, w, c, _build.DTYPE_CODE[y.dtype], _build.stream(y.device),
         )
     _build.check(code, "stem_pool_argmax")
     argmax_counter.add()
@@ -178,7 +162,7 @@ def stem_pool_backward(
     """(dy, da, db) of the backward: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. da and db are deterministic: two calls
     on the same inputs give the same bits."""
-    if _on_cpu(y):
+    if _build.on_cpu(y, "fused stem"):
         return stem_pool_backward_reference(g, k, pooled, y, a)
     bsz, h, w, c = y.shape
     small = (bsz, h // 2, w // 2, c)
@@ -206,7 +190,7 @@ def stem_pool_backward(
         code = lib.mpt_stem_pool_bwd(
             g.data_ptr(), k.data_ptr(), pooled.data_ptr(), y.data_ptr(), a.data_ptr(),
             dy.data_ptr(), dadb.data_ptr(), part.data_ptr(),
-            bsz, h, w, c, _DTYPE_CODE[y.dtype], _stream(y.device),
+            bsz, h, w, c, _build.DTYPE_CODE[y.dtype], _build.stream(y.device),
         )
     _build.check(code, "stem_pool_backward")
     backward_counter.add()
@@ -242,7 +226,7 @@ def stem_affine_relu_pool(
     _check_shapes(y, a, b)
     if torch.is_grad_enabled() and (y.requires_grad or a.requires_grad or b.requires_grad):
         return _StemPool.apply(y, a, b)
-    if _on_cpu(y):
+    if _build.on_cpu(y, "fused stem"):
         return stem_affine_relu_pool_reference(y, a, b)
     _check_kernel_operands(y, {"a": a, "b": b})
     bsz, h, w, c = y.shape
@@ -251,7 +235,7 @@ def stem_affine_relu_pool(
     with torch.cuda.device(y.device):
         code = lib.mpt_stem_pool_fwd(
             y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, _DTYPE_CODE[y.dtype], _stream(y.device),
+            bsz, h, w, c, _build.DTYPE_CODE[y.dtype], _build.stream(y.device),
         )
     _build.check(code, "stem_affine_relu_pool")
     counter.add()

@@ -9,7 +9,7 @@ on filler rows so both happen before traffic is accepted.
 
 The fused head (``cfg.fused_head_eval``) streams argmax only, so it forces
 ``topk=1`` with a logged warning. Its weights are cut once here: W to the
-compute dtype as a K-major [V, 512] copy and b to f32, reused by every
+compute dtype as a K-major [V, D] copy and b to f32, reused by every
 call (the JAX wrapper re-casts W per call; the rounding is the same).
 """
 

@@ -111,7 +111,8 @@ def build_training(cfg: Config, device: torch.device):
     loader = make_loader(cfg, train_manifest, train=True)
     bundle = create_model_bundle(
         cfg.model_name, cfg.num_classes, cfg.feature_extract,
-        seed=cfg.seed, image_size=cfg.height, fused_stem=cfg.fused_stem,
+        seed=cfg.seed, image_size=cfg.image_size, fused_stem=cfg.fused_stem,
+        attn_impl=cfg.attn_impl, qkv_fused=cfg.qkv_fused,
     )
     model = prepare_for_training(bundle.model, device)
     total_steps = (

@@ -67,6 +67,8 @@ def test_kernel_modules_import_without_nvcc():
 
     code = (
         "import mpi_pytorch_tpu_torch.ops.fused_stem, mpi_pytorch_tpu_torch.ops.fused_head_ce\n"
+        "import mpi_pytorch_tpu_torch.ops.flash_attention, mpi_pytorch_tpu_torch.ops.fused_attention_small\n"
+        "import mpi_pytorch_tpu_torch.models.vit\n"
         "import mpi_pytorch_tpu_torch.serve\n"
         "from mpi_pytorch_tpu_torch.ops import _build\n"
         "assert _build._lib is None\n"
@@ -84,7 +86,10 @@ def test_kernel_modules_import_without_nvcc():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert "'fused_head_ce.cu', 'fused_stem.cu'" in out.stdout
+    assert (
+        "['flash_attention.cu', 'fused_attention_small.cu', 'fused_head_ce.cu', "
+        "'fused_stem.cu', 'runtime.cu']" in out.stdout
+    )
 
 
 def test_env_flag_matches_jax_package(monkeypatch):

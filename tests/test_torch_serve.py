@@ -231,7 +231,7 @@ def test_config_validation():
     bad = [
         dict(serve_buckets=""), dict(serve_buckets="1,frog"), dict(serve_topk=0),
         dict(serve_topk=6), dict(serve_max_wait_ms=-1), dict(serve_queue_depth=0),
-        dict(model_name="vit_s16"), dict(width=30, fused_stem=True),
+        dict(model_name="vit_moe_s16"), dict(width=30, fused_stem=True),
         dict(input_dtype="bfloat16"),
     ]
     for kw in bad:

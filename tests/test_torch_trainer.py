@@ -182,3 +182,36 @@ def test_train_aborts_on_a_non_finite_step(tmp_path, monkeypatch):
     monkeypatch.setattr(trainer, "make_train_step", poisoned)
     with pytest.raises(trainer.NonFiniteLossError, match="bad_step_policy=abort"):
         trainer.train(cfg, device="cpu")
+
+
+def test_vit_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
+    """vit_s16 at full width through ``python -m mpi_pytorch_tpu_torch.train``'s
+    ``main`` on the CPU (``MPT_PLATFORM=cpu``), 32 px with the tiny-S
+    attention and fused q/k/v: two epochs, a checkpoint per epoch, then a
+    resume to three that continues the epoch and step counters."""
+    monkeypatch.setenv("MPT_PLATFORM", "cpu")
+    argv = [
+        "--model-name", "vit_s16", "--attn-impl", "fused-small", "--qkv-fused", "true",
+        "--image-size", "32", "--batch-size", "16", "--debug-sample-size", "60",
+        "--num-classes", "1000", "--compute-dtype", "float32",
+        "--input-dtype", "uint8", "--loader-workers", "2", "--keep-checkpoints", "2",
+        "--checkpoint-dir", str(tmp_path / "ckpt"), "--log-file", str(tmp_path / "training.log"),
+        "--metrics-file", str(tmp_path / "metrics.jsonl"),
+        "--train-csv", CSV["train_csv"], "--test-csv", CSV["test_csv"],
+    ]
+    first = trainer.main(argv + ["--num-epochs", "2"])
+    assert first.epochs_run == 2 and len(first.step_losses) == 6  # 48 rows / 16, twice
+    assert np.all(np.isfinite(first.step_losses)) and first.val_accuracy is not None
+    names = [os.path.basename(p) for p in ckpt.checkpoint_paths(str(tmp_path / "ckpt"))]
+    assert names == ["ckpt_00000.pt", "ckpt_00001.pt"]
+    saved = torch.load(ckpt.latest_checkpoint(str(tmp_path / "ckpt")), weights_only=True)
+    assert saved["step"] == 6 and "blocks.11.attn.q.weight" in saved["model"]
+    assert not any("running" in k for k in saved["model"])  # no batchnorm anywhere
+
+    resumed = trainer.main(argv + ["--num-epochs", "3", "--from-checkpoint", "true"])
+    assert resumed.epochs_run == 1 and len(resumed.step_losses) == 3
+    cfg = parse_config(argv + ["--num-epochs", "3"])
+    state, _ = trainer.build_training(cfg, torch.device("cpu"))
+    assert ckpt.restore_checkpoint(ckpt.latest_checkpoint(cfg.checkpoint_dir), state)[0] == 2
+    assert state.step == 9
+
