@@ -10,13 +10,17 @@ Phases (any failure raises and the script exits non-zero):
 2. build the kernel library from ``mpi_pytorch_tpu_torch/csrc`` (nvcc,
    sm_90a) into the git-ignored ``build/kernels``;
 3. each kernel against its plain version on the card, at its path's
-   shapes, then timed beside its plain version, a one-call PyTorch
-   yardstick where one exists, and its roofline bound: the stem's eval
+   shapes, then timed — the card's busy time per call (``torch.profiler``,
+   the kernels line's ``ms``) and CUDA events around back-to-back calls —
+   beside its plain version, a one-call PyTorch yardstick where one
+   exists, and its roofline bound: the stem's eval
    forward (K1), training forward with the window index (K2) and index
-   backward (K3), the predict head in bf16 (K4) and f32 (K4 f32), the
-   tiny-S attention forward (K9) and backward (K10) at vit_s16's 128 px
-   shape (and S = 50, 65, causal), and the flash forward (K8) at its
-   224 px shape and a longer causal S;
+   backward (K3), the predict head in bf16 (K4) and f32 (K4 f32), the int8
+   predict head (K7: predictions equal on every row, B = 1, 8, 512), the
+   training cross-entropy head's forward (K5) and backward (K6) at batch
+   128, the tiny-S attention forward (K9) and backward (K10) at vit_s16's
+   128 px shape (and S = 50, 65, causal), and the flash forward (K8) at
+   its 224 px shape and a longer causal S;
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
@@ -25,9 +29,18 @@ Phases (any failure raises and the script exits non-zero):
    every row not within ``E2E_GAP`` of a tie) and both kernels' launch
    counts must have risen during the run;
 5. the same server in f32 (the f32 head kernel's path), checked the same
-   way against the plain f32 path; then vit_s16 at 128 px with the tiny-S
-   attention and the fused head, a flood checked the same way (K9 and K4
-   must launch);
+   way against the plain f32 path; the same server in int8
+   (``serve_precision="int8"``: K1 and K7 must launch), a flood and singles
+   checked the same way against the plain int8 path (same quantized
+   weights, plain stem, the int8 head's plain version); a ``"both"``
+   server, its start-up parity logged, floods in turns (bf16, int8, int8,
+   bf16) across ``set_precision`` switches that build nothing, and both
+   sets' resident bytes; then vit_s16 at
+   128 px with the tiny-S attention and the fused head, a flood checked the
+   same way (K9 and K4 must launch);
+5b. the training cross-entropy op: a few Adam steps of the 64 500-class
+   head on fixed features through ``fused_head_ce`` (K5 and K6 must launch
+   every step, the loss must fall);
 6. training: ``train.trainer.train`` (what ``python -m
    mpi_pytorch_tpu_torch.train`` runs) on resnet18, 64 500 classes, 128 px,
    batch 128, bf16, Adam 4e-4, fused stem, synthetic data, the DEBUG
@@ -111,6 +124,8 @@ VIT_FLOOD = 256
 # and their plain versions inside the f32 vit train step: ten times the
 # largest gap the H100 showed (1.0e-6, patch_embed at 128 px).
 VIT_GRAD_GAP = 1e-5
+# Adam steps of the training cross-entropy op's path.
+HEAD_STEPS = 5
 
 
 def log(obj) -> None:
@@ -132,6 +147,25 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """The card's busy time for one call: the device time of every kernel
+    ``iters`` calls launch (``torch.profiler``), over ``iters``, after a
+    short warmup. Unlike :func:`time_ms` it does not grow when the host
+    enqueues the calls more slowly than the card runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return busy_us / iters / 1e3
+
+
 def _ulp_check(got, ref, what: str) -> float:
     """Within one bf16 ulp (2^-7 relative) plus 1e-6 absolute, NaN where
     the plain version has NaN; returns the max abs error on finite values."""
@@ -147,6 +181,17 @@ def _ulp_check(got, ref, what: str) -> float:
             f"max err {float(err.max())}"
         )
     return float(err.max()) if err.numel() else 0.0
+
+
+def check_ingest(dev) -> None:
+    """The device-side uint8 normalize gives the CPU's bits for every pixel
+    value in every channel (its divisions correctly rounded, as JAX's)."""
+    from mpi_pytorch_tpu_torch.train.step import ingest_images
+
+    px = torch.arange(256, dtype=torch.uint8).view(1, 16, 16, 1).expand(1, 16, 16, 3).contiguous()
+    got = ingest_images(px.to(dev), torch.float32).cpu()
+    if not torch.equal(got, ingest_images(px, torch.float32)):
+        raise AssertionError("uint8 ingest on the card differs from the CPU's bits")
 
 
 def check_stem(dev, gen) -> dict:
@@ -179,6 +224,7 @@ def check_stem(dev, gen) -> dict:
         "shape": list(STEM_SHAPE), "dtype": "bfloat16",
         "max_abs_err": max_err,
         "kernel_ms": time_ms(lambda: fs.stem_affine_relu_pool(y, a, b), 50),
+        "device_ms": device_ms(lambda: fs.stem_affine_relu_pool(y, a, b), 50),
         "plain_ms": time_ms(lambda: fs.stem_affine_relu_pool_reference(y, a, b), 20),
         "bound_ms": bound, "bound_by": by,
         "library_ms": None,  # no one PyTorch call computes pool(relu(affine))
@@ -230,6 +276,7 @@ def check_stem_argmax(dev, gen) -> dict:
         "replaces": "mpi_pytorch_tpu/ops/fused_stem.py:257",
         "shape": list(STEM_TRAIN_SHAPE), "dtype": "bfloat16", "max_abs_err": max_err,
         "kernel_ms": time_ms(lambda: fs.stem_pool_argmax(y, a, b), 50),
+        "device_ms": device_ms(lambda: fs.stem_pool_argmax(y, a, b), 50),
         "plain_ms": time_ms(lambda: fs.stem_pool_argmax_reference(y, a, b), 10),
         "bound_ms": bound, "bound_by": by,
         # No one PyTorch call gives (pooled, k) from y, a, b.
@@ -276,6 +323,7 @@ def check_stem_backward(dev, gen) -> dict:
         "replaces": "mpi_pytorch_tpu/ops/fused_stem.py:279",
         "shape": list(STEM_TRAIN_SHAPE), "dtype": "bfloat16", "max_abs_err": max_err,
         "kernel_ms": time_ms(lambda: fs.stem_pool_backward(g, k, pooled, y, a), 50),
+        "device_ms": device_ms(lambda: fs.stem_pool_backward(g, k, pooled, y, a), 50),
         "plain_ms": time_ms(lambda: fs.stem_pool_backward_reference(g, k, pooled, y, a), 10),
         "bound_ms": bound, "bound_by": by,
         # No one PyTorch call gives (dy, da, db) from (g, k, pooled, y, a).
@@ -339,6 +387,7 @@ def check_head(dev, gen, dtype) -> dict:
             "batch": bsz, "max_abs_err": float((loss - ref_loss).abs().max()),
             "argmax_agree": float(agree.float().mean()), "clear_rows": int(clear.sum()),
             "kernel_ms": time_ms(lambda: fh.head_predict(feats, w, bias, labels), 50),
+            "device_ms": device_ms(lambda: fh.head_predict(feats, w, bias, labels), 50),
             "plain_ms": time_ms(lambda: fh.head_predict_reference(feats, w, bias, labels), 10),
             "bound_ms": bound, "bound_by": by,
             # Yardstick only, never called by the port: the cuBLAS logits
@@ -350,6 +399,152 @@ def check_head(dev, gen, dtype) -> dict:
         log({"kernel_check": row})
         rows.append(row)
     return rows[-1]
+
+
+INT8_BATCHES = (1, 8, 512)
+
+
+def check_head_int8(dev, gen) -> dict:
+    """K7 against its plain version (the int8 product summed exactly in
+    f64) at each batch, bf16 feats as the serving path gives them, every
+    7th label −1: predictions equal on EVERY row (the logits are the same
+    bits), loss rtol 1e-5, padding rows 0. Then timed at B = 512 beside its
+    plain version and ``torch._int_mm`` (the int8 product alone, on W
+    padded to a multiple of 8 columns). Returns the B = 512 row."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_INT8_OPS, bound_ms
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+
+    w_q, w_scale = (t.to(dev) for t in qz.quantize_per_channel(0.05 * torch.randn(V, D, generator=gen)))
+    bias = (0.1 * torch.randn(V, generator=gen)).to(dev)
+    row = None
+    for bsz in INT8_BATCHES:
+        feats = torch.randn(bsz, D, generator=gen).abs().to(dev, torch.bfloat16)
+        labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
+        labels[::7] = -1
+        labels = labels.to(dev)
+        act = float(feats.float().abs().max()) / 127.0
+        scale_v = qz.combined_scale(w_scale, act)
+        loss, pred = qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v)
+        torch.cuda.synchronize()
+        ref_loss, ref_pred = qz.head_predict_int8_reference(feats, w_q, bias, labels, None, act, scale_v)
+        if not torch.equal(pred, ref_pred):
+            raise AssertionError(f"int8 head B={bsz}: argmax differs on {int((pred != ref_pred).sum())} rows")
+        if not torch.allclose(loss, ref_loss, rtol=1e-5, atol=0):
+            raise AssertionError(f"int8 head B={bsz}: loss off by {float((loss - ref_loss).abs().max())}")
+        if not bool((loss[labels < 0] == 0).all()):
+            raise AssertionError(f"int8 head B={bsz}: padding rows carry loss")
+        # bf16 feats read, int8 W, f32 scale_v and bias read; loss and pred
+        # written. Operations: the int8 product.
+        moved = 2 * bsz * D + V * D + 8 * V + 4 * bsz + 8 * bsz
+        bound, by = bound_ms(moved, (2 * bsz * D * V, H100_PEAK_INT8_OPS))
+        row = {
+            "name": "head_predict_int8", "route": "cuda",
+            "source": "mpi_pytorch_tpu_torch/csrc/fused_head_ce.cu",
+            "replaces": "mpi_pytorch_tpu/ops/quantize.py:286",
+            "batch": bsz, "max_abs_err": float((loss - ref_loss).abs().max()),
+            "bound_ms": bound, "bound_by": by,
+        }
+        if bsz == INT8_BATCHES[-1]:
+            row["kernel_ms"] = time_ms(
+                lambda: qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v), 50)
+            row["device_ms"] = device_ms(
+                lambda: qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v), 50)
+            row["plain_ms"] = time_ms(
+                lambda: qz.head_predict_int8_reference(feats, w_q, bias, labels, None, act, scale_v), 10)
+            # Yardstick only, never called by the port: the int8 product on
+            # cuBLAS, W padded to 64 504 columns.
+            feats_q = qz.quantize_activations(feats, act)
+            w_pad = torch.zeros((-(-V // 8) * 8, D), dtype=torch.int8, device=dev)
+            w_pad[:V] = w_q
+            try:
+                row["library_ms"] = time_ms(lambda: torch._int_mm(feats_q, w_pad.t()), 50)
+            except RuntimeError as e:
+                row["library_ms"] = None
+                row["library_note"] = f"none: _int_mm refuses the shape ({str(e)[:120]})"
+        log({"kernel_check": row})
+    return row
+
+
+def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
+    """K5/K6 against ``fused_head_ce_reference`` at B = 128, D = 512,
+    V = 64 500: an f32 W master, bf16 feats, every 7th label −1, a per-row
+    random upstream gradient. Loss rtol 1e-5; dfeats, dW, db within
+    relative L2 2e-3; two backward calls bitwise equal. Then forward and
+    backward timed beside their plain versions and cuBLAS yardsticks (K5:
+    the bf16 logits GEMM; K6: the two gradient GEMMs on a given bf16
+    dlog)."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, bound_ms
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+
+    bsz = TRAIN_BATCH
+    w = (0.01 * torch.randn(V, D, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(V, generator=gen)).to(dev)
+    feats = torch.randn(bsz, D, generator=gen).to(dev, torch.bfloat16)
+    labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
+    labels[::7] = -1
+    labels = labels.to(dev)
+    g = torch.rand(bsz, generator=gen).to(dev)
+    out = {}
+    for name, fn in (("kernels", fh.fused_head_ce), ("plain", fh.fused_head_ce_reference)):
+        leaves = [t.clone().requires_grad_() for t in (feats, w, b)]
+        loss = fn(*leaves, labels)
+        loss.backward(g)
+        out[name] = (loss.detach(), *(t.grad for t in leaves))
+    torch.cuda.synchronize()
+    (loss, *grads), (ref_loss, *ref_grads) = out["kernels"], out["plain"]
+    if not torch.allclose(loss, ref_loss, rtol=1e-5, atol=0):
+        raise AssertionError(f"head CE loss off by {float((loss - ref_loss).abs().max())}")
+    gaps = {}
+    for gname, got, ref in zip(("dfeats", "dW", "db"), grads, ref_grads):
+        gaps[gname] = float((got.float() - ref.float()).norm() / ref.float().norm())
+        if gaps[gname] > 2e-3:
+            raise AssertionError(f"head CE {gname}: relative L2 gap {gaps[gname]}")
+    wb = w.to(torch.bfloat16)
+    _, m, l = fh._ce_forward(feats, wb, b, labels)
+    first = fh._ce_backward(feats, wb, b, labels, m, l, g)
+    again = fh._ce_backward(feats, wb, b, labels, m, l, g)
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("head CE backward: two calls on the same inputs differ")
+    log({"head_ce_train_check": {"batch": bsz, "loss_max_abs_err": float((loss - ref_loss).abs().max()),
+                                 "grad_rel_l2": gaps, "backward_bitwise_repeatable": True}})
+
+    fb = feats.detach()
+    dlog = (torch.randn(bsz, V, generator=gen) * 1e-3).to(dev, torch.bfloat16)
+    product = 2 * bsz * D * V
+    # K5: bf16 feats and W, f32 b, labels read; loss, m, l written. K6: the
+    # same inputs with m, l, g; dW and db (f32) and dfeats (bf16) written;
+    # three products.
+    fwd_moved = 2 * bsz * D + 2 * V * D + 4 * V + 4 * bsz + 12 * bsz
+    bwd_moved = 2 * bsz * D + 2 * V * D + 4 * V + 16 * bsz + 4 * V * D + 4 * V + 2 * bsz * D
+    rows = []
+    for name, line, moved, n_products, kernel, plain, library, err in (
+        ("head_ce_forward", 71, fwd_moved, 1,
+         lambda: fh._ce_forward(fb, wb, b, labels),
+         lambda: fh.fused_head_ce_forward_reference(fb, wb, b, labels),
+         lambda: torch.nn.functional.linear(fb, wb),
+         float((loss - ref_loss).abs().max())),
+        ("head_ce_backward", 109, bwd_moved, 3,
+         lambda: fh._ce_backward(fb, wb, b, labels, m, l, g),
+         lambda: fh.fused_head_ce_backward_reference(fb, wb, b, labels, m, l, g),
+         lambda: (dlog.t() @ fb, dlog @ wb),
+         max(float((x.float() - y.float()).abs().max()) for x, y in zip(grads, ref_grads))),
+    ):
+        bound, by = bound_ms(moved, (n_products * product, H100_PEAK_BF16_FLOPS))
+        row = {
+            "name": name, "route": "cuda",
+            "source": "mpi_pytorch_tpu_torch/csrc/" + (
+                "fused_head_ce.cu" if n_products == 1 else "fused_head_ce_bwd.cu"),
+            "replaces": f"mpi_pytorch_tpu/ops/fused_head_ce.py:{line}",
+            "batch": bsz, "max_abs_err": err,
+            "kernel_ms": time_ms(kernel, 50),
+            "device_ms": device_ms(kernel, 50), "plain_ms": time_ms(plain, 10),
+            "bound_ms": bound, "bound_by": by,
+            # Yardstick only, never called by the port.
+            "library_ms": time_ms(library, 50),
+        }
+        log({"kernel_check": row})
+        rows.append(row)
+    return rows[0], rows[1]
 
 
 def _qkv(gen, shape, dev, n: int = 3):
@@ -452,7 +647,8 @@ def check_attention_small(dev, gen) -> tuple[dict, dict]:
             "source": "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu",
             "replaces": f"mpi_pytorch_tpu/ops/fused_attention_small.py:{line}",
             "shape": list(ATTN_SMALL_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
-            "kernel_ms": time_ms(fn, 50), "plain_ms": time_ms(plain, 20),
+            "kernel_ms": time_ms(fn, 50),
+            "device_ms": device_ms(fn, 50), "plain_ms": time_ms(plain, 20),
             "bound_ms": bound, "bound_by": by,
             "library_ms": time_ms(library, 50),
         }
@@ -496,6 +692,7 @@ def check_flash(dev, gen) -> dict:
         "replaces": "mpi_pytorch_tpu/ops/flash_attention.py:53",
         "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
         "kernel_ms": time_ms(lambda: fa.flash_forward(q, k, v, False), 20),
+        "device_ms": device_ms(lambda: fa.flash_forward(q, k, v, False), 20),
         "plain_ms": time_ms(lambda: fa.flash_forward_reference(q, k, v), 10),
         "bound_ms": bound, "bound_by": by,
         # Yardstick only, never called by the port.
@@ -505,20 +702,27 @@ def check_flash(dev, gen) -> dict:
     return row
 
 
-def _plain_top1(model, images: np.ndarray, chunk: int, dev) -> tuple[np.ndarray, np.ndarray]:
+def _plain_top1(
+    model, images: np.ndarray, chunk: int, dev, head_logits=None
+) -> tuple[np.ndarray, np.ndarray]:
     """(argmax, top-2 gap / |max|) per image through the plain bf16 path —
-    ``model.features``, then f32 logits over the head's bf16 copy of W — in
-    batches of ``chunk``."""
+    ``model.features``, then ``head_logits(feats)``, by default f32 logits
+    over the head's bf16 copy of W — in batches of ``chunk``."""
     from mpi_pytorch_tpu_torch.evaluate import head_weights
     from mpi_pytorch_tpu_torch.train.step import ingest_images
 
-    w, b = head_weights(model, torch.bfloat16)
+    if head_logits is None:
+        w, b = head_weights(model, torch.bfloat16)
+
+        def head_logits(feats):
+            return feats.float() @ w.float().t() + b
+
     idx, gap = [], []
     with torch.no_grad():
         for s in range(0, len(images), chunk):
             x = torch.from_numpy(images[s : s + chunk]).to(dev)
             feats = model.features(ingest_images(x, torch.bfloat16).permute(0, 3, 1, 2))
-            top2 = torch.topk(feats.float() @ w.float().t() + b, 2, dim=-1)
+            top2 = torch.topk(head_logits(feats), 2, dim=-1)
             idx.append(top2.indices[:, 0].cpu().numpy())
             v = top2.values.cpu().numpy()
             gap.append((v[:, 0] - v[:, 1]) / np.abs(v[:, 0]))
@@ -541,26 +745,22 @@ def _agreement(preds: np.ndarray, ref: np.ndarray, gap: np.ndarray, what: str):
     return agree, clear, frac
 
 
-def serve_resnet18(dev) -> dict:
-    """The slice at full width through ``InferenceServer``; returns the
-    launch counts of the main-path run."""
+def _serve_cfg(**kw):
+    """resnet18 serving at full width: 64 500 classes, 128 px, bf16, uint8
+    input, fused stem and fused head, buckets 1,8,32,128,512."""
     from mpi_pytorch_tpu_torch import Config
-    from mpi_pytorch_tpu_torch.evaluate import build_inference
-    from mpi_pytorch_tpu_torch.ops import fused_head_ce, fused_stem
-    from mpi_pytorch_tpu_torch.serve import InferenceServer
 
-    cfg = Config(
-        model_name="resnet18", num_classes=V, width=128, height=128,
+    return Config(**{**dict(
+        model_name="resnet18", num_classes=V, width=IMG, height=IMG,
         compute_dtype="bfloat16", input_dtype="uint8", fused_stem=True,
         fused_head_eval=True, serve_topk=1, serve_buckets="1,8,32,128,512",
         seed=SEED,
-    )
-    images = np.random.default_rng(SEED).integers(
-        0, 256, size=(FLOOD + SINGLES, 128, 128, 3), dtype=np.uint8
-    )
-    t0 = time.perf_counter()
-    srv = InferenceServer(cfg, device=dev)
-    log(f"server built and warmed in {time.perf_counter() - t0:.1f} s")
+    ), **kw})
+
+
+def _flood(srv, images: np.ndarray) -> tuple[np.ndarray, dict]:
+    """``FLOOD`` requests submitted at once, then ``SINGLES`` one at a time:
+    (top-1 answers [n], {flood img/s, latency percentiles})."""
     done_at: dict[int, float] = {}
     lock = threading.Lock()
 
@@ -570,32 +770,62 @@ def serve_resnet18(dev) -> dict:
                 done_at[i] = time.perf_counter()
         return cb
 
+    submitted, futs = {}, []
+    t_start = time.perf_counter()
+    for i in range(FLOOD):
+        submitted[i] = time.perf_counter()
+        f = srv.submit(images[i])
+        f.add_done_callback(stamp(i))
+        futs.append(f)
+    preds = [f.result(timeout=600) for f in futs]
+    t_flood = max(done_at[i] for i in range(FLOOD)) - t_start
+    for i in range(FLOOD, FLOOD + SINGLES):
+        submitted[i] = time.perf_counter()
+        f = srv.submit(images[i])
+        f.add_done_callback(stamp(i))
+        preds.append(f.result(timeout=600))
+    preds = np.stack(preds)
+    if preds.shape != (FLOOD + SINGLES, 1) or preds.min() < 0 or preds.max() >= V:
+        raise AssertionError(f"bad predictions: shape {preds.shape}, range {preds.min()}..{preds.max()}")
+    lat_flood = [1e3 * (done_at[i] - submitted[i]) for i in range(FLOOD)]
+    lat_single = [1e3 * (done_at[i] - submitted[i]) for i in range(FLOOD, FLOOD + SINGLES)]
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs), q))
+
+    return preds[:, 0], {
+        "requests": len(images), "flood_img_per_s": FLOOD / t_flood,
+        "flood_p50_ms": pct(lat_flood, 50), "flood_p99_ms": pct(lat_flood, 99),
+        "single_p50_ms": pct(lat_single, 50), "single_p99_ms": pct(lat_single, 99),
+        "single_mean_ms": statistics.fmean(lat_single),
+    }
+
+
+def serve_resnet18(dev) -> dict:
+    """The slice at full width through ``InferenceServer``; returns the
+    launch counts of the main-path run."""
+    from mpi_pytorch_tpu_torch.evaluate import build_inference
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce, fused_stem
+    from mpi_pytorch_tpu_torch.serve import InferenceServer
+
+    cfg = _serve_cfg()
+    images = np.random.default_rng(SEED).integers(
+        0, 256, size=(FLOOD + SINGLES, 128, 128, 3), dtype=np.uint8
+    )
+    t0 = time.perf_counter()
+    srv = InferenceServer(cfg, device=dev)
+    log(f"server built and warmed in {time.perf_counter() - t0:.1f} s")
     try:
         fused_stem.counter.reset()
         fused_head_ce.counter.reset()
-        submitted, futs = {}, []
-        t_start = time.perf_counter()
-        for i in range(FLOOD):
-            submitted[i] = time.perf_counter()
-            f = srv.submit(images[i])
-            f.add_done_callback(stamp(i))
-            futs.append(f)
-        preds = [f.result(timeout=600) for f in futs]
-        t_flood = max(done_at[i] for i in range(FLOOD)) - t_start
-        for i in range(FLOOD, FLOOD + SINGLES):
-            submitted[i] = time.perf_counter()
-            f = srv.submit(images[i])
-            f.add_done_callback(stamp(i))
-            preds.append(f.result(timeout=600))
+        preds, timing = _flood(srv, images)
         launches = {"stem": fused_stem.counter.count, "head": fused_head_ce.counter.count}
         stats = srv.stats()
+        resident = srv._exe.resident_bytes()
     finally:
         srv.close()
     if launches["stem"] < 1 or launches["head"] < 1:
         raise AssertionError(f"the serving run did not go through both kernels: {launches}")
-    preds = np.stack(preds)
-    if preds.shape != (FLOOD + SINGLES, 1) or preds.min() < 0 or preds.max() >= V:
-        raise AssertionError(f"bad predictions: shape {preds.shape}, range {preds.min()}..{preds.max()}")
 
     # The plain path: the same seeded weights with the plain stem, and the
     # plain head over the same bf16 copy of W.
@@ -607,19 +837,10 @@ def serve_resnet18(dev) -> dict:
     # ties may flip. The plain path run in two chunkings shows that floor.
     ref, gap = _plain_top1(plain, images, 512, dev)
     ref32, _ = _plain_top1(plain, images, 32, dev)
-    agree, clear, frac = _agreement(preds[:, 0], ref, gap, "served resnet18")
-    lat_flood = [1e3 * (done_at[i] - submitted[i]) for i in range(FLOOD)]
-    lat_single = [1e3 * (done_at[i] - submitted[i]) for i in range(FLOOD, FLOOD + SINGLES)]
-
-    def pct(xs, q):
-        return float(np.percentile(np.asarray(xs), q))
-
+    agree, clear, frac = _agreement(preds, ref, gap, "served resnet18")
     log({"serve": {
-        "model": "resnet18", "num_classes": V, "image": 128, "dtype": "bfloat16",
-        "requests": len(images), "flood_img_per_s": FLOOD / t_flood,
-        "flood_p50_ms": pct(lat_flood, 50), "flood_p99_ms": pct(lat_flood, 99),
-        "single_p50_ms": pct(lat_single, 50), "single_p99_ms": pct(lat_single, 99),
-        "single_mean_ms": statistics.fmean(lat_single),
+        "model": "resnet18", "num_classes": V, "image": 128, "dtype": "bfloat16", **timing,
+        "resident_bytes": resident,
         "by_bucket": stats["by_bucket"], "batches": stats["batches"],
         "padded_rows": stats["padded_rows"], "launches": launches,
         "top1_agree_plain": frac, "clear_rows": int(clear.sum()),
@@ -675,6 +896,137 @@ def serve_resnet18_f32(dev) -> int:
         )
     log({"serve_f32": {"requests": len(images), "launches": launches,
                        "top1_agree_plain": float(agree.mean()), "clear_rows": int(clear.sum())}})
+    return launches
+
+
+def serve_resnet18_int8(dev) -> int:
+    """The int8 serving path at full width: ``serve_precision="int8"``,
+    otherwise the bf16 server's configuration, a flood and singles. Answers
+    against the plain int8 path — the same quantized weights and activation
+    scale, the plain stem and the int8 head's plain version — by the
+    agreement rule; K1 and K7 must launch. Returns K7's launches."""
+    from mpi_pytorch_tpu_torch.evaluate import build_int8_inference, float_state_dict
+    from mpi_pytorch_tpu_torch.ops import fused_stem
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+    from mpi_pytorch_tpu_torch.serve import InferenceServer
+
+    cfg = _serve_cfg(serve_precision="int8")
+    images = np.random.default_rng(SEED + 9).integers(
+        0, 256, size=(FLOOD + SINGLES, IMG, IMG, 3), dtype=np.uint8
+    )
+    t0 = time.perf_counter()
+    srv = InferenceServer(cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    try:
+        fused_stem.counter.reset()
+        qz.counter.reset()
+        preds, timing = _flood(srv, images)
+        launches = {"stem": fused_stem.counter.count, "head_int8": qz.counter.count}
+        stats = srv.stats()
+        int8_set = srv._exe_sets["int8"]
+        resident = int8_set.resident_bytes()
+        act_scale = float(int8_set.model.fc.act_scale)
+    finally:
+        srv.close()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the int8 serving run did not go through K1 and K7: {launches}")
+    plain_cfg = dataclasses.replace(cfg, fused_stem=False, fused_head_eval=False)
+    plain = build_int8_inference(plain_cfg, float_state_dict(plain_cfg), dev, keep_head_int8=True,
+                                 act_scale=act_scale)
+    head = qz.int8_head_operands(plain)
+
+    def head_logits(feats):
+        return qz.int8_logits(feats, head.w_q, head.b, head.scale_v, head.act_scale)
+
+    ref, gap = _plain_top1(plain, images, 512, dev, head_logits)
+    agree, clear, frac = _agreement(preds, ref, gap, "served resnet18 int8")
+    log({"serve_int8": {
+        "model": "resnet18", "num_classes": V, "image": IMG, "precision": "int8", **timing,
+        "built_and_warmed_s": build_s, "act_scale": act_scale, "resident_bytes": resident,
+        "by_bucket": stats["by_bucket"], "batches": stats["batches"], "launches": launches,
+        "top1_agree_plain": frac, "clear_rows": int(clear.sum()),
+        "largest_flipped_gap": float(gap[~agree].max()) if not agree.all() else None,
+    }})
+    return launches["head_int8"]
+
+
+def serve_resnet18_both(dev) -> None:
+    """A ``serve_precision="both"`` server: the start-up parity stamp is
+    logged, not held (random weights). Floods in turns, bf16, int8, int8,
+    bf16, each after a ``set_precision`` switch that must build nothing (no
+    kernel build, no new model): the bf16 floods go through K4 and not K7,
+    the int8 floods through K7 and not K4. The one comparison of the two
+    precisions' img/s taken on one server in one call."""
+    from mpi_pytorch_tpu_torch.ops import _build, fused_head_ce
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+    from mpi_pytorch_tpu_torch.serve import InferenceServer
+
+    images = np.random.default_rng(SEED + 11).integers(
+        0, 256, size=(FLOOD + SINGLES, IMG, IMG, 3), dtype=np.uint8
+    )
+    srv = InferenceServer(_serve_cfg(serve_precision="both"), device=dev)
+    try:
+        parity = srv.stats()["parity_top1"]
+        lib, built, sets = _build._lib, _build.build_seconds, dict(srv._exe_sets)
+        runs = []
+        for precision in ("bf16", "int8", "int8", "bf16"):
+            t0 = time.perf_counter()
+            srv.set_precision(precision)
+            switch_ms = 1e3 * (time.perf_counter() - t0)
+            fused_head_ce.counter.reset()
+            qz.counter.reset()
+            _, timing = _flood(srv, images)
+            runs.append({"precision": precision, "switch_ms": switch_ms,
+                         "head": fused_head_ce.counter.count, "head_int8": qz.counter.count, **timing})
+        resident = {p: e.resident_bytes() for p, e in srv._exe_sets.items()}
+        if _build._lib is not lib or _build.build_seconds != built or srv._exe_sets != sets:
+            raise AssertionError("set_precision built something")
+    finally:
+        srv.close()
+    for run in runs:
+        used, unused = ("head", "head_int8") if run["precision"] == "bf16" else ("head_int8", "head")
+        if run[used] < 1 or run[unused]:
+            raise AssertionError(f"the {run['precision']} flood ran the wrong head kernel: {run}")
+    log({"serve_both": {"parity_top1": parity, "runs_in_turns": runs, "resident_bytes": resident}})
+
+
+def train_head_ce(dev) -> dict:
+    """The training cross-entropy op's path: ``HEAD_STEPS`` Adam steps (lr
+    4e-4) of a 64 500-class head (f32 W master, zero bias) on one fixed
+    batch of 128 bf16 features with a gradient, the last 8 rows padding
+    (label −1), the loss the mean of ``fused_head_ce`` over the valid rows.
+    K5 and K6 must launch once a step and the loss must fall. Returns their
+    launches."""
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    feats = torch.randn(TRAIN_BATCH, D, generator=gen).to(dev, torch.bfloat16).requires_grad_()
+    w = (0.01 * torch.randn(V, D, generator=gen)).to(dev).requires_grad_()
+    b = torch.zeros(V, device=dev, requires_grad=True)
+    labels = torch.randint(0, V, (TRAIN_BATCH,), generator=gen, dtype=torch.int32)
+    labels[-8:] = -1
+    labels = labels.to(dev)
+    opt = torch.optim.Adam([w, b], lr=LR)
+    fh.ce_forward_counter.reset()
+    fh.ce_backward_counter.reset()
+    losses = []
+    for _ in range(HEAD_STEPS):
+        opt.zero_grad(set_to_none=True)
+        feats.grad = None
+        loss = fh.fused_head_ce(feats, w, b, labels).sum() / (labels >= 0).sum()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    launches = {"head_ce_forward": fh.ce_forward_counter.count,
+                "head_ce_backward": fh.ce_backward_counter.count}
+    if set(launches.values()) != {HEAD_STEPS}:
+        raise AssertionError(f"head CE training: launches {launches} over {HEAD_STEPS} steps")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"head CE training: losses {losses}")
+    if not bool(torch.isfinite(feats.grad.float()).all()) or bool((feats.grad[-8:] != 0).any()):
+        raise AssertionError("head CE training: dfeats not finite, or padding rows got a gradient")
+    log({"train_head_ce": {"batch": TRAIN_BATCH, "steps": HEAD_STEPS, "losses": losses,
+                           "launches": launches}})
     return launches
 
 
@@ -1129,6 +1481,7 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
+    check_ingest(dev)
     stem = check_stem(dev, gen)
     stem_argmax = check_stem_argmax(dev, gen)
     stem_backward = check_stem_backward(dev, gen)
@@ -1136,9 +1489,16 @@ def main() -> int:
     head_f32 = check_head(dev, gen, torch.float32)
     attn_fwd, attn_bwd = check_attention_small(dev, gen)
     flash = check_flash(dev, gen)
+    head_int8 = check_head_int8(dev, gen)
+    head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
     launches = serve_resnet18(dev)
     stem["launches"], head["launches"] = launches["stem"], launches["head"]
     head_f32["launches"] = serve_resnet18_f32(dev)
+    head_int8["launches"] = serve_resnet18_int8(dev)
+    serve_resnet18_both(dev)
+    ce_launches = train_head_ce(dev)
+    head_ce_fwd["launches"] = ce_launches["head_ce_forward"]
+    head_ce_bwd["launches"] = ce_launches["head_ce_backward"]
     serve_vit(dev)
     train_launches = train_resnet18(dev)
     stem_argmax["launches"] = train_launches["stem_pool_argmax"]
@@ -1157,10 +1517,11 @@ def main() -> int:
         )
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = (stem, stem_argmax, stem_backward, head, head_f32, flash, attn_fwd, attn_bwd)
+    rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
+            flash, attn_fwd, attn_bwd)
     print(smi, flush=True)
     for row in rows:
-        row["ms"] = row["kernel_ms"]
+        row["ms"] = row["device_ms"]
     log({"kernels": [{k: row[k] for k in keys} for row in rows]})
     log({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ What is ported so far, for resnet18/34 on one device:
 
 - serving: ``serve.InferenceServer.submit`` → preprocess →
   ``DynamicBatcher`` → per-bucket predict step
-  (``evaluate.make_predict_step``) → top-1 class;
+  (``evaluate.make_predict_step``) → top-1 class, in bf16, f32 or
+  post-training int8 (``ops/quantize.py``);
 - training: ``python -m mpi_pytorch_tpu_torch.train`` → ``train.train``:
   manifests → ``DataLoader`` → train step (forward, masked CE, backward,
   Adam/SGD/AdamW) → per-epoch checkpoint → validation.
@@ -22,7 +23,10 @@ Hand-written CUDA kernels in ``csrc/`` carry both:
   gradient through it (a ``torch.autograd.Function``);
 - ``ops.fused_head_ce.head_predict`` — the classifier head's per-row
   cross-entropy and argmax without storing the [B, V] logits (bf16 or
-  f32).
+  f32), and its int8 twin ``ops.quantize.head_predict_int8`` for int8
+  serving (``serve_precision="int8"``);
+- ``ops.fused_head_ce.fused_head_ce`` — the training cross-entropy head,
+  a ``torch.autograd.Function`` whose forward and backward are kernels.
 
 Every entry point takes ``device`` (default ``"cuda"``; ``MPT_PLATFORM=cpu``
 selects the CPU). On the CPU each kernel wrapper runs its plain PyTorch

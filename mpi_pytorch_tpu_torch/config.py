@@ -115,6 +115,16 @@ class Config:
     serve_max_wait_ms: float = 5.0
     serve_queue_depth: int = 1024
     serve_topk: int = 5
+    # Serving numeric precision: which predict set(s) are built and warmed
+    # at start-up. bf16 — the compute-dtype path; int8 — post-training int8
+    # (ops/quantize.py): per-channel int8 conv/dense weights dequantized per
+    # call, and under fused_head_eval the fused int8 head kernel; both —
+    # build both sets and start serving bf16 (InferenceServer.set_precision
+    # switches between them without building anything).
+    serve_precision: str = "bf16"
+    # Sample-batch size for int8 calibration (the head activation scale)
+    # and the serve start-up parity stamp.
+    quantize_calib: int = 64
 
     def validate_config(self) -> None:
         if self.model_name in NOT_PORTED_MODELS:
@@ -182,6 +192,25 @@ class Config:
             raise ValueError(
                 f"serve_topk={self.serve_topk} exceeds num_classes="
                 f"{self.num_classes}"
+            )
+        if self.serve_precision not in ("bf16", "int8", "both"):
+            raise ValueError(
+                f"serve_precision must be bf16|int8|both, got "
+                f"{self.serve_precision!r}"
+            )
+        if self.serve_precision != "bf16" and self.fused_head_eval and self.serve_topk > 1:
+            raise ValueError(
+                f"serve_precision={self.serve_precision!r} with "
+                "--fused-head-eval serves through the fused int8 head "
+                "kernel, which streams argmax only — and a precision-"
+                "switchable server must keep ONE response shape across its "
+                f"executable sets. Set serve_topk=1 (got {self.serve_topk}) "
+                "or drop --fused-head-eval for top-k int8 serving"
+            )
+        if self.quantize_calib < 1:
+            raise ValueError(
+                f"quantize_calib must be >= 1 (the int8 calibration/parity "
+                f"sample batch), got {self.quantize_calib}"
             )
         if self.serve_max_wait_ms < 0:
             raise ValueError(
@@ -257,6 +286,14 @@ class Config:
                 f"{self.serve_buckets!r}"
             )
         return tuple(buckets)
+
+    def parsed_serve_precisions(self) -> tuple[str, ...]:
+        """``serve_precision`` as the tuple of predict sets to build at
+        start-up (``validate_config`` rejects anything else first)."""
+        return {
+            "bf16": ("bf16",), "int8": ("int8",),
+            "both": ("bf16", "int8"),
+        }[self.serve_precision]
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls: type) -> None:

@@ -15,6 +15,7 @@ import torch
 # Published dense peaks of one NVIDIA H100 SXM (NVIDIA data sheet), at its
 # full 700 W power limit: the denominators of a kernel's bound.
 H100_PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
+H100_PEAK_INT8_OPS = 1979e12  # tensor cores, dense int8
 H100_PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 H100_PEAK_HBM_BYTES_PER_S = 3.35e12
 

@@ -25,6 +25,12 @@ head count is the architecture's or ``num_heads``), with an empty
 - ``block{i}/{ln1,ln2}`` and ``ln``: ``scale/bias`` ↔ ``weight/bias``;
 - ``block{i}/{mlp1,mlp2}`` and ``head`` (↔ ``fc``): Dense [in, out] ↔
   [out, in].
+
+A resnet quantized by the JAX package (``ops/quantize.py``
+``quantize_state``: params ``{"q", "scale", "act_scale"}``) carries over to
+the port's quantized model (``ops.quantize.quantize_model``) through
+:func:`from_flax_quantized`: int8 kernels transposed as above into ``q``,
+per-output-channel scales as they are.
 """
 
 from __future__ import annotations
@@ -204,3 +210,42 @@ def to_flax_variables(
                 "bias": n(f"{tprefix}.bias"),
             })
     return {"params": params, "batch_stats": stats}
+
+
+def from_flax_quantized(
+    packed: Mapping[str, Any], batch_stats: Mapping[str, Any], arch: str, *,
+    keep_head_int8: bool = False,
+) -> dict[str, torch.Tensor]:
+    """A JAX int8 packed params tree ``{"q", "scale", "act_scale"}`` and its
+    ``batch_stats`` → the state_dict of this port's quantized model
+    (``quantize_model(..., keep_head_int8=keep_head_int8)``): int8 ``q``
+    (HWIO → OIHW, [in, out] → [out, in]), f32 ``scale`` per output channel,
+    batchnorm as for the float model, and the head's ``act_scale`` when it
+    is kept int8."""
+    if arch in _VIT_HEADS:
+        raise NotImplementedError(f"int8 weights of {arch} do not carry over: the port does not quantize vits")
+    qtree, scales = packed["q"], packed["scale"]
+
+    def int8(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x).astype(np.int8))
+
+    sd: dict[str, torch.Tensor] = {}
+    for fpath, tprefix, kind in _module_pairs(arch):
+        p = _get(qtree, fpath)
+        if kind == "conv":
+            sd[f"{tprefix}.q"] = int8(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+            sd[f"{tprefix}.scale"] = _t(scales[f"{fpath}/kernel"])
+        elif kind == "bn":
+            s = _get(batch_stats, fpath)
+            sd[f"{tprefix}.weight"] = _t(p["scale"])
+            sd[f"{tprefix}.bias"] = _t(p["bias"])
+            sd[f"{tprefix}.running_mean"] = _t(s["mean"])
+            sd[f"{tprefix}.running_var"] = _t(s["var"])
+            sd[f"{tprefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        else:
+            sd[f"{tprefix}.q"] = int8(np.asarray(p["kernel"]).T)
+            sd[f"{tprefix}.scale"] = _t(scales[f"{fpath}/kernel"])
+            sd[f"{tprefix}.bias"] = _t(p["bias"])
+            if keep_head_int8:
+                sd[f"{tprefix}.act_scale"] = _t(packed["act_scale"])
+    return sd

@@ -62,6 +62,20 @@ SIGNATURES = {
     # the head kernel's tile geometry: rows per CTA, vocab rows per tile
     "mpt_head_tile_rows": (),
     "mpt_head_tile_vocab": (),
+    # feats, feats_q (scratch), w_q, scale_v, bias, labels, loss, pred,
+    # part_mlp, part_arg, B, D, V, n_split, tiles_per_split, act_scale,
+    # dtype, stream
+    "mpt_head_predict_int8": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _I, _P),
+    # feats, w, bias, labels, loss, m, l, part_mlp, part_arg,
+    # B, D, V, n_split, tiles_per_split, stream
+    "mpt_head_ce_fwd": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
+    # feats, w, bias, labels, m, l, g, dlog, dw, db, part, dfeats,
+    # B, D, V, n_split, chunks_per_split, stream
+    "mpt_head_ce_bwd": (_P,) * 12 + (_I, _I, _I, _I, _I, _P),
+    # the backward's tiles: vocab rows, batch rows, D columns
+    "mpt_head_ce_bwd_tile_vocab": (),
+    "mpt_head_ce_bwd_tile_rows": (),
+    "mpt_head_ce_bwd_tile_cols": (),
     # q, k, v, out, q/k/v strides (sb, ss, sh), B, S, H, D, scale, causal,
     # dtype, stream
     "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _I, _P),

@@ -1,17 +1,26 @@
-"""Streaming predict head: per-row cross-entropy and argmax of
-``feats @ Wᵀ + b`` without storing the [B, V] logits.
+"""The classifier head fused into softmax cross-entropy, without storing
+the [B, V] logits: the streaming predict head and the training op.
 
-Counterpart of ``mpi_pytorch_tpu/ops/fused_head_ce.py::head_predict``
-(``_predict_kernel`` + ``online_predict_update``). Semantics carried over
-exactly: argmax takes the first index attaining the max, loss is
-``logsumexp(logits) − logits[label]``, and rows with ``label < 0`` (batch
-padding) get loss 0.
+Counterpart of ``mpi_pytorch_tpu/ops/fused_head_ce.py``:
 
-Layout differs from the JAX function on purpose: W is ``[V, D]``
-(K-major — a ``torch.nn.Linear`` weight as it stands), so the kernel
-streams contiguous rows of it and the serving path keeps one bf16 copy
-built once instead of re-casting per call. The training kernels of the
-JAX module (``fused_head_ce``'s forward and backward) are not ported yet.
+- :func:`head_predict` (``_predict_kernel`` + ``online_predict_update``):
+  per-row cross-entropy and argmax of ``feats @ Wᵀ + b``. Semantics carried
+  over exactly: argmax takes the first index attaining the max, loss is
+  ``logsumexp(logits) − logits[label]``, and rows with ``label < 0`` (batch
+  padding) get loss 0. Forward only.
+- :func:`fused_head_ce` (the custom-VJP op over ``_fwd_kernel`` and
+  ``_bwd_kernel``): the per-row loss, differentiable in feats, W and b. It
+  rounds where the JAX op rounds: feats and W to bf16, logits summed in
+  f32 plus the f32 bias; the backward forms ``dlog = (softmax − onehot)·g``
+  in f32, rounds it to bf16 for both gradient products (f32 sums), keeps
+  ``db`` in f32 and returns ``dfeats`` rounded to bf16, then cast to the
+  caller's dtypes.
+
+Layout differs from the JAX functions on purpose: W is ``[V, D]``
+(K-major — a ``torch.nn.Linear`` weight as it stands), so the kernels
+stream contiguous rows of it and the serving path keeps one bf16 copy
+built once instead of re-casting per call; ``fused_head_ce``'s dW comes
+back ``[V, D]`` too.
 
 On a CUDA tensor :func:`head_predict` launches the kernel in
 ``csrc/fused_head_ce.cu`` or raises: bf16 feats and W through the tensor
@@ -19,6 +28,11 @@ cores, or f32 feats and W through the f32 variant (plain FFMA, no TF32:
 an f32 model keeps an exact f32 head, as the JAX function's f32 kernel
 does), with f32 bias and int32 labels. On a CPU tensor it runs
 :func:`head_predict_reference`, the plain PyTorch version.
+:func:`fused_head_ce` on a CUDA tensor runs its forward kernel (the bf16
+partial kernel with a merge that keeps the rows' max and sum for the
+backward) and its backward kernels (``csrc/fused_head_ce_bwd.cu``); on a
+CPU tensor the plain forward and backward of
+:func:`fused_head_ce_reference`.
 """
 
 from __future__ import annotations
@@ -34,6 +48,10 @@ from mpi_pytorch_tpu_torch.ops import _build
 # the bf16 variant, and the f32 variant.
 counter = _build.LaunchCounter()
 counter_f32 = _build.LaunchCounter()
+# Launches of the training op's forward and backward kernels (one per call
+# of each on the card).
+ce_forward_counter = _build.LaunchCounter()
+ce_backward_counter = _build.LaunchCounter()
 
 # CTAs to aim for when choosing the number of vocab splits: about two per
 # SM of an H100 (132 SMs), so that even batch 1 fills the card.
@@ -81,17 +99,28 @@ def split_geometry(rows: int, vocab: int, num_sms: int) -> tuple[int, int]:
     return -(-v_tiles // tiles_per_split), tiles_per_split
 
 
-def _check_shapes(feats, w, b, labels) -> None:
+def check_shapes(feats, w, b, labels, what: str = "head_predict") -> None:
+    """Raise unless feats [B, D], w [V, D], b [V] and labels [B] fit."""
     if feats.dim() != 2 or w.dim() != 2 or w.shape[1] != feats.shape[1]:
         raise ValueError(
-            f"head_predict takes feats [B, D] and w [V, D], got "
+            f"{what} takes feats [B, D] and w [V, D], got "
             f"{tuple(feats.shape)} and {tuple(w.shape)}"
         )
     if tuple(b.shape) != (w.shape[0],) or tuple(labels.shape) != (feats.shape[0],):
         raise ValueError(
-            f"head_predict takes b [V] and labels [B], got {tuple(b.shape)} "
+            f"{what} takes b [V] and labels [B], got {tuple(b.shape)} "
             f"and {tuple(labels.shape)}"
         )
+
+
+def check_kernel_operands(what: str, dev: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies contiguous and 16-byte aligned on
+    ``dev``, as the kernels read them."""
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{what} kernel needs {name} contiguous on {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs {name} 16-byte aligned")
 
 
 def head_predict(
@@ -100,13 +129,14 @@ def head_predict(
     """(per-row CE f32 [B], argmax int32 [B]) of ``softmax(feats @ wᵀ + b)``.
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     Forward only: the predictions path never backpropagates."""
-    _check_shapes(feats, w, b, labels)
+    check_shapes(feats, w, b, labels)
     if _build.on_cpu(feats, "head_predict"):
         return head_predict_reference(feats, w, b, labels)
     if torch.is_grad_enabled() and (feats.requires_grad or w.requires_grad or b.requires_grad):
         raise NotImplementedError(
-            "head_predict is forward-only; the training CE kernels "
-            "(fused_head_ce forward/backward) are not ported yet"
+            "head_predict is forward-only (the predictions path never "
+            "backpropagates); train through fused_head_ce, whose forward "
+            "and backward are kernels"
         )
     if feats.dtype not in _build.DTYPE_CODE or w.dtype != feats.dtype:
         raise TypeError(
@@ -119,12 +149,8 @@ def head_predict(
     vocab = w.shape[0]
     if d % 16:
         raise ValueError(f"head_predict kernel needs D % 16 == 0, got D={d}")
-    for name, t in (("feats", feats), ("w", w), ("b", b), ("labels", labels)):
-        if not t.is_contiguous() or t.device != feats.device:
-            raise ValueError(f"head_predict kernel needs {name} contiguous on {feats.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"head_predict kernel needs {name} 16-byte aligned")
     dev = feats.device
+    check_kernel_operands("head_predict", dev, feats=feats, w=w, b=b, labels=labels)
     n_split, tiles_per_split = split_geometry(bsz, vocab, _num_sms(dev.index))
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
@@ -141,3 +167,166 @@ def head_predict(
     _build.check(code, "head_predict")
     (counter if feats.dtype == torch.bfloat16 else counter_f32).add()
     return loss, pred
+
+
+# --------------------------------------------------------------------------
+# the training op: fused_head_ce (forward and backward kernels)
+# --------------------------------------------------------------------------
+
+
+def fused_head_ce_forward_reference(
+    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain forward over the op's operands (bf16 feats and W, f32 b,
+    int32 labels): (loss, m, l) f32 [B] with explicit f32 logits, m the
+    row max, l = Σ exp(logit − m) and loss = log l + m − logit[label], 0
+    where label < 0."""
+    logits = _logits(feats, w, b)
+    m = logits.amax(dim=-1)
+    l = torch.exp(logits - m[:, None]).sum(dim=-1)
+    valid = labels >= 0
+    picked = logits.gather(1, labels.clamp(min=0).long()[:, None])[:, 0]
+    loss = torch.where(valid, torch.log(l) + m - picked, torch.zeros_like(m))
+    return loss, m, l
+
+
+def fused_head_ce_backward_reference(
+    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor,
+    m: torch.Tensor, l: torch.Tensor, g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward, rounding where the JAX ``_bwd_kernel`` rounds:
+    ``dlog = (exp(logit − m) / l − onehot)·g`` in f32 (g = 0 where label <
+    0), rounded to bf16 for ``dW = dlogᵀ·feats`` [V, D] and ``dfeats =
+    dlog·W`` (f32 sums, dfeats then rounded to bf16); ``db = Σ dlog`` in
+    f32."""
+    logits = _logits(feats, w, b)
+    valid = labels >= 0
+    p = torch.exp(logits - m[:, None]) / l[:, None]
+    onehot = F.one_hot(labels.clamp(min=0).long(), w.shape[0]).to(p.dtype) * valid[:, None]
+    dlog = (p - onehot) * torch.where(valid, g.float(), torch.zeros_like(m))[:, None]
+    d16 = dlog.to(torch.bfloat16).float()
+    dw = d16.t() @ feats.float()
+    dfeats = (d16 @ w.float()).to(torch.bfloat16)
+    return dfeats, dw, dlog.sum(dim=0)
+
+
+def _ce_kernel_checks(feats, w, b, labels, what: str) -> None:
+    if feats.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16 feats and W, got {feats.dtype}, {w.dtype}")
+    if b.dtype != torch.float32 or labels.dtype != torch.int32:
+        raise TypeError(f"{what} kernel needs f32 b and int32 labels, got {b.dtype}, {labels.dtype}")
+    if feats.shape[1] % 16:
+        raise ValueError(f"{what} kernel needs D % 16 == 0, got D={feats.shape[1]}")
+
+
+def _ce_forward(feats, w, b, labels):
+    """K5: (loss, m, l) f32 [B] from the forward kernel."""
+    _ce_kernel_checks(feats, w, b, labels, "fused_head_ce forward")
+    dev = feats.device
+    check_kernel_operands("fused_head_ce forward", dev, feats=feats, w=w, b=b, labels=labels)
+    bsz, d = feats.shape
+    vocab = w.shape[0]
+    n_split, tiles_per_split = split_geometry(bsz, vocab, _num_sms(dev.index))
+    part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
+    part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
+    loss, m, l = (torch.empty((bsz,), dtype=torch.float32, device=dev) for _ in range(3))
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.mpt_head_ce_fwd(
+            feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            loss.data_ptr(), m.data_ptr(), l.data_ptr(), part_mlp.data_ptr(),
+            part_arg.data_ptr(), bsz, d, vocab, n_split, tiles_per_split, _build.stream(dev),
+        )
+    _build.check(code, "fused_head_ce forward")
+    ce_forward_counter.add()
+    return loss, m, l
+
+
+def backward_geometry(rows: int, d: int, vocab: int, num_sms: int) -> tuple[int, int, int, int, int]:
+    """(Vp, Bp, Dp, n_split, chunks_per_split) of the backward kernels: the
+    padded sizes of their scratch, and enough vocab splits of the dfeats
+    product that its grid holds about ``2 × num_sms`` CTAs, none empty."""
+    lib = _build.load_library()
+    bv, br, dc = (lib.mpt_head_ce_bwd_tile_vocab(), lib.mpt_head_ce_bwd_tile_rows(),
+                  lib.mpt_head_ce_bwd_tile_cols())
+    vp, bp, dp = -(-vocab // bv) * bv, -(-rows // br) * br, -(-d // dc) * dc
+    chunks = vp // bv
+    want = max(1, -(-_TARGET_CTAS_PER_SM * num_sms // ((bp // br) * (dp // dc))))
+    per_split = -(-chunks // min(want, chunks))
+    return vp, bp, dp, -(-chunks // per_split), per_split
+
+
+def _ce_backward(feats, w, b, labels, m, l, g):
+    """K6: (dfeats bf16 [B, D], dW f32 [V, D], db f32 [V]) from the
+    backward kernels."""
+    _ce_kernel_checks(feats, w, b, labels, "fused_head_ce backward")
+    dev = feats.device
+    check_kernel_operands("fused_head_ce backward", dev, feats=feats, w=w, b=b, labels=labels,
+                          m=m, l=l, g=g)
+    bsz, d = feats.shape
+    vocab = w.shape[0]
+    vp, bp, dp, n_split, per_split = backward_geometry(bsz, d, vocab, _num_sms(dev.index))
+    dlog = torch.empty((bsz, vp), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((n_split, bp, dp), dtype=torch.float32, device=dev)
+    dw = torch.empty((vocab, d), dtype=torch.float32, device=dev)
+    db = torch.empty((vocab,), dtype=torch.float32, device=dev)
+    dfeats = torch.empty((bsz, d), dtype=torch.bfloat16, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.mpt_head_ce_bwd(
+            feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), m.data_ptr(),
+            l.data_ptr(), g.data_ptr(), dlog.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            part.data_ptr(), dfeats.data_ptr(), bsz, d, vocab, n_split, per_split,
+            _build.stream(dev),
+        )
+    _build.check(code, "fused_head_ce backward")
+    ce_backward_counter.add()
+    return dfeats, dw, db
+
+
+class _HeadCE(torch.autograd.Function):
+    """The differentiable op. The forward rounds feats and W to bf16 once
+    (the JAX wrapper's cast, outside its kernel) and keeps them, b, the
+    labels and the rows' (m, l) for the backward. ``plain`` picks the
+    plain forward and backward instead of the kernels."""
+
+    @staticmethod
+    def forward(ctx, feats, w, b, labels, plain):
+        operands = (
+            feats.detach().to(torch.bfloat16).contiguous(),
+            w.detach().to(torch.bfloat16).contiguous(),
+            b.detach().to(torch.float32).contiguous(),
+            labels.to(torch.int32).contiguous(),
+        )
+        loss, m, l = (fused_head_ce_forward_reference if plain else _ce_forward)(*operands)
+        ctx.save_for_backward(*operands, m, l)
+        ctx.plain = plain
+        ctx.dtypes = (feats.dtype, w.dtype, b.dtype)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        backward = fused_head_ce_backward_reference if ctx.plain else _ce_backward
+        dfeats, dw, db = backward(*ctx.saved_tensors, g.float().contiguous())
+        fd, wd, bd = ctx.dtypes
+        return dfeats.to(fd), dw.to(wd), db.to(bd), None, None
+
+
+def fused_head_ce(
+    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor
+) -> torch.Tensor:
+    """Per-row cross-entropy of ``softmax(feats @ wᵀ + b)`` [B] f32, 0 where
+    ``label < 0``, differentiable in feats, w [V, D] and b, without the
+    [B, V] logits. The kernels for CUDA tensors (bf16 operands, D % 16 ==
+    0), the plain forward and backward for CPU tensors."""
+    check_shapes(feats, w, b, labels, "fused_head_ce")
+    return _HeadCE.apply(feats, w, b, labels, _build.on_cpu(feats, "fused_head_ce"))
+
+
+def fused_head_ce_reference(
+    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of :func:`fused_head_ce` on any device: the same
+    function, roundings and gradients, in PyTorch with explicit logits."""
+    check_shapes(feats, w, b, labels, "fused_head_ce")
+    return _HeadCE.apply(feats, w, b, labels, True)

@@ -15,7 +15,15 @@ back. The in-flight queue has depth 2, so the batch loop runs at most one
 flush ahead.
 
 Padded rows get label −1 and are sliced off before any response.
-Observability, SLOs, HTTP, fleets and int8 serving are not ported yet.
+
+``serve_precision`` picks the predict sets built at start-up: ``bf16``
+(the compute dtype), ``int8`` (post-training int8, through the fused int8
+head kernel under ``fused_head_eval``) or ``both``. Every set is warmed on
+the batch thread before serving; with both, the server starts on bf16,
+stamps the sets' top-1 agreement (``parity_top1``) and ``set_precision``
+switches between them without building anything. Observability, SLOs,
+HTTP, fleets and the precision retunes of a fleet controller are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from mpi_pytorch_tpu_torch.data.pipeline import (
     decode_image_uint8,
     normalize_image,
 )
-from mpi_pytorch_tpu_torch.evaluate import build_inference
+from mpi_pytorch_tpu_torch.evaluate import build_inference, float_state_dict
 from mpi_pytorch_tpu_torch.hardware import resolve_device
 from mpi_pytorch_tpu_torch.serve.batcher import (
     DynamicBatcher,
@@ -48,7 +56,7 @@ from mpi_pytorch_tpu_torch.serve.batcher import (
     ServerClosedError,
     pick_bucket,
 )
-from mpi_pytorch_tpu_torch.serve.executables import BucketExecutables
+from mpi_pytorch_tpu_torch.serve.executables import BucketExecutables, measure_parity_top1
 from mpi_pytorch_tpu_torch.utils.logging import run_logger
 
 
@@ -108,6 +116,8 @@ class InferenceServer:
 
     ``device`` defaults to cuda (``MPT_PLATFORM=cpu`` selects the CPU);
     weights come from ``state_dict`` or a seeded init from ``cfg.seed``.
+    ``model`` is the float eval-mode model; each precision set holds the
+    model it runs.
     """
 
     def __init__(
@@ -120,8 +130,19 @@ class InferenceServer:
         self.cfg = cfg
         self._logger = run_logger()
         self.device = resolve_device(device)
+        precisions = cfg.parsed_serve_precisions()
+        f32_state = None
+        if "int8" in precisions:  # the int8 set quantizes the f32 weights
+            f32_state = state_dict = float_state_dict(cfg, state_dict)
         self.model = build_inference(cfg, self.device, state_dict)
-        self._exe = BucketExecutables(cfg, self.model, self.device, logger=self._logger)
+        self._exe_sets = {
+            p: BucketExecutables(cfg, self.model, self.device, logger=self._logger, precision=p,
+                                 f32_state=f32_state)
+            for p in precisions
+        }
+        self.precision = "bf16" if "bf16" in self._exe_sets else precisions[0]
+        self._exe = self._exe_sets[self.precision]
+        self.parity_top1: float | None = None
         self.buckets = self._exe.buckets
         self.topk = self._exe.topk
         self._batcher = DynamicBatcher(
@@ -142,10 +163,10 @@ class InferenceServer:
             "padded_rows": 0, "preprocess_failures": 0,
             "by_bucket": {b: 0 for b in self.buckets},
         }
-        # The batch thread warms every bucket before it serves: cuDNN's
-        # handles and its autotuned-algorithm cache are per thread, so a
-        # warmup on any other thread would leave the first flushes to
-        # autotune again.
+        # The batch thread warms every bucket of every set before it
+        # serves: cuDNN's handles and its autotuned-algorithm cache are per
+        # thread, so a warmup on any other thread would leave the first
+        # flushes to autotune again.
         self._warm = threading.Event()
         self._warm_error: BaseException | None = None
         self._batch_thread = threading.Thread(
@@ -162,12 +183,18 @@ class InferenceServer:
         )
         self._completion_thread.start()
         self._logger.info(
-            "serve: %s on %s, buckets %s warm (topk=%d, fused_stem=%s, "
-            "fused_head=%s, max_wait=%.1f ms, queue=%d)",
-            cfg.model_name, self.device, list(self.buckets), self.topk,
-            cfg.fused_stem, self._exe.fused_head, cfg.serve_max_wait_ms,
-            cfg.serve_queue_depth,
+            "serve: %s on %s, buckets %s warm per precision set %s, serving "
+            "%s (topk=%d, fused_stem=%s, fused_head=%s, max_wait=%.1f ms, "
+            "queue=%d)",
+            cfg.model_name, self.device, list(self.buckets), list(self._exe_sets),
+            self.precision, self.topk, cfg.fused_stem, self._exe.fused_head,
+            cfg.serve_max_wait_ms, cfg.serve_queue_depth,
         )
+        if self.parity_top1 is not None:
+            self._logger.info(
+                "serve: int8-vs-bf16 start-up parity: top-1 agreement %.4f "
+                "over %d samples", self.parity_top1, cfg.quantize_calib,
+            )
 
     # ------------------------------------------------------------ request path
 
@@ -242,7 +269,15 @@ class InferenceServer:
 
     def _warm_then_serve(self) -> None:
         try:
-            self._exe.warmup()
+            for exe in self._exe_sets.values():
+                exe.warmup()
+            if len(self._exe_sets) > 1:
+                # The start-up parity stamp: the two sets' top-1 agreement
+                # on a fixed seeded sample, through warmed shapes only.
+                self.parity_top1 = measure_parity_top1(
+                    self._exe_sets["bf16"], self._exe_sets["int8"],
+                    samples=self.cfg.quantize_calib, seed=self.cfg.seed,
+                )
         except BaseException as e:  # noqa: BLE001 — re-raised by __init__
             self._warm_error = e
             return
@@ -329,15 +364,37 @@ class InferenceServer:
 
     # --------------------------------------------------------------- lifecycle
 
+    def set_precision(self, precision: str) -> None:
+        """Serve from another start-up set from the next flush on. Only a
+        set built and warmed at start-up can be selected: anything else is a
+        ``ServeError``, since it would build a model mid-request."""
+        with self._lock:
+            exe = self._exe_sets.get(precision)
+            if exe is None:
+                raise ServeError(
+                    f"precision {precision!r} was not built at start-up "
+                    f"(built sets: {sorted(self._exe_sets)}); build with "
+                    "serve_precision='both' to switch live"
+                )
+            if precision == self.precision:
+                return
+            self._exe = exe
+            self.precision = precision
+        self._logger.info("serve: precision switched to %s (start-up set; nothing built)", precision)
+
     def stats(self) -> dict:
         """Counters: served / failed / rejected requests, batches, padded
-        rows, flushes per bucket, and the current queue depth."""
+        rows, flushes per bucket, and the current queue depth; the serving
+        precision, and the start-up parity stamp when both sets exist."""
         with self._lock:
             out = dict(self._stats, by_bucket=dict(self._stats["by_bucket"]))
+            out["precision"] = self.precision
         out["queue_depth"] = self._batcher.qsize()
         out["topk"] = self.topk
         out["buckets"] = list(self.buckets)
         out["fused_head"] = self._exe.fused_head
+        if self.parity_top1 is not None:
+            out["parity_top1"] = self.parity_top1
         return out
 
     def close(self, drain: bool = True) -> None:

@@ -33,10 +33,13 @@ def ingest_images(images: torch.Tensor, compute_dtype: torch.dtype) -> torch.Ten
     - uint8 batches are raw pixels (``input_dtype='uint8'``, 4× less
       host→device traffic than f32): the ImageNet normalize runs on the
       device in f32 with the op order of ``pipeline.normalize_image``
-      (``/255``, ``−mean``, ``/std``), then casts to the compute dtype;
+      (``/255``, ``−mean``, ``/std``, each a correctly rounded division —
+      PyTorch on CUDA turns a division by a Python scalar into a multiply
+      by its reciprocal, so 255 goes as a tensor filled on the device),
+      then casts to the compute dtype;
     - float batches were normalized on the host and are just cast."""
     if images.dtype == torch.uint8:
-        x = images.to(torch.float32) / 255.0
+        x = images.to(torch.float32) / torch.full((), 255.0, device=images.device)
         mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
         x = (x - mean) / std

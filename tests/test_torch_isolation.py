@@ -68,6 +68,7 @@ def test_kernel_modules_import_without_nvcc():
     code = (
         "import mpi_pytorch_tpu_torch.ops.fused_stem, mpi_pytorch_tpu_torch.ops.fused_head_ce\n"
         "import mpi_pytorch_tpu_torch.ops.flash_attention, mpi_pytorch_tpu_torch.ops.fused_attention_small\n"
+        "import mpi_pytorch_tpu_torch.ops.quantize\n"
         "import mpi_pytorch_tpu_torch.models.vit\n"
         "import mpi_pytorch_tpu_torch.serve\n"
         "from mpi_pytorch_tpu_torch.ops import _build\n"
@@ -88,7 +89,7 @@ def test_kernel_modules_import_without_nvcc():
     assert out.returncode == 0, out.stderr
     assert (
         "['flash_attention.cu', 'fused_attention_small.cu', 'fused_head_ce.cu', "
-        "'fused_stem.cu', 'runtime.cu']" in out.stdout
+        "'fused_head_ce_bwd.cu', 'fused_stem.cu', 'runtime.cu']" in out.stdout
     )
 
 
