@@ -20,7 +20,9 @@ Phases (any failure raises and the script exits non-zero):
    training cross-entropy head's forward (K5) and backward (K6) at batch
    128, the tiny-S attention forward (K9) and backward (K10) at vit_s16's
    128 px shape (and S = 50, 65, causal), and the flash forward (K8) at
-   its 224 px shape and a longer causal S;
+   its 224 px shape and a longer causal S — K8 and K9 on both routes, the
+   bf16 tensor-core kernels and the f32 FFMA kernels, two calls bitwise
+   equal; no measured time may read below its bound;
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
@@ -37,7 +39,7 @@ Phases (any failure raises and the script exits non-zero):
    bf16) across ``set_precision`` switches that build nothing, and both
    sets' resident bytes; then vit_s16 at
    128 px with the tiny-S attention and the fused head, a flood checked the
-   same way (K9 and K4 must launch);
+   same way (K9's tensor-core kernel and K4 must launch);
 5b. the training cross-entropy op: a few Adam steps of the 64 500-class
    head on fixed features through ``fused_head_ce`` (K5 and K6 must launch
    every step, the loss must fall);
@@ -48,17 +50,18 @@ Phases (any failure raises and the script exits non-zero):
    checkpoint kept: K2 and K3 must launch on every step and the loss must
    fall; then the same run with the plain stem (step-1 loss within 1e-3);
 7. the same for vit_s16 at full width and depth, two epochs each:
-   ``--attn-impl fused-small`` at 128 px (K9 in every block's forward, K10
-   in every block's backward) and ``flash`` at 224 px (K8), each with its
-   launches counted exactly and its step-1 loss within 1e-3 of an
+   ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
+   block's forward, K10 in every block's backward) and ``flash`` at 224 px
+   (K8's tensor-core kernel), each with its launches counted exactly (the
+   FFMA forwards none) and its step-1 loss within 1e-3 of an
    ``attn_impl="full"`` twin's;
 8. K2/K3 inside the real train step, f32 (TF32 off), same weights and
    batches: against the stem's plain versions, losses, step-1 stem
    gradients and ``bn1`` after three steps rtol 1e-4; against the plain
    stem, losses rtol 1e-4; and the device time of one bf16 train step on
-   a resident batch, fused and plain, in turns; then K8/K9/K10 inside the
-   f32 vit_s16 step the same way (losses rtol 1e-4, step-1 gradients
-   within ``VIT_GRAD_GAP``);
+   a resident batch, fused and plain, in turns; then K8/K9 (their FFMA
+   kernels, counted) and K10 inside the f32 vit_s16 step the same way
+   (losses rtol 1e-4, step-1 gradients within ``VIT_GRAD_GAP``);
 9. where a training step's time goes, for resnet18 and both vit_s16
    configurations: the host loader alone, the host's enqueue time against
    the card's, and a ``torch.profiler`` breakdown of the card's busy time.
@@ -72,7 +75,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 import statistics
 import sys
@@ -547,8 +549,8 @@ def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
     return rows[0], rows[1]
 
 
-def _qkv(gen, shape, dev, n: int = 3):
-    return [torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(n)]
+def _qkv(gen, shape, dev, n: int = 3, dtype=torch.bfloat16):
+    return [torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(n)]
 
 
 def _grad_check(got, ref, what: str) -> float:
@@ -564,50 +566,110 @@ def _grad_check(got, ref, what: str) -> float:
     return float(err.max())
 
 
+def _attn_check(got, ref, what: str) -> float:
+    """An attention output against its plain version in its own dtype: bf16
+    within one bf16 ulp (``_ulp_check``); f32 within rtol/atol 2e-5, the
+    JAX attention tests' own (f32 sums of up to S terms in other orders).
+    Returns the max abs error."""
+    if got.dtype == torch.bfloat16:
+        return _ulp_check(got, ref, what)
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > 2e-5 + 2e-5 * ref.abs()).any()):
+        raise AssertionError(f"{what}: off by up to {float(err.max())} (rtol/atol 2e-5)")
+    return float(err.max())
+
+
 def _attn_work(
-    b: int, s: int, h: int, d: int, *, bf16_products: int, f32_products: int,
-    per_score: int, per_elem: int,
-) -> tuple[tuple[float, float], tuple[float, float]]:
+    b: int, s: int, h: int, d: int, *, bf16_products: int, split_products: int,
+    per_score: int, per_elem: int, f32: bool = False,
+) -> tuple[tuple[float, float], ...]:
     """The (operations, peak) pairs of attention's least arithmetic over
     B·H heads of S rows, for ``hardware.bound_ms``. Each product is one
     [S, S]·[S, D]-sized multiply, 2·S²·D operations (a multiply-add counts
-    2). A product of two bf16 operands (q·kᵀ, do·vᵀ) is exact in f32 on the
-    bf16 tensor cores, so it is priced at their peak; q·scale stays bf16
-    when the scale D^-0.5 is a power of two (D = 64: 2^-3), else q·kᵀ is
-    priced as f32. A product that takes the f32 p or ds (p·v, pᵀ·do, ds·k,
-    dsᵀ·q) is priced at the f32 peak, with the elementwise work:
-    ``per_score`` operations per score and ``per_elem`` per [S, D]
-    element."""
-    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, H100_PEAK_F32_FLOPS
+    2). With bf16 inputs a product of two bf16 operands (``bf16_products``:
+    q·kᵀ with the scale applied to the f32 scores afterwards, do·vᵀ) is
+    exact in f32 on the bf16 tensor cores: one product at their peak. A
+    product of the f32 p or ds with a bf16 operand (``split_products``:
+    p·v, pᵀ·do, ds·k, dsᵀ·q) is three bf16 products at that peak: p splits
+    into three bf16 terms that keep it to 2^-25 relative (two keep 2^-17,
+    which crosses the one-ulp check at outputs near zero:
+    ``csrc/attention_tc.cuh``), and each term times a bf16 operand is
+    exact. With f32 inputs (``f32``) every product
+    is three TF32 products (a = a_hi + a_lo in TF32, a·b ≈ a_hi·b_hi +
+    a_hi·b_lo + a_lo·b_hi to ~2^-21 relative: the split of CUTLASS's fast
+    f32 GEMMs, which SDPA's f32 kernel runs). The elementwise work —
+    ``per_score`` operations per score, ``per_elem`` per [S, D] element —
+    at the f32 peak."""
+    from mpi_pytorch_tpu_torch.hardware import (
+        H100_PEAK_BF16_FLOPS, H100_PEAK_F32_FLOPS, H100_PEAK_TF32_FLOPS,
+    )
 
-    if math.log2(d) % 2:  # the scale is not a power of two: q·scale is f32
-        bf16_products, f32_products = bf16_products - 1, f32_products + 1
     product = 2 * s * s * d
-    f32_ops = f32_products * product + per_score * s * s + per_elem * s * d
-    return (b * h * bf16_products * product, H100_PEAK_BF16_FLOPS), (b * h * f32_ops, H100_PEAK_F32_FLOPS)
+    elementwise = (b * h * (per_score * s * s + per_elem * s * d), H100_PEAK_F32_FLOPS)
+    if f32:
+        return (b * h * 3 * (bf16_products + split_products) * product, H100_PEAK_TF32_FLOPS), elementwise
+    return (b * h * (bf16_products + 3 * split_products) * product, H100_PEAK_BF16_FLOPS), elementwise
 
 
-def check_attention_small(dev, gen) -> tuple[dict, dict]:
-    """K9 and K10 against their plain versions at vit_s16's 128 px shape,
-    at a padded S = 50 and S = 65, and causal, bf16: K9 against
-    ``full_attention`` within one bf16 ulp; K10's dq, dk, dv against
-    autograd through ``full_attention`` in f32 (``_grad_check``), and two
-    calls bitwise equal. Then each timed beside its plain version and
-    ``scaled_dot_product_attention`` (its backward for K10)."""
+def _kernel_row(name: str, source: str, line: str, shape, dtype, err: float, fn, plain,
+                library, moved: float, work, iters: int, plain_iters: int) -> dict:
+    """One ``kernel_check`` row: the kernel's busy time (``device_ms``) and
+    event time, its plain version's event time, its bound, and the
+    yardstick ``library`` (one PyTorch call of the same function, never
+    called by the port) timed both ways. Raises when a measured time reads
+    below the bound: the bound would be wrong."""
     from mpi_pytorch_tpu_torch.hardware import bound_ms
+
+    bound, by = bound_ms(moved, *work)
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": line,
+        "shape": list(shape), "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+        "kernel_ms": time_ms(fn, iters), "device_ms": device_ms(fn, iters),
+        "plain_ms": time_ms(plain, plain_iters), "bound_ms": bound, "bound_by": by,
+        "library_ms": device_ms(library, iters), "library_event_ms": time_ms(library, iters),
+    }
+    log({"kernel_check": row})
+    for key in ("device_ms", "library_ms"):
+        if row[key] < bound:
+            raise AssertionError(f"{name}: {key} {row[key]} below its bound {bound} ms")
+    return row
+
+
+def check_attention_small(dev, gen) -> tuple[dict, dict, dict]:
+    """K9 on both kernels and K10 against their plain versions at vit_s16's
+    128 px shape, at a padded S = 50 and S = 65, and causal: K9's training
+    forward in bf16 (the tensor-core kernel) against ``full_attention``
+    within one bf16 ulp, its inference forward in bf16 and its f32 forward
+    (the FFMA kernel) within one bf16 ulp and rtol/atol 2e-5
+    (``_attn_check``), two calls bitwise equal on each; K10's dq, dk, dv (bf16) against
+    autograd through ``full_attention`` in f32 (``_grad_check``), two calls
+    bitwise equal. Then each timed beside its plain version and
+    ``scaled_dot_product_attention`` (its backward for K10) in the same
+    dtype. Returns the rows (K9 tensor-core, K9 FFMA, K10)."""
     from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
     from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
 
     b, s, h, d = ATTN_SMALL_SHAPE
-    fwd_err = bwd_err = 0.0
+    fwd_err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
+    bwd_err = 0.0
     for seq, causal in ((s, False), (50, False), (65, False), (s, True)):
+        tag = f"S={seq}{', causal' if causal else ''}"
+        for dtype, train, route in ((torch.bfloat16, True, "tensor-core"),
+                                    (torch.bfloat16, False, "FFMA"), (torch.float32, True, "FFMA")):
+            q, k, v = _qkv(gen, (b, seq, h, d), dev, 3, dtype)
+            out = fas.attention_small_forward(q, k, v, causal, train=train)
+            again = fas.attention_small_forward(q, k, v, causal, train=train)
+            torch.cuda.synchronize()
+            what = f"K9 {route} {tag}"
+            err = _attn_check(out, full_attention(q, k, v, causal=causal), what)
+            if train:  # the timed rows: the tensor-core kernel (bf16), FFMA (f32)
+                fwd_err[dtype] = max(fwd_err[dtype], err)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{what}: two calls on the same inputs differ")
         q, k, v, do = _qkv(gen, (b, seq, h, d), dev, 4)
-        out = fas.attention_small_forward(q, k, v, causal)
         grads = fas.attention_small_backward(q, k, v, do, causal)
         again = fas.attention_small_backward(q, k, v, do, causal)
         torch.cuda.synchronize()
-        tag = f"S={seq}{', causal' if causal else ''}"
-        fwd_err = max(fwd_err, _ulp_check(out, full_attention(q, k, v, causal=causal), f"K9 {tag}"))
         if not all(torch.equal(x, y) for x, y in zip(grads, again)):
             raise AssertionError(f"K10 {tag}: two calls on the same inputs differ")
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
@@ -615,91 +677,84 @@ def check_attention_small(dev, gen) -> tuple[dict, dict]:
         for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves):
             bwd_err = max(bwd_err, _grad_check(got, leaf.grad, f"K10 {name} ({tag})"))
 
-    q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4)
-    n = q.numel()
-    # Yardsticks only, never called by the port: SDPA on [B, H, S, D].
+    source = "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu"
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-    out_t = sdpa(*leaves)
     rows = []
-    for name, line, moved, work, fn, plain, library, err in (
-        # q, k, v read, out written (bf16). q·kᵀ (bf16), p·v; per score
-        # mask, max, exp of the difference, sum; per element q·scale, ÷ l.
-        ("attention_small_forward", 135, 8 * n,
-         _attn_work(b, s, h, d, bf16_products=1, f32_products=1, per_score=4, per_elem=2),
-         lambda: fas.attention_small_forward(q, k, v),
-         lambda: full_attention(q, k, v), lambda: sdpa(qt, kt, vt), fwd_err),
-        # q, k, v, do read; dq, dk, dv written (bf16). q·kᵀ and dp = do·vᵀ
-        # (bf16), dv = pᵀ·do, dq = ds·k, dk = dsᵀ·q; per score the softmax
-        # (4) and its normalizing (1), Δ = Σ p·dp (2), ds = p·(dp − Δ) (2) —
-        # Δ needs no recomputed o = p·v; per element q·scale, dq·scale,
-        # dk·scale.
-        ("attention_small_backward", 151, 14 * n,
-         _attn_work(b, s, h, d, bf16_products=2, f32_products=3, per_score=9, per_elem=3),
-         lambda: fas.attention_small_backward(q, k, v, do),
-         lambda: fas.attention_small_backward_reference(q, k, v, do),
-         lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True), bwd_err),
-    ):
-        bound, by = bound_ms(moved, *work)
-        row = {
-            "name": name, "route": "cuda",
-            "source": "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu",
-            "replaces": f"mpi_pytorch_tpu/ops/fused_attention_small.py:{line}",
-            "shape": list(ATTN_SMALL_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
-            "kernel_ms": time_ms(fn, 50),
-            "device_ms": device_ms(fn, 50), "plain_ms": time_ms(plain, 20),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(library, 50),
-        }
-        log({"kernel_check": row})
-        rows.append(row)
-    return rows[0], rows[1]
+    for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
+        q, k, v = _qkv(gen, ATTN_SMALL_SHAPE, dev, 3, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's [B, H, S, D]
+        # q, k, v read, out written. q·kᵀ, p·v; per score mask, max, exp
+        # of the difference, sum; per element q·scale, ÷ l.
+        rows.append(_kernel_row(
+            f"attention_small_forward_{suffix}", source,
+            "mpi_pytorch_tpu/ops/fused_attention_small.py:135", ATTN_SMALL_SHAPE, dtype,
+            fwd_err[dtype], lambda: fas.attention_small_forward(q, k, v, train=True),
+            lambda: full_attention(q, k, v), lambda: sdpa(qt, kt, vt), 4 * q.numel() * q.element_size(),
+            _attn_work(b, s, h, d, bf16_products=1, split_products=1, per_score=4, per_elem=2,
+                       f32=dtype == torch.float32), 50, 20))
+    q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    out_t, dot = sdpa(*leaves), do.transpose(1, 2).contiguous()
+    # q, k, v, do read; dq, dk, dv written (bf16). q·kᵀ and dp = do·vᵀ
+    # (bf16), dv = pᵀ·do, dq = ds·k, dk = dsᵀ·q (split); per score the
+    # softmax (4) and its normalizing (1), Δ = Σ p·dp (2), ds = p·(dp − Δ)
+    # (2) — Δ needs no recomputed o = p·v; per element q·scale, dq·scale,
+    # dk·scale.
+    rows.append(_kernel_row(
+        "attention_small_backward", source, "mpi_pytorch_tpu/ops/fused_attention_small.py:151",
+        ATTN_SMALL_SHAPE, torch.bfloat16, bwd_err,
+        lambda: fas.attention_small_backward(q, k, v, do),
+        lambda: fas.attention_small_backward_reference(q, k, v, do),
+        lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True), 14 * q.numel(),
+        _attn_work(b, s, h, d, bf16_products=2, split_products=3, per_score=9, per_elem=3),
+        50, 20))
+    return tuple(rows)
 
 
-def check_flash(dev, gen) -> dict:
-    """K8 against its plain version at vit_s16's 224 px shape and at a
-    longer causal S, bf16: the output within one bf16 ulp of
-    ``full_attention``, the lse within rtol/atol 1e-5 of ``torch.logsumexp``
-    of the plain scores. Then timed at the 224 px shape beside its plain
-    version and ``scaled_dot_product_attention``."""
-    from mpi_pytorch_tpu_torch.hardware import bound_ms
+def check_flash(dev, gen) -> tuple[dict, dict]:
+    """K8 on both routes against its plain version at vit_s16's 224 px
+    shape and at a longer causal S: bf16 (the tensor-core route) within
+    one bf16 ulp of ``full_attention``, f32 (the FFMA route) within
+    rtol/atol 2e-5 (``_attn_check``); the lse within rtol/atol 1e-5 of
+    ``torch.logsumexp`` of the plain scores; two calls bitwise equal. Then
+    each route timed at the 224 px shape beside its plain version and
+    ``scaled_dot_product_attention``. Returns the rows (tensor-core,
+    FFMA)."""
     from mpi_pytorch_tpu_torch.ops import flash_attention as fa
 
-    err = 0.0
+    err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
     for shape, causal in ((FLASH_SHAPE, False), (FLASH_LONG_SHAPE, True)):
-        q, k, v = _qkv(gen, shape, dev)
-        blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
-        out, lse = fa.flash_forward(q, k, v, causal, blk, blk)
-        torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
-        tag = f"{list(shape)}{', causal' if causal else ''}"
-        err = max(err, _ulp_check(out, ref, f"K8 {tag}"))
-        if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"K8 lse {tag}: off by {float((lse - ref_lse).abs().max())}")
-        err = max(err, float((lse - ref_lse).abs().max()))
+        for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "FFMA")):
+            q, k, v = _qkv(gen, shape, dev, 3, dtype)
+            blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
+            out, lse = fa.flash_forward(q, k, v, causal, blk, blk)
+            again = fa.flash_forward(q, k, v, causal, blk, blk)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
+            tag = f"K8 {route} {list(shape)}{', causal' if causal else ''}"
+            err[dtype] = max(err[dtype], _attn_check(out, ref, tag))
+            if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{tag} lse: off by {float((lse - ref_lse).abs().max())}")
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"{tag}: two calls on the same inputs differ")
+            err[dtype] = max(err[dtype], float((lse - ref_lse).abs().max()))
     b, s, h, d = FLASH_SHAPE
-    q, k, v = _qkv(gen, FLASH_SHAPE, dev)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    moved = 8 * q.numel() + 4 * b * h * s  # q, k, v read, out written (bf16); lse (f32)
-    # As K9's forward: the online recurrence's rescaling is the kernel's
-    # choice, not the function's work.
-    work = _attn_work(b, s, h, d, bf16_products=1, f32_products=1, per_score=4, per_elem=2)
-    bound, by = bound_ms(moved, *work)
-    row = {
-        "name": "flash_forward", "route": "cuda",
-        "source": "mpi_pytorch_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "mpi_pytorch_tpu/ops/flash_attention.py:53",
-        "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
-        "kernel_ms": time_ms(lambda: fa.flash_forward(q, k, v, False), 20),
-        "device_ms": device_ms(lambda: fa.flash_forward(q, k, v, False), 20),
-        "plain_ms": time_ms(lambda: fa.flash_forward_reference(q, k, v), 10),
-        "bound_ms": bound, "bound_by": by,
-        # Yardstick only, never called by the port.
-        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 50),
-    }
-    log({"kernel_check": row})
-    return row
+    rows = []
+    for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
+        q, k, v = _qkv(gen, FLASH_SHAPE, dev, 3, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        # q, k, v read, out written; lse (f32). As K9's forward: the online
+        # recurrence's rescaling is the kernel's choice, not the function's
+        # work.
+        rows.append(_kernel_row(
+            f"flash_forward_{suffix}", "mpi_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "mpi_pytorch_tpu/ops/flash_attention.py:53", FLASH_SHAPE, dtype, err[dtype],
+            lambda: fa.flash_forward(q, k, v, False), lambda: fa.flash_forward_reference(q, k, v),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+            4 * q.numel() * q.element_size() + 4 * b * h * s,
+            _attn_work(b, s, h, d, bf16_products=1, split_products=1, per_score=4, per_elem=2,
+                       f32=dtype == torch.float32), 20, 10))
+    return tuple(rows)
 
 
 def _plain_top1(
@@ -1032,8 +1087,9 @@ def train_head_ce(dev) -> dict:
 
 def serve_vit(dev) -> dict:
     """vit_s16 through ``InferenceServer`` at 128 px, bf16, uint8 input,
-    with the tiny-S attention (K9) and the fused head (K4, D = 384): a flood
-    of seeded images, answers checked against the plain path (full
+    with the tiny-S attention (K9; inference takes its FFMA kernel,
+    ``fused_attention_small._route``) and the fused head (K4, D = 384): a
+    flood of seeded images, answers checked against the plain path (full
     attention, plain head) by the agreement rule; returns both kernels'
     launches during the flood."""
     from mpi_pytorch_tpu_torch import Config
@@ -1051,19 +1107,24 @@ def serve_vit(dev) -> dict:
     )
     srv = InferenceServer(cfg, device=dev)
     try:
-        fused_attention_small.forward_counter.reset()
+        fused_attention_small.forward_tc_counter.reset()
+        fused_attention_small.forward_ffma_counter.reset()
         fused_head_ce.counter.reset()
         t0 = time.perf_counter()
         futs = [srv.submit(im) for im in images]
         preds = np.stack([f.result(timeout=600) for f in futs])[:, 0]
         t_flood = time.perf_counter() - t0
-        launches = {"attention_small_forward": fused_attention_small.forward_counter.count,
+        launches = {"attention_small_forward_ffma": fused_attention_small.forward_ffma_counter.count,
                     "head": fused_head_ce.counter.count}
+        tc = fused_attention_small.forward_tc_counter.count
         stats = srv.stats()
     finally:
         srv.close()
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the vit serving run did not go through K9 and K4: {launches}")
+    if min(launches.values()) < 1 or tc:
+        raise AssertionError(
+            f"the vit serving run did not go through K9's FFMA kernel and K4: "
+            f"{launches}, tensor-core forward {tc}"
+        )
     plain = build_inference(dataclasses.replace(cfg, attn_impl="full", fused_head_eval=False), dev)
     ref, gap = _plain_top1(plain, images, 128, dev)
     _, clear, frac = _agreement(preds, ref, gap, "served vit_s16")
@@ -1155,22 +1216,27 @@ def train_resnet18(dev) -> dict:
 
 def train_vit(dev) -> dict:
     """vit_s16 at full width and depth through ``trainer.train``: the
-    tiny-S configuration (K9, K10) at 128 px and the flash configuration
-    (K8) at 224 px, ``VIT_EPOCHS`` epochs of the DEBUG sample each with
+    tiny-S configuration (K9: the tensor-core kernel in training, the FFMA
+    kernel in validation; K10) at 128 px and the flash configuration (K8's
+    tensor-core kernel) at 224 px, ``VIT_EPOCHS`` epochs of the DEBUG sample each with
     validation and one checkpoint kept, then each again with
     ``attn_impl="full"`` on the
-    same seed and rows. The forward kernel must launch once per block in
-    every train step and every validation batch, K10 once per block in
-    every train step, the full runs none; step-1 losses within 1e-3 of the
+    same seed and rows. The forwards must launch once per block in every
+    train step and every validation batch on their kernels (flash: the
+    tensor-core kernel for both; tiny-S: the tensor-core kernel in train
+    steps, FFMA in validation), K10 once per block in every train step,
+    the full runs none; step-1 losses within 1e-3 of the
     full twin's. Returns the kernels' launches in the kernel runs."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
     from mpi_pytorch_tpu_torch.ops import flash_attention, fused_attention_small
     from mpi_pytorch_tpu_torch.train.trainer import train
 
     counters = {
-        "attention_small_forward": fused_attention_small.forward_counter,
+        "attention_small_forward_tc": fused_attention_small.forward_tc_counter,
+        "attention_small_forward_ffma": fused_attention_small.forward_ffma_counter,
         "attention_small_backward": fused_attention_small.backward_counter,
-        "flash_forward": flash_attention.counter,
+        "flash_forward_tc": flash_attention.tc_counter,
+        "flash_forward_ffma": flash_attention.ffma_counter,
     }
     with tempfile.TemporaryDirectory() as tmp:
         rows = len(load_manifests(_train_cfg(tmp))[0])
@@ -1201,10 +1267,12 @@ def train_vit(dev) -> dict:
                           "img_per_s": summary.images_per_sec,
                           "val_accuracy": summary.val_accuracy, "launches": counts}
             log({"train_vit": {"attn_impl": impl, "image": image, **runs[impl]}})
-        fwd = "flash_forward" if attn_impl == "flash" else "attention_small_forward"
         want = dict.fromkeys(counters, 0)
-        want[fwd] = VIT_BLOCKS * (steps + val_batches)
-        if attn_impl == "fused-small":
+        if attn_impl == "flash":
+            want["flash_forward_tc"] = VIT_BLOCKS * (steps + val_batches)
+        else:
+            want["attention_small_forward_tc"] = VIT_BLOCKS * steps
+            want["attention_small_forward_ffma"] = VIT_BLOCKS * val_batches
             want["attention_small_backward"] = VIT_BLOCKS * steps
         if runs[attn_impl]["launches"] != want:
             raise AssertionError(f"{attn_impl} launches {runs[attn_impl]['launches']}, want {want}")
@@ -1318,12 +1386,14 @@ def train_step_checks(dev) -> None:
 def vit_step_checks(dev) -> None:
     """K8, K9 and K10 inside the real vit_s16 train step, in f32 (TF32
     off), from the same seeded weights on the same three resident batches,
-    three ways per configuration: through the kernels; the same model with
-    the kernels' plain versions in their place; and ``attn_impl="full"``.
-    Losses rtol 1e-4 both ways; the step-1 gradients of ``patch_embed``
-    and block 0's q, k, v and out projections, kernels against plain
-    versions, within ``VIT_GRAD_GAP`` (relative L2). Then the time of one
-    bf16 train step on a resident batch, kernels and full, in turns."""
+    three ways per configuration: through the kernels (the forwards' FFMA
+    route, which must launch once per block in every step); the same model
+    with the kernels' plain versions in their place; and
+    ``attn_impl="full"``. Losses rtol 1e-4 both ways; the step-1 gradients
+    of ``patch_embed`` and block 0's q, k, v and out projections, kernels
+    against plain versions, within ``VIT_GRAD_GAP`` (relative L2). Then the
+    time of one bf16 train step on a resident batch, kernels and full, in
+    turns. Returns the FFMA forwards' launches in the kernel runs."""
     import contextlib
     from unittest import mock
 
@@ -1337,7 +1407,7 @@ def vit_step_checks(dev) -> None:
     plain_versions = {
         "fused-small": (
             (fas, "attention_small_forward",
-             lambda q, k, v, causal=False: full_attention(q, k, v, causal=causal)),
+             lambda q, k, v, causal=False, train=False: full_attention(q, k, v, causal=causal)),
             (fas, "attention_small_backward", fas.attention_small_backward_reference),
         ),
         "flash": (
@@ -1346,6 +1416,8 @@ def vit_step_checks(dev) -> None:
         ),
     }
     step = make_train_step(torch.float32)
+    ffma_name = {"flash": "flash_forward_ffma", "fused-small": "attention_small_forward_ffma"}
+    launches = {}
     for attn_impl, image in VIT_RUNS.items():
         batches = _resident_batches(dev, 3, SEED + 6, image)
 
@@ -1360,9 +1432,12 @@ def vit_step_checks(dev) -> None:
                 losses += [float(step(state, *b)["loss"]) for b in batches[1:]]
             return losses, grads
 
+        ffma = {"flash": fa.ffma_counter, "fused-small": fas.forward_ffma_counter}[attn_impl]
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                         allow_tf32=False):
+            ffma.reset()
             kernels = run(attn_impl)
+            launches[ffma_name[attn_impl]] = ffma.count
             plain = run(attn_impl, plain_versions[attn_impl])
             full = run("full")
         rel = {n: float((kernels[1][n] - plain[1][n]).norm() / plain[1][n].norm()) for n in watch}
@@ -1376,6 +1451,8 @@ def vit_step_checks(dev) -> None:
                 raise AssertionError(f"f32 vit {attn_impl} steps vs {what}: {kernels[0]} vs {other[0]}")
         if max(rel.values()) > VIT_GRAD_GAP:
             raise AssertionError(f"f32 vit {attn_impl}: step-1 gradients vs plain versions {rel}")
+        if launches[ffma_name[attn_impl]] != VIT_BLOCKS * len(batches):
+            raise AssertionError(f"f32 vit {attn_impl}: FFMA forward launches {launches}")
 
         (images, labels), = _resident_batches(dev, 1, SEED + 8, image)
         step16 = make_train_step(torch.bfloat16)
@@ -1386,6 +1463,7 @@ def vit_step_checks(dev) -> None:
             times[impl].append(time_ms(lambda i=impl: step16(states[i], images, labels), 5))
         log({"train_step_ms_vit": {"attn_impl": attn_impl, "image": image, "batch": TRAIN_BATCH,
                                    **{f"{k}_ms": v for k, v in times.items()}}})
+    return launches
 
 
 def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: int) -> None:
@@ -1487,8 +1565,8 @@ def main() -> int:
     stem_backward = check_stem_backward(dev, gen)
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
-    attn_fwd, attn_bwd = check_attention_small(dev, gen)
-    flash = check_flash(dev, gen)
+    attn_fwd, attn_fwd_f32, attn_bwd = check_attention_small(dev, gen)
+    flash, flash_f32 = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
     launches = serve_resnet18(dev)
@@ -1504,10 +1582,10 @@ def main() -> int:
     stem_argmax["launches"] = train_launches["stem_pool_argmax"]
     stem_backward["launches"] = train_launches["stem_pool_backward"]
     vit_launches = train_vit(dev)
-    for row in (attn_fwd, attn_bwd, flash):
-        row["launches"] = vit_launches[row["name"]]
     train_step_checks(dev)
-    vit_step_checks(dev)
+    vit_launches.update(vit_step_checks(dev))
+    for row in (attn_fwd, attn_fwd_f32, attn_bwd, flash, flash_f32):
+        row["launches"] = vit_launches[row["name"]]
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
         train_time_breakdown(
@@ -1518,10 +1596,12 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
-            flash, attn_fwd, attn_bwd)
+            flash, flash_f32, attn_fwd, attn_fwd_f32, attn_bwd)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["device_ms"]
+        if row["ms"] < row["bound_ms"]:
+            raise AssertionError(f"{row['name']}: {row['ms']} ms below its bound {row['bound_ms']} ms")
     log({"kernels": [{k: row[k] for k in keys} for row in rows]})
     log({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

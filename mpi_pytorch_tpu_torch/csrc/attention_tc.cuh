@@ -1,0 +1,423 @@
+// Tensor-core building blocks of the bf16 attention forwards on Hopper
+// (sm_90a): K8's in flash_attention.cu and K9's in fused_attention_small.cu.
+//
+// Products. `wgmma.mma_async` m64nNk16, bf16 operands, f32 sums: one
+// warpgroup (four warps, 128 threads) owns a 64-row q tile.
+//   - Scores s = q·kᵀ: q (A) and k (B) from shared memory, both K-major.
+//     q and k stay unscaled bf16, so every product is exact in f32; the
+//     scale is applied to each f32 score afterwards. For D = 64 the scale
+//     is 2⁻³ and s is bit for bit the TPU kernel's (q·scale)·kᵀ up to the
+//     order of summation; for any other D the products stay exact instead
+//     of rounding q·scale to bf16.
+//   - p·v: the softmax runs in registers on the score fragment, whose
+//     layout is the A-operand layout of the next product. The f32 p splits
+//     into bf16 terms, t0 = bf16(p), t1 = bf16(p − t0), t2 = bf16(p − t0 −
+//     t1), each residual exact in f32. v is bf16, so every tᵢ·v is an exact
+//     product; the wgmma steps (A from registers, v from shared memory,
+//     MN-major) sum them into one f32 accumulator. Two terms keep p to
+//     2⁻¹⁷ relative (|p − t0| ≤ 2⁻⁸·p, and t1 rounds that residual to 8
+//     significant bits); at vit_s16's shapes that leaves up to ~3e-6 on an
+//     output element, which crosses the kernels' check (one bf16 ulp plus
+//     1e-6 against the f32 plain version) at outputs near zero, about one
+//     element in a million on the card. The third term takes p to 2⁻²⁵,
+//     below f32's own rounding: p·v is the f32 product the TPU kernel
+//     takes. A single bf16 p would be off by up to 2⁻⁸ — a different
+//     function.
+//
+// Staging. q, k and v land in shared memory as bf16 by 16-byte `cp.async`
+// copies, straight into the layout wgmma's shared-memory descriptors read
+// with the 128-byte swizzle: rows of 64 elements (128 bytes; D padded up
+// to a multiple of 64 with zeros), the 16-byte chunk c of row r at
+// position c ^ (r % 8). Eight threads copy one whole 128-byte row, so a
+// warp's copy touches four full lines of device memory and four rows of
+// shared memory without a bank conflict; the output leaves the same way.
+// (With a layout whose copies split rows into half lines, issuing the
+// copies and the stores took most of K9's time on an H100.) No TMA
+// descriptor is encoded per call for operands whose strides change
+// per call (the fused-qkv projection's row stride is 3·H·D). Rows past S
+// are zero-filled, so no stale value (a NaN) meets a zero probability. The
+// kernels keep the next k/v block (K8) or the next head (K9) in flight
+// while the current one computes.
+//
+// Determinism: fixed-order sums (the k-steps ascending, then a fixed
+// shuffle tree within each quad of lanes), no atomics: two calls on the
+// same inputs give the same bits.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "attention_tiles.cuh"
+
+namespace mpt_tc {
+
+using mpt_attn::kNeg;
+using mpt_attn::Strides;
+
+constexpr int kWarpgroup = 128;
+
+// ---------------------------------------------------------------- tiles ---
+// D padded up to whole 64-element (128-byte) rows: the swizzle atom's width.
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + 63) / 64 * 64;
+}
+
+// A tile of R rows (R % 8 == 0) lies as "atoms" of R rows × 128 bytes, one
+// per 64 columns, atom a at a·R·128 bytes; row r of an atom at r·128 and
+// its 16-byte chunk c (c < 8) at ((c ^ r % 8)·16): the 128-byte swizzle.
+// Tiles start on 1024 bytes, so the swizzle follows the address bits as
+// wgmma expects. Chunk c of the whole row (c < padded/8) is in atom c / 8.
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)((c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory writes of this thread (the copies that landed, the output
+// staging) ordered before later wgmma reads, which go through the async
+// proxy. Each writer fences, then the block synchronizes.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// R rows × D elements of a [.., S, .., D] operand (row stride ss elements,
+// the head dim contiguous, rows 16-byte aligned) into the R-row tile at
+// dst; rows at or past `valid`, and the padding columns, are zero-filled.
+// Eight consecutive threads copy one row: a warp reads four whole 128-byte
+// rows and writes four swizzled rows of shared memory.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long long ss,
+                                          int valid, int t, int nt) {
+  constexpr int NC = padded<D>() / 8;  // 16-byte chunks a row
+  for (int i = t; i < R * NC; i += nt) {
+    const int r = i / NC, c = i % NC;
+    const bool ok = r < valid && c < D / 8;
+    cp_async16(dst + swz<R>(r, c), ok ? src + r * ss + c * 8 : src, ok);
+  }
+}
+
+// ---------------------------------------------------------------- wgmma ---
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), and the 128-byte swizzle (layout
+// type 1, bits 62–63).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (q or k of q·kᵀ), k-step ks (16 columns) of the rows at
+// `rows` in an R-row tile: 32 bytes into the swizzled row per k-step, the
+// next atom every four; 8-row groups 1024 bytes apart (SBO; LBO unused).
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t rows, int ks) {
+  return make_desc(rows + (ks >> 2) * (R * 128) + (ks & 3) * 32, 16, 1024);
+}
+
+// MN-major operand (v of p·v), k-step kk (16 keys) and columns 64j..64j+63
+// of an R-row tile: 64 columns a 128-byte row; 8-key groups 1024 bytes
+// apart (SBO), 64-column atoms R·128 bytes apart (LBO).
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk, int j) {
+  return make_desc(tile + j * (R * 128) + kk * 2048, R * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's register
+// operands across the asynchronous product (issue to wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define MPT_F8(d, i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 × 64] (+)= A[64 × 16] · B[16 × 64]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MPT_F8(d, 0), MPT_F8(d, 8), MPT_F8(d, 16), MPT_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 × 32] (+)= A[64 × 16] · B[16 × 32]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : MPT_F8(d, 0), MPT_F8(d, 8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 × 16] (+)= A[64 × 16] · B[16 × 16]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : MPT_F8(d, 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 × 64] += A[64 × 16] · B[16 × 64]: A in registers, B MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MPT_F8(d, 0), MPT_F8(d, 8), MPT_F8(d, 16), MPT_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef MPT_F8
+
+// The register fragments. A warpgroup's 64 × N f32 accumulator: warp w
+// holds rows 16w..16w+15; lane (g = lane/4, t = lane%4) holds, for each
+// 8-column block j, d[4j + 2i + e] = (row 16w + g + 8i, column 8j + 2t + e),
+// i, e ∈ {0, 1}. The A fragment of k-step kk (columns 16kk..16kk+15) is
+// the four bf16 pairs of d[8kk .. 8kk+7] in order, so the scores of one
+// product become the left operand of the next without leaving registers.
+
+// Row i's (i ∈ {0, 1}) max and sum over a quad of lanes: fixed shuffle tree.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The score fragment of N keys from column col0, this warp's rows from
+// row0: s ← s·scale, or −1e30 where the key lies at or past S or, when
+// causal, past the query.
+template <int N>
+__device__ __forceinline__ void scale_mask(float* s, float scale, int row0, int col0, int S,
+                                           int causal) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + 8 * j + 2 * t + (e & 1), row = row0 + g + 8 * (e >> 1);
+      s[4 * j + e] = (col >= S || (causal && col > row)) ? kNeg : s[4 * j + e] * scale;
+    }
+}
+
+// Whether a warp's block of N keys from col0 needs no mask: every key is
+// real and, when causal, none lies past the warp's first query (row0).
+// The same for the whole warp, so the branch on it does not diverge.
+template <int N>
+__device__ __forceinline__ bool unmasked(int row0, int col0, int S, int causal) {
+  return col0 + N <= S && !(causal && col0 + N - 1 > row0);
+}
+
+// The fragment's scores as the softmax takes them: unscaled where the
+// block needs no mask (the scale then rides in `exp_sum`'s FMA: for a
+// power-of-two scale, as for D = 64, fma(s, scale, −m) is bit for bit
+// s·scale − m), else scaled and masked by `scale_mask`. Returns the factor
+// still to apply (scale or 1).
+template <int N>
+__device__ __forceinline__ float prepare_scores(float* s, float scale, int row0, int col0, int S,
+                                                int causal) {
+  if (unmasked<N>(row0, col0, S, causal)) return scale;
+  scale_mask<N>(s, scale, row0, col0, S, causal);
+  return 1.f;
+}
+
+// Row i's max of the fragment times sc (every entry is ≥ −1e30; sc > 0,
+// so this is the max of the scaled scores).
+template <int N>
+__device__ __forceinline__ float row_max(const float* s, int i, float sc) {
+  float m = kNeg;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) m = fmaxf(m, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+  return quad_max(m) * sc;
+}
+
+// Row i: s ← exp(s·sc − m) in place; returns the row's sum of them.
+// exp(x) is taken as 2^(x·log2 e) (a multiply and the hardware's base-2
+// exponential, against ~8 instructions for expf: the softmax's largest
+// cost): x·log2 e rounds to f32 and ex2 is good to ~2⁻²², so p carries a
+// relative error of ~2e-7 for the p that matter (|x| of a few units),
+// against expf's ~1e-7. x itself is formed as before, so a fully masked
+// row still gets x = 0 and p = 1, as the TPU kernel's.
+template <int N>
+__device__ __forceinline__ float exp_sum(float* s, int i, float sc, float m) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float l = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p = exp2f(fmaf(s[4 * j + 2 * i + e], sc, -m) * kLog2e);
+      s[4 * j + 2 * i + e] = p;
+      l += p;
+    }
+  return quad_sum(l);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The three bf16 terms (t0, t1, t2) of the A fragments of K k-steps of
+// the f32 p fragment, round-to-nearest each.
+template <int K>
+__device__ __forceinline__ void split_p(const float* p, uint32_t (*t)[3][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float x0 = p[8 * kk + 2 * r], x1 = p[8 * kk + 2 * r + 1];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h);
+        t[kk][i][r] = bf16x2_bits(h);
+        x0 -= hf.x;  // exact: the residual of a rounding to fewer bits
+        x1 -= hf.y;
+      }
+    }
+}
+
+// o[64 × padded D] += A[64 × 16] · v[k-step kk's 16 keys × padded D]: one
+// n64 product per 64 columns of v's RV-row tile at sv.
+template <int D, int RV>
+__device__ __forceinline__ void pv_step(float* o, const uint32_t* a, uint32_t sv, int kk) {
+#pragma unroll
+  for (int j = 0; j < padded<D>() / 64; ++j)
+    wgmma_rs_n64(o + 32 * j, a, mnmajor_desc<RV>(sv, kk, j));
+}
+
+// o[64 × padded D] += p·v over N keys (N a multiple of 16), p the f32
+// score fragment, v's RV-row tile at sv. Up to 32 keys at a time: their
+// k-steps' three terms each (at most 24 registers, live until the product
+// completes), the products in a fixed order (k-step, then term).
+template <int D, int N, int RV>
+__device__ __forceinline__ void pv_product(float* o, const float* p, uint32_t sv) {
+  constexpr int K = N < 32 ? N / 16 : 2;  // k-steps a chunk
+#pragma unroll
+  for (int c = 0; c < N / (16 * K); ++c) {
+    uint32_t t[K][3][4];
+    split_p<K>(p + 8 * K * c, t);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pv_step<D, RV>(o, t[kk][i], sv, K * c + kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<padded<D>() / 2>(o);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) fence_regs<4>(t[kk][i]);
+  }
+}
+
+// s[64 × N] = q[64 rows at sq of an RQ-row tile] · k[N rows at sk of an
+// RK-row tile]ᵀ over D (N = 16, 32 or 64): issued, not waited for.
+template <int D, int N, int RQ, int RK>
+__device__ __forceinline__ void qk_issue(float* s, uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint64_t a = kmajor_desc<RQ>(sq, ks), b = kmajor_desc<RK>(sk, ks);
+    if constexpr (N == 64) wgmma_ss_n64(s, a, b, ks > 0);
+    else if constexpr (N == 32) wgmma_ss_n32(s, a, b, ks > 0);
+    else wgmma_ss_n16(s, a, b, ks > 0);
+  }
+}
+
+// The scores of one block: s = q·kᵀ, waited for.
+template <int D, int N, int RQ, int RK>
+__device__ __forceinline__ void qk_product(float* s, uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+  wgmma_fence();
+  qk_issue<D, N, RQ, RK>(s, sq, sk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<N / 2>(s);
+}
+
+// The 64-row output fragment o of the warpgroup whose rows start at row
+// `first` of the RQ-row tile at byte `tile` of smem, each row divided by
+// its l, written as bf16 through this warp's 16 rows of that tile (each
+// lane's bf16 pairs land in distinct banks), then read back as 16-byte
+// chunks — eight lanes a 128-byte row — and stored to rows row_base + r
+// (< S) of out, row stride `os`. Only this warp's rows are touched, so a
+// __syncwarp orders the two.
+template <int D, int RQ>
+__device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile, int first,
+                                           const float* o, const float (&l)[2],
+                                           __nv_bfloat16* out, long long os, int row_base, int S) {
+  constexpr int NC = D / 8;  // real 16-byte chunks a row
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < padded<D>() / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] / l[i], o[4 * j + 2 * i + 1] / l[i]);
+      const uint32_t at = tile + swz<RQ>(first + 16 * warp + g + 8 * i, j) + 4 * t;
+      *reinterpret_cast<uint32_t*>(smem + at) = bf16x2_bits(v);
+    }
+  __syncwarp();
+  for (int i = lane; i < 16 * NC; i += 32) {
+    const int r = 16 * warp + i / NC, c = i % NC;
+    if (row_base + r < S)
+      *reinterpret_cast<uint4*>(out + (row_base + r) * os + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + tile + swz<RQ>(first + r, c));
+  }
+}
+
+}  // namespace mpt_tc

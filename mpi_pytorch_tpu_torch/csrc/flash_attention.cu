@@ -1,6 +1,10 @@
 // Flash attention forward (K8): block-tiled online-softmax attention that
-// writes the output and the f32 logsumexp of every row, for head dims
-// D ≤ 128 (D % 4 == 0) and blocks of at most 128 queries and 128 keys.
+// writes the output and the f32 logsumexp of every row. Two kernels:
+//   - flash_fwd_tc_kernel, bf16 with D % 16 == 0 and D <= 128: tensor cores
+//     (attention_tc.cuh), the path vit_s16 trains through;
+//   - flash_fwd_kernel, f32 (and bf16 with any other D % 4 == 0, D <= 128):
+//     f32 FFMA on the CUDA cores (attention_tiles.cuh), blocks of at most
+//     128 queries and 128 keys as the caller gives them.
 //
 // Replaces mpi_pytorch_tpu/ops/flash_attention.py:53 `_attn_fwd_kernel`.
 // What it computes, per (batch·head, q-block): over the k-blocks in order,
@@ -9,20 +13,42 @@
 // l = α·l + Σ p; acc = acc·α + p·v. At the end out = acc / safe_l and
 // lse = m + log(safe_l), with safe_l = l where l > 0, else 1.
 //
-// Design. The TPU kernel carries (m, l, acc) in scratch memory across a
-// sequential grid axis over the k-blocks; a GPU grid has no order, so one
-// CTA per (batch·head, q-block) loops over the k-blocks itself. acc stays in
-// registers (4×4 micro-tiles, at most four a thread), m, l and α in shared
-// memory beside the q tile, one k/v tile and the block's scores: nothing of
-// size S×S reaches device memory. A causal CTA stops at the first k-block
-// that lies wholly past its last query — there p = 0 and α = 1, so the
-// skipped steps would change nothing. Keys past S are left out of the
-// block's sums, where the TPU kernel adds their exact zeros. q, k and v are
-// read in place as strided [B, S, H, D] views. Products are f32 FFMA
-// (attention_tiles.cuh): bounded by operations; tensor cores are later work.
+// Both kernels. The TPU kernel carries (m, l, acc) in scratch memory
+// across a sequential grid axis over the k-blocks; a GPU grid has no order,
+// so one CTA per (batch·head, q-block) loops over the k-blocks itself:
+// nothing of size S×S reaches device memory. A causal CTA stops at the
+// first k-block that lies wholly past its last query — there p = 0 and
+// α = 1, so the skipped steps would change nothing. q, k and v are read in
+// place as strided [B, S, H, D] views.
+//
+// The tensor-core kernel. Bound on an H100 by its bytes: q, k, v and out
+// in bf16 and the f32 lse, 77.7 MB at vit_s16's 224 px training shape
+// [128, 196, 6, 64], 23.2 µs at 3.35 TB/s; its four bf16 products (q·kᵀ,
+// and p·v as three: the split p of attention_tc.cuh keeps it f32-exact)
+// take 15.3 µs at 989 TFLOP/s. A CTA is two warpgroups, 128 queries
+// (64 each, scores and output in registers, m, l and α per row in
+// registers), over k/v blocks of 64 keys staged as bf16 in a two-stage
+// cp.async ring: block kb+1 is in flight while block kb computes. 49 KB of
+// shared memory at D = 64 (q 16 KB, two stages of k and v 32 KB, 1 KB of
+// alignment) and at most 128 registers a thread, so two CTAs share an SM.
+// What the card spends its time on is the per-score work on the CUDA cores
+// (mask, exponential, sums, the three-term split) and issuing the copies,
+// not the bytes or the products, so: a block with no masked key skips the
+// mask and folds the scale into the exponent's FMA; a last block of at
+// most 16 or 32 real keys takes a narrower product (196 keys leave 4 past
+// 192); the exponential is the hardware's base-2 one. The output leaves
+// through the q tile as 16-byte stores.
+//
+// The FFMA kernel. acc stays in registers (4×4 micro-tiles, at most four a
+// thread), m, l and α in shared memory beside the f32 q tile, one k/v tile
+// and the block's scores. Keys past S are left out of the block's sums,
+// where the TPU kernel adds their exact zeros. It holds the f32 route
+// (bounded by its operations at the f32 peak) and bf16 with a head dim the
+// tensor-core kernel does not take.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_tc.cuh"
 #include "attention_tiles.cuh"
 
 namespace {
@@ -173,6 +199,130 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, Str
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ tensor cores ---
+
+constexpr int kTcBlockQ = 128;  // two warpgroups of 64 queries
+constexpr int kTcBlockK = 64;
+
+// Shared memory: the q tile, then two stages of (k, v) blocks, bf16 rows
+// padded to whole 128-byte atoms, plus 1 KB to start the tiles on 1024.
+template <int D>
+constexpr int tc_smem_bytes() {
+  return (kTcBlockQ + 4 * kTcBlockK) * mpt_tc::padded<D>() * 2 + 1024;
+}
+
+// One k-block of N keys from k0 for this warpgroup's 64 queries: the
+// scores, the online update of m, l and acc·α, and acc += p·v.
+template <int D, int N>
+__device__ __forceinline__ void flash_block(float* acc, float (&m)[2], float (&l)[2], uint32_t sq,
+                                            uint32_t sk, uint32_t sv, float scale, int row0, int k0,
+                                            int S, int causal) {
+  using namespace mpt_tc;
+  float s[N / 2];
+  qk_product<D, N, kTcBlockQ, kTcBlockK>(s, sq, sk);
+  const float sc = prepare_scores<N>(s, scale, row0, k0, S, causal);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], row_max<N>(s, i, sc));
+    const float alpha = expf(m[i] - m_new);
+    l[i] = alpha * l[i] + exp_sum<N>(s, i, sc, m_new);
+    m[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < padded<D>() / 8; ++j) {
+      acc[4 * j + 2 * i] *= alpha;
+      acc[4 * j + 2 * i + 1] *= alpha;
+    }
+  }
+  pv_product<D, N, kTcBlockK>(acc, s, sv);
+}
+
+template <int D>
+__global__ void __launch_bounds__(2 * mpt_tc::kWarpgroup, D <= 64 ? 2 : 1)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, Strides st, int H, int S, int n_q, float scale,
+                    int causal) {
+  using namespace mpt_tc;
+  constexpr int NT = 2 * kWarpgroup, BQ = kTcBlockQ, BK = kTcBlockK;
+  constexpr uint32_t kTileQ = BQ * padded<D>() * 2, kTileK = BK * padded<D>() * 2;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t raw = smem_addr(tc_smem), s_q = (raw + 1023) & ~1023u;
+  unsigned char* smem = tc_smem + (s_q - raw);
+  const uint32_t s_kv = s_q + kTileQ;  // stage i: k, v at 2i·kTileK
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int bh = blockIdx.x / n_q, qb = blockIdx.x - bh * n_q;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = qb * BQ, last_q = min(q0 + BQ, S) - 1;
+  const long long base = b * st.sb + h * st.sh;
+  const __nv_bfloat16 *kh = k + base, *vh = v + base;
+
+  load_tile<D, BQ>(s_q, q + base + q0 * st.ss, st.ss, S - q0, tid, NT);
+  load_tile<D, BK>(s_kv, kh, st.ss, S, tid, NT);
+  load_tile<D, BK>(s_kv + kTileK, vh, st.ss, S, tid, NT);
+  cp_async_commit();
+
+  // k-blocks that hold a key at or before the CTA's last query.
+  const int n_k = causal ? last_q / BK + 1 : (S + BK - 1) / BK;
+  const int row0 = q0 + wg * 64 + warp * 16;  // this warp's first query
+  const uint32_t sq = s_q + wg * 64 * 128;     // this warpgroup's q rows
+  float acc[padded<D>() / 2];
+#pragma unroll
+  for (int i = 0; i < padded<D>() / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    if (kb + 1 < n_k) {  // the next block into the other stage
+      const int k1 = (kb + 1) * BK;
+      const uint32_t nxt = s_kv + ((kb + 1) & 1) * 2 * kTileK;
+      load_tile<D, BK>(nxt, kh + k1 * st.ss, st.ss, S - k1, tid, NT);
+      load_tile<D, BK>(nxt + kTileK, vh + k1 * st.ss, st.ss, S - k1, tid, NT);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // q and this block have landed
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sk = s_kv + (kb & 1) * 2 * kTileK, sv = sk + kTileK;
+    // A last block of at most 16 or 32 real keys takes a narrower product
+    // (S = 196: 4 keys past 192), so padding costs less of the softmax.
+    const int k0 = kb * BK, left = S - k0;
+    if (left > 32)
+      flash_block<D, 64>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
+    else if (left > 16)
+      flash_block<D, 32>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
+    else
+      flash_block<D, 16>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
+    __syncthreads();  // every reader of this stage is done before it refills
+  }
+  cp_async_wait<0>();
+
+  const float safe_l[2] = {l[0] > 0.f ? l[0] : 1.f, l[1] > 0.f ? l[1] : 1.f};  // fully masked rows
+  // The q tile is free (the loop ended on a barrier after the last product).
+  store_rows<D, BQ>(smem, 0, wg * 64, acc, safe_l, o + ((long long)b * S * H + h) * D,
+                    (long long)H * D, q0 + wg * 64, S);
+  if ((threadIdx.x & 3) == 0) {
+    const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + g + 8 * i;
+      if (row < S) lse[(long long)bh * S + row] = m[i] + logf(safe_l[i]);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, Strides st, int B,
+              int S, int H, float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = tc_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_q = (S + kTcBlockQ - 1) / kTcBlockQ;
+  flash_fwd_tc_kernel<D><<<n_q * B * H, 2 * mpt_tc::kWarpgroup, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, st, H, S, n_q,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v: strided [B, S, H, D] with the strides (sb, ss, sh) in elements
@@ -191,4 +341,26 @@ extern "C" int mpt_flash_fwd(const void* q, const void* k, const void* v, void* 
     return launch<__nv_bfloat16>(q, k, v, out, l, st, B, S, H, D, block_q, block_k, scale,
                                  causal, s);
   return launch<float>(q, k, v, out, l, st, B, S, H, D, block_q, block_k, scale, causal, s);
+}
+
+// The tensor-core kernel: q, k, v bf16, strided [B, S, H, D] as above with
+// every row 16-byte aligned and D % 16 == 0, D <= 128; out contiguous
+// [B, S, H, D] bf16; lse f32 [B·H, S]. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head dim it does not take).
+extern "C" int mpt_flash_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
+                                long long sb, long long ss, long long sh, int B, int S, int H,
+                                int D, float scale, int causal, void* stream) {
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (D) {
+#define MPT_CASE(d) \
+  case d:           \
+    return launch_tc<d>(q, k, v, out, l, st, B, S, H, scale, causal, s);
+    MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
+    MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
+#undef MPT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,5 +1,5 @@
 // Fused tiny-S attention, forward (K9) and recompute backward (K10), for
-// sequences of S ≤ 128 keys and head dims D ≤ 128 (D % 4 == 0).
+// sequences of S ≤ 128 keys and head dims D ≤ 128.
 //
 // Replaces mpi_pytorch_tpu/ops/fused_attention_small.py:135 `_fwd_kernel`
 // and :151 `_bwd_kernel`. What they compute, per (batch, head):
@@ -11,19 +11,49 @@
 //             dk = dsᵀ·q·scale (q unscaled); dv = pᵀ·do.
 // The residuals are q, k and v only: no logsumexp and no saved output.
 //
-// Design. One CTA per (batch, head) owns the whole row set in shared memory
-// (three f32 tiles: two [S][D] and the [S][S] scores), so the score tensor
-// and the softmax chain never touch device memory, and each CTA writes its
-// own dq, dk, dv: no atomics, deterministic. The TPU kernel's bh-grouping
-// (several heads stacked into one MXU tile with −1e30 cross-head blocks) and
-// its sublane padding of S exist for the TPU's 128×128 matrix unit and are
-// left behind. q, k and v are read in place as strided [B, S, H, D] views
-// of the projections, with no transpose to [B·H, S, D]. Products are f32
-// FFMA (attention_tiles.cuh), so the kernels are bounded by operations;
-// tensor cores (a bf16 p) are later work.
+// Three kernels:
+//   - attn_small_fwd_tc_kernel, the training forward for bf16 with
+//     D % 16 == 0 and D <= 128: tensor cores (attention_tc.cuh), the path
+//     vit_s16 trains through;
+//   - attn_small_fwd_kernel, the forward for f32, bf16 with any other
+//     D % 4 == 0, and every inference call (ops/fused_attention_small.py
+//     `_route`): f32 FFMA on the CUDA cores (attention_tiles.cuh);
+//   - attn_small_bwd_kernel, the backward, f32 FFMA for either dtype.
+//
+// The tensor-core forward. Bound on an H100 by its bytes: q, k, v read and
+// out written in bf16, 25.2 MB at vit_s16's 128 px training shape
+// [128, 64, 6, 64], 7.5 µs at 3.35 TB/s, against 1.6 µs for its four bf16
+// products (q·kᵀ, and p·v as three: the split p of attention_tc.cuh keeps
+// it f32-exact). So the design keeps copies in flight rather than
+// pushing the tensor-core rate: persistent CTAs, as many as fit on the
+// card, each walk an even share of the (batch, head) pairs with the next
+// head's q, k and v in flight (a two-stage cp.async ring) while the current
+// one computes, so 768 heads leave no part-empty second wave. One
+// warpgroup owns the 64 query rows of a head for S ≤ 64, two for
+// 64 < S ≤ 128; the whole key row (64 or 128 keys, zero-filled past S and
+// masked) is in registers, so the softmax is the whole-row one. 49 KB of
+// shared memory at D = 64 and at most 128 registers a thread: four CTAs
+// an SM. The copies land, and the output leaves through the head's q tile,
+// in the swizzled layout of attention_tc.cuh, whole 128-byte rows per
+// eight lanes: with a layout that split rows, issuing the copies and the
+// stores took most of the kernel's time.
+//
+// The FFMA kernels. One CTA per (batch, head) owns the whole row set in
+// shared memory (three f32 tiles: two [S][D] and the [S][S] scores), so the
+// score tensor and the softmax chain never touch device memory, and each
+// CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by
+// their operations at the f32 peak; the forward holds the f32 route and
+// bf16 with a head dim the tensor-core kernel does not take.
+//
+// The TPU kernel's bh-grouping (several heads stacked into one MXU tile
+// with −1e30 cross-head blocks) and its sublane padding of S exist for the
+// TPU's 128×128 matrix unit and are left behind. q, k and v are read in
+// place as strided [B, S, H, D] views of the projections, with no
+// transpose to [B·H, S, D].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_tc.cuh"
 #include "attention_tiles.cuh"
 
 namespace {
@@ -167,6 +197,113 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------ tensor cores ---
+
+// Shared memory: two stages of one head's (q, k, v) tiles of 64·NWG rows,
+// bf16 rows padded to whole 128-byte atoms, plus 1 KB to start the tiles
+// on 1024.
+template <int D, int NWG>
+constexpr int tc_small_smem_bytes() {
+  return 2 * 3 * 64 * NWG * mpt_tc::padded<D>() * 2 + 1024;
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * mpt_tc::kWarpgroup, NWG == 1 ? (D <= 64 ? 4 : 2) : 1)
+attn_small_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                         Strides st, int H, int S, int BH, int per_cta, float scale, int causal) {
+  using namespace mpt_tc;
+  constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup;
+  constexpr uint32_t kTile = NK * padded<D>() * 2, kStage = 3 * kTile;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t raw = smem_addr(tc_smem), s0 = (raw + 1023) & ~1023u;
+  unsigned char* smem = tc_smem + (s0 - raw);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int first = blockIdx.x * per_cta, end = min(first + per_cta, BH);
+  const int row0 = wg * 64 + warp * 16;  // this warp's first query
+
+  auto load_head = [&](int bh, int stage) {
+    const int b = bh / H, h = bh - b * H;
+    const long long base = b * st.sb + h * st.sh;
+    const uint32_t dst = s0 + stage * kStage;
+    load_tile<D, NK>(dst, q + base, st.ss, S, tid, NT);
+    load_tile<D, NK>(dst + kTile, k + base, st.ss, S, tid, NT);
+    load_tile<D, NK>(dst + 2 * kTile, v + base, st.ss, S, tid, NT);
+  };
+  load_head(first, 0);
+  cp_async_commit();
+
+  for (int bh = first; bh < end; ++bh) {
+    const int stage = (bh - first) & 1;
+    __syncthreads();  // the last head's output has left the other stage
+    if (bh + 1 < end) load_head(bh + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this head has landed
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sq = s0 + stage * kStage, sk = sq + kTile, sv = sk + kTile;
+
+    float s[NK / 2];
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kh = 0; kh < NWG; ++kh)  // 64 keys a product
+      qk_issue<D, 64, NK, NK>(s + 32 * kh, sq + wg * 64 * 128, sk + kh * 64 * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NK / 2>(s);
+
+    const float sc = prepare_scores<NK>(s, scale, row0, 0, S, causal);
+    float l[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = exp_sum<NK>(s, i, sc, row_max<NK>(s, i, sc));
+    float acc[padded<D>() / 2];
+#pragma unroll
+    for (int i = 0; i < padded<D>() / 2; ++i) acc[i] = 0.f;
+    pv_product<D, NK, NK>(acc, s, sv);
+
+    // This warpgroup's q rows are free: each warp's p·v product took all
+    // four warps' register operands, so all four are past q·kᵀ.
+    const int b = bh / H, h = bh - b * H;
+    store_rows<D, NK>(smem, sq - s0, wg * 64, acc, l, o + ((long long)b * S * H + h) * D,
+                      (long long)H * D, wg * 64, S);
+  }
+  cp_async_wait<0>();
+}
+
+template <int D, int NWG>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, Strides st, int B, int S,
+                  int H, float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = tc_small_smem_bytes<D, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
+  auto kernel = attn_small_fwd_tc_kernel<D, NWG>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
+          cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // An even share of the heads for every CTA that fits on the card at once.
+  const int BH = B * H, slots = sms * per_sm;
+  const int per_cta = (BH + slots - 1) / slots, grid = (BH + per_cta - 1) / per_cta;
+  kernel<<<grid, threads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), st, H, S, BH, per_cta,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd_tc_d(const void* q, const void* k, const void* v, void* o, Strides st, int B, int S,
+                    int H, float scale, int causal, cudaStream_t stream) {
+  if (S <= 64) return launch_fwd_tc<D, 1>(q, k, v, o, st, B, S, H, scale, causal, stream);
+  return launch_fwd_tc<D, 2>(q, k, v, o, st, B, S, H, scale, causal, stream);
+}
+
 }  // namespace
 
 // q, k, v: strided [B, S, H, D] with the strides (sb, ss, sh) in elements
@@ -180,6 +317,28 @@ extern "C" int mpt_attn_small_fwd(const void* q, const void* k, const void* v, v
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_fwd<__nv_bfloat16>(q, k, v, out, st, B, S, H, D, scale, causal, s);
   return launch_fwd<float>(q, k, v, out, st, B, S, H, D, scale, causal, s);
+}
+
+// The tensor-core forward: q, k, v bf16, strided [B, S, H, D] as above with
+// every row 16-byte aligned, S <= 128, D % 16 == 0 and D <= 128; out
+// contiguous [B, S, H, D] bf16. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int mpt_attn_small_fwd_tc(const void* q, const void* k, const void* v, void* out,
+                                     long long sb, long long ss, long long sh, int B, int S, int H,
+                                     int D, float scale, int causal, void* stream) {
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > 128) return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define MPT_CASE(d) \
+  case d:           \
+    return launch_fwd_tc_d<d>(q, k, v, out, st, B, S, H, scale, causal, s);
+    MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
+    MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
+#undef MPT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // q, k, v as above; dout, dq, dk, dv: contiguous [B, S, H, D].

@@ -16,6 +16,7 @@ import torch
 # full 700 W power limit: the denominators of a kernel's bound.
 H100_PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 H100_PEAK_INT8_OPS = 1979e12  # tensor cores, dense int8
+H100_PEAK_TF32_FLOPS = 495e12  # tensor cores, dense TF32
 H100_PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 H100_PEAK_HBM_BYTES_PER_S = 3.35e12
 

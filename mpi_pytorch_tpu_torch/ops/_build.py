@@ -17,7 +17,7 @@ refused launch (too many threads, too much shared memory) fails the call
 instead of silently never running. The wrappers share the rest of their
 launch plumbing here too: :class:`LaunchCounter`, :func:`on_cpu`,
 :func:`stream`, ``DTYPE_CODE`` and the attention kernels'
-:func:`attention_layout`.
+:func:`attention_route` and :func:`attention_layout`.
 """
 
 from __future__ import annotations
@@ -87,6 +87,10 @@ SIGNATURES = {
     # q, k, v, out, lse, q/k/v strides, B, S, H, D, block_q, block_k, scale,
     # causal, dtype, stream
     "mpt_flash_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # the tensor-core forwards (bf16): q, k, v, out[, lse], q/k/v strides,
+    # B, S, H, D, scale, causal, stream
+    "mpt_attn_small_fwd_tc": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
+    "mpt_flash_fwd_tc": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
 }
 
 # The dtype argument of every C entry point.
@@ -250,3 +254,24 @@ def attention_layout(
     if d % 4 or d > max_head_dim:
         raise ValueError(f"{what} kernel needs D % 4 == 0 and D <= {max_head_dim}, got D={d}")
     return (q.stride(0), q.stride(1), q.stride(2)), DTYPE_CODE[q.dtype]
+
+
+def attention_route(dtype: torch.dtype, d: int) -> str:
+    """Which forward kernel an attention wrapper launches for q of
+    ``dtype`` and head dim ``d``: ``"tensor_core"`` for bf16 with D a
+    multiple of 16 up to 128 (wgmma takes k-steps of 16 bf16), else
+    ``"ffma"`` (f32, or bf16 with any other D; the f32 FFMA kernels).
+    A stated rule, never a fallback: a launch on either route that fails
+    raises."""
+    return "tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "ffma"
+
+
+def require_16b_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
+    """The tensor-core kernels copy rows of q, k and v in 16-byte pieces:
+    raises unless each starts on 16 bytes and their (shared) B, S, H
+    strides are multiples of 8 bf16 elements."""
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(x % 8 for x in q.stride()[:3]):
+        raise ValueError(
+            f"{what} tensor-core kernel needs q, k, v on 16-byte boundaries and strides "
+            f"multiple of 8 elements, got strides {q.stride()}"
+        )

@@ -4,10 +4,14 @@ S×S tensor, with a blocked backward from the saved logsumexp.
 Counterpart of ``mpi_pytorch_tpu/ops/flash_attention.py``. The same
 function as ``full_attention`` over [B, S, H, D] inputs.
 
-- The forward is the CUDA kernel in ``csrc/flash_attention.cu`` (TPU
+- The forward is a CUDA kernel in ``csrc/flash_attention.cu`` (TPU
   ``_attn_fwd_kernel``): one CTA per (batch·head, q-block) runs the online
   recurrence over the k-blocks and writes the output and the f32
-  logsumexp of every row.
+  logsumexp of every row. Two routes, by :func:`_build.attention_route`:
+  bf16 with D % 16 == 0 (D ≤ 128) goes to the tensor-core kernel (wgmma,
+  p·v through a p split into three bf16 terms that keeps it f32-exact), which
+  chooses its own tiles for Hopper (128 queries, k/v blocks of 64);
+  everything else to the f32 FFMA kernel, blocked as the caller says.
 - The backward is the JAX ``_bwd_blocked`` in torch, block for block: per
   k-block, the probabilities recomputed from the saved logsumexp, then dv,
   dp, ds, dq (accumulated) and dk — O(S·block) memory, never S×S. The JAX
@@ -15,10 +19,11 @@ function as ``full_attention`` over [B, S, H, D] inputs.
   kernel here either.
 
 Block sizes follow the JAX wrapper: ``min(block, max(8, S))``, 128 by
-default. Padded keys get −1e30 and a fully masked row's sum counts as 1.
-On a CUDA tensor the forward launches its kernel (f32 or bf16, D % 4 == 0,
-D ≤ 128, blocks ≤ 128) or raises; on a CPU tensor it runs its plain
-version, :func:`flash_forward_reference`.
+default; they set the FFMA kernel's tiles, the plain version's and the
+blocked backward's. Padded keys get −1e30 and a fully masked row's sum
+counts as 1. On a CUDA tensor the forward launches its route's kernel
+(f32 or bf16, D % 4 == 0, D ≤ 128, blocks ≤ 128) or raises; on a CPU
+tensor it runs its plain version, :func:`flash_forward_reference`.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import torch
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
-# Launches of the forward kernel (the plain version never counts).
-counter = _build.LaunchCounter()
+# Launches of the forward kernel of each route (the plain version never
+# counts): the tensor-core kernel (bf16, D % 16 == 0) and the FFMA kernel.
+tc_counter = _build.LaunchCounter()
+ffma_counter = _build.LaunchCounter()
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -56,8 +63,11 @@ def flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, S, H, D] in q's dtype, lse f32 [B, H, S]): the CUDA kernel
-    for CUDA tensors (blocks as given), the plain version for CPU tensors."""
+    """(out [B, S, H, D] in q's dtype, lse f32 [B, H, S]): for CUDA tensors
+    the kernel of :func:`_build.attention_route` — the tensor-core kernel
+    (its own tiles: ``block_q``/``block_k`` are checked but do not shape
+    it) or the FFMA kernel (blocks as given); the plain version for CPU
+    tensors."""
     check_qkv(q, k, v)
     if _build.on_cpu(q, "flash_attention"):
         return flash_forward_reference(q, k, v, causal)
@@ -69,15 +79,23 @@ def flash_forward(
         )
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
+    tensor_core = _build.attention_route(q.dtype, d) == "tensor_core"
+    if tensor_core:
+        _build.require_16b_rows(q, k, v, "flash_attention")
     lib = _build.load_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), sb, ss, sh)
     with torch.cuda.device(q.device):
-        rc = lib.mpt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            sb, ss, sh, bsz, s, h, d, block_q, block_k, d**-0.5, int(causal), code,
-            _build.stream(q.device),
-        )
+        if tensor_core:
+            rc = lib.mpt_flash_fwd_tc(
+                *ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device)
+            )
+        else:
+            rc = lib.mpt_flash_fwd(
+                *ptrs, bsz, s, h, d, block_q, block_k, d**-0.5, int(causal), code,
+                _build.stream(q.device),
+            )
     _build.check(rc, "flash_attention forward")
-    counter.add()
+    (tc_counter if tensor_core else ffma_counter).add()
     return out, lse
 
 

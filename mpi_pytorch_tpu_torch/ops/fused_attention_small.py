@@ -8,7 +8,13 @@ it is ``full_attention`` (the function's definition, not a fallback on
 failure). Two CUDA kernels in ``csrc/fused_attention_small.cu`` carry it:
 
 - the forward (TPU ``_fwd_kernel``): the whole row set of one (batch,
-  head) in shared memory, a full-row max/exp/sum, AV, then ÷ l;
+  head) on one CTA, a full-row max/exp/sum, AV, then ÷ l. Two kernels, by
+  :func:`_route`: the training forward in bf16 with D % 16 == 0 runs the
+  tensor-core kernel (wgmma, p·v through a split-bf16 p that keeps it
+  f32-exact; persistent CTAs with the next head's q, k, v in flight);
+  everything else — f32, other D, and every inference call (serving,
+  validation) — the f32 FFMA kernel, whose sums run in the plain
+  version's order (see :func:`_route`);
 - the backward (TPU ``_bwd_kernel``): recomputes p (normalized before
   use) and o = p·v, then Δ = Σ do·o, ds = p·(do·vᵀ − Δ), dq = ds·k·scale,
   dk = dsᵀ·q·scale, dv = pᵀ·do — each (batch, head) writes its own
@@ -19,9 +25,9 @@ as the JAX ``_attn_grouped_fwd`` saves. q, k and v are read as the
 projections give them (strided [B, S, H, D] views); the JAX wrapper's
 transpose to [B·H, S, D], its bh-grouping and its sublane padding of S are
 TPU layout and stay behind. On a CUDA tensor each wrapper launches its
-kernel (f32 or bf16, D % 4 == 0) or raises; on a CPU tensor it runs its
-plain version: ``full_attention`` forward, :func:`attention_small_backward_reference`
-backward.
+(route's) kernel (f32 or bf16, D % 4 == 0) or raises; on a CPU tensor it
+runs its plain version: ``full_attention`` forward,
+:func:`attention_small_backward_reference` backward.
 """
 
 from __future__ import annotations
@@ -31,8 +37,11 @@ import torch
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
-# Launches of each CUDA kernel (the plain versions never count).
-forward_counter = _build.LaunchCounter()
+# Launches of each CUDA kernel (the plain versions never count): the
+# forward's tensor-core kernel (bf16, D % 16 == 0) and FFMA kernel, and
+# the backward.
+forward_tc_counter = _build.LaunchCounter()
+forward_ffma_counter = _build.LaunchCounter()
 backward_counter = _build.LaunchCounter()
 
 # The tiny-S envelope (the JAX module's): every per-head score matrix fits
@@ -43,11 +52,29 @@ MAX_HEAD_DIM = 128
 _NEG = -1e30  # the kernels' finite mask value
 
 
+def _route(dtype: torch.dtype, d: int, train: bool) -> str:
+    """The forward's kernel: the tensor cores (:func:`_build.attention_route`)
+    for the training forward only; inference keeps the FFMA kernel.
+
+    Why inference stays on FFMA: both kernels are within one bf16 ulp of
+    the plain version on every element, but the FFMA kernel sums q·kᵀ in
+    the order of the f32 GEMM the plain path runs, so its scores are the
+    plain path's bits; the tensor cores sum in another order. Served
+    vit_s16 answers then differ from the plain path's on a few more near
+    ties (top-2 gaps ≤ 1.1e-3 of the max, below bf16's resolution): 3–5 of
+    256 on the serving check's seeded images against the FFMA kernel's 2,
+    past its 99 % rule (H100 runs; ``PERF.md`` §6)."""
+    route = _build.attention_route(dtype, d)
+    return route if train else "ffma"
+
+
 def attention_small_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False, *,
+    train: bool = False,
 ) -> torch.Tensor:
-    """The forward inside the envelope: the CUDA kernel for CUDA tensors,
-    ``full_attention`` for CPU tensors. Output [B, S, H, D] in q's dtype,
+    """The forward inside the envelope: for CUDA tensors the kernel of
+    :func:`_route` (``train``: the forward of a training step), for CPU
+    tensors ``full_attention``. Output [B, S, H, D] in q's dtype,
     contiguous."""
     check_qkv(q, k, v)
     if _build.on_cpu(q, "fused_attention_small"):
@@ -57,14 +84,22 @@ def attention_small_forward(
     if s > MAX_SEQ:
         raise ValueError(f"fused_attention_small kernel needs S <= {MAX_SEQ}, got S={s}")
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
+    tensor_core = _route(q.dtype, d, train) == "tensor_core"
+    if tensor_core:
+        _build.require_16b_rows(q, k, v, "fused_attention_small")
     lib = _build.load_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sb, ss, sh)
     with torch.cuda.device(q.device):
-        rc = lib.mpt_attn_small_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sb, ss, sh,
-            bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device),
-        )
+        if tensor_core:
+            rc = lib.mpt_attn_small_fwd_tc(
+                *ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device)
+            )
+        else:
+            rc = lib.mpt_attn_small_fwd(
+                *ptrs, bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device)
+            )
     _build.check(rc, "fused_attention_small forward")
-    forward_counter.add()
+    (forward_tc_counter if tensor_core else forward_ffma_counter).add()
     return out
 
 
@@ -132,7 +167,7 @@ class _FusedSmall(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return attention_small_forward(q, k, v, causal)
+        return attention_small_forward(q, k, v, causal, train=True)
 
     @staticmethod
     def backward(ctx, do):
@@ -146,7 +181,8 @@ def fused_attention_small(
 ) -> torch.Tensor:
     """Tiny-S attention over [B, S, H, D] inputs, the same function as
     ``full_attention``. Inside the envelope (S ≤ 128, D ≤ 128) the forward
-    kernel, and with a gradient to take :class:`_FusedSmall`; outside it
+    kernel (inference) or, with a gradient to take, :class:`_FusedSmall`
+    (the training forward and the backward); outside it
     ``full_attention``."""
     check_qkv(q, k, v)
     if q.shape[1] > MAX_SEQ or q.shape[-1] > MAX_HEAD_DIM:
