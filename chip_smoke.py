@@ -19,10 +19,12 @@ Phases (any failure raises and the script exits non-zero):
    predict head (K7: predictions equal on every row, B = 1, 8, 512), the
    training cross-entropy head's forward (K5) and backward (K6) at batch
    128, the tiny-S attention forward (K9) and backward (K10) at vit_s16's
-   128 px shape (and S = 50, 65, causal), and the flash forward (K8) at
-   its 224 px shape and a longer causal S — K8 and K9 on both routes, the
-   bf16 tensor-core kernels and the f32 FFMA kernels, two calls bitwise
-   equal; no measured time may read below its bound;
+   128 px shape (and S = 50, 65, 128, causal; K10 also at D = 32, 128,
+   40), and the flash forward (K8) at its 224 px shape and a longer
+   causal S — K8, K9 and K10 on both routes, the bf16 tensor-core kernels
+   and the f32 FFMA kernels, two calls bitwise equal; no measured time
+   may read below its bound; and the flash backward's yardstick line
+   (the blocked torch backward beside SDPA's backward);
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
@@ -51,7 +53,7 @@ Phases (any failure raises and the script exits non-zero):
    fall; then the same run with the plain stem (step-1 loss within 1e-3);
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
-   block's forward, K10 in every block's backward) and ``flash`` at 224 px
+   block's forward, K10's in every block's backward) and ``flash`` at 224 px
    (K8's tensor-core kernel), each with its launches counted exactly (the
    FFMA forwards none) and its step-1 loss within 1e-3 of an
    ``attn_impl="full"`` twin's;
@@ -60,7 +62,8 @@ Phases (any failure raises and the script exits non-zero):
    gradients and ``bn1`` after three steps rtol 1e-4; against the plain
    stem, losses rtol 1e-4; and the device time of one bf16 train step on
    a resident batch, fused and plain, in turns; then K8/K9 (their FFMA
-   kernels, counted) and K10 inside the f32 vit_s16 step the same way
+   kernels, counted) and K10 (its FFMA kernel, counted) inside the f32
+   vit_s16 step the same way
    (losses rtol 1e-4, step-1 gradients within ``VIT_GRAD_GAP``);
 9. where a training step's time goes, for resnet18 and both vit_s16
    configurations: the host loader alone, the host's enqueue time against
@@ -76,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -132,6 +136,18 @@ HEAD_STEPS = 5
 
 def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol (the
+    ``<length><name>`` that ends in ``_kernel``), as ptxas reports it."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for i in range(end):
+        n = re.match(r"\d+", mangled[i:])
+        if n and i + len(n.group()) + int(n.group()) == end:
+            args = re.match(r"I.*?EE", mangled[end:])
+            return mangled[i + len(n.group()):end] + (args.group() if args else "")
+    return mangled
 
 
 def time_ms(fn, iters: int) -> float:
@@ -635,24 +651,51 @@ def _kernel_row(name: str, source: str, line: str, shape, dtype, err: float, fn,
     return row
 
 
-def check_attention_small(dev, gen) -> tuple[dict, dict, dict]:
-    """K9 on both kernels and K10 against their plain versions at vit_s16's
-    128 px shape, at a padded S = 50 and S = 65, and causal: K9's training
-    forward in bf16 (the tensor-core kernel) against ``full_attention``
-    within one bf16 ulp, its inference forward in bf16 and its f32 forward
-    (the FFMA kernel) within one bf16 ulp and rtol/atol 2e-5
-    (``_attn_check``), two calls bitwise equal on each; K10's dq, dk, dv (bf16) against
-    autograd through ``full_attention`` in f32 (``_grad_check``), two calls
-    bitwise equal. Then each timed beside its plain version and
+def _check_k10(fas, full_attention, q, k, v, do, causal: bool, what: str) -> float:
+    """K10 on its route's kernel against autograd through ``full_attention``
+    in f32 (``_grad_check``), two calls bitwise equal, and the route's
+    counter (and only it) moved by the two launches. Returns the max abs
+    error."""
+    from mpi_pytorch_tpu_torch.ops import _build
+
+    tc = _build.attention_route(q.dtype, q.shape[-1]) == "tensor_core"
+    counters = (fas.backward_tc_counter, fas.backward_ffma_counter)
+    before = [c.count for c in counters]
+    grads = fas.attention_small_backward(q, k, v, do, causal)
+    again = fas.attention_small_backward(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    if [c.count - n for c, n in zip(counters, before)] != ([2, 0] if tc else [0, 2]):
+        raise AssertionError(f"{what}: launches went to the wrong route")
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    full_attention(*leaves, causal=causal).backward(do.float())
+    return max(_grad_check(got, leaf.grad, f"{what} {name}")
+               for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves))
+
+
+def check_attention_small(dev, gen) -> tuple[dict, ...]:
+    """K9 on both kernels and K10 on both kernels against their plain
+    versions at vit_s16's 128 px shape, at a padded S = 50, S = 65, S =
+    128 and causal: K9's training forward in bf16 (the tensor-core kernel)
+    against ``full_attention`` within one bf16 ulp, its inference forward
+    in bf16 and its f32 forward (the FFMA kernel) within one bf16 ulp and
+    rtol/atol 2e-5 (``_attn_check``), two calls bitwise equal on each;
+    K10's dq, dk, dv against autograd through ``full_attention`` in f32
+    (``_grad_check``), two calls bitwise equal — the tensor-core kernel
+    (bf16, D = 64) at every S, and at D = 32, D = 128 and the envelope's
+    corner S = 128, D = 128; the FFMA kernel at f32 and at bf16 D = 40.
+    Then each timed beside its plain version and
     ``scaled_dot_product_attention`` (its backward for K10) in the same
-    dtype. Returns the rows (K9 tensor-core, K9 FFMA, K10)."""
+    dtype. Returns the rows (K9 tensor-core, K9 FFMA, K10 tensor-core,
+    K10 FFMA)."""
     from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
     from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
 
     b, s, h, d = ATTN_SMALL_SHAPE
     fwd_err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
-    bwd_err = 0.0
-    for seq, causal in ((s, False), (50, False), (65, False), (s, True)):
+    bwd_err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
+    for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True)):
         tag = f"S={seq}{', causal' if causal else ''}"
         for dtype, train, route in ((torch.bfloat16, True, "tensor-core"),
                                     (torch.bfloat16, False, "FFMA"), (torch.float32, True, "FFMA")):
@@ -666,16 +709,17 @@ def check_attention_small(dev, gen) -> tuple[dict, dict, dict]:
                 fwd_err[dtype] = max(fwd_err[dtype], err)
             if not torch.equal(out, again):
                 raise AssertionError(f"{what}: two calls on the same inputs differ")
-        q, k, v, do = _qkv(gen, (b, seq, h, d), dev, 4)
-        grads = fas.attention_small_backward(q, k, v, do, causal)
-        again = fas.attention_small_backward(q, k, v, do, causal)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
-            raise AssertionError(f"K10 {tag}: two calls on the same inputs differ")
-        leaves = [t.float().requires_grad_() for t in (q, k, v)]
-        full_attention(*leaves, causal=causal).backward(do.float())
-        for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves):
-            bwd_err = max(bwd_err, _grad_check(got, leaf.grad, f"K10 {name} ({tag})"))
+        for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "FFMA")):
+            q, k, v, do = _qkv(gen, (b, seq, h, d), dev, 4, dtype)
+            bwd_err[dtype] = max(bwd_err[dtype], _check_k10(
+                fas, full_attention, q, k, v, do, causal, f"K10 {route} {tag}"))
+    # The envelope's other head dims: the tensor-core kernel at D = 32 and
+    # 128 (and S = 128 with D = 128, where its shared memory holds one
+    # stage), the FFMA kernel at a bf16 D it does not take.
+    for shape, route in (((b // 2, s, h, 32), "tensor-core"), ((b // 2, s, h, 128), "tensor-core"),
+                         ((8, 128, h, 128), "tensor-core"), ((b // 2, s, h, 40), "FFMA")):
+        q, k, v, do = _qkv(gen, shape, dev, 4)
+        _check_k10(fas, full_attention, q, k, v, do, False, f"K10 {route} {list(shape)} bf16")
 
     source = "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu"
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -692,22 +736,24 @@ def check_attention_small(dev, gen) -> tuple[dict, dict, dict]:
             lambda: full_attention(q, k, v), lambda: sdpa(qt, kt, vt), 4 * q.numel() * q.element_size(),
             _attn_work(b, s, h, d, bf16_products=1, split_products=1, per_score=4, per_elem=2,
                        f32=dtype == torch.float32), 50, 20))
-    q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4)
-    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-    out_t, dot = sdpa(*leaves), do.transpose(1, 2).contiguous()
-    # q, k, v, do read; dq, dk, dv written (bf16). q·kᵀ and dp = do·vᵀ
-    # (bf16), dv = pᵀ·do, dq = ds·k, dk = dsᵀ·q (split); per score the
-    # softmax (4) and its normalizing (1), Δ = Σ p·dp (2), ds = p·(dp − Δ)
-    # (2) — Δ needs no recomputed o = p·v; per element q·scale, dq·scale,
-    # dk·scale.
-    rows.append(_kernel_row(
-        "attention_small_backward", source, "mpi_pytorch_tpu/ops/fused_attention_small.py:151",
-        ATTN_SMALL_SHAPE, torch.bfloat16, bwd_err,
-        lambda: fas.attention_small_backward(q, k, v, do),
-        lambda: fas.attention_small_backward_reference(q, k, v, do),
-        lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True), 14 * q.numel(),
-        _attn_work(b, s, h, d, bf16_products=2, split_products=3, per_score=9, per_elem=3),
-        50, 20))
+    for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
+        q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4, dtype)
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+        out_t, dot = sdpa(*leaves), do.transpose(1, 2).contiguous()
+        # q, k, v, do read; dq, dk, dv written. q·kᵀ and dp = do·vᵀ (bf16),
+        # dv = pᵀ·do, dq = ds·k, dk = dsᵀ·q (split); per score the softmax
+        # (4) and its normalizing (1), Δ = Σ p·dp (2), ds = p·(dp − Δ) (2) —
+        # Δ needs no recomputed o = p·v; per element q·scale, dq·scale,
+        # dk·scale.
+        rows.append(_kernel_row(
+            f"attention_small_backward_{suffix}", source,
+            "mpi_pytorch_tpu/ops/fused_attention_small.py:151", ATTN_SMALL_SHAPE, dtype,
+            bwd_err[dtype], lambda: fas.attention_small_backward(q, k, v, do),
+            lambda: fas.attention_small_backward_reference(q, k, v, do),
+            lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True),
+            7 * q.numel() * q.element_size(),
+            _attn_work(b, s, h, d, bf16_products=2, split_products=3, per_score=9, per_elem=3,
+                       f32=dtype == torch.float32), 50, 20))
     return tuple(rows)
 
 
@@ -718,8 +764,10 @@ def check_flash(dev, gen) -> tuple[dict, dict]:
     rtol/atol 2e-5 (``_attn_check``); the lse within rtol/atol 1e-5 of
     ``torch.logsumexp`` of the plain scores; two calls bitwise equal. Then
     each route timed at the 224 px shape beside its plain version and
-    ``scaled_dot_product_attention``. Returns the rows (tensor-core,
-    FFMA)."""
+    ``scaled_dot_product_attention``, after one ``flash_backward_yardstick``
+    line: the blocked torch backward's busy time beside SDPA's backward
+    and their bound. Returns the rows (tensor-core, FFMA)."""
+    from mpi_pytorch_tpu_torch.hardware import bound_ms
     from mpi_pytorch_tpu_torch.ops import flash_attention as fa
 
     err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
@@ -739,6 +787,29 @@ def check_flash(dev, gen) -> tuple[dict, dict]:
                 raise AssertionError(f"{tag}: two calls on the same inputs differ")
             err[dtype] = max(err[dtype], float((lse - ref_lse).abs().max()))
     b, s, h, d = FLASH_SHAPE
+    # The yardstick that places a flash backward kernel (no TPU kernel
+    # stands behind the blocked backward, so it is no row of the kernels
+    # line): the busy time of ``flash_backward`` and of SDPA's backward on
+    # the same inputs, and the bound of the function both compute (bytes
+    # as K10's plus out and the lse read; products and elementwise work as
+    # K10's).
+    q, k, v, do = _qkv(gen, FLASH_SHAPE, dev, 4)
+    blk = min(fa.DEFAULT_BLOCK_K, max(8, s))
+    out, lse = fa.flash_forward(q, k, v, False, blk, blk)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    out_t = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    dot = do.transpose(1, 2).contiguous()
+    bound, by = bound_ms(8 * q.numel() * q.element_size() + 4 * b * h * s,
+                         *_attn_work(b, s, h, d, bf16_products=2, split_products=3,
+                                     per_score=9, per_elem=3))
+    log({"flash_backward_yardstick": {
+        "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "block_k": blk,
+        "flash_backward_device_ms": device_ms(
+            lambda: fa.flash_backward(q, k, v, out, lse, do, False, blk), 10),
+        "sdpa_backward_device_ms": device_ms(
+            lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True), 20),
+        "bound_ms": bound, "bound_by": by,
+    }})
     rows = []
     for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
         q, k, v = _qkv(gen, FLASH_SHAPE, dev, 3, dtype)
@@ -1224,9 +1295,10 @@ def train_vit(dev) -> dict:
     same seed and rows. The forwards must launch once per block in every
     train step and every validation batch on their kernels (flash: the
     tensor-core kernel for both; tiny-S: the tensor-core kernel in train
-    steps, FFMA in validation), K10 once per block in every train step,
-    the full runs none; step-1 losses within 1e-3 of the
-    full twin's. Returns the kernels' launches in the kernel runs."""
+    steps, FFMA in validation), K10's tensor-core kernel once per block in
+    every train step (its FFMA kernel never), the full runs none; step-1
+    losses within 1e-3 of the full twin's. Returns the kernels' launches
+    in the kernel runs."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
     from mpi_pytorch_tpu_torch.ops import flash_attention, fused_attention_small
     from mpi_pytorch_tpu_torch.train.trainer import train
@@ -1234,7 +1306,8 @@ def train_vit(dev) -> dict:
     counters = {
         "attention_small_forward_tc": fused_attention_small.forward_tc_counter,
         "attention_small_forward_ffma": fused_attention_small.forward_ffma_counter,
-        "attention_small_backward": fused_attention_small.backward_counter,
+        "attention_small_backward_tc": fused_attention_small.backward_tc_counter,
+        "attention_small_backward_ffma": fused_attention_small.backward_ffma_counter,
         "flash_forward_tc": flash_attention.tc_counter,
         "flash_forward_ffma": flash_attention.ffma_counter,
     }
@@ -1273,7 +1346,7 @@ def train_vit(dev) -> dict:
         else:
             want["attention_small_forward_tc"] = VIT_BLOCKS * steps
             want["attention_small_forward_ffma"] = VIT_BLOCKS * val_batches
-            want["attention_small_backward"] = VIT_BLOCKS * steps
+            want["attention_small_backward_tc"] = VIT_BLOCKS * steps
         if runs[attn_impl]["launches"] != want:
             raise AssertionError(f"{attn_impl} launches {runs[attn_impl]['launches']}, want {want}")
         if any(runs["full"]["launches"].values()):
@@ -1386,14 +1459,15 @@ def train_step_checks(dev) -> None:
 def vit_step_checks(dev) -> None:
     """K8, K9 and K10 inside the real vit_s16 train step, in f32 (TF32
     off), from the same seeded weights on the same three resident batches,
-    three ways per configuration: through the kernels (the forwards' FFMA
-    route, which must launch once per block in every step); the same model
+    three ways per configuration: through the kernels (the FFMA route of
+    the forwards and of K10, each of which must launch once per block in
+    every step); the same model
     with the kernels' plain versions in their place; and
     ``attn_impl="full"``. Losses rtol 1e-4 both ways; the step-1 gradients
     of ``patch_embed`` and block 0's q, k, v and out projections, kernels
     against plain versions, within ``VIT_GRAD_GAP`` (relative L2). Then the
     time of one bf16 train step on a resident batch, kernels and full, in
-    turns. Returns the FFMA forwards' launches in the kernel runs."""
+    turns. Returns the FFMA kernels' launches in the kernel runs."""
     import contextlib
     from unittest import mock
 
@@ -1416,7 +1490,6 @@ def vit_step_checks(dev) -> None:
         ),
     }
     step = make_train_step(torch.float32)
-    ffma_name = {"flash": "flash_forward_ffma", "fused-small": "attention_small_forward_ffma"}
     launches = {}
     for attn_impl, image in VIT_RUNS.items():
         batches = _resident_batches(dev, 3, SEED + 6, image)
@@ -1432,12 +1505,15 @@ def vit_step_checks(dev) -> None:
                 losses += [float(step(state, *b)["loss"]) for b in batches[1:]]
             return losses, grads
 
-        ffma = {"flash": fa.ffma_counter, "fused-small": fas.forward_ffma_counter}[attn_impl]
+        ffma = {"flash": {"flash_forward_ffma": fa.ffma_counter},
+                "fused-small": {"attention_small_forward_ffma": fas.forward_ffma_counter,
+                                "attention_small_backward_ffma": fas.backward_ffma_counter}}[attn_impl]
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                         allow_tf32=False):
-            ffma.reset()
+            for counter in ffma.values():
+                counter.reset()
             kernels = run(attn_impl)
-            launches[ffma_name[attn_impl]] = ffma.count
+            launches.update({name: counter.count for name, counter in ffma.items()})
             plain = run(attn_impl, plain_versions[attn_impl])
             full = run("full")
         rel = {n: float((kernels[1][n] - plain[1][n]).norm() / plain[1][n].norm()) for n in watch}
@@ -1451,8 +1527,8 @@ def vit_step_checks(dev) -> None:
                 raise AssertionError(f"f32 vit {attn_impl} steps vs {what}: {kernels[0]} vs {other[0]}")
         if max(rel.values()) > VIT_GRAD_GAP:
             raise AssertionError(f"f32 vit {attn_impl}: step-1 gradients vs plain versions {rel}")
-        if launches[ffma_name[attn_impl]] != VIT_BLOCKS * len(batches):
-            raise AssertionError(f"f32 vit {attn_impl}: FFMA forward launches {launches}")
+        if any(launches[name] != VIT_BLOCKS * len(batches) for name in ffma):
+            raise AssertionError(f"f32 vit {attn_impl}: FFMA launches {launches}")
 
         (images, labels), = _resident_batches(dev, 1, SEED + 8, image)
         step16 = make_train_step(torch.bfloat16)
@@ -1472,7 +1548,8 @@ def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: i
     cache the training phase filled, stacked, pinned and copied); the
     host's time to enqueue one step against the time until the card has run
     it; and the card's busy time per step from ``torch.profiler`` (kernel
-    time summed, three steps), with the kernels that take most of it."""
+    time summed, three steps), with the kernels that take most of it and
+    the port's own kernels by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1510,6 +1587,14 @@ def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: i
     out["step_device_busy_ms"] = sum(e.self_device_time_total for e in kernels) / 3e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out["top_kernels_ms_per_step"] = [[e.key[:80], e.self_device_time_total / 3e3] for e in top]
+    # The port's own kernels, each by name with its busy time per step:
+    # csrc/ keeps them in an anonymous namespace, where PyTorch keeps a few
+    # kernels templated on its at:: functors.
+    names = {e: e.key.removeprefix("void (anonymous namespace)::").split("(")[0] for e in kernels}
+    out["port_kernels_ms_per_step"] = {
+        names[e]: e.self_device_time_total / 3e3 for e in kernels
+        if e.key.startswith("void (anonymous namespace)::") and "at::" not in names[e]
+    }
     log({"train_breakdown": out})
 
 
@@ -1550,9 +1635,21 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
     _build.load_library()
     log({"build_seconds": _build.build_seconds})
+    # Each kernel's registers and spills; the kernels whose wgmma ptxas
+    # had to serialize to free registers (its C7519 note).
+    kernel, spills, serialized = "?", "", set()
     for line in _build.build_log.splitlines():
-        if "registers" in line or "error" in line.lower():
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line.split("'")[1])
+        elif "C7519" in line:
+            serialized.add(_kernel_name(line.split("'")[1]))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            log(f"{kernel}: {line.strip()}, {spills}")
+        elif "error" in line.lower():
             log(line.strip())
+    log({"wgmma_serialized_by_ptxas": sorted(serialized)})
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1565,7 +1662,7 @@ def main() -> int:
     stem_backward = check_stem_backward(dev, gen)
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
-    attn_fwd, attn_fwd_f32, attn_bwd = check_attention_small(dev, gen)
+    attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32 = check_attention_small(dev, gen)
     flash, flash_f32 = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
@@ -1584,7 +1681,7 @@ def main() -> int:
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))
-    for row in (attn_fwd, attn_fwd_f32, attn_bwd, flash, flash_f32):
+    for row in (attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32, flash, flash_f32):
         row["launches"] = vit_launches[row["name"]]
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
@@ -1596,7 +1693,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
-            flash, flash_f32, attn_fwd, attn_fwd_f32, attn_bwd)
+            flash, flash_f32, attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["device_ms"]

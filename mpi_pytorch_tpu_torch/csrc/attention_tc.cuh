@@ -1,28 +1,33 @@
-// Tensor-core building blocks of the bf16 attention forwards on Hopper
-// (sm_90a): K8's in flash_attention.cu and K9's in fused_attention_small.cu.
+// Tensor-core building blocks of the bf16 attention kernels on Hopper
+// (sm_90a): the forwards K8 (flash_attention.cu) and K9, and the tiny-S
+// backward K10 (both in fused_attention_small.cu).
 //
 // Products. `wgmma.mma_async` m64nNk16, bf16 operands, f32 sums: one
-// warpgroup (four warps, 128 threads) owns a 64-row q tile.
-//   - Scores s = q·kᵀ: q (A) and k (B) from shared memory, both K-major.
-//     q and k stay unscaled bf16, so every product is exact in f32; the
-//     scale is applied to each f32 score afterwards. For D = 64 the scale
-//     is 2⁻³ and s is bit for bit the TPU kernel's (q·scale)·kᵀ up to the
-//     order of summation; for any other D the products stay exact instead
-//     of rounding q·scale to bf16.
-//   - p·v: the softmax runs in registers on the score fragment, whose
-//     layout is the A-operand layout of the next product. The f32 p splits
-//     into bf16 terms, t0 = bf16(p), t1 = bf16(p − t0), t2 = bf16(p − t0 −
-//     t1), each residual exact in f32. v is bf16, so every tᵢ·v is an exact
-//     product; the wgmma steps (A from registers, v from shared memory,
-//     MN-major) sum them into one f32 accumulator. Two terms keep p to
-//     2⁻¹⁷ relative (|p − t0| ≤ 2⁻⁸·p, and t1 rounds that residual to 8
-//     significant bits); at vit_s16's shapes that leaves up to ~3e-6 on an
-//     output element, which crosses the kernels' check (one bf16 ulp plus
-//     1e-6 against the f32 plain version) at outputs near zero, about one
-//     element in a million on the card. The third term takes p to 2⁻²⁵,
-//     below f32's own rounding: p·v is the f32 product the TPU kernel
-//     takes. A single bf16 p would be off by up to 2⁻⁸ — a different
-//     function.
+// warpgroup (four warps, 128 threads) owns a 64-row tile.
+//   - Scores s = q·kᵀ (and the backward's dp = do·vᵀ): both operands from
+//     shared memory, K-major. q and k stay unscaled bf16, so every product
+//     is exact in f32; the scale is applied to each f32 score afterwards.
+//     For D = 64 the scale is 2⁻³ and s is bit for bit the TPU kernel's
+//     (q·scale)·kᵀ up to the order of summation; for any other D the
+//     products stay exact instead of rounding q·scale to bf16.
+//   - p·v (and the backward's ds·k): the softmax runs in registers on the
+//     score fragment, whose layout is the A-operand layout of the next
+//     product. The f32 p splits into bf16 terms, t0 = bf16(p), t1 = bf16(p
+//     − t0), t2 = bf16(p − t0 − t1), each residual exact in f32. v is bf16,
+//     so every tᵢ·v is an exact product; the wgmma steps (A from registers,
+//     v from shared memory, MN-major) sum them into one f32 accumulator.
+//     Two terms keep p to 2⁻¹⁷ relative (|p − t0| ≤ 2⁻⁸·p, and t1 rounds
+//     that residual to 8 significant bits); at vit_s16's shapes that leaves
+//     up to ~3e-6 on an output element, which crosses the kernels' check
+//     (one bf16 ulp plus 1e-6 against the f32 plain version) at outputs
+//     near zero, about one element in a million on the card. The third term
+//     takes p to 2⁻²⁵, below f32's own rounding: p·v is the f32 product the
+//     TPU kernel takes. A single bf16 p would be off by up to 2⁻⁸ — a
+//     different function.
+//   - pᵀ·do and dsᵀ·q (the backward's dv and dk, rows over the keys): the
+//     three terms of p or ds go to shared memory in the swizzled layout
+//     (`store_terms`), rows over the queries, and are read back as an
+//     MN-major (transposed) A operand, which wgmma allows for 16-bit types.
 //
 // Staging. q, k and v land in shared memory as bf16 by 16-byte `cp.async`
 // copies, straight into the layout wgmma's shared-memory descriptors read
@@ -36,8 +41,8 @@
 // descriptor is encoded per call for operands whose strides change
 // per call (the fused-qkv projection's row stride is 3·H·D). Rows past S
 // are zero-filled, so no stale value (a NaN) meets a zero probability. The
-// kernels keep the next k/v block (K8) or the next head (K9) in flight
-// while the current one computes.
+// kernels keep the next k/v block (K8) or the next head (K9, K10) in
+// flight while the current one computes.
 //
 // Determinism: fixed-order sums (the k-steps ascending, then a fixed
 // shuffle tree within each quad of lanes), no atomics: two calls on the
@@ -216,6 +221,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 × 64] (+)= A[64 × 16] · B[16 × 64]: A and B MN-major in shared
+// memory (A transposed: its 64 rows contiguous, its k-step down the rows).
+__device__ __forceinline__ void wgmma_ss_n64_mn(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : MPT_F8(d, 0), MPT_F8(d, 8), MPT_F8(d, 16), MPT_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef MPT_F8
 
 // The register fragments. A warpgroup's 64 × N f32 accumulator: warp w
@@ -389,15 +407,17 @@ __device__ __forceinline__ void qk_product(float* s, uint32_t sq, uint32_t sk) {
 }
 
 // The 64-row output fragment o of the warpgroup whose rows start at row
-// `first` of the RQ-row tile at byte `tile` of smem, each row divided by
-// its l, written as bf16 through this warp's 16 rows of that tile (each
+// `first` of the RQ-row tile at byte `tile` of smem, the fragment's row i
+// divided by f[i] (kDivide: the forward's ÷ l) or times it (the backward's
+// scale), written as bf16 through this warp's 16 rows of that tile (each
 // lane's bf16 pairs land in distinct banks), then read back as 16-byte
 // chunks — eight lanes a 128-byte row — and stored to rows row_base + r
 // (< S) of out, row stride `os`. Only this warp's rows are touched, so a
-// __syncwarp orders the two.
-template <int D, int RQ>
+// __syncwarp orders the two; a warp that stages twice through the same
+// rows syncs its lanes in between.
+template <int D, int RQ, bool kDivide = true>
 __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile, int first,
-                                           const float* o, const float (&l)[2],
+                                           const float* o, const float (&f)[2],
                                            __nv_bfloat16* out, long long os, int row_base, int S) {
   constexpr int NC = D / 8;  // real 16-byte chunks a row
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -406,8 +426,9 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile, i
   for (int j = 0; j < padded<D>() / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(o[4 * j + 2 * i] / l[i], o[4 * j + 2 * i + 1] / l[i]);
+      const float x0 = o[4 * j + 2 * i], x1 = o[4 * j + 2 * i + 1];
+      const __nv_bfloat162 v = kDivide ? __floats2bfloat162_rn(x0 / f[i], x1 / f[i])
+                                       : __floats2bfloat162_rn(x0 * f[i], x1 * f[i]);
       const uint32_t at = tile + swz<RQ>(first + 16 * warp + g + 8 * i, j) + 4 * t;
       *reinterpret_cast<uint32_t*>(smem + at) = bf16x2_bits(v);
     }
@@ -418,6 +439,32 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile, i
       *reinterpret_cast<uint4*>(out + (row_base + r) * os + c * 8) =
           *reinterpret_cast<const uint4*>(smem + tile + swz<RQ>(first + r, c));
   }
+}
+
+// The three bf16 terms (as `split_p`) of this warp's rows of an f32
+// fragment over N columns, written to three RT-row tiles `term` bytes
+// apart from byte `tile` of smem, in the swizzled layout: fragment row i
+// at tile row row0 + g + 8i, its 8-column block j at chunk j. Each lane's
+// bf16 pairs land in distinct banks.
+template <int N, int RT>
+__device__ __forceinline__ void store_terms(unsigned char* smem, uint32_t tile, uint32_t term,
+                                            int row0, const float* x) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x0 = x[4 * j + 2 * i], x1 = x[4 * j + 2 * i + 1];
+      const uint32_t at = tile + swz<RT>(row0 + g + 8 * i, j) + 4 * t;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h);
+        *reinterpret_cast<uint32_t*>(smem + at + n * term) = bf16x2_bits(h);
+        x0 -= hf.x;  // exact, as in split_p
+        x1 -= hf.y;
+      }
+    }
 }
 
 }  // namespace mpt_tc

@@ -11,14 +11,17 @@
 //             dk = dsᵀ·q·scale (q unscaled); dv = pᵀ·do.
 // The residuals are q, k and v only: no logsumexp and no saved output.
 //
-// Three kernels:
+// Four kernels:
 //   - attn_small_fwd_tc_kernel, the training forward for bf16 with
 //     D % 16 == 0 and D <= 128: tensor cores (attention_tc.cuh), the path
 //     vit_s16 trains through;
 //   - attn_small_fwd_kernel, the forward for f32, bf16 with any other
 //     D % 4 == 0, and every inference call (ops/fused_attention_small.py
 //     `_route`): f32 FFMA on the CUDA cores (attention_tiles.cuh);
-//   - attn_small_bwd_kernel, the backward, f32 FFMA for either dtype.
+//   - attn_small_bwd_tc_kernel, the backward for bf16 with D % 16 == 0 and
+//     D <= 128: tensor cores, the path vit_s16 trains through;
+//   - attn_small_bwd_kernel, the backward for f32 and bf16 with any other
+//     D % 4 == 0: f32 FFMA.
 //
 // The tensor-core forward. Bound on an H100 by its bytes: q, k, v read and
 // out written in bf16, 25.2 MB at vit_s16's 128 px training shape
@@ -38,12 +41,41 @@
 // eight lanes: with a layout that split rows, issuing the copies and the
 // stores took most of the kernel's time.
 //
+// The tensor-core backward. Bound by its bytes too: q, k, v, do read and
+// dq, dk, dv written in bf16, 44.0 MB at [128, 64, 6, 64], 13.1 µs at
+// 3.35 TB/s, against 4.5 µs of bf16 tensor-core time for its eleven
+// products (q·kᵀ and do·vᵀ exact; pᵀ·do, ds·k and dsᵀ·q three each). The
+// same layout as the forward: persistent CTAs with the next head's q, k,
+// v and do in flight, one warpgroup per 64 queries, the whole row in
+// registers. Per head:
+//   1. s = q·kᵀ and dp = do·vᵀ, both operands K-major from shared memory;
+//   2. p = exp(s − m) / l in registers (exp2f), its three bf16 terms to
+//      shared memory (`store_terms`), Δ = Σ_j p·dp (equal to the TPU
+//      kernel's Σ_d do·o without recomputing o), ds = p·(dp − Δ);
+//   3. dv = pᵀ·do: M runs over the keys, so A is the p terms read back
+//      transposed (MN-major) from shared memory, do an MN-major B;
+//   4. dq = ds·k·scale: ds from registers, split into three terms as the
+//      forward's p·v splits p, k an MN-major B;
+//   5. the ds terms replace the p terms; dk = dsᵀ·q·scale as dv.
+// Rather than the FA2/FA3 backward's second pass with keys as rows (sᵀ =
+// k·qᵀ recomputed, per-query m, l and Δ exchanged through shared memory),
+// the transposed A operand reads the row pass's own terms: one softmax a
+// head, no exchange. Rows past S are zero in q, k, v and do, so padded
+// queries have dp = 0 and ds = 0 and add nothing to dk and dv; keys past S
+// have p = 0. The outputs leave through the head's v tile (spent after
+// step 1) as whole 128-byte rows, each warp through its own rows. Shared
+// memory at S ≤ 64, D ≤ 64: a ring of two 32 KB stages and 24 KB of terms,
+// 89 KB, two CTAs an SM; at S = 128, D = 128 the inputs take 128 KB and
+// the terms 96 KB, so that shape runs with one stage. Each head's dk and dv
+// belong to one CTA: no atomics, fixed-order sums, the same bits on every
+// call.
+//
 // The FFMA kernels. One CTA per (batch, head) owns the whole row set in
 // shared memory (three f32 tiles: two [S][D] and the [S][S] scores), so the
 // score tensor and the softmax chain never touch device memory, and each
 // CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by
-// their operations at the f32 peak; the forward holds the f32 route and
-// bf16 with a head dim the tensor-core kernel does not take.
+// their operations at the f32 peak; they hold the f32 route and bf16 with
+// a head dim the tensor-core kernels do not take.
 //
 // The TPU kernel's bh-grouping (several heads stacked into one MXU tile
 // with −1e30 cross-head blocks) and its sublane padding of S exist for the
@@ -304,6 +336,223 @@ int launch_fwd_tc_d(const void* q, const void* k, const void* v, void* o, Stride
   return launch_fwd_tc<D, 2>(q, k, v, o, st, B, S, H, scale, causal, stream);
 }
 
+// ------------------------------------------------ tensor-core backward ---
+
+// The backward's shared memory: STAGES ring stages of one head's (q, k, v,
+// do) tiles of 64·NWG rows (bf16 rows padded to whole 128-byte atoms), the
+// three bf16 terms of p, then of ds, as [64·NWG queries × 64·NWG keys]
+// tiles, and 1 KB to start the tiles on 1024. Two stages where they fit in
+// a CTA's 227 KB, else one (S > 64 with D > 64: 128 KB of inputs and 96 KB
+// of terms).
+constexpr int kMaxSmem = 232448;
+template <int D, int NWG>
+__host__ __device__ constexpr int bwd_tc_tile_bytes() {
+  return 64 * NWG * mpt_tc::padded<D>() * 2;
+}
+template <int NWG>
+__host__ __device__ constexpr int bwd_tc_term_bytes() {
+  return 64 * NWG * 64 * NWG * 2;
+}
+template <int D, int NWG>
+__host__ __device__ constexpr int bwd_tc_stages() {
+  return 8 * bwd_tc_tile_bytes<D, NWG>() + 3 * bwd_tc_term_bytes<NWG>() + 1024 <= kMaxSmem ? 2 : 1;
+}
+template <int D, int NWG>
+__host__ __device__ constexpr int bwd_tc_smem_bytes() {
+  return 4 * bwd_tc_stages<D, NWG>() * bwd_tc_tile_bytes<D, NWG>() + 3 * bwd_tc_term_bytes<NWG>() +
+         1024;
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * mpt_tc::kWarpgroup, NWG == 1 && D <= 64 ? 2 : 1)
+attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         Strides st, int H, int S, int BH, int per_cta, float scale, int causal) {
+  using namespace mpt_tc;
+  constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup, PD = padded<D>();
+  constexpr int ST = bwd_tc_stages<D, NWG>();
+  constexpr uint32_t kTile = bwd_tc_tile_bytes<D, NWG>(), kStage = 4 * kTile;
+  constexpr uint32_t kTerm = bwd_tc_term_bytes<NWG>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t raw = smem_addr(tc_smem), s0 = (raw + 1023) & ~1023u;
+  unsigned char* smem = tc_smem + (s0 - raw);
+  const uint32_t sp = s0 + ST * kStage;  // the terms of p, then of ds
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int first = blockIdx.x * per_cta, end = min(first + per_cta, BH);
+  // This warp's first query (s, dp, ds, dq) and first key (dv, dk).
+  const int row0 = wg * 64 + warp * 16;
+  const long long gs = (long long)H * D;  // row stride of do, dq, dk, dv
+  const float unit[2] = {1.f, 1.f}, scaled[2] = {scale, scale};
+
+  auto load_head = [&](int bh, int stage) {
+    const int b = bh / H, h = bh - b * H;
+    const long long base = b * st.sb + h * st.sh;
+    const uint32_t dst = s0 + stage * kStage;
+    load_tile<D, NK>(dst, q + base, st.ss, S, tid, NT);
+    load_tile<D, NK>(dst + kTile, k + base, st.ss, S, tid, NT);
+    load_tile<D, NK>(dst + 2 * kTile, v + base, st.ss, S, tid, NT);
+    load_tile<D, NK>(dst + 3 * kTile, dout + ((long long)b * S * H + h) * D, gs, S, tid, NT);
+  };
+  if constexpr (ST == 2) {
+    load_head(first, 0);
+    cp_async_commit();
+  }
+
+  for (int bh = first; bh < end; ++bh) {
+    const int stage = ST == 2 ? (bh - first) & 1 : 0;
+    __syncthreads();  // the last head is done with its stage and the terms
+    if constexpr (ST == 2) {
+      if (bh + 1 < end) load_head(bh + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this head has landed
+    } else {
+      load_head(bh, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sq = s0 + stage * kStage, sk = sq + kTile, sv = sk + kTile, sdo = sv + kTile;
+
+    // s = q·kᵀ and dp = do·vᵀ: this warpgroup's 64 queries, all NK keys.
+    float s[NK / 2], dp[NK / 2];
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kh = 0; kh < NWG; ++kh) {  // 64 keys a product
+      qk_issue<D, 64, NK, NK>(s + 32 * kh, sq + wg * 64 * 128, sk + kh * 64 * 128);
+      qk_issue<D, 64, NK, NK>(dp + 32 * kh, sdo + wg * 64 * 128, sv + kh * 64 * 128);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NK / 2>(s);
+    fence_regs<NK / 2>(dp);
+
+    // p = exp(s − m) / l, normalized before any use; its terms to smem.
+    const float sc = prepare_scores<NK>(s, scale, row0, 0, S, causal);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float l = exp_sum<NK>(s, i, sc, row_max<NK>(s, i, sc));
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        s[4 * j + 2 * i] /= l;
+        s[4 * j + 2 * i + 1] /= l;
+      }
+    }
+    store_terms<NK, NK>(smem, sp - s0, kTerm, row0, s);
+    // Δ = Σ_j p·dp (= Σ_d do·o); ds = p·(dp − Δ) in place of dp.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float delta = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) delta = fmaf(s[4 * j + 2 * i + e], dp[4 * j + 2 * i + e], delta);
+      delta = quad_sum(delta);
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          dp[x] = s[x] * (dp[x] - delta);
+        }
+    }
+    fence_async_smem();
+    __syncthreads();  // every warpgroup's p terms are in; v is read (staging)
+
+    const int b = bh / H, h = bh - b * H;
+    const long long gbase = ((long long)b * S * H + h) * D;
+    const uint32_t stage_rows = sv - s0;  // output staging: this warp's rows of v
+    float acc[PD / 2];
+
+    // dv = pᵀ·do over all NK queries: A the p terms, transposed.
+#pragma unroll
+    for (int i = 0; i < PD / 2; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int j = 0; j < PD / 64; ++j)
+          wgmma_ss_n64_mn(acc + 32 * j, mnmajor_desc<NK>(sp + n * kTerm, kk, wg),
+                          mnmajor_desc<NK>(sdo, kk, j), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<PD / 2>(acc);
+    store_rows<D, NK, false>(smem, stage_rows, wg * 64, acc, unit, dv + gbase, gs, wg * 64, S);
+
+    // dq = ds·k·scale: ds from registers, split as p is for p·v.
+#pragma unroll
+    for (int i = 0; i < PD / 2; ++i) acc[i] = 0.f;
+    pv_product<D, NK, NK>(acc, dp, sk);
+    __syncwarp();
+    store_rows<D, NK, false>(smem, stage_rows, wg * 64, acc, scaled, dq + gbase, gs, wg * 64, S);
+
+    __syncthreads();  // every warpgroup's dv has read the p terms
+    store_terms<NK, NK>(smem, sp - s0, kTerm, row0, dp);
+    fence_async_smem();
+    __syncthreads();
+
+    // dk = dsᵀ·q·scale over all NK queries: A the ds terms, transposed.
+#pragma unroll
+    for (int i = 0; i < PD / 2; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int j = 0; j < PD / 64; ++j)
+          wgmma_ss_n64_mn(acc + 32 * j, mnmajor_desc<NK>(sp + n * kTerm, kk, wg),
+                          mnmajor_desc<NK>(sq, kk, j), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<PD / 2>(acc);
+    __syncwarp();
+    store_rows<D, NK, false>(smem, stage_rows, wg * 64, acc, scaled, dk + gbase, gs, wg * 64, S);
+  }
+  cp_async_wait<0>();
+}
+
+template <int D, int NWG>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                  void* dk, void* dv, Strides st, int B, int S, int H, float scale, int causal,
+                  cudaStream_t stream) {
+  constexpr int bytes = bwd_tc_smem_bytes<D, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
+  static_assert(bytes <= kMaxSmem, "the tensor-core backward's tiles exceed a CTA's shared memory");
+  auto kernel = attn_small_bwd_tc_kernel<D, NWG>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
+          cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // An even share of the heads for every CTA that fits on the card at once.
+  const int BH = B * H, slots = sms * per_sm;
+  const int per_cta = (BH + slots - 1) / slots, grid = (BH + per_cta - 1) / per_cta;
+  using bf16 = __nv_bfloat16;
+  kernel<<<grid, threads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), st, H, S, BH, per_cta, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_tc_d(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                    void* dk, void* dv, Strides st, int B, int S, int H, float scale, int causal,
+                    cudaStream_t stream) {
+  if (S <= 64) return launch_bwd_tc<D, 1>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, stream);
+  return launch_bwd_tc<D, 2>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, stream);
+}
+
 }  // namespace
 
 // q, k, v: strided [B, S, H, D] with the strides (sb, ss, sh) in elements
@@ -351,4 +600,27 @@ extern "C" int mpt_attn_small_bwd(const void* q, const void* k, const void* v, c
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, s);
   return launch_bwd<float>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, s);
+}
+
+// The tensor-core backward: q, k, v as the tensor-core forward takes them,
+// dout (16-byte aligned), dq, dk, dv contiguous [B, S, H, D] bf16; S <= 128,
+// D % 16 == 0 and D <= 128. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int mpt_attn_small_bwd_tc(const void* q, const void* k, const void* v,
+                                     const void* dout, void* dq, void* dk, void* dv, long long sb,
+                                     long long ss, long long sh, int B, int S, int H, int D,
+                                     float scale, int causal, void* stream) {
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > 128) return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define MPT_CASE(d) \
+  case d:           \
+    return launch_bwd_tc_d<d>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, s);
+    MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
+    MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
+#undef MPT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

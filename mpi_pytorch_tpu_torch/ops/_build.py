@@ -91,6 +91,11 @@ SIGNATURES = {
     # B, S, H, D, scale, causal, stream
     "mpt_attn_small_fwd_tc": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
     "mpt_flash_fwd_tc": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
+    # the tensor-core tiny-S backward (bf16): q, k, v, dout, dq, dk, dv,
+    # q/k/v strides, B, S, H, D, scale, causal, stream
+    "mpt_attn_small_bwd_tc": (
+        _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P,
+    ),
 }
 
 # The dtype argument of every C entry point.
@@ -257,8 +262,8 @@ def attention_layout(
 
 
 def attention_route(dtype: torch.dtype, d: int) -> str:
-    """Which forward kernel an attention wrapper launches for q of
-    ``dtype`` and head dim ``d``: ``"tensor_core"`` for bf16 with D a
+    """Which kernel an attention wrapper launches for q of ``dtype`` and
+    head dim ``d``: ``"tensor_core"`` for bf16 with D a
     multiple of 16 up to 128 (wgmma takes k-steps of 16 bf16), else
     ``"ffma"`` (f32, or bf16 with any other D; the f32 FFMA kernels).
     A stated rule, never a fallback: a launch on either route that fails
@@ -266,12 +271,15 @@ def attention_route(dtype: torch.dtype, d: int) -> str:
     return "tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "ffma"
 
 
-def require_16b_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
-    """The tensor-core kernels copy rows of q, k and v in 16-byte pieces:
-    raises unless each starts on 16 bytes and their (shared) B, S, H
-    strides are multiples of 8 bf16 elements."""
-    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(x % 8 for x in q.stride()[:3]):
+def require_16b_rows(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str, *contiguous: torch.Tensor
+) -> None:
+    """The tensor-core kernels copy rows of q, k and v (and of the
+    ``contiguous`` [B, S, H, D] operands, such as the backward's do) in
+    16-byte pieces: raises unless each starts on 16 bytes and q, k, v's
+    (shared) B, S, H strides are multiples of 8 bf16 elements."""
+    if any(t.data_ptr() % 16 for t in (q, k, v, *contiguous)) or any(x % 8 for x in q.stride()[:3]):
         raise ValueError(
-            f"{what} tensor-core kernel needs q, k, v on 16-byte boundaries and strides "
+            f"{what} tensor-core kernel needs its operands on 16-byte boundaries and strides "
             f"multiple of 8 elements, got strides {q.stride()}"
         )

@@ -5,10 +5,11 @@ Counterpart of ``mpi_pytorch_tpu/ops/fused_attention_small.py``. The same
 function as ``full_attention`` over [B, S, H, D] inputs; the envelope is
 the JAX one: S ≤ 128 and D ≤ 128 go through the kernels, anything outside
 it is ``full_attention`` (the function's definition, not a fallback on
-failure). Two CUDA kernels in ``csrc/fused_attention_small.cu`` carry it:
+failure). CUDA kernels in ``csrc/fused_attention_small.cu`` carry it, two
+for each direction:
 
 - the forward (TPU ``_fwd_kernel``): the whole row set of one (batch,
-  head) on one CTA, a full-row max/exp/sum, AV, then ÷ l. Two kernels, by
+  head) on one CTA, a full-row max/exp/sum, AV, then ÷ l. By
   :func:`_route`: the training forward in bf16 with D % 16 == 0 runs the
   tensor-core kernel (wgmma, p·v through a split-bf16 p that keeps it
   f32-exact; persistent CTAs with the next head's q, k, v in flight);
@@ -16,16 +17,20 @@ failure). Two CUDA kernels in ``csrc/fused_attention_small.cu`` carry it:
   validation) — the f32 FFMA kernel, whose sums run in the plain
   version's order (see :func:`_route`);
 - the backward (TPU ``_bwd_kernel``): recomputes p (normalized before
-  use) and o = p·v, then Δ = Σ do·o, ds = p·(do·vᵀ − Δ), dq = ds·k·scale,
-  dk = dsᵀ·q·scale, dv = pᵀ·do — each (batch, head) writes its own
-  gradients, so no atomics.
+  use), then Δ, ds = p·(do·vᵀ − Δ), dq = ds·k·scale, dk = dsᵀ·q·scale,
+  dv = pᵀ·do — each (batch, head) writes its own gradients, so no
+  atomics. By :func:`_build.attention_route`: bf16 with D % 16 == 0 runs
+  the tensor-core kernel (p and ds split into three bf16 terms, Δ = Σ
+  p·dp), f32 and any other bf16 D the f32 FFMA kernel (o = p·v
+  recomputed, Δ = Σ do·o). The backward has no inference caller, so
+  every backward takes the rule as it is.
 
 They pair up in :class:`_FusedSmall`, whose residuals are q, k and v only,
 as the JAX ``_attn_grouped_fwd`` saves. q, k and v are read as the
 projections give them (strided [B, S, H, D] views); the JAX wrapper's
 transpose to [B·H, S, D], its bh-grouping and its sublane padding of S are
 TPU layout and stay behind. On a CUDA tensor each wrapper launches its
-(route's) kernel (f32 or bf16, D % 4 == 0) or raises; on a CPU tensor it
+route's kernel (f32 or bf16, D % 4 == 0) or raises; on a CPU tensor it
 runs its plain version: ``full_attention`` forward,
 :func:`attention_small_backward_reference` backward.
 """
@@ -38,11 +43,12 @@ from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
 # Launches of each CUDA kernel (the plain versions never count): the
-# forward's tensor-core kernel (bf16, D % 16 == 0) and FFMA kernel, and
-# the backward.
+# tensor-core kernels (bf16, D % 16 == 0) and the FFMA kernels of the
+# forward and the backward.
 forward_tc_counter = _build.LaunchCounter()
 forward_ffma_counter = _build.LaunchCounter()
-backward_counter = _build.LaunchCounter()
+backward_tc_counter = _build.LaunchCounter()
+backward_ffma_counter = _build.LaunchCounter()
 
 # The tiny-S envelope (the JAX module's): every per-head score matrix fits
 # one CTA's shared memory whole.
@@ -131,9 +137,10 @@ def attention_small_backward_reference(
 def attention_small_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, causal: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv), contiguous [B, S, H, D] in q's dtype: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors. Deterministic:
-    two calls on the same inputs give the same bits."""
+    """(dq, dk, dv), contiguous [B, S, H, D] in q's dtype: for CUDA
+    tensors the kernel of :func:`_build.attention_route`, for CPU tensors
+    the plain version. Deterministic: two calls on the same inputs give
+    the same bits."""
     check_qkv(q, k, v)
     if _build.on_cpu(q, "fused_attention_small"):
         return attention_small_backward_reference(q, k, v, do, causal)
@@ -147,15 +154,23 @@ def attention_small_backward(
             f"{q.dtype} on {q.device}"
         )
     dq, dk, dv = (torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    tensor_core = _build.attention_route(q.dtype, d) == "tensor_core"
+    if tensor_core:
+        _build.require_16b_rows(q, k, v, "fused_attention_small", do)
     lib = _build.load_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sb, ss, sh)
     with torch.cuda.device(q.device):
-        rc = lib.mpt_attn_small_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sb, ss, sh,
-            bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device),
-        )
+        if tensor_core:
+            rc = lib.mpt_attn_small_bwd_tc(
+                *ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device)
+            )
+        else:
+            rc = lib.mpt_attn_small_bwd(
+                *ptrs, bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device)
+            )
     _build.check(rc, "fused_attention_small backward")
-    backward_counter.add()
+    (backward_tc_counter if tensor_core else backward_ffma_counter).add()
     return dq, dk, dv
 
 
