@@ -15,8 +15,13 @@ Phases (any failure raises and the script exits non-zero):
    beside its plain version, a one-call PyTorch yardstick where one
    exists, and its roofline bound: the stem's eval
    forward (K1), training forward with the window index (K2) and index
-   backward (K3), the predict head in bf16 (K4) and f32 (K4 f32), the int8
-   predict head (K7: predictions equal on every row, B = 1, 8, 512), the
+   backward (K3), the predict head in bf16 (K4: B = 1, 8, 512 at D = 512,
+   B = 128 at vit_s16's D = 384, B = 128 and 512 at vit_b16's D = 768)
+   and f32 (K4 f32), exact argmax ties at the tensor-core heads' tile,
+   split, quad-lane and ragged-tile boundaries (K4 bf16 and K7, with one
+   and with two consumer warpgroups a CTA), the int8 predict head (K7:
+   predictions equal on every row, B = 1, 8, 512, each timed), the heads'
+   two calls bitwise equal, the
    training cross-entropy head's forward (K5) and backward (K6) at batch
    128, the tiny-S attention forward (K9) and backward (K10) at vit_s16's
    128 px shape (and S = 50, 65, 128, causal; K10 also at D = 32, 128,
@@ -351,32 +356,58 @@ def check_stem_backward(dev, gen) -> dict:
     return row
 
 
-# Per head dtype: batches, loss rtol, the top-2 gap (share of |max|) above
-# which argmax must agree, the least share of rows agreeing overall, the
-# peak its operations are bounded by, and the kernel row's name.
+# Per head dtype: (batch, D) cases, loss rtol, the top-2 gap (share of
+# |max|) above which argmax must agree, the least share of rows agreeing
+# overall, the peak its operations are bounded by, the kernel row's name and
+# source. bf16 adds vit_s16's head width, D = 384, at its training batch,
+# and vit_b16's, D = 768, where a CTA keeps one consumer warpgroup's feats
+# tile (64 rows) at every batch.
 HEAD_CHECKS = {
-    torch.bfloat16: ((1, 8, 512), 1e-3, 1e-3, 0.99, "bf16", "head_predict"),
-    torch.float32: ((8, 512), 1e-5, 1e-5, 1.0, "f32", "head_predict_f32"),
+    torch.bfloat16: (((1, D), (8, D), (512, D), (128, 384), (128, 768), (512, 768)), 1e-3,
+                     1e-3, 0.99, "bf16", "head_predict", "head_predict_tc.cu"),
+    torch.float32: (((8, D), (512, D)), 1e-5, 1e-5, 1.0, "f32", "head_predict_f32",
+                    "fused_head_ce.cu"),
 }
 
 
+def _in_turns(kernel, plain, iters: int, plain_iters: int) -> dict:
+    """The kernel's busy time and its plain version's event time, taken in
+    turns (kernel, plain, plain, kernel) in this call; means and each."""
+    k1 = device_ms(kernel, iters)
+    p1, p2 = time_ms(plain, plain_iters), time_ms(plain, plain_iters)
+    k2 = device_ms(kernel, iters)
+    return {"device_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "device_ms_turns": [k1, k2], "plain_ms_turns": [p1, p2]}
+
+
+def _bitwise_twice(fn, what: str) -> None:
+    """Two calls on the same inputs give the same loss and pred bits."""
+    a, b = fn(), fn()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+
+
 def check_head(dev, gen, dtype) -> dict:
-    """K4 against its plain version (f32 logits over the same W) at each
-    batch: loss within the dtype's rtol, argmax equal wherever the plain
-    top-2 gap exceeds the dtype's share of |max| (bf16 1e-3, f32 1e-5 —
+    """K4 against its plain version (f32 logits over the same W) in each
+    (batch, D) case: loss within the dtype's rtol, argmax equal wherever the
+    plain top-2 gap exceeds the dtype's share of |max| (bf16 1e-3, f32 1e-5 —
     f32 logits carry f32 rounding only, TF32 off) and on at least the
-    dtype's share of rows overall. Returns the largest batch's row."""
+    dtype's share of rows overall, two calls bitwise equal. Returns the
+    B = 512, D = 512 row."""
     from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, H100_PEAK_F32_FLOPS, bound_ms
     from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
 
-    batches, rtol, gap, min_agree, peak, name = HEAD_CHECKS[dtype]
+    cases, rtol, gap, min_agree, peak, name, source = HEAD_CHECKS[dtype]
     peak = {"bf16": H100_PEAK_BF16_FLOPS, "f32": H100_PEAK_F32_FLOPS}[peak]
     size = torch.finfo(dtype).bits // 8
-    w = (0.05 * torch.randn(V, D, generator=gen)).to(dev, dtype)
-    bias = (0.1 * torch.randn(V, generator=gen)).to(dev)
-    rows = []
-    for bsz in batches:
-        feats = torch.randn(bsz, D, generator=gen).abs().to(dev, dtype)
+    weights = {}
+    rows = {}
+    for bsz, d in cases:
+        if d not in weights:
+            weights[d] = ((0.05 * torch.randn(V, d, generator=gen)).to(dev, dtype),
+                          (0.1 * torch.randn(V, generator=gen)).to(dev))
+        w, bias = weights[d]
+        feats = torch.randn(bsz, d, generator=gen).abs().to(dev, dtype)
         labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
         labels[::7] = -1
         labels = labels.to(dev)
@@ -386,27 +417,27 @@ def check_head(dev, gen, dtype) -> dict:
         top2 = torch.topk(fh._logits(feats, w, bias), 2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > gap * top2[:, 0].abs()
         agree = pred == ref_pred
+        what = f"{name} B={bsz} D={d}"
         if not bool(agree[clear].all()):
-            raise AssertionError(f"{name} B={bsz}: argmax differs on a clear row")
+            raise AssertionError(f"{what}: argmax differs on a clear row")
         if float(agree.float().mean()) < min_agree:
-            raise AssertionError(f"{name} B={bsz}: only {float(agree.float().mean())} agree")
+            raise AssertionError(f"{what}: only {float(agree.float().mean())} agree")
         if not torch.allclose(loss, ref_loss, rtol=rtol, atol=0):
-            raise AssertionError(
-                f"{name} B={bsz}: loss off by {float((loss - ref_loss).abs().max())}"
-            )
+            raise AssertionError(f"{what}: loss off by {float((loss - ref_loss).abs().max())}")
         if not bool((loss[labels < 0] == 0).all()):
-            raise AssertionError(f"{name} B={bsz}: padding rows carry loss")
-        moved = size * bsz * D + size * V * D + 4 * V + 12 * bsz
-        bound, by = bound_ms(moved, (2 * bsz * D * V, peak))
+            raise AssertionError(f"{what}: padding rows carry loss")
+        _bitwise_twice(lambda: fh.head_predict(feats, w, bias, labels), what)
+        moved = size * bsz * d + size * V * d + 4 * V + 12 * bsz
+        bound, by = bound_ms(moved, (2 * bsz * d * V, peak))
         row = {
-            "name": name, "route": "cuda",
-            "source": "mpi_pytorch_tpu_torch/csrc/fused_head_ce.cu",
+            "name": name, "route": "cuda", "source": "mpi_pytorch_tpu_torch/csrc/" + source,
             "replaces": "mpi_pytorch_tpu/ops/fused_head_ce.py:313",
-            "batch": bsz, "max_abs_err": float((loss - ref_loss).abs().max()),
+            "batch": bsz, "d": d, "max_abs_err": float((loss - ref_loss).abs().max()),
             "argmax_agree": float(agree.float().mean()), "clear_rows": int(clear.sum()),
+            "bitwise_repeatable": True,
             "kernel_ms": time_ms(lambda: fh.head_predict(feats, w, bias, labels), 50),
-            "device_ms": device_ms(lambda: fh.head_predict(feats, w, bias, labels), 50),
-            "plain_ms": time_ms(lambda: fh.head_predict_reference(feats, w, bias, labels), 10),
+            **_in_turns(lambda: fh.head_predict(feats, w, bias, labels),
+                        lambda: fh.head_predict_reference(feats, w, bias, labels), 50, 10),
             "bound_ms": bound, "bound_by": by,
             # Yardstick only, never called by the port: the cuBLAS logits
             # GEMM in the same dtype.
@@ -415,25 +446,35 @@ def check_head(dev, gen, dtype) -> dict:
             ),
         }
         log({"kernel_check": row})
-        rows.append(row)
-    return rows[-1]
+        rows[bsz, d] = row
+    return rows[512, D]
 
 
 INT8_BATCHES = (1, 8, 512)
+
+
+def _int8_head(dev, w):
+    """w's int8 head: (w_q, w_scale) on the card."""
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+
+    return tuple(t.to(dev) for t in qz.quantize_per_channel(w))
 
 
 def check_head_int8(dev, gen) -> dict:
     """K7 against its plain version (the int8 product summed exactly in
     f64) at each batch, bf16 feats as the serving path gives them, every
     7th label −1: predictions equal on EVERY row (the logits are the same
-    bits), loss rtol 1e-5, padding rows 0. Then timed at B = 512 beside its
-    plain version and ``torch._int_mm`` (the int8 product alone, on W
-    padded to a multiple of 8 columns). Returns the B = 512 row."""
+    bits), loss rtol 1e-5, padding rows 0, two calls bitwise equal. Each
+    batch timed beside its plain version and ``torch._int_mm`` (the int8
+    product alone, on W padded to a multiple of 8 columns; none where it
+    refuses the shape). Returns the B = 512 row."""
     from mpi_pytorch_tpu_torch.hardware import H100_PEAK_INT8_OPS, bound_ms
     from mpi_pytorch_tpu_torch.ops import quantize as qz
 
-    w_q, w_scale = (t.to(dev) for t in qz.quantize_per_channel(0.05 * torch.randn(V, D, generator=gen)))
+    w_q, w_scale = _int8_head(dev, 0.05 * torch.randn(V, D, generator=gen))
     bias = (0.1 * torch.randn(V, generator=gen)).to(dev)
+    w_pad = torch.zeros((-(-V // 8) * 8, D), dtype=torch.int8, device=dev)
+    w_pad[:V] = w_q
     row = None
     for bsz in INT8_BATCHES:
         feats = torch.randn(bsz, D, generator=gen).abs().to(dev, torch.bfloat16)
@@ -442,45 +483,110 @@ def check_head_int8(dev, gen) -> dict:
         labels = labels.to(dev)
         act = float(feats.float().abs().max()) / 127.0
         scale_v = qz.combined_scale(w_scale, act)
-        loss, pred = qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v)
+        kernel = lambda: qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v)  # noqa: E731
+        plain = lambda: qz.head_predict_int8_reference(feats, w_q, bias, labels, None, act, scale_v)  # noqa: E731
+        loss, pred = kernel()
         torch.cuda.synchronize()
-        ref_loss, ref_pred = qz.head_predict_int8_reference(feats, w_q, bias, labels, None, act, scale_v)
+        ref_loss, ref_pred = plain()
         if not torch.equal(pred, ref_pred):
             raise AssertionError(f"int8 head B={bsz}: argmax differs on {int((pred != ref_pred).sum())} rows")
         if not torch.allclose(loss, ref_loss, rtol=1e-5, atol=0):
             raise AssertionError(f"int8 head B={bsz}: loss off by {float((loss - ref_loss).abs().max())}")
         if not bool((loss[labels < 0] == 0).all()):
             raise AssertionError(f"int8 head B={bsz}: padding rows carry loss")
+        _bitwise_twice(kernel, f"int8 head B={bsz}")
         # bf16 feats read, int8 W, f32 scale_v and bias read; loss and pred
         # written. Operations: the int8 product.
         moved = 2 * bsz * D + V * D + 8 * V + 4 * bsz + 8 * bsz
         bound, by = bound_ms(moved, (2 * bsz * D * V, H100_PEAK_INT8_OPS))
         row = {
             "name": "head_predict_int8", "route": "cuda",
-            "source": "mpi_pytorch_tpu_torch/csrc/fused_head_ce.cu",
+            "source": "mpi_pytorch_tpu_torch/csrc/head_predict_tc.cu",
             "replaces": "mpi_pytorch_tpu/ops/quantize.py:286",
             "batch": bsz, "max_abs_err": float((loss - ref_loss).abs().max()),
+            "bitwise_repeatable": True,
+            "kernel_ms": time_ms(kernel, 50), **_in_turns(kernel, plain, 50, 10),
             "bound_ms": bound, "bound_by": by,
         }
-        if bsz == INT8_BATCHES[-1]:
-            row["kernel_ms"] = time_ms(
-                lambda: qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v), 50)
-            row["device_ms"] = device_ms(
-                lambda: qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v), 50)
-            row["plain_ms"] = time_ms(
-                lambda: qz.head_predict_int8_reference(feats, w_q, bias, labels, None, act, scale_v), 10)
-            # Yardstick only, never called by the port: the int8 product on
-            # cuBLAS, W padded to 64 504 columns.
-            feats_q = qz.quantize_activations(feats, act)
-            w_pad = torch.zeros((-(-V // 8) * 8, D), dtype=torch.int8, device=dev)
-            w_pad[:V] = w_q
-            try:
-                row["library_ms"] = time_ms(lambda: torch._int_mm(feats_q, w_pad.t()), 50)
-            except RuntimeError as e:
-                row["library_ms"] = None
-                row["library_note"] = f"none: _int_mm refuses the shape ({str(e)[:120]})"
+        # Yardstick only, never called by the port: the int8 product on
+        # cuBLAS, W padded to 64 504 columns.
+        feats_q = qz.quantize_activations(feats, act)
+        try:
+            row["library_ms"] = time_ms(lambda: torch._int_mm(feats_q, w_pad.t()), 50)
+        except RuntimeError as e:
+            row["library_ms"] = None
+            row["library_note"] = f"none: _int_mm refuses the shape ({str(e)[:120]})"
         log({"kernel_check": row})
     return row
+
+
+def check_head_ties(dev, gen) -> None:
+    """Exact ties where the tensor-core heads split their work, at B = 64
+    (one consumer warpgroup a CTA) and B = 512 (two, sharing each W stage,
+    with longer splits): W rows duplicated (and their biases) in pairs that
+    straddle a vocab tile boundary, a split boundary (from the wrappers' own
+    geometry), the lanes of a quad, two columns of one thread, one thread's
+    columns in two tiles of a split, two splits, and lie inside the ragged
+    last tile. Each row's features point at one pair, whose logit then
+    leads every other by far: K4 bf16 and K7 must return the pair's first
+    column on every row — the plain first-index argmax over f64 logits
+    (bf16) or over the int8 head's exact logits — and give the same bits
+    twice."""
+    for bsz in (64, 512):
+        for dtype in (torch.bfloat16, torch.int8):
+            _check_ties(dev, gen, bsz, dtype)
+
+
+def _check_ties(dev, gen, bsz: int, dtype) -> None:
+    """One batch and head (bf16 or int8) of :func:`check_head_ties`."""
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+
+    elem = 1 if dtype == torch.int8 else 2
+    _, tiles_per_split = fh.tc_geometry(bsz, D, V, elem, fh._num_sms(dev.index),
+                                        "check_head_ties")
+    last = (V - 1) // 128 * 128  # the ragged last tile's first column
+    split_end = tiles_per_split * 128
+    pairs = [(127, 128), (256, 258), (384, 392), (130, 386), (1000, 9000), (last + 3, V - 2)]
+    if all(split_end not in pair for pair in pairs):
+        pairs.append((split_end - 1, split_end))
+    w = 0.05 * torch.randn(V, D, generator=gen)
+    bias = 0.1 * torch.randn(V, generator=gen)
+    signs = torch.where(torch.rand(len(pairs), D, generator=gen) < 0.5, -1.0, 1.0)
+    for p, (a, b) in enumerate(pairs):
+        w[a] = w[b] = 0.1 * signs[p]
+        bias[b] = bias[a]
+    which = torch.arange(bsz) % len(pairs)
+    feats = signs[which] * torch.rand(bsz, D, generator=gen)
+    labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
+    labels[::7] = -1
+    first = torch.tensor([pairs[p][0] for p in which.tolist()], dtype=torch.int32)
+    labels, bias, first = labels.to(dev), bias.to(dev), first.to(dev)
+    if dtype == torch.bfloat16:
+        wd, fd = w.to(dev, dtype), feats.to(dev, dtype)
+        call = lambda: fh.head_predict(fd, wd, bias, labels)  # noqa: E731
+        ref = (fd.double() @ wd.double().t() + bias.double()).argmax(-1).to(torch.int32)
+        name = "head_predict"
+    else:
+        w_q, w_scale = _int8_head(dev, w)
+        fd = feats.to(dev, torch.bfloat16)
+        act = float(fd.float().abs().max()) / 127.0
+        scale_v = qz.combined_scale(w_scale, act)
+        call = lambda: qz.head_predict_int8(fd, w_q, bias, labels, None, act, scale_v)  # noqa: E731
+        ref = qz.head_predict_int8_reference(fd, w_q, bias, labels, None, act, scale_v)[1]
+        name = "head_predict_int8"
+    _, pred = call()
+    torch.cuda.synchronize()
+    what = f"{name} ties B={bsz}"
+    if not torch.equal(ref, first):
+        raise AssertionError(f"{what}: the plain argmax misses the pairs' first columns")
+    if not torch.equal(pred, ref):
+        bad = (pred != ref).nonzero().flatten().tolist()
+        raise AssertionError(f"{what}: rows {bad} picked {pred[bad].tolist()}, "
+                             f"want {ref[bad].tolist()}")
+    _bitwise_twice(call, what)
+    log({"head_tie_check": {"name": name, "batch": bsz, "pairs": pairs,
+                            "tiles_per_split": tiles_per_split, "rows_equal": bsz}})
 
 
 def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
@@ -1662,6 +1768,7 @@ def main() -> int:
     stem_backward = check_stem_backward(dev, gen)
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
+    check_head_ties(dev, gen)
     attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32 = check_attention_small(dev, gen)
     flash, flash_f32 = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)

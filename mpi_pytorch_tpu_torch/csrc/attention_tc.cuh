@@ -1,6 +1,8 @@
 // Tensor-core building blocks of the bf16 attention kernels on Hopper
 // (sm_90a): the forwards K8 (flash_attention.cu) and K9, and the tiny-S
 // backward K10 (both in fused_attention_small.cu).
+// The generic Hopper primitives they use (the swizzle, cp.async, wgmma's
+// descriptors and its fence / commit / wait) are in hopper.cuh.
 //
 // Products. `wgmma.mma_async` m64nNk16, bf16 operands, f32 sums: one
 // warpgroup (four warps, 128 threads) owns a 64-row tile.
@@ -54,57 +56,19 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace mpt_tc {
 
+using namespace mpt_hopper;  // swizzle, cp.async, descriptors, wgmma sync
 using mpt_attn::kNeg;
 using mpt_attn::Strides;
-
-constexpr int kWarpgroup = 128;
 
 // ---------------------------------------------------------------- tiles ---
 // D padded up to whole 64-element (128-byte) rows: the swizzle atom's width.
 template <int D>
 __host__ __device__ constexpr int padded() {
   return (D + 63) / 64 * 64;
-}
-
-// A tile of R rows (R % 8 == 0) lies as "atoms" of R rows × 128 bytes, one
-// per 64 columns, atom a at a·R·128 bytes; row r of an atom at r·128 and
-// its 16-byte chunk c (c < 8) at ((c ^ r % 8)·16): the 128-byte swizzle.
-// Tiles start on 1024 bytes, so the swizzle follows the address bits as
-// wgmma expects. Chunk c of the whole row (c < padded/8) is in atom c / 8.
-template <int R>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)((c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory writes of this thread (the copies that landed, the output
-// staging) ordered before later wgmma reads, which go through the async
-// proxy. Each writer fences, then the block synchronizes.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // R rows × D elements of a [.., S, .., D] operand (row stride ss elements,
@@ -124,57 +88,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
 }
 
 // ---------------------------------------------------------------- wgmma ---
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), and the 128-byte swizzle (layout
-// type 1, bits 62–63).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (q or k of q·kᵀ), k-step ks (16 columns) of the rows at
-// `rows` in an R-row tile: 32 bytes into the swizzled row per k-step, the
-// next atom every four; 8-row groups 1024 bytes apart (SBO; LBO unused).
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t rows, int ks) {
-  return make_desc(rows + (ks >> 2) * (R * 128) + (ks & 3) * 32, 16, 1024);
-}
-
-// MN-major operand (v of p·v), k-step kk (16 keys) and columns 64j..64j+63
-// of an R-row tile: 64 columns a 128-byte row; 8-key groups 1024 bytes
-// apart (SBO), 64-column atoms R·128 bytes apart (LBO).
-template <int R>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk, int j) {
-  return make_desc(tile + j * (R * 128) + kk * 2048, R * 128, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma's register
-// operands across the asynchronous product (issue to wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define MPT_F8(d, i)                                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d[64 × 64] (+)= A[64 × 16] · B[16 × 64]: A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int accumulate) {
@@ -184,7 +97,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, i
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : MPT_F8(d, 0), MPT_F8(d, 8), MPT_F8(d, 16), MPT_F8(d, 24)
+      : MPT_WG_F8(d, 0), MPT_WG_F8(d, 8), MPT_WG_F8(d, 16), MPT_WG_F8(d, 24)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -195,7 +108,7 @@ __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, i
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : MPT_F8(d, 0), MPT_F8(d, 8)
+      : MPT_WG_F8(d, 0), MPT_WG_F8(d, 8)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -205,7 +118,7 @@ __device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t a, uint64_t b, i
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : MPT_F8(d, 0)
+      : MPT_WG_F8(d, 0)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -217,7 +130,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MPT_F8(d, 0), MPT_F8(d, 8), MPT_F8(d, 16), MPT_F8(d, 24)
+      : MPT_WG_F8(d, 0), MPT_WG_F8(d, 8), MPT_WG_F8(d, 16), MPT_WG_F8(d, 24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -230,11 +143,9 @@ __device__ __forceinline__ void wgmma_ss_n64_mn(float* d, uint64_t a, uint64_t b
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 1, 1;\n}\n"
-      : MPT_F8(d, 0), MPT_F8(d, 8), MPT_F8(d, 16), MPT_F8(d, 24)
+      : MPT_WG_F8(d, 0), MPT_WG_F8(d, 8), MPT_WG_F8(d, 16), MPT_WG_F8(d, 24)
       : "l"(a), "l"(b), "r"(accumulate));
 }
-
-#undef MPT_F8
 
 // The register fragments. A warpgroup's 64 × N f32 accumulator: warp w
 // holds rows 16w..16w+15; lane (g = lane/4, t = lane%4) holds, for each

@@ -1,69 +1,51 @@
-// Streaming classifier head for prediction: per row of feats, the softmax
+// The classifier head's WMMA kernels: K4's f32 route and K5, the training
+// cross-entropy forward. (K4's bf16 route and the int8 head K7 run on wgmma
+// in head_predict_tc.cu.)
+//
+// K4's f32 route replaces mpi_pytorch_tpu/ops/fused_head_ce.py::
+// _predict_kernel with its shared epilogue online_predict_update for an f32
+// model, which keeps its head in f32 as the JAX head_predict does (f32
+// features select an f32 kernel there): per row of feats, the softmax
 // cross-entropy and the argmax of logits = feats @ W^T + b, without ever
-// storing the [B, V] logits.
+// storing the [B, V] logits. Semantics carried over exactly: argmax is the
+// FIRST index attaining the max (and across vocab blocks the earlier block
+// wins), loss = log(sum exp(logit - m)) + m - logit[label], and loss = 0
+// where label < 0 (batch padding rows). It accumulates with plain FFMA on
+// the CUDA cores -- no TF32, so the logits are exact f32 products. Its
+// bound at batch 512 is those operations at the f32 peak (2 * 512 * 512 *
+// 64500 = 33.8 GFLOP at 67 TFLOP/s, ~0.5 ms); at batch 8 the bytes of the
+// f32 W (132 MB, ~39 us).
 //
-// Replaces: mpi_pytorch_tpu/ops/fused_head_ce.py::_predict_kernel with its
-// shared epilogue online_predict_update (the Pallas TPU kernel behind
-// head_predict / --fused-head-eval). Semantics carried over exactly:
-// argmax is the FIRST index attaining the max (and across vocab blocks the
-// earlier block wins), loss = log(sum exp(logit - m)) + m - logit[label],
-// and loss = 0 where label < 0 (batch padding rows).
-//
-// What bounds it on an H100: at batch 1 the bytes of W (64500 x 512 bf16 =
-// 66 MB, ~20 us at 3.35 TB/s); at batch 512 the tensor-core operations
-// (2 * 512 * 512 * 64500 = 33.8 GFLOP, ~34 us at 989 TFLOP/s bf16).
-//
-// An f32 model keeps its head in f32, as the JAX head_predict does (f32
-// features select an f32 kernel there): the f32 variant takes f32 feats and
-// an f32 W and accumulates with plain FFMA on the CUDA cores -- no TF32, so
-// the logits are exact f32 products. Its bound at batch 512 is those
-// operations at the f32 peak (33.8 GFLOP at 67 TFLOP/s, ~0.5 ms); at
-// batch 8 the bytes of the f32 W (132 MB, ~39 us).
+// K5 replaces fused_head_ce.py::_fwd_kernel, the forward of the fused_head_ce
+// training op: the bf16 partial kernel below (bf16 WMMA, mma.sync, f32
+// accumulation; its argmax is computed and dropped) and a merge that writes
+// the loss and the global (m, l) the backward recomputes its softmax from.
+// Bound at batch 128: the 66 MB of bf16 W, ~20 us.
 //
 // Design. A GPU grid has no sequential accumulator like the TPU grid's
-// vocab sweep, so the reduction runs in two passes:
+// vocab sweep, so the reduction runs in two passes (head_common.cuh):
 //  1. Grid (row tile of BM rows) x (vocab split). Each CTA walks its split in
-//     tiles of BN vocab rows: bf16 WMMA (mma.sync) with f32 accumulation
-//     over K in chunks of BK staged through shared memory, then an epilogue
-//     that folds the [BM, BN] tile into a per-row online state (max, first
-//     argmax, sum of exp relative to the max, picked label logit). The
-//     state of each split goes to a [n_split, B] scratch.
-//  2. One thread per row merges the splits in order: M = max, l = sum
-//     l_s * exp(m_s - M), pred = the argmax of the lowest split attaining M.
+//     tiles of BN vocab rows: the tile product over K in chunks staged
+//     through shared memory, then an epilogue that folds the [BM, BN] tile
+//     into a per-row online state (max, first argmax, sum of exp relative to
+//     the max, picked label logit). The state of each split goes to a
+//     [n_split, B] scratch.
+//  2. One warp per row merges the splits (head_merge_kernel, head_common.cuh).
 // The row-tile index is the fastest grid dimension, so the CTAs that share
 // one vocab split run together and read that slice of W from L2 after the
 // first one brings it in from DRAM. Enough splits are chosen (by the
 // wrapper) that even batch 1 puts ~2 CTAs on each of the 132 SMs. The
-// ragged vocab edge is masked in-kernel: W is never padded or copied.
-// The f32 variant has the same two passes and epilogue; its tile product is
-// a shared-memory SIMT GEMM (each thread 4 rows x 8 vocab columns of FFMA).
-// This is the simple first version: no TMA, no wgmma, no software
-// pipelining of the K loop.
-//
-// The int8 variant replaces mpi_pytorch_tpu/ops/quantize.py::
-// _predict_int8_kernel (head_predict_int8, the int8 serving head). A first
-// small kernel quantizes feats to int8 exactly as quantize_activations does
-// -- clamp(rint(x / act_scale), -127, 127), an IEEE division, round half to
-// even -- so W and feats stream as int8 and the tile product runs on the
-// int8 tensor cores (WMMA 16x16x16, s8 x s8 -> s32, exact: |acc| <= D*127^2).
-// The epilogue dequantizes with ONE f32 multiply, float(acc) * scale_v[col]
-// with scale_v = w_scale * act_scale cut by the caller (__fmul_rn: no FMA
-// contraction with the bias add), then the unchanged fold_tile adds the bias
-// and keeps the online state, and the unchanged merge finishes the rows.
-// Its logits are therefore the plain version's bits. Bound at batch 512:
-// 2 * 512 * 512 * 64500 = 33.8 G int8 operations at 1979 TOPS, ~17 us; at
-// batch 8 the 33 MB of int8 W, ~10 us.
-//
-// The training cross-entropy forward (replaces fused_head_ce.py::_fwd_kernel,
-// the forward of the fused_head_ce op) is the bf16 partial kernel unchanged
-// -- its argmax is computed and dropped -- and a merge that writes the loss
-// and the global (m, l) the backward recomputes its softmax from. Bound at
-// batch 128: the 66 MB of bf16 W, ~20 us.
+// ragged vocab edge is masked in-kernel: W is never padded or copied. The
+// f32 tile product is a shared-memory SIMT GEMM (each thread 4 rows x 8
+// vocab columns of FFMA). This is the simple first version: no TMA, no
+// wgmma, no software pipelining of the K loop.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "head_common.cuh"
 
 namespace {
 
@@ -83,12 +65,6 @@ constexpr int BK32 = 32;
 constexpr int LDS32 = BK32 + 1;
 constexpr int kStageBytes32 = (BM + BN) * LDS32 * 4;
 constexpr int kSmemBytes32 = kStageBytes32 > kTileBytes ? kStageBytes32 : kTileBytes;
-// int8 variant: K chunk, staged chunk-major as [BK8 / 16][rows][16] bytes so
-// that every WMMA fragment starts 32-byte aligned (a row-major int8 tile with
-// a padded pitch would put every odd 16-column fragment off that alignment).
-constexpr int BK8 = 128;
-constexpr int kStageBytes8 = (BM + BN) * BK8;
-constexpr int kSmemBytes8 = kStageBytes8 > kTileBytes ? kStageBytes8 : kTileBytes;
 
 // Fold one [BM, BN] f32 tile of logits (Cs, before the bias) for vocab rows
 // n0.. into the per-row online state (max, first argmax, sum of exp
@@ -342,258 +318,40 @@ head_partial_f32_kernel(const float* __restrict__ feats,  // [B, D]
   store_partials(s_m, s_l, s_pick, s_arg, part_mlp, part_arg, row0, split, n_split, B, tid);
 }
 
-// feats -> int8 by quantize_activations' rule: clamp(rint(x / act_scale)),
-// the division correctly rounded, rint rounding half to even.
-template <typename T>
-__global__ void quantize_rows_kernel(const T* __restrict__ x, signed char* __restrict__ q,
-                                     long long n, float act_scale) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v;
-  if constexpr (sizeof(T) == 2)
-    v = __bfloat162float(x[i]);
-  else
-    v = x[i];
-  const float r = fminf(fmaxf(rintf(__fdiv_rn(v, act_scale)), -127.f), 127.f);
-  q[i] = static_cast<signed char>(static_cast<int>(r));
-}
-
-__global__ void __launch_bounds__(kThreads)
-head_partial_int8_kernel(const signed char* __restrict__ feats_q,  // [B, D] int8
-                         const signed char* __restrict__ w,        // [V, D] int8
-                         const float* __restrict__ scale_v,        // [V]: w_scale * act_scale
-                         const float* __restrict__ bias,           // [V]
-                         const int* __restrict__ labels,           // [B]
-                         float* __restrict__ part_mlp,             // [3, n_split, B]
-                         int* __restrict__ part_arg,               // [n_split, B]
-                         int B, int D, int V, int tiles_per_split) {
-  // Staging buffers and the epilogue tile share one buffer, as above; the
-  // epilogue tile holds the int32 sums, then (in place) the f32 logits.
-  __shared__ __align__(128) unsigned char smem[kSmemBytes8];
-  __shared__ float s_m[BM], s_l[BM], s_pick[BM];
-  __shared__ int s_arg[BM];
-  signed char* As = reinterpret_cast<signed char*>(smem);  // [BK8/16][BM][16]
-  signed char* Bs = As + BM * BK8;                         // [BK8/16][BN][16]
-  int* Ci = reinterpret_cast<int*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int row0 = blockIdx.x * BM;
-  const int split = blockIdx.y, n_split = gridDim.y;
-  const int v_begin = split * tiles_per_split * BN;
-  const int v_end = min(V, v_begin + tiles_per_split * BN);
-  constexpr int kChunks = BK8 / 16;
-
-  if (tid < BM) {
-    s_m[tid] = -INFINITY;
-    s_l[tid] = 0.f;
-    s_pick[tid] = 0.f;
-    s_arg[tid] = 0;
-  }
-
-  for (int n0 = v_begin; n0 < v_end; n0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-    for (int k0 = 0; k0 < D; k0 += BK8) {
-      // 16-byte chunks; rows past B / v_end and columns past D are zero.
-      for (int i = tid; i < BM * kChunks; i += kThreads) {
-        const int r = i / kChunks, kc = i % kChunks;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (row0 + r < B && k0 + kc * 16 < D)
-          v = *reinterpret_cast<const uint4*>(feats_q + static_cast<size_t>(row0 + r) * D + k0 + kc * 16);
-        *reinterpret_cast<uint4*>(As + (kc * BM + r) * 16) = v;
-      }
-      for (int i = tid; i < BN * kChunks; i += kThreads) {
-        const int r = i / kChunks, kc = i % kChunks;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (n0 + r < v_end && k0 + kc * 16 < D)
-          v = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(n0 + r) * D + k0 + kc * 16);
-        *reinterpret_cast<uint4*>(Bs + (kc * BN + r) * 16) = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kc = 0; kc < kChunks; ++kc) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
-        // W rows are the [16 x BN] operand's columns: col-major, pitch 16.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (kc * BM + warp_m * 32 + i * 16) * 16, 16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + (kc * BN + warp_n * 32 + j * 16) * 16, 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Ci + (warp_m * 32 + i * 16) * LDC + warp_n * 32 + j * 16,
-                                acc[i][j], LDC, wmma::mem_row_major);
-    __syncthreads();
-    // Dequantize in place: float(acc) is exact (|acc| < 2^24), then one
-    // correctly rounded f32 multiply; fold_tile adds the bias after it.
-    for (int e = tid; e < BM * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN;
-      if (n0 + c < v_end) {
-        const int o = r * LDC + c;
-        Ci[o] = __float_as_int(__fmul_rn(__int2float_rn(Ci[o]), scale_v[n0 + c]));
-      }
-    }
-    __syncthreads();
-    fold_tile(Cs, bias, labels, s_m, s_l, s_pick, s_arg, row0, n0, v_end, B, warp, lane);
-    __syncthreads();  // the next tile's staging overwrites Cs
-  }
-
-  store_partials(s_m, s_l, s_pick, s_arg, part_mlp, part_arg, row0, split, n_split, B, tid);
-}
-
-// Merges the splits of each row. pred may be null (the training forward
-// needs no argmax); m_out and l_out, when given, receive the row's global
-// max and its sum of exp relative to it (the training backward's residuals).
-__global__ void head_merge_kernel(const float* __restrict__ part_mlp,
-                                  const int* __restrict__ part_arg,
-                                  const int* __restrict__ labels,
-                                  float* __restrict__ loss, int* __restrict__ pred,
-                                  float* __restrict__ m_out, float* __restrict__ l_out,
-                                  int B, int n_split) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const size_t plane = static_cast<size_t>(n_split) * B;
-  float M = part_mlp[row];
-  int arg = part_arg[row];
-  for (int s = 1; s < n_split; ++s) {
-    const float m = part_mlp[static_cast<size_t>(s) * B + row];
-    if (m > M) {  // strict: the lowest-numbered split attaining M wins
-      M = m;
-      arg = part_arg[static_cast<size_t>(s) * B + row];
-    }
-  }
-  float l = 0.f, pick = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const size_t o = static_cast<size_t>(s) * B + row;
-    l += part_mlp[plane + o] * expf(part_mlp[o] - M);
-    pick += part_mlp[2 * plane + o];
-  }
-  loss[row] = labels[row] < 0 ? 0.f : logf(l) + M - pick;
-  if (pred != nullptr) pred[row] = arg;
-  if (m_out != nullptr) {
-    m_out[row] = M;
-    l_out[row] = l;
-  }
-}
-
 }  // namespace
 
-// feats and w [V, D] row-major in one dtype (0 = f32, 1 = bf16; D % 16 == 0,
-// 16-byte aligned); bias f32 [V]; labels i32 [B]; loss f32 [B]; pred i32
-// [B]. Scratch: part_mlp f32 [3, n_split, B], part_arg i32 [n_split, B].
-// The split geometry must cover V with no empty split.
-namespace {
-// cudaSuccess when (B, D, V) and the split geometry are ones the partial
-// kernels take: D % 16 == 0, every split non-empty, V covered.
-cudaError_t check_geometry(int B, int D, int V, int n_split, int tiles_per_split) {
-  if (B < 1 || V < 1 || D < 16 || D % 16 != 0 || n_split < 1 || tiles_per_split < 1)
-    return cudaErrorInvalidValue;
-  const long long span = static_cast<long long>(tiles_per_split) * BN;
-  if (static_cast<long long>(n_split - 1) * span >= V || n_split * span < V)
-    return cudaErrorInvalidValue;
-  if (n_split > 65535) return cudaErrorInvalidConfiguration;
-  return cudaSuccess;
-}
-}  // namespace
-
-extern "C" int mpt_head_predict(const void* feats, const void* w, const void* bias,
-                                const void* labels, void* loss, void* pred,
-                                void* part_mlp, void* part_arg, int B, int D, int V,
-                                int n_split, int tiles_per_split, int dtype, void* stream) {
-  const cudaError_t bad = check_geometry(B, D, V, n_split, tiles_per_split);
+// K4's f32 route: feats and w f32 [V, D] row-major (D % 16 == 0, 16-byte
+// aligned); bias f32 [V]; labels i32 [B]; loss f32 [B]; pred i32 [B].
+// Scratch: part_mlp f32 [3, n_split, B], part_arg i32 [n_split, B]. The
+// split geometry (tiles of mpt_head_tile_vocab() rows) must cover V with no
+// empty split.
+extern "C" int mpt_head_predict_f32(const void* feats, const void* w, const void* bias,
+                                    const void* labels, void* loss, void* pred, void* part_mlp,
+                                    void* part_arg, int B, int D, int V, int n_split,
+                                    int tiles_per_split, void* stream) {
+  const cudaError_t bad = check_geometry(B, D, V, n_split, tiles_per_split, BN);
   if (bad != cudaSuccess) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + BM - 1) / BM, n_split);
-  if (dtype == 1) {
-    head_partial_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(feats), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const float*>(bias), static_cast<const int*>(labels),
-        static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
-  } else if (dtype == 0) {
-    head_partial_f32_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<const int*>(labels),
-        static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
+  head_partial_f32_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(feats), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const int*>(labels),
+      static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  head_merge_kernel<<<(B + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part_mlp), static_cast<const int*>(part_arg),
-      static_cast<const int*>(labels), static_cast<float*>(loss),
-      static_cast<int*>(pred), nullptr, nullptr, B, n_split);
-  return cudaGetLastError();
-}
-
-// The int8 head: feats (dtype 0 = f32, 1 = bf16) [B, D] are quantized into
-// the scratch feats_q int8 [B, D], then the int8 partial kernel and the merge
-// run. w int8 [V, D]; scale_v, bias f32 [V]; labels i32 [B]; loss f32 [B];
-// pred i32 [B]; part_mlp, part_arg as for mpt_head_predict. Every pointer
-// 16-byte aligned.
-extern "C" int mpt_head_predict_int8(const void* feats, void* feats_q, const void* w,
-                                     const void* scale_v, const void* bias, const void* labels,
-                                     void* loss, void* pred, void* part_mlp, void* part_arg,
-                                     int B, int D, int V, int n_split, int tiles_per_split,
-                                     float act_scale, int dtype, void* stream) {
-  const cudaError_t bad = check_geometry(B, D, V, n_split, tiles_per_split);
-  if (bad != cudaSuccess) return bad;
-  if (!(act_scale > 0.f)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(B) * D;
-  const unsigned qblocks = static_cast<unsigned>((n + 255) / 256);
-  if (dtype == 1) {
-    quantize_rows_kernel<<<qblocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(feats),
-                                                 static_cast<signed char*>(feats_q), n, act_scale);
-  } else if (dtype == 0) {
-    quantize_rows_kernel<<<qblocks, 256, 0, s>>>(static_cast<const float*>(feats),
-                                                 static_cast<signed char*>(feats_q), n, act_scale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + BM - 1) / BM, n_split);
-  head_partial_int8_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const signed char*>(feats_q), static_cast<const signed char*>(w),
-      static_cast<const float*>(scale_v), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<float*>(part_mlp),
-      static_cast<int*>(part_arg), B, D, V, tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  head_merge_kernel<<<(B + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part_mlp), static_cast<const int*>(part_arg),
-      static_cast<const int*>(labels), static_cast<float*>(loss),
-      static_cast<int*>(pred), nullptr, nullptr, B, n_split);
-  return cudaGetLastError();
+  return launch_merge(static_cast<const float*>(part_mlp), static_cast<const int*>(part_arg),
+                      static_cast<const int*>(labels), static_cast<float*>(loss),
+                      static_cast<int*>(pred), nullptr, nullptr, B, n_split, s);
 }
 
 // The training cross-entropy forward: feats and w bf16 ([B, D], [V, D]),
 // bias f32 [V], labels i32 [B] -> loss, m, l f32 [B]; scratch as for
-// mpt_head_predict.
+// mpt_head_predict_f32.
 extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bias,
                                const void* labels, void* loss, void* m, void* l,
                                void* part_mlp, void* part_arg, int B, int D, int V,
                                int n_split, int tiles_per_split, void* stream) {
-  const cudaError_t bad = check_geometry(B, D, V, n_split, tiles_per_split);
+  const cudaError_t bad = check_geometry(B, D, V, n_split, tiles_per_split, BN);
   if (bad != cudaSuccess) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + BM - 1) / BM, n_split);
@@ -601,16 +359,14 @@ extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bia
       static_cast<const __nv_bfloat16*>(feats), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(labels),
       static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  head_merge_kernel<<<(B + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part_mlp), static_cast<const int*>(part_arg),
-      static_cast<const int*>(labels), static_cast<float*>(loss), nullptr,
-      static_cast<float*>(m), static_cast<float*>(l), B, n_split);
-  return cudaGetLastError();
+  return launch_merge(static_cast<const float*>(part_mlp), static_cast<const int*>(part_arg),
+                      static_cast<const int*>(labels), static_cast<float*>(loss), nullptr,
+                      static_cast<float*>(m), static_cast<float*>(l), B, n_split, s);
 }
 
-// The tile geometry the wrapper plans splits with: rows per CTA, vocab rows
-// per tile.
+// The tile geometry the wrappers of K5 and K4's f32 route plan splits with:
+// rows per CTA, vocab rows per tile.
 extern "C" int mpt_head_tile_rows() { return BM; }
 extern "C" int mpt_head_tile_vocab() { return BN; }

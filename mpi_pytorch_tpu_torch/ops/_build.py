@@ -56,12 +56,19 @@ SIGNATURES = {
     "mpt_stem_pool_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # the backward's scratch rows for B, H, W, C
     "mpt_stem_bwd_parts": (_I, _I, _I, _I),
-    # feats, w, bias, labels, loss, pred, part_mlp, part_arg,
-    # B, D, V, n_split, tiles_per_split, dtype (0 = f32, 1 = bf16), stream
-    "mpt_head_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # the head kernel's tile geometry: rows per CTA, vocab rows per tile
+    # the predict head K4, bf16 (tensor cores) and f32: feats, w, bias,
+    # labels, loss, pred, part_mlp, part_arg, B, D, V, n_split,
+    # tiles_per_split, stream
+    "mpt_head_predict_bf16": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
+    "mpt_head_predict_f32": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
+    # the WMMA head kernels' tile geometry (K4 f32, K5): rows per CTA,
+    # vocab rows per tile
     "mpt_head_tile_rows": (),
     "mpt_head_tile_vocab": (),
+    # the tensor-core heads' (K4 bf16, K7): rows per CTA for (B, D, element
+    # bytes), 0 when D is too wide; vocab rows per tile
+    "mpt_head_tc_tile_rows": (_I, _I, _I),
+    "mpt_head_tc_tile_vocab": (),
     # feats, feats_q (scratch), w_q, scale_v, bias, labels, loss, pred,
     # part_mlp, part_arg, B, D, V, n_split, tiles_per_split, act_scale,
     # dtype, stream

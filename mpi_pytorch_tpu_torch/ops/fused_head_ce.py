@@ -22,17 +22,18 @@ stream contiguous rows of it and the serving path keeps one bf16 copy
 built once instead of re-casting per call; ``fused_head_ce``'s dW comes
 back ``[V, D]`` too.
 
-On a CUDA tensor :func:`head_predict` launches the kernel in
-``csrc/fused_head_ce.cu`` or raises: bf16 feats and W through the tensor
-cores, or f32 feats and W through the f32 variant (plain FFMA, no TF32:
+On a CUDA tensor :func:`head_predict` launches a kernel or raises: bf16
+feats and W through the wgmma kernel of ``csrc/head_predict_tc.cu``
+(TMA-fed, the softmax and argmax folded in registers), or f32 feats and W
+through the f32 kernel of ``csrc/fused_head_ce.cu`` (plain FFMA, no TF32:
 an f32 model keeps an exact f32 head, as the JAX function's f32 kernel
 does), with f32 bias and int32 labels. On a CPU tensor it runs
 :func:`head_predict_reference`, the plain PyTorch version.
 :func:`fused_head_ce` on a CUDA tensor runs its forward kernel (the bf16
-partial kernel with a merge that keeps the rows' max and sum for the
-backward) and its backward kernels (``csrc/fused_head_ce_bwd.cu``); on a
-CPU tensor the plain forward and backward of
-:func:`fused_head_ce_reference`.
+WMMA partial kernel of ``csrc/fused_head_ce.cu`` with a merge that keeps
+the rows' max and sum for the backward) and its backward kernels
+(``csrc/fused_head_ce_bwd.cu``); on a CPU tensor the plain forward and
+backward of :func:`fused_head_ce_reference`.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ import torch.nn.functional as F
 
 from mpi_pytorch_tpu_torch.ops import _build
 
-# Launches of the CUDA kernel pair (one per head_predict call on the card):
-# the bf16 variant, and the f32 variant.
+# Launches of head_predict's kernels (one per call on the card): the bf16
+# tensor-core kernel, and the f32 kernel.
 counter = _build.LaunchCounter()
 counter_f32 = _build.LaunchCounter()
 # Launches of the training op's forward and backward kernels (one per call
@@ -53,9 +54,12 @@ counter_f32 = _build.LaunchCounter()
 ce_forward_counter = _build.LaunchCounter()
 ce_backward_counter = _build.LaunchCounter()
 
-# CTAs to aim for when choosing the number of vocab splits: about two per
-# SM of an H100 (132 SMs), so that even batch 1 fills the card.
+# CTAs to aim for on each SM of an H100 (132 SMs) when choosing the number
+# of vocab splits, so that even batch 1 fills the card: about two for the
+# WMMA kernels (K4's f32 route, K5) and K6; one for the tensor-core heads
+# (K4 bf16, K7), each of which holds most of an SM's shared memory.
 _TARGET_CTAS_PER_SM = 2
+_TC_CTAS_PER_SM = 1
 
 
 def _logits(feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,16 +91,40 @@ def _num_sms(index: int | None) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_geometry(rows: int, vocab: int, num_sms: int) -> tuple[int, int]:
-    """(n_split, tiles_per_split) for the kernel: enough vocab splits that
-    the grid holds about ``2 × num_sms`` CTAs, with no empty split."""
-    lib = _build.load_library()
-    block_rows, block_v = lib.mpt_head_tile_rows(), lib.mpt_head_tile_vocab()
+def split_geometry(
+    rows: int, vocab: int, num_sms: int, block_rows: int, block_v: int, ctas_per_sm: int
+) -> tuple[int, int]:
+    """(n_split, tiles_per_split) for a head kernel whose CTAs take
+    ``block_rows`` rows and tiles of ``block_v`` vocab rows: enough vocab
+    splits that the grid holds about, and at most, ``ctas_per_sm × num_sms``
+    CTAs (one wave), with no empty split."""
     row_tiles = -(-rows // block_rows)
     v_tiles = -(-vocab // block_v)
-    want = max(1, -(-_TARGET_CTAS_PER_SM * num_sms // row_tiles))
+    want = max(1, ctas_per_sm * num_sms // row_tiles)
     tiles_per_split = -(-v_tiles // min(want, v_tiles))
     return -(-v_tiles // tiles_per_split), tiles_per_split
+
+
+def wmma_geometry(rows: int, vocab: int, num_sms: int) -> tuple[int, int]:
+    """The split geometry of the WMMA head kernels (K4's f32 route, K5)."""
+    lib = _build.load_library()
+    return split_geometry(rows, vocab, num_sms, lib.mpt_head_tile_rows(),
+                          lib.mpt_head_tile_vocab(), _TARGET_CTAS_PER_SM)
+
+
+def tc_geometry(rows: int, d: int, vocab: int, elem_bytes: int, num_sms: int,
+                what: str) -> tuple[int, int]:
+    """The split geometry of the tensor-core heads (K4 bf16, K7) for feats
+    of ``elem_bytes``-byte elements; raises when D is too wide for their
+    resident feats tile."""
+    lib = _build.load_library()
+    block_rows = lib.mpt_head_tc_tile_rows(rows, d, elem_bytes)
+    if block_rows == 0:
+        raise ValueError(
+            f"{what} kernel keeps a 64-row feats tile in shared memory: D={d} is too wide"
+        )
+    return split_geometry(rows, vocab, num_sms, block_rows, lib.mpt_head_tc_tile_vocab(),
+                          _TC_CTAS_PER_SM)
 
 
 def check_shapes(feats, w, b, labels, what: str = "head_predict") -> None:
@@ -151,21 +179,26 @@ def head_predict(
         raise ValueError(f"head_predict kernel needs D % 16 == 0, got D={d}")
     dev = feats.device
     check_kernel_operands("head_predict", dev, feats=feats, w=w, b=b, labels=labels)
-    n_split, tiles_per_split = split_geometry(bsz, vocab, _num_sms(dev.index))
+    lib = _build.load_library()
+    if feats.dtype == torch.bfloat16:
+        n_split, tiles_per_split = tc_geometry(bsz, d, vocab, 2, _num_sms(dev.index),
+                                               "head_predict")
+        entry, launches = lib.mpt_head_predict_bf16, counter
+    else:
+        n_split, tiles_per_split = wmma_geometry(bsz, vocab, _num_sms(dev.index))
+        entry, launches = lib.mpt_head_predict_f32, counter_f32
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
     loss = torch.empty((bsz,), dtype=torch.float32, device=dev)
     pred = torch.empty((bsz,), dtype=torch.int32, device=dev)
-    lib = _build.load_library()
     with torch.cuda.device(dev):
-        code = lib.mpt_head_predict(
+        code = entry(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), pred.data_ptr(), part_mlp.data_ptr(), part_arg.data_ptr(),
-            bsz, d, vocab, n_split, tiles_per_split, _build.DTYPE_CODE[feats.dtype],
-            _build.stream(dev),
+            bsz, d, vocab, n_split, tiles_per_split, _build.stream(dev),
         )
     _build.check(code, "head_predict")
-    (counter if feats.dtype == torch.bfloat16 else counter_f32).add()
+    launches.add()
     return loss, pred
 
 
@@ -226,7 +259,7 @@ def _ce_forward(feats, w, b, labels):
     check_kernel_operands("fused_head_ce forward", dev, feats=feats, w=w, b=b, labels=labels)
     bsz, d = feats.shape
     vocab = w.shape[0]
-    n_split, tiles_per_split = split_geometry(bsz, vocab, _num_sms(dev.index))
+    n_split, tiles_per_split = wmma_geometry(bsz, vocab, _num_sms(dev.index))
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
     loss, m, l = (torch.empty((bsz,), dtype=torch.float32, device=dev) for _ in range(3))

@@ -22,11 +22,11 @@ Three layers, as in the JAX module:
    for the fused kernel, with the activation scale calibrated on a seeded
    sample batch (:func:`calibrate_head_act_scale`).
 3. **The fused int8 head** (:func:`head_predict_int8`): ``head_predict``'s
-   int8 sibling. On a CUDA tensor it launches the kernel in
-   ``csrc/fused_head_ce.cu`` (feats quantized as :func:`quantize_activations`
-   does, int8 × int8 products with int32 sums on the tensor cores, then
-   ``float(acc)·scale_v + b`` and the same online softmax and first-index
-   argmax) or raises; on a CPU tensor it runs
+   int8 sibling. On a CUDA tensor it launches the kernels in
+   ``csrc/head_predict_tc.cu`` (feats quantized as
+   :func:`quantize_activations` does, then wgmma int8 × int8 products with
+   exact int32 sums, ``float(acc)·scale_v + b`` as two roundings and the
+   same online softmax and first-index argmax) or raises; on a CPU tensor it runs
    :func:`head_predict_int8_reference`, whose exact integer product gives
    the kernel's logits bit for bit.
 
@@ -50,7 +50,7 @@ from mpi_pytorch_tpu_torch.ops.fused_head_ce import (
     _num_sms,
     check_kernel_operands,
     check_shapes,
-    split_geometry,
+    tc_geometry,
 )
 from mpi_pytorch_tpu_torch.train.step import ingest_images
 
@@ -305,7 +305,8 @@ def head_predict_int8(
     dev = feats.device
     check_kernel_operands("head_predict_int8", dev, feats=feats, w_q=w_q, b=b, labels=labels,
                           scale_v=scale_v)
-    n_split, tiles_per_split = split_geometry(bsz, vocab, _num_sms(dev.index))
+    n_split, tiles_per_split = tc_geometry(bsz, d, vocab, 1, _num_sms(dev.index),
+                                           "head_predict_int8")
     feats_q = torch.empty((bsz, d), dtype=torch.int8, device=dev)
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
