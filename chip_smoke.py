@@ -24,12 +24,18 @@ Phases (any failure raises and the script exits non-zero):
    two calls bitwise equal, the
    training cross-entropy head's forward (K5) and backward (K6) at batch
    128, the tiny-S attention forward (K9) and backward (K10) at vit_s16's
-   128 px shape (and S = 50, 65, 128, causal; K10 also at D = 32, 128,
-   40), and the flash forward (K8) at its 224 px shape and a longer
-   causal S — K8, K9 and K10 on both routes, the bf16 tensor-core kernels
-   and the f32 FFMA kernels, two calls bitwise equal; no measured time
-   may read below its bound; and the flash backward's yardstick line
-   (the blocked torch backward beside SDPA's backward);
+   128 px shape (and S = 50, 65, 128, causal; the f32 forward also at
+   D = 40, 128; K10 also at D = 32, 128, 40), and the flash forward (K8)
+   at its 224 px shape and a longer causal S (f32 also at D = 40, 128) —
+   the forwards on their three routes (the bf16 tensor-core kernels, the
+   f32 tensor-core kernels, the FFMA kernels at bf16 D = 40 and K9's bf16
+   inference), K10 on both (tensor cores, FFMA), each on its route's
+   counter only, two calls bitwise equal; the f32 tensor-core forwards
+   also against float64 attention on their timed inputs, within a limit
+   (``attention_split_numerics.F64_REL``) that their six-pair torch
+   emulation keeps and the three-pair control breaks; no measured time may read below its bound;
+   and the flash backward's yardstick line (the blocked torch backward
+   beside SDPA's backward);
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
@@ -66,9 +72,9 @@ Phases (any failure raises and the script exits non-zero):
    batches: against the stem's plain versions, losses, step-1 stem
    gradients and ``bn1`` after three steps rtol 1e-4; against the plain
    stem, losses rtol 1e-4; and the device time of one bf16 train step on
-   a resident batch, fused and plain, in turns; then K8/K9 (their FFMA
-   kernels, counted) and K10 (its FFMA kernel, counted) inside the f32
-   vit_s16 step the same way
+   a resident batch, fused and plain, in turns; then K8/K9 (their f32
+   tensor-core kernels, counted) and K10 (its FFMA kernel, counted) inside
+   the f32 vit_s16 step the same way
    (losses rtol 1e-4, step-1 gradients within ``VIT_GRAD_GAP``);
 9. where a training step's time goes, for resnet18 and both vit_s16
    configurations: the host loader alone, the host's enqueue time against
@@ -174,19 +180,33 @@ def device_ms(fn, iters: int) -> float:
     """The card's busy time for one call: the device time of every kernel
     ``iters`` calls launch (``torch.profiler``), over ``iters``, after a
     short warmup. Unlike :func:`time_ms` it does not grow when the host
-    enqueues the calls more slowly than the card runs them."""
+    enqueues the calls more slowly than the card runs them. A trace that
+    lost kernels (one of them seen fewer than ``iters`` times: on the H100
+    the profiler has returned a fifth of K10's and two thirds of SDPA's) is
+    taken again, up to three times; if every trace lost some, the fullest
+    one gives each kernel's mean time, counted max(1, round(seen / iters))
+    times a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return busy_us / iters / 1e3
+    fullest = None
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if kernels and all(e.count >= iters for e in kernels):
+            return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+        log({"device_ms_retake": {"attempt": attempt, "counts": {e.key[:60]: e.count for e in kernels}}})
+        if fullest is None or sum(e.count for e in kernels) > sum(e.count for e in fullest):
+            fullest = kernels
+    busy_us = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                  for e in fullest if e.count)
+    return busy_us / 1e3
 
 
 def _ulp_check(got, ref, what: str) -> float:
@@ -701,6 +721,35 @@ def _attn_check(got, ref, what: str) -> float:
     return float(err.max())
 
 
+def _f64_check(name: str, q, k, v, out, lse=None) -> dict:
+    """An f32 tensor-core forward's output (and K8's lse) on the card
+    against ``attention_f64`` on the same inputs, beside the two readings
+    that place the limit: the six-pair torch emulation of the kernel's
+    arithmetic (``emulate_flash`` where there is an lse, else
+    ``emulate_small``) and the three-pair control. Raises unless the six
+    pairs come within ``F64_REL``, the three pairs do not, and the kernel
+    does (its lse within 1e-5). Logs and returns the gaps."""
+    from mpi_pytorch_tpu_torch.ops.attention_split_numerics import (
+        F64_REL, SIX, THREE, attention_f64, emulate_flash, emulate_small, relative_gap,
+    )
+
+    ref, ref_lse = attention_f64(q, k, v)
+    gaps = {"kernel": relative_gap(out, ref)}
+    for label, pairs in (("six_pairs", SIX), ("three_pairs", THREE)):
+        emu = emulate_small(q, k, v, False, pairs) if lse is None else emulate_flash(q, k, v, False, pairs)
+        gaps[label] = relative_gap(emu if lse is None else emu[0], ref)
+        if lse is not None:
+            gaps[f"{label}_lse_abs"] = float((emu[1].double() - ref_lse).abs().max())
+    if lse is not None:
+        gaps["kernel_lse_abs"] = float((lse.double() - ref_lse).abs().max())
+    log({"f32_split_vs_f64": {"name": name, "shape": list(q.shape), "limit": F64_REL, **gaps}})
+    if not gaps["six_pairs"] <= F64_REL < gaps["three_pairs"]:
+        raise AssertionError(f"{name}: F64_REL {F64_REL} does not separate six pairs from three: {gaps}")
+    if gaps["kernel"] > F64_REL or gaps.get("kernel_lse_abs", 0.0) > 1e-5:
+        raise AssertionError(f"{name}: the kernel is off float64 attention by {gaps}")
+    return gaps
+
+
 def _attn_work(
     b: int, s: int, h: int, d: int, *, bf16_products: int, split_products: int,
     per_score: int, per_elem: int, f32: bool = False,
@@ -734,12 +783,14 @@ def _attn_work(
 
 
 def _kernel_row(name: str, source: str, line: str, shape, dtype, err: float, fn, plain,
-                library, moved: float, work, iters: int, plain_iters: int) -> dict:
+                library, moved: float, work, iters: int, plain_iters: int,
+                f64_gaps: dict | None = None) -> dict:
     """One ``kernel_check`` row: the kernel's busy time (``device_ms``) and
     event time, its plain version's event time, its bound, and the
     yardstick ``library`` (one PyTorch call of the same function, never
-    called by the port) timed both ways. Raises when a measured time reads
-    below the bound: the bound would be wrong."""
+    called by the port) timed both ways; ``f64_gaps`` (``_f64_check``'s)
+    where given. Raises when a measured time reads below the bound: the
+    bound would be wrong."""
     from mpi_pytorch_tpu_torch.hardware import bound_ms
 
     bound, by = bound_ms(moved, *work)
@@ -750,6 +801,8 @@ def _kernel_row(name: str, source: str, line: str, shape, dtype, err: float, fn,
         "plain_ms": time_ms(plain, plain_iters), "bound_ms": bound, "bound_by": by,
         "library_ms": device_ms(library, iters), "library_event_ms": time_ms(library, iters),
     }
+    if f64_gaps is not None:
+        row["f64_gaps"] = f64_gaps
     log({"kernel_check": row})
     for key in ("device_ms", "library_ms"):
         if row[key] < bound:
@@ -780,46 +833,80 @@ def _check_k10(fas, full_attention, q, k, v, do, causal: bool, what: str) -> flo
                for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves))
 
 
+# An attention forward's route (``_build.attention_forward_route``) → the
+# suffix of its kernel's row and launch count.
+ROUTE_SUFFIX = {"tensor_core": "tc", "tensor_core_f32": "f32tc", "ffma": "ffma"}
+
+
+def _forward_twice(fn, counters: dict, route: str, what: str):
+    """Two calls of a forward, synchronized: the route's counter (and only
+    it) moved by two, and the two results bitwise equal. Returns the
+    first result."""
+    before = {name: c.count for name, c in counters.items()}
+    out, again = fn(), fn()
+    torch.cuda.synchronize()
+    moved = {name: c.count - before[name] for name, c in counters.items()}
+    if moved != {name: 2 * (name == route) for name in counters}:
+        raise AssertionError(f"{what}: launches {moved}, want two on {route}")
+    pairs = zip(out, again) if isinstance(out, tuple) else ((out, again),)
+    if not all(torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    return out
+
+
 def check_attention_small(dev, gen) -> tuple[dict, ...]:
-    """K9 on both kernels and K10 on both kernels against their plain
-    versions at vit_s16's 128 px shape, at a padded S = 50, S = 65, S =
-    128 and causal: K9's training forward in bf16 (the tensor-core kernel)
-    against ``full_attention`` within one bf16 ulp, its inference forward
-    in bf16 and its f32 forward (the FFMA kernel) within one bf16 ulp and
-    rtol/atol 2e-5 (``_attn_check``), two calls bitwise equal on each;
-    K10's dq, dk, dv against autograd through ``full_attention`` in f32
-    (``_grad_check``), two calls bitwise equal — the tensor-core kernel
-    (bf16, D = 64) at every S, and at D = 32, D = 128 and the envelope's
-    corner S = 128, D = 128; the FFMA kernel at f32 and at bf16 D = 40.
-    Then each timed beside its plain version and
+    """K9 on its three kernels and K10 on both against their plain versions
+    at vit_s16's 128 px shape, at a padded S = 50, S = 65, S = 128 and
+    causal: K9's training forward in bf16 (the tensor-core kernel) within
+    one bf16 ulp of ``full_attention``, its bf16 inference forward (the
+    FFMA kernel) the same, its f32 forward, training and inference (the f32
+    tensor-core kernel), within rtol/atol 2e-5 (``_attn_check``) — and the
+    f32 forward also at D = 40, D = 128 and S = 128 with D = 128, the FFMA
+    forward at bf16 D = 40; each twice, bitwise equal, on its route's
+    counter only. K10's dq, dk, dv against autograd through
+    ``full_attention`` in f32 (``_grad_check``), two calls bitwise equal —
+    the tensor-core kernel (bf16, D = 64) at every S, and at D = 32, D =
+    128 and the envelope's corner S = 128, D = 128; the FFMA kernel at f32
+    and at bf16 D = 40. Then each timed beside its plain version and
     ``scaled_dot_product_attention`` (its backward for K10) in the same
-    dtype. Returns the rows (K9 tensor-core, K9 FFMA, K10 tensor-core,
-    K10 FFMA)."""
+    dtype. Returns the rows (K9 tensor-core, K9 f32 tensor-core, K9 FFMA
+    at bf16 inference, K10 tensor-core, K10 FFMA)."""
     from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
     from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
 
+    counters = {"tensor_core": fas.forward_tc_counter, "tensor_core_f32": fas.forward_tc_f32_counter,
+                "ffma": fas.forward_ffma_counter}
     b, s, h, d = ATTN_SMALL_SHAPE
-    fwd_err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
+    fwd_err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
     bwd_err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
+    forwards = ((torch.bfloat16, True, "tensor_core"), (torch.bfloat16, False, "ffma"),
+                (torch.float32, True, "tensor_core_f32"), (torch.float32, False, "tensor_core_f32"))
+    cases = [((b, seq, h, d), causal, forwards)
+             for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True))]
+    # The envelope's other head dims: the f32 kernel at D = 40 (not a
+    # multiple of 16) and 128, and at S = 128 with D = 128 (its largest
+    # shared memory, 193 KB); the FFMA kernel at a bf16 D the tensor cores
+    # do not take.
+    f32_only = forwards[2:]
+    cases += [((b // 2, s, h, 40), False, f32_only), ((b // 2, s, h, 128), False, f32_only),
+              ((8, 128, h, 128), False, f32_only),
+              ((b // 2, s, h, 40), False, ((torch.bfloat16, True, "ffma"),))]
+    for shape, causal, runs in cases:
+        tag = f"{list(shape)}{', causal' if causal else ''}"
+        for dtype, train, route in runs:
+            q, k, v = _qkv(gen, shape, dev, 3, dtype)
+            what = f"K9 {route} {tag} {str(dtype).removeprefix('torch.')} train={train}"
+            out = _forward_twice(lambda: fas.attention_small_forward(q, k, v, causal, train=train),
+                                 counters, route, what)
+            err = _attn_check(out, full_attention(q, k, v, causal=causal), what)
+            fwd_err[ROUTE_SUFFIX[route]] = max(fwd_err[ROUTE_SUFFIX[route]], err)
     for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True)):
         tag = f"S={seq}{', causal' if causal else ''}"
-        for dtype, train, route in ((torch.bfloat16, True, "tensor-core"),
-                                    (torch.bfloat16, False, "FFMA"), (torch.float32, True, "FFMA")):
-            q, k, v = _qkv(gen, (b, seq, h, d), dev, 3, dtype)
-            out = fas.attention_small_forward(q, k, v, causal, train=train)
-            again = fas.attention_small_forward(q, k, v, causal, train=train)
-            torch.cuda.synchronize()
-            what = f"K9 {route} {tag}"
-            err = _attn_check(out, full_attention(q, k, v, causal=causal), what)
-            if train:  # the timed rows: the tensor-core kernel (bf16), FFMA (f32)
-                fwd_err[dtype] = max(fwd_err[dtype], err)
-            if not torch.equal(out, again):
-                raise AssertionError(f"{what}: two calls on the same inputs differ")
         for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "FFMA")):
             q, k, v, do = _qkv(gen, (b, seq, h, d), dev, 4, dtype)
             bwd_err[dtype] = max(bwd_err[dtype], _check_k10(
                 fas, full_attention, q, k, v, do, causal, f"K10 {route} {tag}"))
-    # The envelope's other head dims: the tensor-core kernel at D = 32 and
+    # The backward's other head dims: the tensor-core kernel at D = 32 and
     # 128 (and S = 128 with D = 128, where its shared memory holds one
     # stage), the FFMA kernel at a bf16 D it does not take.
     for shape, route in (((b // 2, s, h, 32), "tensor-core"), ((b // 2, s, h, 128), "tensor-core"),
@@ -830,18 +917,22 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
     source = "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
+    for dtype, train, suffix in ((torch.bfloat16, True, "tc"), (torch.float32, True, "f32tc"),
+                                 (torch.bfloat16, False, "ffma")):
         q, k, v = _qkv(gen, ATTN_SMALL_SHAPE, dev, 3, dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's [B, H, S, D]
+        gaps = (_f64_check("attention_small_forward_f32tc", q, k, v,
+                           fas.attention_small_forward(q, k, v, train=True))
+                if suffix == "f32tc" else None)
         # q, k, v read, out written. q·kᵀ, p·v; per score mask, max, exp
         # of the difference, sum; per element q·scale, ÷ l.
         rows.append(_kernel_row(
             f"attention_small_forward_{suffix}", source,
             "mpi_pytorch_tpu/ops/fused_attention_small.py:135", ATTN_SMALL_SHAPE, dtype,
-            fwd_err[dtype], lambda: fas.attention_small_forward(q, k, v, train=True),
+            fwd_err[suffix], lambda: fas.attention_small_forward(q, k, v, train=train),
             lambda: full_attention(q, k, v), lambda: sdpa(qt, kt, vt), 4 * q.numel() * q.element_size(),
             _attn_work(b, s, h, d, bf16_products=1, split_products=1, per_score=4, per_elem=2,
-                       f32=dtype == torch.float32), 50, 20))
+                       f32=dtype == torch.float32), 50, 20, f64_gaps=gaps))
     for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
         q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4, dtype)
         leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
@@ -863,36 +954,43 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
     return tuple(rows)
 
 
-def check_flash(dev, gen) -> tuple[dict, dict]:
-    """K8 on both routes against its plain version at vit_s16's 224 px
-    shape and at a longer causal S: bf16 (the tensor-core route) within
-    one bf16 ulp of ``full_attention``, f32 (the FFMA route) within
-    rtol/atol 2e-5 (``_attn_check``); the lse within rtol/atol 1e-5 of
-    ``torch.logsumexp`` of the plain scores; two calls bitwise equal. Then
-    each route timed at the 224 px shape beside its plain version and
+def check_flash(dev, gen) -> tuple[dict, ...]:
+    """K8 on its three kernels against its plain version at vit_s16's
+    224 px shape and at a longer causal S: bf16 (the tensor-core route)
+    within one bf16 ulp of ``full_attention``, f32 (the f32 tensor-core
+    route; also at D = 40 and D = 128) within rtol/atol 2e-5
+    (``_attn_check``), and the FFMA kernel at bf16 D = 40, its one route
+    left; the lse within rtol/atol 1e-5 of ``torch.logsumexp`` of the plain
+    scores; each twice, bitwise equal, on its route's counter only. Then
+    each kernel timed beside its plain version and
     ``scaled_dot_product_attention``, after one ``flash_backward_yardstick``
     line: the blocked torch backward's busy time beside SDPA's backward
-    and their bound. Returns the rows (tensor-core, FFMA)."""
+    and their bound. Returns the rows (tensor-core, f32 tensor-core, FFMA)."""
     from mpi_pytorch_tpu_torch.hardware import bound_ms
     from mpi_pytorch_tpu_torch.ops import flash_attention as fa
 
-    err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
-    for shape, causal in ((FLASH_SHAPE, False), (FLASH_LONG_SHAPE, True)):
-        for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "FFMA")):
-            q, k, v = _qkv(gen, shape, dev, 3, dtype)
-            blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
-            out, lse = fa.flash_forward(q, k, v, causal, blk, blk)
-            again = fa.flash_forward(q, k, v, causal, blk, blk)
-            torch.cuda.synchronize()
-            ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
-            tag = f"K8 {route} {list(shape)}{', causal' if causal else ''}"
-            err[dtype] = max(err[dtype], _attn_check(out, ref, tag))
-            if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5):
-                raise AssertionError(f"{tag} lse: off by {float((lse - ref_lse).abs().max())}")
-            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
-                raise AssertionError(f"{tag}: two calls on the same inputs differ")
-            err[dtype] = max(err[dtype], float((lse - ref_lse).abs().max()))
+    counters = {"tensor_core": fa.tc_counter, "tensor_core_f32": fa.tc_f32_counter,
+                "ffma": fa.ffma_counter}
     b, s, h, d = FLASH_SHAPE
+    ffma_shape = (b, s, h, 40)
+    err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
+    cases = [(shape, causal, dtype, route)
+             for shape, causal in ((FLASH_SHAPE, False), (FLASH_LONG_SHAPE, True))
+             for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "tensor_core_f32"))]
+    cases += [((b // 8, s, h, 40), False, torch.float32, "tensor_core_f32"),
+              ((b // 8, s, h, 128), False, torch.float32, "tensor_core_f32"),
+              (ffma_shape, False, torch.bfloat16, "ffma")]
+    for shape, causal, dtype, route in cases:
+        q, k, v = _qkv(gen, shape, dev, 3, dtype)
+        blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
+        tag = f"K8 {route} {list(shape)} {str(dtype).removeprefix('torch.')}{', causal' if causal else ''}"
+        out, lse = _forward_twice(lambda: fa.flash_forward(q, k, v, causal, blk, blk), counters,
+                                  route, tag)
+        ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
+        e = _attn_check(out, ref, tag)
+        if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{tag} lse: off by {float((lse - ref_lse).abs().max())}")
+        err[ROUTE_SUFFIX[route]] = max(err[ROUTE_SUFFIX[route]], e, float((lse - ref_lse).abs().max()))
     # The yardstick that places a flash backward kernel (no TPU kernel
     # stands behind the blocked backward, so it is no row of the kernels
     # line): the busy time of ``flash_backward`` and of SDPA's backward on
@@ -917,20 +1015,23 @@ def check_flash(dev, gen) -> tuple[dict, dict]:
         "bound_ms": bound, "bound_by": by,
     }})
     rows = []
-    for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
-        q, k, v = _qkv(gen, FLASH_SHAPE, dev, 3, dtype)
+    for shape, dtype, suffix in ((FLASH_SHAPE, torch.bfloat16, "tc"), (FLASH_SHAPE, torch.float32, "f32tc"),
+                                 (ffma_shape, torch.bfloat16, "ffma")):
+        q, k, v = _qkv(gen, shape, dev, 3, dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        gaps = (_f64_check("flash_forward_f32tc", q, k, v, *fa.flash_forward(q, k, v, False))
+                if suffix == "f32tc" else None)
         # q, k, v read, out written; lse (f32). As K9's forward: the online
         # recurrence's rescaling is the kernel's choice, not the function's
         # work.
         rows.append(_kernel_row(
             f"flash_forward_{suffix}", "mpi_pytorch_tpu_torch/csrc/flash_attention.cu",
-            "mpi_pytorch_tpu/ops/flash_attention.py:53", FLASH_SHAPE, dtype, err[dtype],
+            "mpi_pytorch_tpu/ops/flash_attention.py:53", shape, dtype, err[suffix],
             lambda: fa.flash_forward(q, k, v, False), lambda: fa.flash_forward_reference(q, k, v),
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
             4 * q.numel() * q.element_size() + 4 * b * h * s,
-            _attn_work(b, s, h, d, bf16_products=1, split_products=1, per_score=4, per_elem=2,
-                       f32=dtype == torch.float32), 20, 10))
+            _attn_work(b, s, h, shape[3], bf16_products=1, split_products=1, per_score=4, per_elem=2,
+                       f32=dtype == torch.float32), 20, 10, f64_gaps=gaps))
     return tuple(rows)
 
 
@@ -1403,8 +1504,8 @@ def train_vit(dev) -> dict:
     tensor-core kernel for both; tiny-S: the tensor-core kernel in train
     steps, FFMA in validation), K10's tensor-core kernel once per block in
     every train step (its FFMA kernel never), the full runs none; step-1
-    losses within 1e-3 of the full twin's. Returns the kernels' launches
-    in the kernel runs."""
+    losses within 1e-3 of the full twin's. Returns every counted kernel's
+    launches over the two kernel runs (zero where none)."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
     from mpi_pytorch_tpu_torch.ops import flash_attention, fused_attention_small
     from mpi_pytorch_tpu_torch.train.trainer import train
@@ -1416,6 +1517,8 @@ def train_vit(dev) -> dict:
         "attention_small_backward_ffma": fused_attention_small.backward_ffma_counter,
         "flash_forward_tc": flash_attention.tc_counter,
         "flash_forward_ffma": flash_attention.ffma_counter,
+        "attention_small_forward_f32tc": fused_attention_small.forward_tc_f32_counter,
+        "flash_forward_f32tc": flash_attention.tc_f32_counter,
     }
     with tempfile.TemporaryDirectory() as tmp:
         rows = len(load_manifests(_train_cfg(tmp))[0])
@@ -1461,7 +1564,8 @@ def train_vit(dev) -> dict:
         if gap > 1e-3:
             raise AssertionError(f"vit_s16 {attn_impl}: step-1 loss against full, relative gap {gap}")
         log({"train_vit_vs_full": {"attn_impl": attn_impl, "step1_rel_gap": gap}})
-        launches.update({k: v for k, v in want.items() if v})
+        for name, count in runs[attn_impl]["launches"].items():
+            launches[name] = launches.get(name, 0) + count
     return launches
 
 
@@ -1565,15 +1669,15 @@ def train_step_checks(dev) -> None:
 def vit_step_checks(dev) -> None:
     """K8, K9 and K10 inside the real vit_s16 train step, in f32 (TF32
     off), from the same seeded weights on the same three resident batches,
-    three ways per configuration: through the kernels (the FFMA route of
-    the forwards and of K10, each of which must launch once per block in
-    every step); the same model
+    three ways per configuration: through the kernels (the f32 tensor-core
+    forwards and K10's FFMA kernel, each of which must launch once per
+    block in every step, the FFMA and bf16 forwards never); the same model
     with the kernels' plain versions in their place; and
     ``attn_impl="full"``. Losses rtol 1e-4 both ways; the step-1 gradients
     of ``patch_embed`` and block 0's q, k, v and out projections, kernels
     against plain versions, within ``VIT_GRAD_GAP`` (relative L2). Then the
     time of one bf16 train step on a resident batch, kernels and full, in
-    turns. Returns the FFMA kernels' launches in the kernel runs."""
+    turns. Returns the counted kernels' launches in the kernel runs."""
     import contextlib
     from unittest import mock
 
@@ -1611,15 +1715,17 @@ def vit_step_checks(dev) -> None:
                 losses += [float(step(state, *b)["loss"]) for b in batches[1:]]
             return losses, grads
 
-        ffma = {"flash": {"flash_forward_ffma": fa.ffma_counter},
-                "fused-small": {"attention_small_forward_ffma": fas.forward_ffma_counter,
-                                "attention_small_backward_ffma": fas.backward_ffma_counter}}[attn_impl]
+        counted = {"flash": {"flash_forward_f32tc": fa.tc_f32_counter},
+                   "fused-small": {"attention_small_forward_f32tc": fas.forward_tc_f32_counter,
+                                   "attention_small_backward_ffma": fas.backward_ffma_counter}}[attn_impl]
+        idle = (fa.tc_counter, fa.ffma_counter, fas.forward_tc_counter, fas.forward_ffma_counter)
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                         allow_tf32=False):
-            for counter in ffma.values():
+            for counter in (*counted.values(), *idle):
                 counter.reset()
             kernels = run(attn_impl)
-            launches.update({name: counter.count for name, counter in ffma.items()})
+            launches.update({name: counter.count for name, counter in counted.items()})
+            stray = [c.count for c in idle]
             plain = run(attn_impl, plain_versions[attn_impl])
             full = run("full")
         rel = {n: float((kernels[1][n] - plain[1][n]).norm() / plain[1][n].norm()) for n in watch}
@@ -1633,8 +1739,8 @@ def vit_step_checks(dev) -> None:
                 raise AssertionError(f"f32 vit {attn_impl} steps vs {what}: {kernels[0]} vs {other[0]}")
         if max(rel.values()) > VIT_GRAD_GAP:
             raise AssertionError(f"f32 vit {attn_impl}: step-1 gradients vs plain versions {rel}")
-        if any(launches[name] != VIT_BLOCKS * len(batches) for name in ffma):
-            raise AssertionError(f"f32 vit {attn_impl}: FFMA launches {launches}")
+        if any(launches[name] != VIT_BLOCKS * len(batches) for name in counted) or any(stray):
+            raise AssertionError(f"f32 vit {attn_impl}: launches {launches}, other forwards {stray}")
 
         (images, labels), = _resident_batches(dev, 1, SEED + 8, image)
         step16 = make_train_step(torch.bfloat16)
@@ -1742,16 +1848,17 @@ def main() -> int:
     _build.load_library()
     log({"build_seconds": _build.build_seconds})
     # Each kernel's registers and spills; the kernels whose wgmma ptxas
-    # had to serialize to free registers (its C7519 note).
+    # serialized (its C7512/C7514/C7515/C7520 notes: "... are serialized
+    # due to ..."; a C7519 note is an inserted warpgroup arrive).
     kernel, spills, serialized = "?", "", set()
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = _kernel_name(line.split("'")[1])
-        elif "C7519" in line:
+        elif "serialized" in line and "'" in line:
             serialized.add(_kernel_name(line.split("'")[1]))
         elif "spill" in line:
             spills = line.strip()
-        elif "registers" in line:
+        elif "Used" in line and "registers" in line:
             log(f"{kernel}: {line.strip()}, {spills}")
         elif "error" in line.lower():
             log(line.strip())
@@ -1769,8 +1876,8 @@ def main() -> int:
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
     check_head_ties(dev, gen)
-    attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32 = check_attention_small(dev, gen)
-    flash, flash_f32 = check_flash(dev, gen)
+    attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32 = check_attention_small(dev, gen)
+    flash, flash_f32, flash_ffma = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
     launches = serve_resnet18(dev)
@@ -1788,7 +1895,10 @@ def main() -> int:
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))
-    for row in (attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32, flash, flash_f32):
+    # The FFMA flash kernel's one route left (bf16 with D % 16 != 0) is on
+    # no path a model runs: its count stays 0 through vit_s16's training.
+    for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, flash, flash_f32,
+                flash_ffma):
         row["launches"] = vit_launches[row["name"]]
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
@@ -1800,7 +1910,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
-            flash, flash_f32, attn_fwd, attn_fwd_f32, attn_bwd, attn_bwd_f32)
+            flash, flash_f32, flash_ffma, attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd,
+            attn_bwd_f32)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["device_ms"]

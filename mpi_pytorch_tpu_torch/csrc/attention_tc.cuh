@@ -1,6 +1,6 @@
-// Tensor-core building blocks of the bf16 attention kernels on Hopper
-// (sm_90a): the forwards K8 (flash_attention.cu) and K9, and the tiny-S
-// backward K10 (both in fused_attention_small.cu).
+// Tensor-core building blocks of the attention kernels on Hopper (sm_90a):
+// the forwards K8 (flash_attention.cu) and K9, bf16 and f32, and the
+// tiny-S backward K10, bf16 (both in fused_attention_small.cu).
 // The generic Hopper primitives they use (the swizzle, cp.async, wgmma's
 // descriptors and its fence / commit / wait) are in hopper.cuh.
 //
@@ -46,6 +46,30 @@
 // kernels keep the next k/v block (K8) or the next head (K9, K10) in
 // flight while the current one computes.
 //
+// The f32 forwards. An f32 value x splits into three bf16 terms, each
+// rounded to nearest: t0 = bf16(x), t1 = bf16(x − t0), t2 = bf16(x − t0 −
+// t1); each residual is exact in f32 and the three keep x to ~2⁻²⁴
+// relative. A product a·b keeps the six term pairs (i, j) with i + j ≤ 2
+// (a0b0, a0b1, a1b0, a0b2, a1b1, a2b0), each an exact bf16 product, summed
+// in the reverse order (smallest first: the tensor cores' f32 sums are not
+// rounded to nearest, so the large products meet the accumulator last)
+// into one f32 accumulator: the pairs left out are below 2⁻²⁴ of the
+// product. So s = (q·scale)·kᵀ is six products of the terms of
+// q·scale and k (both K-major in shared memory: `qk_product` with P = 6),
+// and p·v six of p's terms (registers, as `split_p`) and v's (MN-major:
+// `pv_product` with F32). Three pairs (i + j ≤ 1) leave ~1e-5 of the
+// output: a different function at the f32 checks' level. Six bf16 products
+// take the tensor cores as long as three TF32 ones (989 against 495
+// TFLOP/s), and TF32's wgmma takes both shared-memory operands K-major
+// only, which would need v transposed. The f32 q, k and v become their
+// terms on the way into shared memory (`stage_terms`): read as float4 rows
+// from device memory, split, and written as three swizzled bf16 tiles
+// (padding columns zero), where each is first needed; the CTAs beside it
+// on the SM hide the loads. (A raw f32 copy of the next block kept in
+// flight by cp.async, split from shared memory, measured slower on an
+// H100: the copy's shared memory costs a CTA an SM.) The output leaves as
+// f32 pairs straight from the fragment (`store_rows_f32`).
+//
 // Determinism: fixed-order sums (the k-steps ascending, then a fixed
 // shuffle tree within each quad of lanes), no atomics: two calls on the
 // same inputs give the same bits.
@@ -64,11 +88,20 @@ using namespace mpt_hopper;  // swizzle, cp.async, descriptors, wgmma sync
 using mpt_attn::kNeg;
 using mpt_attn::Strides;
 
+// A CTA's shared memory on an H100 (227 KB).
+constexpr int kMaxSmem = 232448;
+
 // ---------------------------------------------------------------- tiles ---
 // D padded up to whole 64-element (128-byte) rows: the swizzle atom's width.
 template <int D>
 __host__ __device__ constexpr int padded() {
   return (D + 63) / 64 * 64;
+}
+
+// Bytes of an R-row bf16 tile of padded rows (one term of a split operand).
+template <int D, int R>
+__host__ __device__ constexpr int tile_bytes() {
+  return R * padded<D>() * 2;
 }
 
 // R rows × D elements of a [.., S, .., D] operand (row stride ss elements,
@@ -237,6 +270,19 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The three bf16 terms of the pair (x0, x1), round-to-nearest each, as
+// bf16x2 words: t[0] = bf16(x), t[1] = bf16(x − t0), t[2] = bf16(x − t0 − t1).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t (&t)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    t[i] = bf16x2_bits(h);
+    x0 -= hf.x;  // exact: the residual of a rounding to fewer bits
+    x1 -= hf.y;
+  }
+}
+
 // The three bf16 terms (t0, t1, t2) of the A fragments of K k-steps of
 // the f32 p fragment, round-to-nearest each.
 template <int K>
@@ -245,16 +291,27 @@ __device__ __forceinline__ void split_p(const float* p, uint32_t (*t)[3][4]) {
   for (int kk = 0; kk < K; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      float x0 = p[8 * kk + 2 * r], x1 = p[8 * kk + 2 * r + 1];
+      uint32_t w[3];
+      split3(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1], w);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(h);
-        t[kk][i][r] = bf16x2_bits(h);
-        x0 -= hf.x;  // exact: the residual of a rounding to fewer bits
-        x1 -= hf.y;
-      }
+      for (int i = 0; i < 3; ++i) t[kk][i][r] = w[i];
     }
+}
+
+// The six term pairs (i, j), i + j ≤ 2, of a product of two three-term
+// splits, largest first: a0b0, a0b1, a1b0, a0b2, a1b1, a2b0. The f32
+// products sum them smallest first (n = 5 down to 0): a wgmma's f32 sum
+// is not rounded to nearest on an H100 but loses up to a few units in the
+// last place of the accumulator, so the terms of order 2⁻¹⁶ and 2⁻⁸ go in
+// while the accumulator is small, and only the a0b0 products meet it at
+// full size.
+__host__ __device__ constexpr int pair_a(int n) {
+  constexpr int a[6] = {0, 0, 1, 0, 1, 2};
+  return a[n];
+}
+__host__ __device__ constexpr int pair_b(int n) {
+  constexpr int b[6] = {0, 1, 0, 2, 1, 0};
+  return b[n];
 }
 
 // o[64 × padded D] += A[64 × 16] · v[k-step kk's 16 keys × padded D]: one
@@ -267,21 +324,32 @@ __device__ __forceinline__ void pv_step(float* o, const uint32_t* a, uint32_t sv
 }
 
 // o[64 × padded D] += p·v over N keys (N a multiple of 16), p the f32
-// score fragment, v's RV-row tile at sv. Up to 32 keys at a time: their
-// k-steps' three terms each (at most 24 registers, live until the product
-// completes), the products in a fixed order (k-step, then term).
-template <int D, int N, int RV>
+// score fragment. bf16 v (an RV-row tile at sv) is its own first term, so
+// the pairs are p's three terms against it, in the order k-step, then
+// term; F32: v is a three-term split (three RV-row tiles from sv) and the
+// pairs are all six, in the order pair (smallest first), then k-step. K
+// k-steps at a time (by default up to 32 keys): their three terms each (at
+// most 24 registers, live until the products complete).
+template <int D, int N, int RV, bool F32 = false, int K = (N < 32 ? N / 16 : 2)>
 __device__ __forceinline__ void pv_product(float* o, const float* p, uint32_t sv) {
-  constexpr int K = N < 32 ? N / 16 : 2;  // k-steps a chunk
+  constexpr uint32_t TV = tile_bytes<D, RV>();
 #pragma unroll
   for (int c = 0; c < N / (16 * K); ++c) {
     uint32_t t[K][3][4];
     split_p<K>(p + 8 * K * c, t);
     wgmma_fence();
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < K; ++kk)
+      for (int n = 5; n >= 0; --n)
 #pragma unroll
-      for (int i = 0; i < 3; ++i) pv_step<D, RV>(o, t[kk][i], sv, K * c + kk);
+        for (int kk = 0; kk < K; ++kk)
+          pv_step<D, RV>(o, t[kk][pair_a(n)], sv + pair_b(n) * TV, K * c + kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+        for (int n = 0; n < 3; ++n) pv_step<D, RV>(o, t[kk][n], sv, K * c + kk);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<padded<D>() / 2>(o);
@@ -292,26 +360,39 @@ __device__ __forceinline__ void pv_product(float* o, const float* p, uint32_t sv
   }
 }
 
-// s[64 × N] = q[64 rows at sq of an RQ-row tile] · k[N rows at sk of an
-// RK-row tile]ᵀ over D (N = 16, 32 or 64): issued, not waited for.
-template <int D, int N, int RQ, int RK>
+// s[64 × NH·N] = q[64 rows at sq of an RQ-row tile] · k[NH·N rows at sk
+// of an RK-row tile]ᵀ over D (a multiple of 16; N = 16, 32 or 64, and NH
+// products of 64 keys, the h-th into s + 32h, when NH > 1): issued, not
+// waited for. P = 6: q and k are three-term splits (three tiles each from
+// sq and sk) and the six pairs are summed, pair by pair, smallest first,
+// each over every k-step; P = 1 takes the first tile of each (bf16).
+template <int D, int N, int RQ, int RK, int P = 1, int NH = 1>
 __device__ __forceinline__ void qk_issue(float* s, uint32_t sq, uint32_t sk) {
+  constexpr uint32_t TQ = tile_bytes<D, RQ>(), TK = tile_bytes<D, RK>();
+  static_assert(NH == 1 || N == 64, "several key products are 64 keys each");
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const uint64_t a = kmajor_desc<RQ>(sq, ks), b = kmajor_desc<RK>(sk, ks);
-    if constexpr (N == 64) wgmma_ss_n64(s, a, b, ks > 0);
-    else if constexpr (N == 32) wgmma_ss_n32(s, a, b, ks > 0);
-    else wgmma_ss_n16(s, a, b, ks > 0);
-  }
+  for (int n = P - 1; n >= 0; --n)
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint64_t a = kmajor_desc<RQ>(sq + pair_a(n) * TQ, ks);
+      const int accumulate = ks > 0 || n < P - 1;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const uint64_t b = kmajor_desc<RK>(sk + h * 64 * 128 + pair_b(n) * TK, ks);
+        if constexpr (N == 64) wgmma_ss_n64(s + 32 * h, a, b, accumulate);
+        else if constexpr (N == 32) wgmma_ss_n32(s, a, b, accumulate);
+        else wgmma_ss_n16(s, a, b, accumulate);
+      }
+    }
 }
 
-// The scores of one block: s = q·kᵀ, waited for.
-template <int D, int N, int RQ, int RK>
+// The scores of one block: s = q·kᵀ (P pairs, as `qk_issue`), waited for.
+template <int D, int N, int RQ, int RK, int P = 1>
 __device__ __forceinline__ void qk_product(float* s, uint32_t sq, uint32_t sk) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
   wgmma_fence();
-  qk_issue<D, N, RQ, RK>(s, sq, sk);
+  qk_issue<D, N, RQ, RK, P>(s, sq, sk);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<N / 2>(s);
@@ -365,17 +446,75 @@ __device__ __forceinline__ void store_terms(unsigned char* smem, uint32_t tile, 
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float x0 = x[4 * j + 2 * i], x1 = x[4 * j + 2 * i + 1];
+      uint32_t w[3];
+      split3(x[4 * j + 2 * i], x[4 * j + 2 * i + 1], w);
       const uint32_t at = tile + swz<RT>(row0 + g + 8 * i, j) + 4 * t;
 #pragma unroll
-      for (int n = 0; n < 3; ++n) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(h);
-        *reinterpret_cast<uint32_t*>(smem + at + n * term) = bf16x2_bits(h);
-        x0 -= hf.x;  // exact, as in split_p
-        x1 -= hf.y;
-      }
+      for (int n = 0; n < 3; ++n) *reinterpret_cast<uint32_t*>(smem + at + n * term) = w[n];
     }
+}
+
+// ------------------------------------------------------- f32 forwards ---
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a, uint32_t b) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b) : "memory");
+}
+
+// R rows × `cols` f32 values of an operand in device memory (row stride ss
+// floats, rows 16-byte aligned), each times mul, into the three bf16 term
+// tiles (R rows each of D ≥ cols columns, swizzled) at dst, dst + T and
+// dst + 2T, T = tile_bytes<D, R>(): rows at or past `valid` and the
+// columns at or past `cols` are zero. Thread t of NT takes the float4s t, t + NT, … of the
+// padded rows (a warp reads 512 contiguous bytes of a row set), eight at a
+// time: their loads all in flight, then each split and written as three
+// 8-byte halves of swizzled chunks.
+template <int D, int R, int NT>
+__device__ __forceinline__ void stage_terms(uint32_t dst, const float* src, long long ss, int valid,
+                                            int cols, float mul, int t) {
+  constexpr int NC4 = padded<D>() / 4, ITEMS = R * NC4 / NT, U = ITEMS < 8 ? ITEMS : 8;
+  constexpr uint32_t T = tile_bytes<D, R>();
+  static_assert((R * NC4) % NT == 0 && ITEMS % U == 0, "the staging loop covers the tile evenly");
+#pragma unroll
+  for (int u0 = 0; u0 < ITEMS; u0 += U) {
+    float4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = t + (u0 + u) * NT, r = i / NC4, c = i % NC4;
+      x[u] = r < valid && 4 * c < cols ? *reinterpret_cast<const float4*>(src + r * ss + 4 * c)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = t + (u0 + u) * NT, r = i / NC4, c = i % NC4;
+      uint32_t lo[3], hi[3];
+      split3(x[u].x * mul, x[u].y * mul, lo);
+      split3(x[u].z * mul, x[u].w * mul, hi);
+      const uint32_t at = dst + swz<R>(r, c >> 1) + (c & 1) * 8;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) st_shared_v2(at + n * T, lo[n], hi[n]);
+    }
+  }
+}
+
+// This warp's 16 rows of the 64-row f32 output fragment o, row i divided
+// by f[i], stored as f32 pairs to rows row0 + g + 8i (< S) of out (row
+// stride os), columns below `cols` (even): each store of a warp fills
+// eight 32-byte sectors.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const float* o, const float (&f)[2], float* out,
+                                               long long os, int row0, int S, int cols) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < padded<D>() / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= cols) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + g + 8 * i;
+      if (row < S)
+        *reinterpret_cast<float2*>(out + row * os + col) =
+            make_float2(o[4 * j + 2 * i] / f[i], o[4 * j + 2 * i + 1] / f[i]);
+    }
+  }
 }
 
 }  // namespace mpt_tc

@@ -1,10 +1,12 @@
 // Flash attention forward (K8): block-tiled online-softmax attention that
-// writes the output and the f32 logsumexp of every row. Two kernels:
+// writes the output and the f32 logsumexp of every row. Three kernels:
 //   - flash_fwd_tc_kernel, bf16 with D % 16 == 0 and D <= 128: tensor cores
 //     (attention_tc.cuh), the path vit_s16 trains through;
-//   - flash_fwd_kernel, f32 (and bf16 with any other D % 4 == 0, D <= 128):
-//     f32 FFMA on the CUDA cores (attention_tiles.cuh), blocks of at most
-//     128 queries and 128 keys as the caller gives them.
+//   - flash_fwd_tc_f32_kernel, f32 with D % 4 == 0 and D <= 128: tensor
+//     cores on three-term bf16 splits (attention_tc.cuh), the f32 step's;
+//   - flash_fwd_kernel, bf16 with any other D % 4 == 0, D <= 128: f32 FFMA
+//     on the CUDA cores (attention_tiles.cuh), blocks of at most 128
+//     queries and 128 keys as the caller gives them.
 //
 // Replaces mpi_pytorch_tpu/ops/flash_attention.py:53 `_attn_fwd_kernel`.
 // What it computes, per (batch·head, q-block): over the k-blocks in order,
@@ -39,12 +41,26 @@
 // 192); the exponential is the hardware's base-2 one. The output leaves
 // through the q tile as 16-byte stores.
 //
+// The f32 tensor-core kernel. The bf16 kernel's tiles, recurrence and fast
+// paths (a narrower last block, no mask or scale on a full block), with
+// every product f32-exact: q·scale (so the scores are the TPU kernel's
+// (q·scale)·kᵀ up to the order of summation), k, v and p split into three
+// bf16 terms, each product six exact term-pair products (attention_tc.cuh).
+// Bound on an H100 by its operations: at [128, 196, 6, 64] the two f32
+// products price as six TF32 products, 0.046 ms at 495 TFLOP/s, the same
+// tensor time as its twelve bf16 products; the f32 q, k, v, out and lse
+// (154.7 MB) take 0.046 ms at 3.35 TB/s. The q tile's terms are split once;
+// each k/v block's at the top of its step, straight from device memory
+// (`stage_terms`), while the other CTA on the SM computes: 97 KB of shared
+// memory for D <= 64 (two CTAs an SM, 128 registers a thread), 193 KB
+// above. The output and lse leave in f32 straight from the fragments.
+//
 // The FFMA kernel. acc stays in registers (4×4 micro-tiles, at most four a
 // thread), m, l and α in shared memory beside the f32 q tile, one k/v tile
 // and the block's scores. Keys past S are left out of the block's sums,
-// where the TPU kernel adds their exact zeros. It holds the f32 route
-// (bounded by its operations at the f32 peak) and bf16 with a head dim the
-// tensor-core kernel does not take.
+// where the TPU kernel adds their exact zeros. Bounded by its operations
+// at the f32 peak, it holds bf16 with a head dim the tensor-core kernel
+// does not take.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -54,6 +70,7 @@
 namespace {
 
 using namespace mpt_attn;
+using bf16 = __nv_bfloat16;
 
 constexpr int kMaxBlock = 128;
 constexpr int kMaxHeadDim = 128;
@@ -64,11 +81,11 @@ __host__ __device__ inline int flash_smem_floats(int BQ, int BK, int D) {
   return (BQ + BK) * odd_ld(D) + BQ * odd_ld(BK) + 3 * BQ;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides st, int H, int S, int D,
-                 int BQ, int BK, int n_q, float scale, int causal) {
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 Strides st, int H, int S, int D, int BQ, int BK, int n_q, float scale,
+                 int causal) {
   extern __shared__ float smem[];
   const int ldd = odd_ld(D), ldk = odd_ld(BK);
   float* qs = smem;            // q·scale           [BQ][ldd]
@@ -157,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
   __syncthreads();  // the last update of m_s and l_s is visible
 
-  T* ob = o + ((long long)b * S * H + h) * D + (long long)q0 * H * D;
+  bf16* ob = o + ((long long)b * S * H + h) * D + (long long)q0 * H * D;
   const long long os = (long long)H * D;
 #pragma unroll
   for (int u = 0; u < kMaxTiles; ++u) {
@@ -173,7 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int y = ty + c * og.ny;
-          if (y < D) ob[x * os + y] = from_f32<T>(acc[u][a][c] / safe_l);
+          if (y < D) ob[x * os + y] = from_f32<bf16>(acc[u][a][c] / safe_l);
         }
       }
     }
@@ -182,21 +199,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float l = l_s[i];
     lse[(long long)bh * S + q0 + i] = m_s[i] + logf(l > 0.f ? l : 1.f);
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides st, int B,
-           int S, int H, int D, int BQ, int BK, float scale, int causal, cudaStream_t stream) {
-  if (BQ < 1 || BK < 1 || BQ > kMaxBlock || BK > kMaxBlock || D > kMaxHeadDim || D % 4)
-    return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * flash_smem_floats(BQ, BK, D);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int n_q = (S + BQ - 1) / BQ;
-  flash_fwd_kernel<T><<<n_q * B * H, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, st, H, S, D, BQ, BK, n_q, scale, causal);
-  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------ tensor cores ---
@@ -208,18 +210,20 @@ constexpr int kTcBlockK = 64;
 // padded to whole 128-byte atoms, plus 1 KB to start the tiles on 1024.
 template <int D>
 constexpr int tc_smem_bytes() {
-  return (kTcBlockQ + 4 * kTcBlockK) * mpt_tc::padded<D>() * 2 + 1024;
+  return mpt_tc::tile_bytes<D, kTcBlockQ>() + 4 * mpt_tc::tile_bytes<D, kTcBlockK>() + 1024;
 }
 
 // One k-block of N keys from k0 for this warpgroup's 64 queries: the
-// scores, the online update of m, l and acc·α, and acc += p·v.
-template <int D, int N>
+// scores, the online update of m, l and acc·α, and acc += p·v. F32: q, k
+// and v are three-term splits (six term-pair products each), q already
+// times the scale, and `scale` is 1.
+template <int D, int N, bool F32 = false>
 __device__ __forceinline__ void flash_block(float* acc, float (&m)[2], float (&l)[2], uint32_t sq,
                                             uint32_t sk, uint32_t sv, float scale, int row0, int k0,
                                             int S, int causal) {
   using namespace mpt_tc;
   float s[N / 2];
-  qk_product<D, N, kTcBlockQ, kTcBlockK>(s, sq, sk);
+  qk_product<D, N, kTcBlockQ, kTcBlockK, F32 ? 6 : 1>(s, sq, sk);
   const float sc = prepare_scores<N>(s, scale, row0, k0, S, causal);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -233,7 +237,7 @@ __device__ __forceinline__ void flash_block(float* acc, float (&m)[2], float (&l
       acc[4 * j + 2 * i + 1] *= alpha;
     }
   }
-  pv_product<D, N, kTcBlockK>(acc, s, sv);
+  pv_product<D, N, kTcBlockK, F32>(acc, s, sv);
 }
 
 template <int D>
@@ -244,7 +248,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     int causal) {
   using namespace mpt_tc;
   constexpr int NT = 2 * kWarpgroup, BQ = kTcBlockQ, BK = kTcBlockK;
-  constexpr uint32_t kTileQ = BQ * padded<D>() * 2, kTileK = BK * padded<D>() * 2;
+  constexpr uint32_t kTileQ = tile_bytes<D, BQ>(), kTileK = tile_bytes<D, BK>();
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t raw = smem_addr(tc_smem), s_q = (raw + 1023) & ~1023u;
   unsigned char* smem = tc_smem + (s_q - raw);
@@ -323,24 +327,114 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------- f32 tensor cores ---
+// Instantiated per DK = D rounded up to 16 (the k-steps of q·kᵀ); the real
+// D masks the columns at run time.
+
+// Shared memory of the f32 kernel: the three term tiles of q (128 rows) and
+// of k and v (64 rows each), and 1 KB to start the tiles on 1024: 97 KB
+// for D ≤ 64 (two CTAs an SM), 193 KB above.
+template <int DK>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return 3 * mpt_tc::tile_bytes<DK, kTcBlockQ>() + 6 * mpt_tc::tile_bytes<DK, kTcBlockK>() + 1024;
+}
+
+template <int DK>
+__global__ void __launch_bounds__(2 * mpt_tc::kWarpgroup,
+                                  2 * f32_smem_bytes<DK>() <= mpt_tc::kMaxSmem ? 2 : 1)
+flash_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, Strides st, int H, int S, int D, int n_q,
+                        float scale, int causal) {
+  using namespace mpt_tc;
+  constexpr int NT = 2 * kWarpgroup, BQ = kTcBlockQ, BK = kTcBlockK;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t s_q = (smem_addr(tc_smem) + 1023) & ~1023u;
+  const uint32_t s_k = s_q + 3 * tile_bytes<DK, BQ>(), s_v = s_k + 3 * tile_bytes<DK, BK>();
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int bh = blockIdx.x / n_q, qb = blockIdx.x - bh * n_q;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = qb * BQ, last_q = min(q0 + BQ, S) - 1;
+  const long long base = b * st.sb + h * st.sh;
+  const float *kh = k + base, *vh = v + base;
+
+  stage_terms<DK, BQ, NT>(s_q, q + base + q0 * st.ss, st.ss, S - q0, D, scale, tid);
+
+  // k-blocks that hold a key at or before the CTA's last query.
+  const int n_k = causal ? last_q / BK + 1 : (S + BK - 1) / BK;
+  const int row0 = q0 + wg * 64 + warp * 16;  // this warp's first query
+  const uint32_t sq = s_q + wg * 64 * 128;     // this warpgroup's q rows
+  float acc[padded<DK>() / 2];
+#pragma unroll
+  for (int i = 0; i < padded<DK>() / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int k0 = kb * BK, left = S - k0;
+    __syncthreads();  // the last block's products are done with the terms
+    stage_terms<DK, BK, NT>(s_k, kh + k0 * st.ss, st.ss, left, D, 1.f, tid);
+    stage_terms<DK, BK, NT>(s_v, vh + k0 * st.ss, st.ss, left, D, 1.f, tid);
+    fence_async_smem();
+    __syncthreads();
+    // As the bf16 kernel: a narrower last block, and no mask or scale on
+    // a block that needs none (the scale is already in q's terms).
+    if (left > 32)
+      flash_block<DK, 64, true>(acc, m, l, sq, s_k, s_v, 1.f, row0, k0, S, causal);
+    else if (left > 16)
+      flash_block<DK, 32, true>(acc, m, l, sq, s_k, s_v, 1.f, row0, k0, S, causal);
+    else
+      flash_block<DK, 16, true>(acc, m, l, sq, s_k, s_v, 1.f, row0, k0, S, causal);
+  }
+
+  const float safe_l[2] = {l[0] > 0.f ? l[0] : 1.f, l[1] > 0.f ? l[1] : 1.f};  // fully masked rows
+  store_rows_f32<DK>(acc, safe_l, o + ((long long)b * S * H + h) * D, (long long)H * D, row0, S, D);
+  if ((threadIdx.x & 3) == 0) {
+    const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + g + 8 * i;
+      if (row < S) lse[(long long)bh * S + row] = m[i] + logf(safe_l[i]);
+    }
+  }
+}
+
+template <int DK>
+int launch_tc_f32(const void* q, const void* k, const void* v, void* o, float* lse, Strides st,
+                  int B, int S, int H, int D, float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = f32_smem_bytes<DK>();
+  static_assert(bytes <= mpt_tc::kMaxSmem, "the f32 kernel's tiles exceed a CTA's shared memory");
+  cudaError_t err = allow_smem(flash_fwd_tc_f32_kernel<DK>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_q = (S + kTcBlockQ - 1) / kTcBlockQ;
+  flash_fwd_tc_f32_kernel<DK><<<n_q * B * H, 2 * mpt_tc::kWarpgroup, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, st, H, S, D, n_q, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v: strided [B, S, H, D] with the strides (sb, ss, sh) in elements
-// and the head dim contiguous; out: contiguous [B, S, H, D]; lse: f32
-// [B·H, S]. scale = D^-0.5 as the caller rounds it to f32; dtype 0 = f32,
-// 1 = bf16. Returns cudaGetLastError() (cudaErrorInvalidValue for a block
-// or head dim the kernel does not take).
+// The FFMA kernel: q, k, v bf16, strided [B, S, H, D] with the strides
+// (sb, ss, sh) in elements and the head dim contiguous, D % 4 == 0 and
+// D <= 128; out contiguous [B, S, H, D] bf16; lse f32 [B·H, S]; blocks of
+// block_q queries and block_k keys (1..128). scale = D^-0.5 as the caller
+// rounds it to f32. Returns cudaGetLastError() (cudaErrorInvalidValue for
+// a block or head dim the kernel does not take).
 extern "C" int mpt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              long long sb, long long ss, long long sh, int B, int S, int H, int D,
-                             int block_q, int block_k, float scale, int causal, int dtype,
-                             void* stream) {
-  const Strides st{sb, ss, sh};
-  auto s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, l, st, B, S, H, D, block_q, block_k, scale,
-                                 causal, s);
-  return launch<float>(q, k, v, out, l, st, B, S, H, D, block_q, block_k, scale, causal, s);
+                             int block_q, int block_k, float scale, int causal, void* stream) {
+  if (block_q < 1 || block_k < 1 || block_q > kMaxBlock || block_k > kMaxBlock ||
+      D > kMaxHeadDim || D % 4)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * flash_smem_floats(block_q, block_k, D);
+  cudaError_t err = allow_smem(flash_fwd_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_q = (S + block_q - 1) / block_q;
+  flash_fwd_kernel<<<n_q * B * H, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), Strides{sb, ss, sh}, H, S, D, block_q,
+      block_k, n_q, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 // The tensor-core kernel: q, k, v bf16, strided [B, S, H, D] as above with
@@ -357,6 +451,29 @@ extern "C" int mpt_flash_fwd_tc(const void* q, const void* k, const void* v, voi
 #define MPT_CASE(d) \
   case d:           \
     return launch_tc<d>(q, k, v, out, l, st, B, S, H, scale, causal, s);
+    MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
+    MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
+#undef MPT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The f32 tensor-core kernel: q, k, v f32, strided [B, S, H, D] as above
+// with every row 16-byte aligned, D % 4 == 0 and D <= 128; out contiguous
+// [B, S, H, D] f32; lse f32 [B·H, S]. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a head dim it does not take).
+extern "C" int mpt_flash_fwd_tc_f32(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, long long sb, long long ss, long long sh, int B,
+                                    int S, int H, int D, float scale, int causal, void* stream) {
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  switch ((D + 15) / 16 * 16) {
+#define MPT_CASE(dk) \
+  case dk:           \
+    return launch_tc_f32<dk>(q, k, v, out, l, st, B, S, H, D, scale, causal, s);
     MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
     MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
 #undef MPT_CASE

@@ -11,12 +11,15 @@
 //             dk = dsᵀ·q·scale (q unscaled); dv = pᵀ·do.
 // The residuals are q, k and v only: no logsumexp and no saved output.
 //
-// Four kernels:
+// Five kernels:
 //   - attn_small_fwd_tc_kernel, the training forward for bf16 with
 //     D % 16 == 0 and D <= 128: tensor cores (attention_tc.cuh), the path
 //     vit_s16 trains through;
-//   - attn_small_fwd_kernel, the forward for f32, bf16 with any other
-//     D % 4 == 0, and every inference call (ops/fused_attention_small.py
+//   - attn_small_fwd_tc_f32_kernel, the forward for f32 with D % 4 == 0 and
+//     D <= 128, training and inference: tensor cores on three-term bf16
+//     splits (attention_tc.cuh);
+//   - attn_small_fwd_kernel, the forward for bf16 with any other
+//     D % 4 == 0, and every bf16 inference call (ops/fused_attention_small.py
 //     `_route`): f32 FFMA on the CUDA cores (attention_tiles.cuh);
 //   - attn_small_bwd_tc_kernel, the backward for bf16 with D % 16 == 0 and
 //     D <= 128: tensor cores, the path vit_s16 trains through;
@@ -40,6 +43,23 @@
 // in the swizzled layout of attention_tc.cuh, whole 128-byte rows per
 // eight lanes: with a layout that split rows, issuing the copies and the
 // stores took most of the kernel's time.
+//
+// The f32 tensor-core forward. The bf16 forward's warpgroups and
+// whole-row softmax, with every product f32-exact: q·scale, k, v and p
+// split into three bf16 terms, each product six exact term-pair products
+// (attention_tc.cuh). Bound on an H100 by its bytes: f32 q, k, v read and
+// out written, 50.3 MB at [128, 64, 6, 64], 15.0 µs at 3.35 TB/s, against
+// 4.9 µs for its twelve bf16 products. Per head, the terms of q and k are
+// split straight from device memory into two slots of shared memory, then
+// v's into q's slot once q·kᵀ is done (49 KB at S ≤ 64, D ≤ 64: four CTAs
+// an SM, whose loads and products overlap each other's); the output leaves
+// in f32 straight from the fragment. For S ≤ 64 (one warpgroup) persistent
+// CTAs, as many as fit on the card, each walk an even share of the heads,
+// as the bf16 forward's do; for S > 64 (two warpgroups, two CTAs an SM)
+// one CTA takes one head, which measured faster there on an H100. A raw
+// f32 copy of the next head kept in flight by cp.async (as the bf16 kernel
+// keeps its next head) measured slower: its shared memory halves the CTAs
+// an SM.
 //
 // The tensor-core backward. Bound by its bytes too: q, k, v, do read and
 // dq, dk, dv written in bf16, 44.0 MB at [128, 64, 6, 64], 13.1 µs at
@@ -74,8 +94,9 @@
 // shared memory (three f32 tiles: two [S][D] and the [S][S] scores), so the
 // score tensor and the softmax chain never touch device memory, and each
 // CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by
-// their operations at the f32 peak; they hold the f32 route and bf16 with
-// a head dim the tensor-core kernels do not take.
+// their operations at the f32 peak; they hold the backward's f32 route,
+// bf16 with a head dim the tensor-core kernels do not take, and the
+// forward's bf16 inference calls.
 //
 // The TPU kernel's bh-grouping (several heads stacked into one MXU tile
 // with −1e30 cross-head blocks) and its sublane padding of S exist for the
@@ -91,6 +112,9 @@
 namespace {
 
 using namespace mpt_attn;
+using mpt_tc::kMaxSmem;
+using mpt_tc::tile_bytes;
+using bf16 = __nv_bfloat16;
 
 // Floats of dynamic shared memory: two [S][D] tiles, the [S][S] scores and
 // one [S] vector.
@@ -98,10 +122,10 @@ __host__ __device__ inline int small_smem_floats(int S, int D) {
   return 2 * S * odd_ld(D) + S * odd_ld(S) + S;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_small_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, Strides st, int H, int S, int D, float scale, int causal) {
+attn_small_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, int H, int S,
+                      int D, float scale, int causal) {
   extern __shared__ float smem[];
   const int ldd = odd_ld(D), lds = odd_ld(S);
   float* qv = smem;             // q·scale, then v   [S][ldd]
@@ -121,12 +145,12 @@ attn_small_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   row_softmax(ps, lds, S, S, ls, false);
   load_rows(qv, ldd, v + base, st.ss, S, D, 1.f);  // q·scale is spent
   __syncthreads();
-  T* ob = o + ((long long)b * S * H + h) * D;  // out is contiguous [B, S, H, D]
+  bf16* ob = o + ((long long)b * S * H + h) * D;  // out is contiguous [B, S, H, D]
   const long long os = (long long)H * D;
   tile_mm(
       S, D, S, [&](int i, int j) { return ps[i * lds + j]; },
       [&](int d, int j) { return qv[j * ldd + d]; },
-      [&](int i, int d, float acc) { ob[i * os + d] = from_f32<T>(acc / ls[i]); });
+      [&](int i, int d, float acc) { ob[i * os + d] = from_f32<bf16>(acc / ls[i]); });
 }
 
 template <typename T>
@@ -204,18 +228,6 @@ attn_small_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 }
 
 template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, Strides st, int B, int S,
-               int H, int D, float scale, int causal, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * small_smem_floats(S, D);
-  cudaError_t err = allow_smem(attn_small_fwd_kernel<T>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attn_small_fwd_kernel<T><<<B * H, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st, H, S, D, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
                void* dv, Strides st, int B, int S, int H, int D, float scale, int causal,
                cudaStream_t stream) {
@@ -232,12 +244,29 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
 
 // ------------------------------------------------------ tensor cores ---
 
+// Persistent CTAs: the heads each of `kernel`'s CTAs walks (*per_cta), an
+// even share of the BH heads for every CTA that fits on the card at once.
+template <typename Kernel>
+cudaError_t heads_per_cta(Kernel kernel, int threads, int bytes, int BH, int* per_cta) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
+          cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int slots = sms * per_sm;
+  *per_cta = (BH + slots - 1) / slots;
+  return cudaSuccess;
+}
+
 // Shared memory: two stages of one head's (q, k, v) tiles of 64·NWG rows,
 // bf16 rows padded to whole 128-byte atoms, plus 1 KB to start the tiles
 // on 1024.
 template <int D, int NWG>
 constexpr int tc_small_smem_bytes() {
-  return 2 * 3 * 64 * NWG * mpt_tc::padded<D>() * 2 + 1024;
+  return 6 * tile_bytes<D, 64 * NWG>() + 1024;
 }
 
 template <int D, int NWG>
@@ -247,7 +276,7 @@ attn_small_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          Strides st, int H, int S, int BH, int per_cta, float scale, int causal) {
   using namespace mpt_tc;
   constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup;
-  constexpr uint32_t kTile = NK * padded<D>() * 2, kStage = 3 * kTile;
+  constexpr uint32_t kTile = tile_bytes<D, NK>(), kStage = 3 * kTile;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t raw = smem_addr(tc_smem), s0 = (raw + 1023) & ~1023u;
   unsigned char* smem = tc_smem + (s0 - raw);
@@ -310,19 +339,12 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, Strides 
                   int H, float scale, int causal, cudaStream_t stream) {
   constexpr int bytes = tc_small_smem_bytes<D, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
   auto kernel = attn_small_fwd_tc_kernel<D, NWG>;
+  const int BH = B * H;
+  int per_cta = 0;
   cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess) err = heads_per_cta(kernel, threads, bytes, BH, &per_cta);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
-          cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // An even share of the heads for every CTA that fits on the card at once.
-  const int BH = B * H, slots = sms * per_sm;
-  const int per_cta = (BH + slots - 1) / slots, grid = (BH + per_cta - 1) / per_cta;
-  kernel<<<grid, threads, bytes, stream>>>(
+  kernel<<<(BH + per_cta - 1) / per_cta, threads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), st, H, S, BH, per_cta,
       scale, causal);
@@ -336,6 +358,121 @@ int launch_fwd_tc_d(const void* q, const void* k, const void* v, void* o, Stride
   return launch_fwd_tc<D, 2>(q, k, v, o, st, B, S, H, scale, causal, stream);
 }
 
+// ---------------------------------------------- f32 tensor-core forward ---
+// Instantiated per DK = D rounded up to 16 (the k-steps of q·kᵀ); the real
+// D masks the columns at run time.
+
+// Shared memory of the f32 forward: two slots of three term tiles of
+// 64·NWG rows (q's terms, then v's; k's) and 1 KB to start the tiles on
+// 1024: 49 KB at S ≤ 64, D ≤ 64.
+template <int DK, int NWG>
+__host__ __device__ constexpr int f32_small_smem_bytes() {
+  return 6 * mpt_tc::tile_bytes<DK, 64 * NWG>() + 1024;
+}
+// CTAs an SM by shared memory, at most 512 threads (128 registers each).
+template <int DK, int NWG>
+__host__ __device__ constexpr int f32_small_ctas() {
+  return mpt_tc::kMaxSmem / f32_small_smem_bytes<DK, NWG>() < 4 / NWG
+             ? mpt_tc::kMaxSmem / f32_small_smem_bytes<DK, NWG>()
+             : 4 / NWG;
+}
+
+// One head (bh) of the f32 forward: q's and k's terms, the scores, v's
+// terms into q's slot, the whole-row softmax and p·v, the output.
+template <int DK, int NWG>
+__device__ __forceinline__ void f32_small_head(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v, float* __restrict__ o,
+                                               Strides st, int H, int S, int D, float scale,
+                                               int causal, uint32_t s_a, int bh) {
+  using namespace mpt_tc;
+  constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup;
+  // With 128 keys a row the score fragment takes 64 registers: p·v splits
+  // p one k-step at a time, so the products keep theirs.
+  constexpr int KC = NWG == 2 ? 1 : 2;
+  const uint32_t s_b = s_a + 3 * tile_bytes<DK, NK>();  // k's terms
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int row0 = wg * 64 + warp * 16;  // this warp's first query
+  const int b = bh / H, h = bh - b * H;
+  const long long base = b * st.sb + h * st.sh;
+
+  stage_terms<DK, NK, NT>(s_a, q + base, st.ss, S, D, scale, tid);
+  stage_terms<DK, NK, NT>(s_b, k + base, st.ss, S, D, 1.f, tid);
+  fence_async_smem();
+  __syncthreads();
+
+  float s[NK / 2];
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) s[i] = 0.f;
+  wgmma_fence();
+  qk_issue<DK, 64, NK, NK, 6, NWG>(s, s_a + wg * 64 * 128, s_b);  // 64 keys a product
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<NK / 2>(s);
+
+  __syncthreads();  // every warpgroup's q·kᵀ is done with q's terms
+  stage_terms<DK, NK, NT>(s_a, v + base, st.ss, S, D, 1.f, tid);
+  fence_async_smem();
+  __syncthreads();
+
+  // The scale is in q's terms: the whole-row softmax takes the scores as
+  // they are.
+  const float sc = prepare_scores<NK>(s, 1.f, row0, 0, S, causal);
+  float l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = exp_sum<NK>(s, i, sc, row_max<NK>(s, i, sc));
+  float acc[padded<DK>() / 2];
+#pragma unroll
+  for (int i = 0; i < padded<DK>() / 2; ++i) acc[i] = 0.f;
+  pv_product<DK, NK, NK, true, KC>(acc, s, s_a);
+  store_rows_f32<DK>(acc, l, o + ((long long)b * S * H + h) * D, (long long)H * D, row0, S, D);
+}
+
+// S ≤ 64 (NWG = 1): the CTA walks its share of the heads, from
+// blockIdx.x·per_cta; S > 64: the CTA's one head, blockIdx.x (a loop, even
+// of one trip, costs that kernel registers it does not have).
+template <int DK, int NWG>
+__global__ void __launch_bounds__(NWG * mpt_tc::kWarpgroup, f32_small_ctas<DK, NWG>())
+attn_small_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ o, Strides st,
+                             int H, int S, int D, int BH, int per_cta, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t s_a = (mpt_tc::smem_addr(tc_smem) + 1023) & ~1023u;  // q's terms, then v's
+  if constexpr (NWG == 1) {
+    const int first = blockIdx.x * per_cta, end = min(first + per_cta, BH);
+    for (int bh = first; bh < end; ++bh) {
+      __syncthreads();  // the last head's p·v is done with v's terms
+      f32_small_head<DK, NWG>(q, k, v, o, st, H, S, D, scale, causal, s_a, bh);
+    }
+  } else {
+    f32_small_head<DK, NWG>(q, k, v, o, st, H, S, D, scale, causal, s_a, blockIdx.x);
+  }
+}
+
+template <int DK, int NWG>
+int launch_fwd_tc_f32(const void* q, const void* k, const void* v, void* o, Strides st, int B,
+                      int S, int H, int D, float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = f32_small_smem_bytes<DK, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
+  static_assert(bytes <= kMaxSmem, "the f32 forward's tiles exceed a CTA's shared memory");
+  auto kernel = attn_small_fwd_tc_f32_kernel<DK, NWG>;
+  const int BH = B * H;
+  int per_cta = 1;  // S > 64: one CTA a head
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess && NWG == 1) err = heads_per_cta(kernel, threads, bytes, BH, &per_cta);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(BH + per_cta - 1) / per_cta, threads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st, H, S, D, BH, per_cta, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+int launch_fwd_tc_f32_d(const void* q, const void* k, const void* v, void* o, Strides st, int B,
+                        int S, int H, int D, float scale, int causal, cudaStream_t stream) {
+  if (S <= 64) return launch_fwd_tc_f32<DK, 1>(q, k, v, o, st, B, S, H, D, scale, causal, stream);
+  return launch_fwd_tc_f32<DK, 2>(q, k, v, o, st, B, S, H, D, scale, causal, stream);
+}
+
 // ------------------------------------------------ tensor-core backward ---
 
 // The backward's shared memory: STAGES ring stages of one head's (q, k, v,
@@ -344,22 +481,17 @@ int launch_fwd_tc_d(const void* q, const void* k, const void* v, void* o, Stride
 // tiles, and 1 KB to start the tiles on 1024. Two stages where they fit in
 // a CTA's 227 KB, else one (S > 64 with D > 64: 128 KB of inputs and 96 KB
 // of terms).
-constexpr int kMaxSmem = 232448;
-template <int D, int NWG>
-__host__ __device__ constexpr int bwd_tc_tile_bytes() {
-  return 64 * NWG * mpt_tc::padded<D>() * 2;
-}
 template <int NWG>
 __host__ __device__ constexpr int bwd_tc_term_bytes() {
   return 64 * NWG * 64 * NWG * 2;
 }
 template <int D, int NWG>
 __host__ __device__ constexpr int bwd_tc_stages() {
-  return 8 * bwd_tc_tile_bytes<D, NWG>() + 3 * bwd_tc_term_bytes<NWG>() + 1024 <= kMaxSmem ? 2 : 1;
+  return 8 * tile_bytes<D, 64 * NWG>() + 3 * bwd_tc_term_bytes<NWG>() + 1024 <= kMaxSmem ? 2 : 1;
 }
 template <int D, int NWG>
 __host__ __device__ constexpr int bwd_tc_smem_bytes() {
-  return 4 * bwd_tc_stages<D, NWG>() * bwd_tc_tile_bytes<D, NWG>() + 3 * bwd_tc_term_bytes<NWG>() +
+  return 4 * bwd_tc_stages<D, NWG>() * tile_bytes<D, 64 * NWG>() + 3 * bwd_tc_term_bytes<NWG>() +
          1024;
 }
 
@@ -373,7 +505,7 @@ attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   using namespace mpt_tc;
   constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup, PD = padded<D>();
   constexpr int ST = bwd_tc_stages<D, NWG>();
-  constexpr uint32_t kTile = bwd_tc_tile_bytes<D, NWG>(), kStage = 4 * kTile;
+  constexpr uint32_t kTile = tile_bytes<D, NK>(), kStage = 4 * kTile;
   constexpr uint32_t kTerm = bwd_tc_term_bytes<NWG>();
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t raw = smem_addr(tc_smem), s0 = (raw + 1023) & ~1023u;
@@ -525,20 +657,12 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
   constexpr int bytes = bwd_tc_smem_bytes<D, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
   static_assert(bytes <= kMaxSmem, "the tensor-core backward's tiles exceed a CTA's shared memory");
   auto kernel = attn_small_bwd_tc_kernel<D, NWG>;
+  const int BH = B * H;
+  int per_cta = 0;
   cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess) err = heads_per_cta(kernel, threads, bytes, BH, &per_cta);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
-          cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // An even share of the heads for every CTA that fits on the card at once.
-  const int BH = B * H, slots = sms * per_sm;
-  const int per_cta = (BH + slots - 1) / slots, grid = (BH + per_cta - 1) / per_cta;
-  using bf16 = __nv_bfloat16;
-  kernel<<<grid, threads, bytes, stream>>>(
+  kernel<<<(BH + per_cta - 1) / per_cta, threads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), st, H, S, BH, per_cta, scale, causal);
@@ -555,17 +679,20 @@ int launch_bwd_tc_d(const void* q, const void* k, const void* v, const void* dou
 
 }  // namespace
 
-// q, k, v: strided [B, S, H, D] with the strides (sb, ss, sh) in elements
-// and the head dim contiguous; out: contiguous [B, S, H, D].
-// scale = D^-0.5 as the caller rounds it to f32; dtype 0 = f32, 1 = bf16.
+// The FFMA forward: q, k, v bf16, strided [B, S, H, D] with the strides
+// (sb, ss, sh) in elements and the head dim contiguous; out: contiguous
+// [B, S, H, D] bf16. scale = D^-0.5 as the caller rounds it to f32.
 // Returns cudaGetLastError().
 extern "C" int mpt_attn_small_fwd(const void* q, const void* k, const void* v, void* out,
                                   long long sb, long long ss, long long sh, int B, int S, int H,
-                                  int D, float scale, int causal, int dtype, void* stream) {
-  const Strides st{sb, ss, sh};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(q, k, v, out, st, B, S, H, D, scale, causal, s);
-  return launch_fwd<float>(q, k, v, out, st, B, S, H, D, scale, causal, s);
+                                  int D, float scale, int causal, void* stream) {
+  const size_t bytes = sizeof(float) * small_smem_floats(S, D);
+  cudaError_t err = allow_smem(attn_small_fwd_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  attn_small_fwd_kernel<<<B * H, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), Strides{sb, ss, sh}, H, S, D, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 // The tensor-core forward: q, k, v bf16, strided [B, S, H, D] as above with
@@ -590,7 +717,30 @@ extern "C" int mpt_attn_small_fwd_tc(const void* q, const void* k, const void* v
   }
 }
 
-// q, k, v as above; dout, dq, dk, dv: contiguous [B, S, H, D].
+// The f32 tensor-core forward: q, k, v f32, strided [B, S, H, D] as above
+// with every row 16-byte aligned, S <= 128, D % 4 == 0 and D <= 128; out
+// contiguous [B, S, H, D] f32. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int mpt_attn_small_fwd_tc_f32(const void* q, const void* k, const void* v, void* out,
+                                         long long sb, long long ss, long long sh, int B, int S,
+                                         int H, int D, float scale, int causal, void* stream) {
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > 128 || D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  switch ((D + 15) / 16 * 16) {
+#define MPT_CASE(dk) \
+  case dk:           \
+    return launch_fwd_tc_f32_d<dk>(q, k, v, out, st, B, S, H, D, scale, causal, s);
+    MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
+    MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
+#undef MPT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The FFMA backward: q, k, v strided as above, f32 or bf16; dout, dq,
+// dk, dv: contiguous [B, S, H, D]; dtype 0 = f32, 1 = bf16.
 extern "C" int mpt_attn_small_bwd(const void* q, const void* k, const void* v, const void* dout,
                                   void* dq, void* dk, void* dv, long long sb, long long ss,
                                   long long sh, int B, int S, int H, int D, float scale, int causal,

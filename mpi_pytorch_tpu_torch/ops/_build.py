@@ -17,7 +17,8 @@ refused launch (too many threads, too much shared memory) fails the call
 instead of silently never running. The wrappers share the rest of their
 launch plumbing here too: :class:`LaunchCounter`, :func:`on_cpu`,
 :func:`stream`, ``DTYPE_CODE`` and the attention kernels'
-:func:`attention_route` and :func:`attention_layout`.
+:func:`attention_forward_route`, :func:`attention_route` (the backward's)
+and :func:`attention_layout`.
 """
 
 from __future__ import annotations
@@ -83,21 +84,22 @@ SIGNATURES = {
     "mpt_head_ce_bwd_tile_vocab": (),
     "mpt_head_ce_bwd_tile_rows": (),
     "mpt_head_ce_bwd_tile_cols": (),
-    # q, k, v, out, q/k/v strides (sb, ss, sh), B, S, H, D, scale, causal,
-    # dtype, stream
-    "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _I, _P),
+    # the FFMA forwards (bf16): q, k, v, out[, lse], q/k/v strides (sb, ss,
+    # sh), B, S, H, D[, block_q, block_k], scale, causal, stream
+    "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
+    "mpt_flash_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, dq, dk, dv, q/k/v strides, B, S, H, D, scale, causal,
     # dtype, stream
     "mpt_attn_small_bwd": (
         _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _I, _P,
     ),
-    # q, k, v, out, lse, q/k/v strides, B, S, H, D, block_q, block_k, scale,
-    # causal, dtype, stream
-    "mpt_flash_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # the tensor-core forwards (bf16): q, k, v, out[, lse], q/k/v strides,
     # B, S, H, D, scale, causal, stream
     "mpt_attn_small_fwd_tc": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
     "mpt_flash_fwd_tc": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
+    # the f32 tensor-core forwards: the same arguments as the bf16 ones
+    "mpt_attn_small_fwd_tc_f32": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
+    "mpt_flash_fwd_tc_f32": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
     # the tensor-core tiny-S backward (bf16): q, k, v, dout, dq, dk, dv,
     # q/k/v strides, B, S, H, D, scale, causal, stream
     "mpt_attn_small_bwd_tc": (
@@ -269,13 +271,25 @@ def attention_layout(
 
 
 def attention_route(dtype: torch.dtype, d: int) -> str:
-    """Which kernel an attention wrapper launches for q of ``dtype`` and
-    head dim ``d``: ``"tensor_core"`` for bf16 with D a
-    multiple of 16 up to 128 (wgmma takes k-steps of 16 bf16), else
-    ``"ffma"`` (f32, or bf16 with any other D; the f32 FFMA kernels).
-    A stated rule, never a fallback: a launch on either route that fails
-    raises."""
+    """Which kernel the tiny-S backward (K10) launches for q of ``dtype``
+    and head dim ``d``: ``"tensor_core"`` for bf16 with D a multiple of 16
+    up to 128 (wgmma takes k-steps of 16 bf16), else ``"ffma"`` (f32, or
+    bf16 with any other D; the f32 FFMA kernel). A stated rule, never a
+    fallback: a launch on either route that fails raises."""
     return "tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "ffma"
+
+
+def attention_forward_route(dtype: torch.dtype, d: int) -> str:
+    """Which kernel the attention forwards (K8, K9) launch for q of
+    ``dtype`` and head dim ``d``: ``"tensor_core"`` for bf16 with D a
+    multiple of 16 up to 128; ``"tensor_core_f32"`` for f32 with D a
+    multiple of 4 up to 128 (q·scale, k and v split into three bf16 terms,
+    each product six exact term-pair products; the padding columns are
+    zero, so any such D); else ``"ffma"`` (bf16 with any other D). A stated
+    rule, never a fallback: a launch on any route that fails raises."""
+    if dtype == torch.float32 and d % 4 == 0 and d <= 128:
+        return "tensor_core_f32"
+    return attention_route(dtype, d)
 
 
 def require_16b_rows(
@@ -284,9 +298,11 @@ def require_16b_rows(
     """The tensor-core kernels copy rows of q, k and v (and of the
     ``contiguous`` [B, S, H, D] operands, such as the backward's do) in
     16-byte pieces: raises unless each starts on 16 bytes and q, k, v's
-    (shared) B, S, H strides are multiples of 8 bf16 elements."""
-    if any(t.data_ptr() % 16 for t in (q, k, v, *contiguous)) or any(x % 8 for x in q.stride()[:3]):
+    (shared) B, S, H strides are multiples of 16 bytes (8 bf16 or 4 f32
+    elements)."""
+    per = 16 // q.element_size()
+    if any(t.data_ptr() % 16 for t in (q, k, v, *contiguous)) or any(x % per for x in q.stride()[:3]):
         raise ValueError(
             f"{what} tensor-core kernel needs its operands on 16-byte boundaries and strides "
-            f"multiple of 8 elements, got strides {q.stride()}"
+            f"multiple of {per} elements, got strides {q.stride()}"
         )

@@ -1,0 +1,127 @@
+"""The arithmetic of the f32 tensor-core attention forwards in plain torch,
+and the float64 attention it is held against.
+
+The f32 route of K8 (``flash_forward``) and of K9
+(``attention_small_forward``) runs on Hopper's tensor cores
+(``csrc/attention_tc.cuh``): q·scale, k, v and p each split into three
+bf16 terms (t0 = bf16(x), t1 = bf16(x − t0), t2 = bf16(x − t0 − t1), each
+rounded to nearest), and every product keeps the six term pairs (i, j)
+with i + j ≤ 2 — a0b0, a0b1, a1b0, a0b2, a1b1, a2b0 — each an exact bf16
+product, summed in f32; p = 2^((s − m)·log2 e) as the hardware's base-2
+exponential takes it; the output is (p·v) ÷ l. :func:`emulate_small`
+(whole-row, as K9) and :func:`emulate_flash` (key blocks of 64 with the
+online recurrence, as K8) compute that with torch operations on any
+device; ``pairs=THREE`` keeps only the pairs of order 2^-8 and above, the
+control that shows the other three are part of the f32 function.
+
+No kernel calls these: the tests hold them against the JAX kernels, and
+``chip_smoke.py`` holds them and the kernels against
+:func:`attention_f64` on the card's inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30  # the kernels' mask value
+KEY_BLOCK = 64  # the flash kernel's k/v block
+LOG2E = 1.4426950408889634
+# The f32 tensor-core forwards against :func:`attention_f64` (max |error|
+# over max |reference|, ``relative_gap``): a limit that the six pairs keep
+# — their emulation here reads a few 1e-7 (f32 sums, the base-2
+# exponential), the kernels on an H100 up to about 2e-6, since a wgmma's
+# f32 sum is not rounded to nearest — and three pairs, the control, break
+# (near 1e-5).
+F64_REL = 4e-6
+# The term pairs (i, j) of a product, largest first (the kernels sum them
+# smallest first).
+SIX = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+THREE = SIX[:3]
+
+
+def split3(x: torch.Tensor) -> list[torch.Tensor]:
+    """The three bf16 terms of f32 x (as f32 values): each rounds the
+    residual left by the ones before, which is exact in f32."""
+    terms = []
+    for _ in range(3):
+        t = x.to(torch.bfloat16).float()
+        terms.append(t)
+        x = x - t
+    return terms
+
+
+def split_product(eq: str, a: torch.Tensor, b: torch.Tensor, pairs=SIX) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` as the kernels take it: the term pairs
+    ``pairs`` of the two splits, each an exact product of bf16 values (exact
+    in f32 and in TF32 alike), summed in f32, smallest first."""
+    ta, tb = split3(a), split3(b)
+    out = 0.0
+    for i, j in reversed(pairs):
+        out = out + torch.einsum(eq, ta[i], tb[j])
+    return out
+
+
+def _scores(q, k, causal: bool, pairs) -> torch.Tensor:
+    """[B, H, S, S] f32: (q·scale)·kᵀ from the splits of q·scale and k;
+    −1e30 past the diagonal when causal."""
+    s = q.shape[1]
+    sc = split_product("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k, pairs)
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=q.device).tril(), NEG)
+    return sc
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp as the kernels take it: 2^(x·log2 e), the product rounded to f32."""
+    return torch.exp2(x * torch.tensor(LOG2E, dtype=torch.float32, device=x.device))
+
+
+def emulate_small(q, k, v, causal: bool = False, pairs=SIX) -> torch.Tensor:
+    """K9's f32 tensor-core arithmetic on f32 [B, S, H, D] q, k, v:
+    whole-row softmax, out = (p·v) / l, [B, S, H, D]."""
+    sc = _scores(q, k, causal, pairs)
+    p = _exp(sc - sc.amax(-1, keepdim=True))
+    pv = split_product("bhqk,bhkd->bhqd", p, v.transpose(1, 2), pairs)
+    return (pv / p.sum(-1, keepdim=True)).transpose(1, 2)
+
+
+def emulate_flash(q, k, v, causal: bool = False, pairs=SIX) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's f32 tensor-core arithmetic on f32 [B, S, H, D] q, k, v: key
+    blocks of 64 (the last padded with −1e30 keys and zero values), the
+    online recurrence m, l, acc·α; out = acc / safe_l [B, S, H, D] and
+    lse = m + log(safe_l) [B, H, S]."""
+    b, s, h, d = q.shape
+    n = -(-s // KEY_BLOCK) * KEY_BLOCK
+    sc = torch.nn.functional.pad(_scores(q, k, causal, pairs), (0, n - s), value=NEG)
+    vt = torch.nn.functional.pad(v.transpose(1, 2), (0, 0, 0, n - s))
+    m = torch.full((b, h, s, 1), NEG, device=q.device)
+    l = torch.zeros((b, h, s, 1), device=q.device)
+    acc = torch.zeros((b, h, s, d), device=q.device)
+    for k0 in range(0, n, KEY_BLOCK):
+        blk = sc[..., k0:k0 + KEY_BLOCK]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = _exp(blk - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + split_product("bhqk,bhkd->bhqd", p, vt[:, :, k0:k0 + KEY_BLOCK], pairs)
+        m = m_new
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    return (acc / safe_l).transpose(1, 2), (m + torch.log(safe_l))[..., 0]
+
+
+def attention_f64(q, k, v, causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """softmax((q·D^-0.5)·kᵀ)·v in float64 from [B, S, H, D] q, k, v:
+    (out [B, S, H, D], lse [B, H, S]), both float64."""
+    q, k, v = (t.double() for t in (q, k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q * q.shape[-1] ** -0.5, k)
+    if causal:
+        s = q.shape[1]
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=q.device).tril(), float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), v)
+    return out, torch.logsumexp(sc, -1)
+
+
+def relative_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|, in float64."""
+    got, want = got.double(), want.double().to(got.device)
+    return float((got - want).abs().max() / want.abs().max())

@@ -7,11 +7,14 @@ function as ``full_attention`` over [B, S, H, D] inputs.
 - The forward is a CUDA kernel in ``csrc/flash_attention.cu`` (TPU
   ``_attn_fwd_kernel``): one CTA per (batch·head, q-block) runs the online
   recurrence over the k-blocks and writes the output and the f32
-  logsumexp of every row. Two routes, by :func:`_build.attention_route`:
-  bf16 with D % 16 == 0 (D ≤ 128) goes to the tensor-core kernel (wgmma,
-  p·v through a p split into three bf16 terms that keeps it f32-exact), which
-  chooses its own tiles for Hopper (128 queries, k/v blocks of 64);
-  everything else to the f32 FFMA kernel, blocked as the caller says.
+  logsumexp of every row. Three routes, by
+  :func:`_build.attention_forward_route`: bf16 with D % 16 == 0 (D ≤ 128)
+  goes to the tensor-core kernel (wgmma, p·v through a p split into three
+  bf16 terms that keeps it f32-exact); f32 (any D % 4 == 0 up to 128) to
+  the f32 tensor-core kernel (q·scale, k, v and p split into three bf16
+  terms, each product six exact term-pair products); both choose their own
+  tiles for Hopper (128 queries, k/v blocks of 64). bf16 with any other D
+  goes to the f32 FFMA kernel, blocked as the caller says.
 - The backward is the JAX ``_bwd_blocked`` in torch, block for block: per
   k-block, the probabilities recomputed from the saved logsumexp, then dv,
   dp, ds, dq (accumulated) and dk — O(S·block) memory, never S×S. The JAX
@@ -34,8 +37,10 @@ from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
 # Launches of the forward kernel of each route (the plain version never
-# counts): the tensor-core kernel (bf16, D % 16 == 0) and the FFMA kernel.
+# counts): the tensor-core kernels (bf16 with D % 16 == 0; f32) and the
+# FFMA kernel.
 tc_counter = _build.LaunchCounter()
+tc_f32_counter = _build.LaunchCounter()
 ffma_counter = _build.LaunchCounter()
 
 DEFAULT_BLOCK_Q = 128
@@ -64,38 +69,37 @@ def flash_forward(
     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out [B, S, H, D] in q's dtype, lse f32 [B, H, S]): for CUDA tensors
-    the kernel of :func:`_build.attention_route` — the tensor-core kernel
-    (its own tiles: ``block_q``/``block_k`` are checked but do not shape
-    it) or the FFMA kernel (blocks as given); the plain version for CPU
-    tensors."""
+    the kernel of :func:`_build.attention_forward_route` — a tensor-core
+    kernel (its own tiles: ``block_q``/``block_k`` are checked but do not
+    shape it) or the FFMA kernel (blocks as given); the plain version for
+    CPU tensors."""
     check_qkv(q, k, v)
     if _build.on_cpu(q, "flash_attention"):
         return flash_forward_reference(q, k, v, causal)
     bsz, s, h, d = q.shape
-    (sb, ss, sh), code = _build.attention_layout(q, k, v, "flash_attention", MAX_HEAD_DIM)
+    (sb, ss, sh), _ = _build.attention_layout(q, k, v, "flash_attention", MAX_HEAD_DIM)
     if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
         raise ValueError(
             f"flash_attention kernel takes blocks of 1..{MAX_BLOCK}, got {block_q}, {block_k}"
         )
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
-    tensor_core = _build.attention_route(q.dtype, d) == "tensor_core"
-    if tensor_core:
+    route = _build.attention_forward_route(q.dtype, d)
+    if route != "ffma":
         _build.require_16b_rows(q, k, v, "flash_attention")
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), sb, ss, sh)
     with torch.cuda.device(q.device):
-        if tensor_core:
-            rc = lib.mpt_flash_fwd_tc(
-                *ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device)
-            )
-        else:
+        if route == "ffma":
             rc = lib.mpt_flash_fwd(
-                *ptrs, bsz, s, h, d, block_q, block_k, d**-0.5, int(causal), code,
+                *ptrs, bsz, s, h, d, block_q, block_k, d**-0.5, int(causal),
                 _build.stream(q.device),
             )
+        else:
+            entry = lib.mpt_flash_fwd_tc if route == "tensor_core" else lib.mpt_flash_fwd_tc_f32
+            rc = entry(*ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device))
     _build.check(rc, "flash_attention forward")
-    (tc_counter if tensor_core else ffma_counter).add()
+    {"tensor_core": tc_counter, "tensor_core_f32": tc_f32_counter, "ffma": ffma_counter}[route].add()
     return out, lse
 
 

@@ -13,9 +13,11 @@ for each direction:
   :func:`_route`: the training forward in bf16 with D % 16 == 0 runs the
   tensor-core kernel (wgmma, p·v through a split-bf16 p that keeps it
   f32-exact; persistent CTAs with the next head's q, k, v in flight);
-  everything else — f32, other D, and every inference call (serving,
-  validation) — the f32 FFMA kernel, whose sums run in the plain
-  version's order (see :func:`_route`);
+  every f32 forward (any D % 4 == 0, training and inference) the f32
+  tensor-core kernel (q·scale, k, v and p split into three bf16 terms,
+  each product six exact term-pair products); bf16 with any other D and
+  every bf16 inference call (serving, validation) the f32 FFMA kernel,
+  whose sums run in the plain version's order (see :func:`_route`);
 - the backward (TPU ``_bwd_kernel``): recomputes p (normalized before
   use), then Δ, ds = p·(do·vᵀ − Δ), dq = ds·k·scale, dk = dsᵀ·q·scale,
   dv = pᵀ·do — each (batch, head) writes its own gradients, so no
@@ -43,9 +45,10 @@ from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
 # Launches of each CUDA kernel (the plain versions never count): the
-# tensor-core kernels (bf16, D % 16 == 0) and the FFMA kernels of the
-# forward and the backward.
+# tensor-core kernels (bf16, D % 16 == 0; the forward's f32 one) and the
+# FFMA kernels of the forward and the backward.
 forward_tc_counter = _build.LaunchCounter()
+forward_tc_f32_counter = _build.LaunchCounter()
 forward_ffma_counter = _build.LaunchCounter()
 backward_tc_counter = _build.LaunchCounter()
 backward_ffma_counter = _build.LaunchCounter()
@@ -59,10 +62,12 @@ _NEG = -1e30  # the kernels' finite mask value
 
 
 def _route(dtype: torch.dtype, d: int, train: bool) -> str:
-    """The forward's kernel: the tensor cores (:func:`_build.attention_route`)
-    for the training forward only; inference keeps the FFMA kernel.
+    """The forward's kernel: :func:`_build.attention_forward_route`, except
+    that a bf16 inference call keeps the FFMA kernel where that rule would
+    take the bf16 tensor cores. f32 calls take the f32 tensor-core kernel
+    whether training or not.
 
-    Why inference stays on FFMA: both kernels are within one bf16 ulp of
+    Why bf16 inference stays on FFMA: both kernels are within one bf16 ulp of
     the plain version on every element, but the FFMA kernel sums q·kᵀ in
     the order of the f32 GEMM the plain path runs, so its scores are the
     plain path's bits; the tensor cores sum in another order. Served
@@ -70,8 +75,8 @@ def _route(dtype: torch.dtype, d: int, train: bool) -> str:
     ties (top-2 gaps ≤ 1.1e-3 of the max, below bf16's resolution): 3–5 of
     256 on the serving check's seeded images against the FFMA kernel's 2,
     past its 99 % rule (H100 runs; ``PERF.md`` §6)."""
-    route = _build.attention_route(dtype, d)
-    return route if train else "ffma"
+    route = _build.attention_forward_route(dtype, d)
+    return "ffma" if route == "tensor_core" and not train else route
 
 
 def attention_small_forward(
@@ -86,26 +91,26 @@ def attention_small_forward(
     if _build.on_cpu(q, "fused_attention_small"):
         return full_attention(q, k, v, causal=causal)
     bsz, s, h, d = q.shape
-    (sb, ss, sh), code = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
+    (sb, ss, sh), _ = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
     if s > MAX_SEQ:
         raise ValueError(f"fused_attention_small kernel needs S <= {MAX_SEQ}, got S={s}")
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
-    tensor_core = _route(q.dtype, d, train) == "tensor_core"
-    if tensor_core:
+    route = _route(q.dtype, d, train)
+    if route != "ffma":
         _build.require_16b_rows(q, k, v, "fused_attention_small")
     lib = _build.load_library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sb, ss, sh)
     with torch.cuda.device(q.device):
-        if tensor_core:
-            rc = lib.mpt_attn_small_fwd_tc(
-                *ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device)
-            )
+        if route == "ffma":
+            entry = lib.mpt_attn_small_fwd
+        elif route == "tensor_core":
+            entry = lib.mpt_attn_small_fwd_tc
         else:
-            rc = lib.mpt_attn_small_fwd(
-                *ptrs, bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device)
-            )
+            entry = lib.mpt_attn_small_fwd_tc_f32
+        rc = entry(*ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device))
     _build.check(rc, "fused_attention_small forward")
-    (forward_tc_counter if tensor_core else forward_ffma_counter).add()
+    {"tensor_core": forward_tc_counter, "tensor_core_f32": forward_tc_f32_counter,
+     "ffma": forward_ffma_counter}[route].add()
     return out
 
 

@@ -160,10 +160,12 @@ def test_delta_from_p_dp_equals_delta_from_o():
 def test_backward_route(dtype, d, route):
     """bf16 with D % 16 == 0 and D ≤ 128 takes the tensor-core backward;
     f32 and any other bf16 D the FFMA backward. The backward has no
-    inference caller: it takes the rule as the forwards' training calls
-    do."""
+    inference caller: in bf16 it takes the rule as the forwards' training
+    calls do, while an f32 training forward takes the f32 tensor-core
+    kernel and its backward stays on FFMA."""
     assert _build.attention_route(dtype, d) == route
-    assert fas._route(dtype, d, train=True) == route
+    forward = "tensor_core_f32" if dtype == torch.float32 else route
+    assert fas._route(dtype, d, train=True) == forward
 
 
 def test_cpu_tensors_launch_no_backward():

@@ -193,33 +193,39 @@ def test_two_terms_cross_the_one_ulp_check():
 
 
 @pytest.mark.parametrize(
-    "dtype,d,route",
+    "dtype,d,forward,backward",
     [
-        (torch.bfloat16, 64, "tensor_core"),
-        (torch.bfloat16, 16, "tensor_core"),
-        (torch.bfloat16, 48, "tensor_core"),
-        (torch.bfloat16, 128, "tensor_core"),
-        (torch.bfloat16, 8, "ffma"),
-        (torch.bfloat16, 36, "ffma"),
-        (torch.bfloat16, 144, "ffma"),
-        (torch.float32, 64, "ffma"),
-        (torch.float32, 16, "ffma"),
+        (torch.bfloat16, 64, "tensor_core", "tensor_core"),
+        (torch.bfloat16, 16, "tensor_core", "tensor_core"),
+        (torch.bfloat16, 48, "tensor_core", "tensor_core"),
+        (torch.bfloat16, 128, "tensor_core", "tensor_core"),
+        (torch.bfloat16, 8, "ffma", "ffma"),
+        (torch.bfloat16, 36, "ffma", "ffma"),
+        (torch.bfloat16, 144, "ffma", "ffma"),
+        (torch.float32, 64, "tensor_core_f32", "ffma"),
+        (torch.float32, 16, "tensor_core_f32", "ffma"),
+        (torch.float32, 36, "tensor_core_f32", "ffma"),
+        (torch.float32, 128, "tensor_core_f32", "ffma"),
     ],
 )
-def test_route(dtype, d, route):
-    """bf16 with D % 16 == 0 and D ≤ 128 reaches the tensor cores; f32 and
-    any other bf16 D the FFMA kernels. The flash forward takes this rule as
-    it is; the tiny-S forward takes it for its training forward only, and
-    its inference calls keep the FFMA kernel."""
-    assert _build.attention_route(dtype, d) == route
-    assert fas._route(dtype, d, train=True) == route
-    assert fas._route(dtype, d, train=False) == "ffma"
+def test_route(dtype, d, forward, backward):
+    """The forwards: bf16 with D % 16 == 0 and D ≤ 128 reaches the bf16
+    tensor cores, f32 with any D % 4 == 0 up to 128 the f32 tensor-core
+    kernels, any other bf16 D the FFMA kernels. The flash forward takes
+    this rule as it is; the tiny-S forward takes it for its training
+    forward and for f32 inference, and its bf16 inference calls keep the
+    FFMA kernel. K10's backward keeps its own rule: f32 stays on FFMA."""
+    assert _build.attention_forward_route(dtype, d) == forward
+    assert _build.attention_route(dtype, d) == backward
+    assert fas._route(dtype, d, train=True) == forward
+    assert fas._route(dtype, d, train=False) == ("ffma" if forward == "tensor_core" else forward)
 
 
 def test_cpu_tensors_count_no_route():
-    """On CPU tensors the forwards run their plain versions on either
+    """On CPU tensors the forwards run their plain versions on every
     route's inputs, and no route's launch count moves."""
-    counters = (fa.tc_counter, fa.ffma_counter, fas.forward_tc_counter, fas.forward_ffma_counter)
+    counters = (fa.tc_counter, fa.tc_f32_counter, fa.ffma_counter, fas.forward_tc_counter,
+                fas.forward_tc_f32_counter, fas.forward_ffma_counter)
     before = [c.count for c in counters]
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t.to(dtype) for t in _qkv(400, 64))
