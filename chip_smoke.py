@@ -27,15 +27,15 @@ Phases (any failure raises and the script exits non-zero):
    128 px shape (and S = 50, 65, 128, causal; the f32 forward also at
    D = 40, 128; K10 also at D = 32, 128, 40), and the flash forward (K8)
    at its 224 px shape and a longer causal S (f32 also at D = 40, 128) —
-   the forwards on their three routes (the bf16 tensor-core kernels, the
-   f32 tensor-core kernels, the FFMA kernels at bf16 D = 40 and K9's bf16
-   inference), K10 on both (tensor cores, FFMA), each on its route's
-   counter only, two calls bitwise equal; the f32 tensor-core forwards
-   also against float64 attention on their timed inputs, within a limit
+   each on its three routes (the bf16 tensor-core kernels, the f32
+   tensor-core kernels, the FFMA kernels at bf16 D = 40 and K9's bf16
+   inference), each on its route's counter only, two calls bitwise
+   equal; the f32 tensor-core kernels also against float64 attention (and
+   its gradients) on their timed inputs, within a limit
    (``attention_split_numerics.F64_REL``) that their six-pair torch
-   emulation keeps and the three-pair control breaks; no measured time may read below its bound;
-   and the flash backward's yardstick line (the blocked torch backward
-   beside SDPA's backward);
+   emulation keeps and the three-pair control breaks; no measured time
+   may read below its bound; and the flash backward's yardstick line (the
+   blocked torch backward beside SDPA's backward);
 4. the serving path: ``InferenceServer`` with resnet18, 64 500 classes,
    128 px, bf16, uint8 input, fused stem and fused head, buckets
    1,8,32,128,512, seeded random weights. A flood of seeded images, then
@@ -72,9 +72,9 @@ Phases (any failure raises and the script exits non-zero):
    batches: against the stem's plain versions, losses, step-1 stem
    gradients and ``bn1`` after three steps rtol 1e-4; against the plain
    stem, losses rtol 1e-4; and the device time of one bf16 train step on
-   a resident batch, fused and plain, in turns; then K8/K9 (their f32
-   tensor-core kernels, counted) and K10 (its FFMA kernel, counted) inside
-   the f32 vit_s16 step the same way
+   a resident batch, fused and plain, in turns; then K8, K9 and K10
+   (their f32 tensor-core kernels, counted) inside the f32 vit_s16 step
+   the same way
    (losses rtol 1e-4, step-1 gradients within ``VIT_GRAD_GAP``);
 9. where a training step's time goes, for resnet18 and both vit_s16
    configurations: the host loader alone, the host's enqueue time against
@@ -329,30 +329,57 @@ def check_stem_argmax(dev, gen) -> dict:
     return row
 
 
-def check_stem_backward(dev, gen) -> dict:
-    """K3 against its plain version on the same (g, k, pooled, y, a) at the
-    training shape: dy within one bf16 ulp, da and db rtol 1e-3 plus 1e-3
-    absolute (sums of 2^19 terms per channel, taken in another order), and
-    two calls bitwise equal (no atomics)."""
-    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_F32_FLOPS, bound_ms
-    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+# K3's edge shapes, (B, H, W, C) and dtype: one window a row and column
+# (H = W = 2: no window right of or below any quad), odd window counts
+# (H/2 = 3, W/2 = 5), and f32 at the widest C the kernel takes.
+STEM_BWD_EDGES = (((16, 2, 2, 64), torch.bfloat16), ((8, 6, 10, 64), torch.bfloat16),
+                  ((4, 16, 16, 256), torch.float32))
 
-    a, b, y, _ = _stem_train_inputs(dev, gen)
-    pooled, k = fs.stem_pool_argmax(y, a, b)
-    g = torch.randn(pooled.shape, generator=gen).to(dev, torch.bfloat16)
+
+def _check_stem_backward_once(fs, g, k, pooled, y, a, what: str) -> float:
+    """K3 against its plain version on one input: dy within one bf16 ulp,
+    da and db rtol 1e-3 plus 1e-3 absolute (sums of up to 2^19 terms per
+    channel, taken in another order), and two calls bitwise equal (no
+    atomics). Returns the max abs error."""
     dy, da, db = fs.stem_pool_backward(g, k, pooled, y, a)
     dy2, da2, db2 = fs.stem_pool_backward(g, k, pooled, y, a)
     torch.cuda.synchronize()
     if not (torch.equal(dy, dy2) and torch.equal(da, da2) and torch.equal(db, db2)):
-        raise AssertionError("stem backward: two calls on the same inputs differ")
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
     ref_dy, ref_da, ref_db = fs.stem_pool_backward_reference(g, k, pooled, y, a)
-    max_err = _ulp_check(dy, ref_dy, "stem backward dy")
+    max_err = _ulp_check(dy, ref_dy, f"{what} dy")
     for name, got, ref in (("da", da, ref_da), ("db", db, ref_db)):
         if not torch.allclose(got, ref, rtol=1e-3, atol=1e-3):
-            raise AssertionError(
-                f"stem backward {name}: off by {float((got - ref).abs().max())}"
-            )
+            raise AssertionError(f"{what} {name}: off by {float((got - ref).abs().max())}")
         max_err = max(max_err, float((got - ref).abs().max()))
+    return max_err
+
+
+def check_stem_backward(dev, gen) -> dict:
+    """K3 against its plain version (``_check_stem_backward_once``) on the
+    same (g, k, pooled, y, a) at the training shape, random and tie-heavy,
+    and at ``STEM_BWD_EDGES``, where the windows right of or
+    below a quad fall off the grid; then timed at the training shape.
+    Raises when its busy time reads below its bound."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_F32_FLOPS, bound_ms
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+
+    def case(y, a, b, what):
+        pooled, k = fs.stem_pool_argmax(y, a, b)
+        g = torch.randn(pooled.shape, generator=gen).to(dev, y.dtype)
+        return (g, k, pooled, y, a), _check_stem_backward_once(fs, g, k, pooled, y, a, what)
+
+    a, b, y, ties = _stem_train_inputs(dev, gen)
+    args, max_err = case(y, a, b, "stem backward")
+    # Tie-heavy, its NaN zeroed: a NaN in y makes da NaN, which no check compares.
+    max_err = max(max_err, case(torch.nan_to_num(ties), a, b, "stem backward (tie_heavy)")[1])
+    for shape, dtype in STEM_BWD_EDGES:
+        c = shape[-1]
+        a_e = (0.5 + torch.rand(c, generator=gen)).to(dev)
+        b_e = (0.5 * torch.randn(c, generator=gen)).to(dev)
+        y_e = torch.randn(shape, generator=gen).to(dev, dtype)
+        max_err = max(max_err, case(y_e, a_e, b_e, f"stem backward {list(shape)} {dtype}")[1])
+    g, k, pooled, y, a = args
     n_in, n_out = y.numel(), y.numel() // 4
     c = y.shape[-1]
     # g, pooled (bf16) and k (int8) read; y read and dy written (bf16); a
@@ -373,6 +400,8 @@ def check_stem_backward(dev, gen) -> dict:
         "library_ms": None,
     }
     log({"kernel_check": row})
+    if row["device_ms"] < bound:
+        raise AssertionError(f"stem_pool_backward: device_ms {row['device_ms']} below its bound {bound} ms")
     return row
 
 
@@ -750,6 +779,30 @@ def _f64_check(name: str, q, k, v, out, lse=None) -> dict:
     return gaps
 
 
+def _f64_grad_check(name: str, q, k, v, do, grads) -> dict:
+    """K10's f32 tensor-core gradients (dq, dk, dv) on the card against
+    ``attention_backward_f64`` on the same inputs (the largest
+    ``relative_gap`` of the three), beside its six-pair torch emulation
+    (``emulate_small_backward``) and the three-pair control. Raises unless
+    the six pairs and the kernel come within ``F64_REL`` and the three pairs
+    do not. Logs and returns the gaps."""
+    from mpi_pytorch_tpu_torch.ops.attention_split_numerics import (
+        F64_REL, SIX, THREE, attention_backward_f64, emulate_small_backward, relative_gap,
+    )
+
+    ref = attention_backward_f64(q, k, v, do)
+    gaps = {"kernel": max(relative_gap(g, r) for g, r in zip(grads, ref))}
+    for label, pairs in (("six_pairs", SIX), ("three_pairs", THREE)):
+        emu = emulate_small_backward(q, k, v, do, False, pairs)
+        gaps[label] = max(relative_gap(g, r) for g, r in zip(emu, ref))
+    log({"f32_split_vs_f64": {"name": name, "shape": list(q.shape), "limit": F64_REL, **gaps}})
+    if not gaps["six_pairs"] <= F64_REL < gaps["three_pairs"]:
+        raise AssertionError(f"{name}: F64_REL {F64_REL} does not separate six pairs from three: {gaps}")
+    if gaps["kernel"] > F64_REL:
+        raise AssertionError(f"{name}: the kernel is off float64 attention gradients by {gaps}")
+    return gaps
+
+
 def _attn_work(
     b: int, s: int, h: int, d: int, *, bf16_products: int, split_products: int,
     per_score: int, per_elem: int, f32: bool = False,
@@ -811,37 +864,33 @@ def _kernel_row(name: str, source: str, line: str, shape, dtype, err: float, fn,
 
 
 def _check_k10(fas, full_attention, q, k, v, do, causal: bool, what: str) -> float:
-    """K10 on its route's kernel against autograd through ``full_attention``
-    in f32 (``_grad_check``), two calls bitwise equal, and the route's
-    counter (and only it) moved by the two launches. Returns the max abs
-    error."""
+    """K10 on its route's kernel (``_build.attention_route``) against
+    autograd through ``full_attention`` in f32: bf16 gradients by
+    ``_grad_check``, f32 ones within rtol/atol 2e-5 (``_attn_check``); two
+    calls bitwise equal, and the route's counter (and only it) moved by the
+    two launches. Returns the max abs error."""
     from mpi_pytorch_tpu_torch.ops import _build
 
-    tc = _build.attention_route(q.dtype, q.shape[-1]) == "tensor_core"
-    counters = (fas.backward_tc_counter, fas.backward_ffma_counter)
-    before = [c.count for c in counters]
-    grads = fas.attention_small_backward(q, k, v, do, causal)
-    again = fas.attention_small_backward(q, k, v, do, causal)
-    torch.cuda.synchronize()
-    if [c.count - n for c, n in zip(counters, before)] != ([2, 0] if tc else [0, 2]):
-        raise AssertionError(f"{what}: launches went to the wrong route")
-    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
-        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    counters = {"tensor_core": fas.backward_tc_counter, "tensor_core_f32": fas.backward_tc_f32_counter,
+                "ffma": fas.backward_ffma_counter}
+    grads = _launch_twice(lambda: fas.attention_small_backward(q, k, v, do, causal), counters,
+                           _build.attention_route(q.dtype, q.shape[-1]), what)
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
     full_attention(*leaves, causal=causal).backward(do.float())
-    return max(_grad_check(got, leaf.grad, f"{what} {name}")
+    check = _grad_check if q.dtype == torch.bfloat16 else _attn_check
+    return max(check(got, leaf.grad, f"{what} {name}")
                for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves))
 
 
-# An attention forward's route (``_build.attention_forward_route``) → the
-# suffix of its kernel's row and launch count.
+# An attention kernel's route (``_build.attention_route``) → the suffix
+# of its kernel's row and launch count.
 ROUTE_SUFFIX = {"tensor_core": "tc", "tensor_core_f32": "f32tc", "ffma": "ffma"}
 
 
-def _forward_twice(fn, counters: dict, route: str, what: str):
-    """Two calls of a forward, synchronized: the route's counter (and only
-    it) moved by two, and the two results bitwise equal. Returns the
-    first result."""
+def _launch_twice(fn, counters: dict, route: str, what: str):
+    """Two calls of an attention kernel's wrapper, synchronized: the
+    route's counter (and only it) moved by two, and the two results bitwise
+    equal. Returns the first result."""
     before = {name: c.count for name, c in counters.items()}
     out, again = fn(), fn()
     torch.cuda.synchronize()
@@ -855,7 +904,7 @@ def _forward_twice(fn, counters: dict, route: str, what: str):
 
 
 def check_attention_small(dev, gen) -> tuple[dict, ...]:
-    """K9 on its three kernels and K10 on both against their plain versions
+    """K9 and K10, each on its three kernels, against their plain versions
     at vit_s16's 128 px shape, at a padded S = 50, S = 65, S = 128 and
     causal: K9's training forward in bf16 (the tensor-core kernel) within
     one bf16 ulp of ``full_attention``, its bf16 inference forward (the
@@ -864,13 +913,17 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
     f32 forward also at D = 40, D = 128 and S = 128 with D = 128, the FFMA
     forward at bf16 D = 40; each twice, bitwise equal, on its route's
     counter only. K10's dq, dk, dv against autograd through
-    ``full_attention`` in f32 (``_grad_check``), two calls bitwise equal —
-    the tensor-core kernel (bf16, D = 64) at every S, and at D = 32, D =
-    128 and the envelope's corner S = 128, D = 128; the FFMA kernel at f32
-    and at bf16 D = 40. Then each timed beside its plain version and
-    ``scaled_dot_product_attention`` (its backward for K10) in the same
-    dtype. Returns the rows (K9 tensor-core, K9 f32 tensor-core, K9 FFMA
-    at bf16 inference, K10 tensor-core, K10 FFMA)."""
+    ``full_attention`` in f32, two calls bitwise equal, on its route's
+    counter only — bf16 (``_grad_check``) and f32 (rtol/atol 2e-5) at D = 64
+    and every S, both tensor-core kernels also at D = 128 and the
+    envelope's corner S = 128, D = 128, the bf16 one at D = 32, the f32 one
+    at D = 40, and the FFMA kernel at bf16 D = 40. Then each timed beside
+    its plain version and ``scaled_dot_product_attention`` (its backward
+    for K10) in the same dtype and shape; the f32 tensor-core rows also
+    against float64 (``_f64_check``, ``_f64_grad_check``). Returns the rows
+    (K9 tensor-core, K9 f32 tensor-core, K9 FFMA at bf16 inference, K10
+    tensor-core, K10 f32 tensor-core, K10 FFMA at bf16 D = 40)."""
+    from mpi_pytorch_tpu_torch.ops import _build
     from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
     from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
 
@@ -878,7 +931,7 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
                 "ffma": fas.forward_ffma_counter}
     b, s, h, d = ATTN_SMALL_SHAPE
     fwd_err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
-    bwd_err = dict.fromkeys((torch.bfloat16, torch.float32), 0.0)
+    bwd_err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
     forwards = ((torch.bfloat16, True, "tensor_core"), (torch.bfloat16, False, "ffma"),
                 (torch.float32, True, "tensor_core_f32"), (torch.float32, False, "tensor_core_f32"))
     cases = [((b, seq, h, d), causal, forwards)
@@ -896,23 +949,29 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
         for dtype, train, route in runs:
             q, k, v = _qkv(gen, shape, dev, 3, dtype)
             what = f"K9 {route} {tag} {str(dtype).removeprefix('torch.')} train={train}"
-            out = _forward_twice(lambda: fas.attention_small_forward(q, k, v, causal, train=train),
+            out = _launch_twice(lambda: fas.attention_small_forward(q, k, v, causal, train=train),
                                  counters, route, what)
             err = _attn_check(out, full_attention(q, k, v, causal=causal), what)
             fwd_err[ROUTE_SUFFIX[route]] = max(fwd_err[ROUTE_SUFFIX[route]], err)
-    for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True)):
-        tag = f"S={seq}{', causal' if causal else ''}"
-        for dtype, route in ((torch.bfloat16, "tensor-core"), (torch.float32, "FFMA")):
-            q, k, v, do = _qkv(gen, (b, seq, h, d), dev, 4, dtype)
-            bwd_err[dtype] = max(bwd_err[dtype], _check_k10(
-                fas, full_attention, q, k, v, do, causal, f"K10 {route} {tag}"))
-    # The backward's other head dims: the tensor-core kernel at D = 32 and
-    # 128 (and S = 128 with D = 128, where its shared memory holds one
-    # stage), the FFMA kernel at a bf16 D it does not take.
-    for shape, route in (((b // 2, s, h, 32), "tensor-core"), ((b // 2, s, h, 128), "tensor-core"),
-                         ((8, 128, h, 128), "tensor-core"), ((b // 2, s, h, 40), "FFMA")):
-        q, k, v, do = _qkv(gen, shape, dev, 4)
-        _check_k10(fas, full_attention, q, k, v, do, False, f"K10 {route} {list(shape)} bf16")
+    bwd_cases = [((b, seq, h, d), causal, dtype)
+                 for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True))
+                 for dtype in (torch.bfloat16, torch.float32)]
+    # The backward's other head dims: the bf16 tensor-core kernel at D = 32
+    # and 128 (and S = 128 with D = 128, where its shared memory holds one
+    # stage); the f32 one at D = 40 (not a multiple of 16), 128 (two
+    # slots, inputs staged again between products) and S = 128 with
+    # D = 128 (193 KB); the FFMA kernel at a bf16 D the tensor cores do not
+    # take.
+    bwd_cases += [((b // 2, s, h, 32), False, torch.bfloat16), ((b // 2, s, h, 128), False, torch.bfloat16),
+                  ((8, 128, h, 128), False, torch.bfloat16), ((b // 2, s, h, 40), False, torch.float32),
+                  ((b // 2, s, h, 128), False, torch.float32), ((8, 128, h, 128), False, torch.float32),
+                  ((b // 2, s, h, 40), False, torch.bfloat16)]
+    for shape, causal, dtype in bwd_cases:
+        route = _build.attention_route(dtype, shape[-1])
+        q, k, v, do = _qkv(gen, shape, dev, 4, dtype)
+        what = f"K10 {route} {list(shape)} {str(dtype).removeprefix('torch.')}{', causal' if causal else ''}"
+        bwd_err[ROUTE_SUFFIX[route]] = max(bwd_err[ROUTE_SUFFIX[route]], _check_k10(
+            fas, full_attention, q, k, v, do, causal, what))
 
     source = "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu"
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -933,10 +992,15 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
             lambda: full_attention(q, k, v), lambda: sdpa(qt, kt, vt), 4 * q.numel() * q.element_size(),
             _attn_work(b, s, h, d, bf16_products=1, split_products=1, per_score=4, per_elem=2,
                        f32=dtype == torch.float32), 50, 20, f64_gaps=gaps))
-    for dtype, suffix in ((torch.bfloat16, "tc"), (torch.float32, "ffma")):
-        q, k, v, do = _qkv(gen, ATTN_SMALL_SHAPE, dev, 4, dtype)
+    for shape, dtype, suffix in ((ATTN_SMALL_SHAPE, torch.bfloat16, "tc"),
+                                 (ATTN_SMALL_SHAPE, torch.float32, "f32tc"),
+                                 ((b, s, h, 40), torch.bfloat16, "ffma")):
+        q, k, v, do = _qkv(gen, shape, dev, 4, dtype)
         leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
         out_t, dot = sdpa(*leaves), do.transpose(1, 2).contiguous()
+        gaps = (_f64_grad_check("attention_small_backward_f32tc", q, k, v, do,
+                                fas.attention_small_backward(q, k, v, do))
+                if suffix == "f32tc" else None)
         # q, k, v, do read; dq, dk, dv written. q·kᵀ and dp = do·vᵀ (bf16),
         # dv = pᵀ·do, dq = ds·k, dk = dsᵀ·q (split); per score the softmax
         # (4) and its normalizing (1), Δ = Σ p·dp (2), ds = p·(dp − Δ) (2) —
@@ -944,13 +1008,13 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
         # dk·scale.
         rows.append(_kernel_row(
             f"attention_small_backward_{suffix}", source,
-            "mpi_pytorch_tpu/ops/fused_attention_small.py:151", ATTN_SMALL_SHAPE, dtype,
-            bwd_err[dtype], lambda: fas.attention_small_backward(q, k, v, do),
+            "mpi_pytorch_tpu/ops/fused_attention_small.py:151", shape, dtype,
+            bwd_err[suffix], lambda: fas.attention_small_backward(q, k, v, do),
             lambda: fas.attention_small_backward_reference(q, k, v, do),
             lambda: torch.autograd.grad(out_t, leaves, dot, retain_graph=True),
             7 * q.numel() * q.element_size(),
-            _attn_work(b, s, h, d, bf16_products=2, split_products=3, per_score=9, per_elem=3,
-                       f32=dtype == torch.float32), 50, 20))
+            _attn_work(b, s, h, shape[3], bf16_products=2, split_products=3, per_score=9, per_elem=3,
+                       f32=dtype == torch.float32), 50, 20, f64_gaps=gaps))
     return tuple(rows)
 
 
@@ -984,7 +1048,7 @@ def check_flash(dev, gen) -> tuple[dict, ...]:
         q, k, v = _qkv(gen, shape, dev, 3, dtype)
         blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
         tag = f"K8 {route} {list(shape)} {str(dtype).removeprefix('torch.')}{', causal' if causal else ''}"
-        out, lse = _forward_twice(lambda: fa.flash_forward(q, k, v, causal, blk, blk), counters,
+        out, lse = _launch_twice(lambda: fa.flash_forward(q, k, v, causal, blk, blk), counters,
                                   route, tag)
         ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
         e = _attn_check(out, ref, tag)
@@ -1502,8 +1566,9 @@ def train_vit(dev) -> dict:
     same seed and rows. The forwards must launch once per block in every
     train step and every validation batch on their kernels (flash: the
     tensor-core kernel for both; tiny-S: the tensor-core kernel in train
-    steps, FFMA in validation), K10's tensor-core kernel once per block in
-    every train step (its FFMA kernel never), the full runs none; step-1
+    steps, FFMA in validation), K10's bf16 tensor-core kernel once per
+    block in every train step (its other kernels never), the full runs
+    none; step-1
     losses within 1e-3 of the full twin's. Returns every counted kernel's
     launches over the two kernel runs (zero where none)."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
@@ -1514,6 +1579,7 @@ def train_vit(dev) -> dict:
         "attention_small_forward_tc": fused_attention_small.forward_tc_counter,
         "attention_small_forward_ffma": fused_attention_small.forward_ffma_counter,
         "attention_small_backward_tc": fused_attention_small.backward_tc_counter,
+        "attention_small_backward_f32tc": fused_attention_small.backward_tc_f32_counter,
         "attention_small_backward_ffma": fused_attention_small.backward_ffma_counter,
         "flash_forward_tc": flash_attention.tc_counter,
         "flash_forward_ffma": flash_attention.ffma_counter,
@@ -1670,8 +1736,9 @@ def vit_step_checks(dev) -> None:
     """K8, K9 and K10 inside the real vit_s16 train step, in f32 (TF32
     off), from the same seeded weights on the same three resident batches,
     three ways per configuration: through the kernels (the f32 tensor-core
-    forwards and K10's FFMA kernel, each of which must launch once per
-    block in every step, the FFMA and bf16 forwards never); the same model
+    forwards and K10's f32 tensor-core kernel, each of which must launch
+    once per block in every step; the FFMA and bf16 forwards and K10's
+    bf16 and FFMA kernels never); the same model
     with the kernels' plain versions in their place; and
     ``attn_impl="full"``. Losses rtol 1e-4 both ways; the step-1 gradients
     of ``patch_embed`` and block 0's q, k, v and out projections, kernels
@@ -1717,8 +1784,9 @@ def vit_step_checks(dev) -> None:
 
         counted = {"flash": {"flash_forward_f32tc": fa.tc_f32_counter},
                    "fused-small": {"attention_small_forward_f32tc": fas.forward_tc_f32_counter,
-                                   "attention_small_backward_ffma": fas.backward_ffma_counter}}[attn_impl]
-        idle = (fa.tc_counter, fa.ffma_counter, fas.forward_tc_counter, fas.forward_ffma_counter)
+                                   "attention_small_backward_f32tc": fas.backward_tc_f32_counter}}[attn_impl]
+        idle = (fa.tc_counter, fa.ffma_counter, fas.forward_tc_counter, fas.forward_ffma_counter,
+                fas.backward_tc_counter, fas.backward_ffma_counter)
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                         allow_tf32=False):
             for counter in (*counted.values(), *idle):
@@ -1876,7 +1944,8 @@ def main() -> int:
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
     check_head_ties(dev, gen)
-    attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32 = check_attention_small(dev, gen)
+    attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_ffma = (
+        check_attention_small(dev, gen))
     flash, flash_f32, flash_ffma = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
@@ -1895,10 +1964,11 @@ def main() -> int:
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))
-    # The FFMA flash kernel's one route left (bf16 with D % 16 != 0) is on
-    # no path a model runs: its count stays 0 through vit_s16's training.
-    for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, flash, flash_f32,
-                flash_ffma):
+    # The FFMA attention kernels' one route left in training (bf16 with
+    # D % 16 != 0) is on no path a model runs: their counts stay 0 through
+    # vit_s16's training.
+    for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_ffma, flash,
+                flash_f32, flash_ffma):
         row["launches"] = vit_launches[row["name"]]
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
@@ -1911,7 +1981,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
             flash, flash_f32, flash_ffma, attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd,
-            attn_bwd_f32)
+            attn_bwd_f32, attn_bwd_ffma)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["device_ms"]

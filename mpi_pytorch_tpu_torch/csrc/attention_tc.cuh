@@ -1,6 +1,6 @@
 // Tensor-core building blocks of the attention kernels on Hopper (sm_90a):
-// the forwards K8 (flash_attention.cu) and K9, bf16 and f32, and the
-// tiny-S backward K10, bf16 (both in fused_attention_small.cu).
+// the forwards K8 (flash_attention.cu) and K9, and the tiny-S backward
+// K10, each bf16 and f32 (K9 and K10 in fused_attention_small.cu).
 // The generic Hopper primitives they use (the swizzle, cp.async, wgmma's
 // descriptors and its fence / commit / wait) are in hopper.cuh.
 //
@@ -46,26 +46,27 @@
 // kernels keep the next k/v block (K8) or the next head (K9, K10) in
 // flight while the current one computes.
 //
-// The f32 forwards. An f32 value x splits into three bf16 terms, each
-// rounded to nearest: t0 = bf16(x), t1 = bf16(x − t0), t2 = bf16(x − t0 −
-// t1); each residual is exact in f32 and the three keep x to ~2⁻²⁴
-// relative. A product a·b keeps the six term pairs (i, j) with i + j ≤ 2
-// (a0b0, a0b1, a1b0, a0b2, a1b1, a2b0), each an exact bf16 product, summed
-// in the reverse order (smallest first: the tensor cores' f32 sums are not
-// rounded to nearest, so the large products meet the accumulator last)
-// into one f32 accumulator: the pairs left out are below 2⁻²⁴ of the
-// product. So s = (q·scale)·kᵀ is six products of the terms of
-// q·scale and k (both K-major in shared memory: `qk_product` with P = 6),
-// and p·v six of p's terms (registers, as `split_p`) and v's (MN-major:
-// `pv_product` with F32). Three pairs (i + j ≤ 1) leave ~1e-5 of the
-// output: a different function at the f32 checks' level. Six bf16 products
-// take the tensor cores as long as three TF32 ones (989 against 495
-// TFLOP/s), and TF32's wgmma takes both shared-memory operands K-major
-// only, which would need v transposed. The f32 q, k and v become their
-// terms on the way into shared memory (`stage_terms`): read as float4 rows
-// from device memory, split, and written as three swizzled bf16 tiles
-// (padding columns zero), where each is first needed; the CTAs beside it
-// on the SM hide the loads. (A raw f32 copy of the next block kept in
+// The f32 kernels (the forwards and K10's backward). An f32 value x splits
+// into three bf16 terms, each rounded to nearest: t0 = bf16(x), t1 =
+// bf16(x − t0), t2 = bf16(x − t0 − t1); each residual is exact in f32 and
+// the three keep x to ~2⁻²⁴ relative. A product a·b keeps the six term
+// pairs (i, j) with i + j ≤ 2 (a0b0, a0b1, a1b0, a0b2, a1b1, a2b0), each an
+// exact bf16 product, summed in the reverse order (smallest first: the
+// tensor cores' f32 sums are not rounded to nearest, so the large products
+// meet the accumulator last) into one f32 accumulator: the pairs left out
+// are below 2⁻²⁴ of the product. So s = (q·scale)·kᵀ is six products of
+// the terms of q·scale and k (both K-major in shared memory: `qk_product`
+// with P = 6), and p·v six of p's terms (registers, as `split_p`) and v's
+// (MN-major: `pv_product` with F32); the backward's dp = do·vᵀ and ds·k the
+// same way, and its pᵀ·do and dsᵀ·q six pairs of MN-major term tiles.
+// Three pairs (i + j ≤ 1) leave ~1e-5 of the output: a different function
+// at the f32 checks' level. Six bf16 products take the tensor cores as long
+// as three TF32 ones (989 against 495 TFLOP/s), and TF32's wgmma takes both
+// shared-memory operands K-major only, which would need v transposed. The
+// f32 inputs become their terms on the way into shared memory
+// (`stage_terms`): read as float4 rows from device memory, split, and
+// written as three swizzled bf16 tiles (padding columns zero), where each
+// is first needed; the CTAs beside it on the SM hide the loads. (A raw f32 copy of the next block kept in
 // flight by cp.async, split from shared memory, measured slower on an
 // H100: the copy's shared memory costs a CTA an SM.) The output leaves as
 // f32 pairs straight from the fragment (`store_rows_f32`).
@@ -496,10 +497,11 @@ __device__ __forceinline__ void stage_terms(uint32_t dst, const float* src, long
 }
 
 // This warp's 16 rows of the 64-row f32 output fragment o, row i divided
-// by f[i], stored as f32 pairs to rows row0 + g + 8i (< S) of out (row
-// stride os), columns below `cols` (even): each store of a warp fills
-// eight 32-byte sectors.
-template <int D>
+// by f[i] (kDivide: the forward's ÷ l) or times it (the backward's scale),
+// stored as f32 pairs to rows row0 + g + 8i (< S) of out (row stride os),
+// columns below `cols` (even): each store of a warp fills eight 32-byte
+// sectors.
+template <int D, bool kDivide = true>
 __device__ __forceinline__ void store_rows_f32(const float* o, const float (&f)[2], float* out,
                                                long long os, int row0, int S, int cols) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -512,7 +514,8 @@ __device__ __forceinline__ void store_rows_f32(const float* o, const float (&f)[
       const int row = row0 + g + 8 * i;
       if (row < S)
         *reinterpret_cast<float2*>(out + row * os + col) =
-            make_float2(o[4 * j + 2 * i] / f[i], o[4 * j + 2 * i + 1] / f[i]);
+            kDivide ? make_float2(o[4 * j + 2 * i] / f[i], o[4 * j + 2 * i + 1] / f[i])
+                    : make_float2(o[4 * j + 2 * i] * f[i], o[4 * j + 2 * i + 1] * f[i]);
     }
   }
 }

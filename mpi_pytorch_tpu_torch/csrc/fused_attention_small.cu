@@ -11,7 +11,7 @@
 //             dk = dsᵀ·q·scale (q unscaled); dv = pᵀ·do.
 // The residuals are q, k and v only: no logsumexp and no saved output.
 //
-// Five kernels:
+// Six kernels:
 //   - attn_small_fwd_tc_kernel, the training forward for bf16 with
 //     D % 16 == 0 and D <= 128: tensor cores (attention_tc.cuh), the path
 //     vit_s16 trains through;
@@ -23,7 +23,9 @@
 //     `_route`): f32 FFMA on the CUDA cores (attention_tiles.cuh);
 //   - attn_small_bwd_tc_kernel, the backward for bf16 with D % 16 == 0 and
 //     D <= 128: tensor cores, the path vit_s16 trains through;
-//   - attn_small_bwd_kernel, the backward for f32 and bf16 with any other
+//   - attn_small_bwd_tc_f32_kernel, the backward for f32 with D % 4 == 0
+//     and D <= 128: tensor cores on three-term bf16 splits;
+//   - attn_small_bwd_kernel, the backward for bf16 with any other
 //     D % 4 == 0: f32 FFMA.
 //
 // The tensor-core forward. Bound on an H100 by its bytes: q, k, v read and
@@ -90,13 +92,33 @@
 // belong to one CTA: no atomics, fixed-order sums, the same bits on every
 // call.
 //
+// The f32 tensor-core backward. The bf16 backward's warpgroups, whole-row
+// softmax, Δ = Σ_j p·dp and transposed p and ds terms, with every product
+// f32-exact as in the f32 forward: q·scale, k, v and do split into three
+// bf16 terms straight from device memory (`stage_terms`), and each of the
+// five products six exact term-pair products summed smallest first (s and
+// dp by `qk_issue` with six pairs; dq by `pv_product` on k's terms; dv and
+// dk as six MN-major × MN-major pairs of the p or ds terms with do's or
+// q·scale's, which bf16 wgmma allows and TF32's does not). dk = dsᵀ·(q·scale)
+// reuses q's scaled terms. Bound on an H100 by its bytes: f32 q, k, v, do
+// read and dq, dk, dv written, 88.1 MB at [128, 64, 6, 64], 26.3 µs at
+// 3.35 TB/s, against 12.2 µs for its thirty bf16 products. Shared memory is
+// what limits the layout: at S ≤ 64 with D ≤ 64 the terms of all four
+// inputs stay for the whole head (do's and v's staged while q·kᵀ runs)
+// and the p, then ds, terms take v's slot once do·vᵀ is done (97 KB, two
+// CTAs an SM, persistent CTAs walking the heads). Elsewhere one input's
+// terms alone take up to 96 KB (S = D = 128), so two slots hold what the
+// next product needs and inputs are staged again from device memory
+// between phases (q and k twice, mostly from L2): X holds k, then v, then
+// the p and ds terms; Y q, then do, then k, then q. S > 64 takes one CTA a
+// head, as the f32 forward.
+//
 // The FFMA kernels. One CTA per (batch, head) owns the whole row set in
 // shared memory (three f32 tiles: two [S][D] and the [S][S] scores), so the
 // score tensor and the softmax chain never touch device memory, and each
 // CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by
-// their operations at the f32 peak; they hold the backward's f32 route,
-// bf16 with a head dim the tensor-core kernels do not take, and the
-// forward's bf16 inference calls.
+// their operations at the f32 peak; they hold bf16 with a head dim the
+// tensor-core kernels do not take, and the forward's bf16 inference calls.
 //
 // The TPU kernel's bh-grouping (several heads stacked into one MXU tile
 // with −1e30 cross-head blocks) and its sublane padding of S exist for the
@@ -113,6 +135,7 @@ namespace {
 
 using namespace mpt_attn;
 using mpt_tc::kMaxSmem;
+using mpt_tc::padded;
 using mpt_tc::tile_bytes;
 using bf16 = __nv_bfloat16;
 
@@ -153,12 +176,11 @@ attn_small_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       [&](int i, int d, float acc) { ob[i * os + d] = from_f32<bf16>(acc / ls[i]); });
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_small_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-                      T* __restrict__ dv, Strides st, int H, int S, int D, float scale,
-                      int causal) {
+attn_small_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      Strides st, int H, int S, int D, float scale, int causal) {
   extern __shared__ float smem[];
   const int ldd = odd_ld(D), lds = odd_ld(S);
   float* xs = smem;            // q·scale → v → k      [S][ldd]
@@ -169,7 +191,7 @@ attn_small_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const long long base = b * st.sb + h * st.sh;
   const long long gs = (long long)H * D;  // row stride of do, dq, dk, dv
   const long long gbase = ((long long)b * S * H + h) * D;
-  const T* dob = dout + gbase;
+  const bf16* dob = dout + gbase;
 
   load_rows(xs, ldd, q + base, st.ss, S, D, scale);
   load_rows(ys, ldd, k + base, st.ss, S, D, 1.f);
@@ -205,7 +227,7 @@ attn_small_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   tile_mm(
       S, D, S, [&](int j, int i) { return ps[i * lds + j]; },
       [&](int d, int i) { return ys[i * ldd + d]; },
-      [&](int j, int d, float acc) { dv[gbase + j * gs + d] = from_f32<T>(acc); });
+      [&](int j, int d, float acc) { dv[gbase + j * gs + d] = from_f32<bf16>(acc); });
   __syncthreads();
   // dp = do·vᵀ, and ds = p·(dp − Δ) in place of p (each entry has one owner).
   tile_mm(
@@ -220,25 +242,11 @@ attn_small_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   tile_mm(
       S, D, S, [&](int i, int j) { return ps[i * lds + j]; },
       [&](int d, int j) { return xs[j * ldd + d]; },
-      [&](int i, int d, float acc) { dq[gbase + i * gs + d] = from_f32<T>(acc * scale); });
+      [&](int i, int d, float acc) { dq[gbase + i * gs + d] = from_f32<bf16>(acc * scale); });
   tile_mm(
       S, D, S, [&](int j, int i) { return ps[i * lds + j]; },
       [&](int d, int i) { return ys[i * ldd + d]; },
-      [&](int j, int d, float acc) { dk[gbase + j * gs + d] = from_f32<T>(acc * scale); });
-}
-
-template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-               void* dv, Strides st, int B, int S, int H, int D, float scale, int causal,
-               cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * small_smem_floats(S, D);
-  cudaError_t err = allow_smem(attn_small_bwd_kernel<T>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attn_small_bwd_kernel<T><<<B * H, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), st, H, S, D, scale, causal);
-  return (int)cudaGetLastError();
+      [&](int j, int d, float acc) { dk[gbase + j * gs + d] = from_f32<bf16>(acc * scale); });
 }
 
 
@@ -677,6 +685,229 @@ int launch_bwd_tc_d(const void* q, const void* k, const void* v, const void* dou
   return launch_bwd_tc<D, 2>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, stream);
 }
 
+// -------------------------------------------- f32 tensor-core backward ---
+// Instantiated per DK = D rounded up to 16, as the f32 forward.
+
+// Bytes of one operand's three term tiles (64·NWG rows).
+template <int DK, int NWG>
+__host__ __device__ constexpr int f32_bwd_operand_bytes() {
+  return 3 * tile_bytes<DK, 64 * NWG>();
+}
+// Resident: the terms of q, k, do and v all held for the whole head (the
+// p and ds terms in v's slot once do·vᵀ is done): 97 KB, two CTAs an SM,
+// at S ≤ 64 with D ≤ 64. Elsewhere two slots, X (k, then v, then the p and
+// ds terms) and Y (q, then do, then k, then q again): each input is staged
+// where it is next needed, q and k twice.
+template <int DK, int NWG>
+__host__ __device__ constexpr bool f32_bwd_resident() {
+  return NWG == 1 && padded<DK>() == 64;
+}
+// Slot X holds an operand's terms or the three p (ds) term tiles.
+template <int DK, int NWG>
+__host__ __device__ constexpr int f32_bwd_slot_x() {
+  constexpr int in = f32_bwd_operand_bytes<DK, NWG>(), p = 3 * bwd_tc_term_bytes<NWG>();
+  return p > in ? p : in;
+}
+template <int DK, int NWG>
+__host__ __device__ constexpr int f32_bwd_smem_bytes() {
+  constexpr int in = f32_bwd_operand_bytes<DK, NWG>();
+  return (f32_bwd_resident<DK, NWG>() ? 4 * in : f32_bwd_slot_x<DK, NWG>() + in) + 1024;
+}
+
+// dst = Σ over the six term pairs, smallest first, of Aᵀ·B: A the three
+// term tiles of p or ds at sa (MN-major: this warpgroup's 64 keys, k-steps
+// down the NK queries), B the three term tiles of do or q·scale at sb
+// (MN-major: NK query rows, padded DK columns). Waited for.
+template <int DK, int NK>
+__device__ __forceinline__ void f32_bwd_keys_product(float* dst, uint32_t sa, uint32_t sb, int wg) {
+  using namespace mpt_tc;
+  constexpr int PD = padded<DK>();
+  constexpr uint32_t TA = bwd_tc_term_bytes<NK / 64>(), TB = tile_bytes<DK, NK>();
+#pragma unroll
+  for (int i = 0; i < PD / 2; ++i) dst[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int n = 5; n >= 0; --n)
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < PD / 64; ++j)
+        wgmma_ss_n64_mn(dst + 32 * j, mnmajor_desc<NK>(sa + pair_a(n) * TA, kk, wg),
+                        mnmajor_desc<NK>(sb + pair_b(n) * TB, kk, j), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<PD / 2>(dst);
+}
+
+// One head (bh) of the f32 backward, from the shared memory at s0 (smem
+// its generic address): every product six exact term-pair products.
+template <int DK, int NWG>
+__device__ __forceinline__ void f32_bwd_head(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout, float* __restrict__ dq,
+                                             float* __restrict__ dk, float* __restrict__ dv,
+                                             Strides st, int H, int S, int D, float scale,
+                                             int causal, unsigned char* smem, uint32_t s0, int bh) {
+  using namespace mpt_tc;
+  constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup, PD = padded<DK>();
+  constexpr int KC = NWG == 2 ? 1 : 2;  // ds·k splits ds KC k-steps at a time
+  constexpr bool RES = f32_bwd_resident<DK, NWG>();
+  constexpr uint32_t IN = f32_bwd_operand_bytes<DK, NWG>(), kTerm = bwd_tc_term_bytes<NWG>();
+  // Resident: q, k, do, v (then the p and ds terms) in four slots; else
+  // the slots X (k, v, then the terms) and Y (q, do, k, q).
+  const uint32_t s_x = RES ? s0 + IN : s0, s_y = RES ? s0 : s0 + f32_bwd_slot_x<DK, NWG>();
+  const uint32_t s_q = s_y, s_k = s_x;
+  const uint32_t s_do = RES ? s0 + 2 * IN : s_y, s_v = RES ? s0 + 3 * IN : s_x;
+  const uint32_t s_p = s_v;  // the p terms, then the ds terms
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int row0 = wg * 64 + warp * 16;  // this warp's first query (s, ds, dq) and key (dv, dk)
+  const int b = bh / H, h = bh - b * H;
+  const long long base = b * st.sb + h * st.sh;
+  const long long gs = (long long)H * D, gbase = ((long long)b * S * H + h) * D;
+  const float unit[2] = {1.f, 1.f}, scaled[2] = {scale, scale};
+
+  // s = (q·scale)·kᵀ, then dp = do·vᵀ; resident, do's and v's terms are
+  // staged while q·kᵀ runs.
+  stage_terms<DK, NK, NT>(s_q, q + base, st.ss, S, D, scale, tid);
+  stage_terms<DK, NK, NT>(s_k, k + base, st.ss, S, D, 1.f, tid);
+  fence_async_smem();
+  __syncthreads();
+  float s[NK / 2], dp[NK / 2];
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) s[i] = dp[i] = 0.f;
+  wgmma_fence();
+  qk_issue<DK, 64, NK, NK, 6, NWG>(s, s_q + wg * 64 * 128, s_k);
+  wgmma_commit();
+  if constexpr (!RES) {
+    wgmma_wait<0>();
+    fence_regs<NK / 2>(s);
+    __syncthreads();  // every warpgroup's q·kᵀ is done with q's and k's terms
+  }
+  stage_terms<DK, NK, NT>(s_do, dout + gbase, gs, S, D, 1.f, tid);
+  stage_terms<DK, NK, NT>(s_v, v + base, st.ss, S, D, 1.f, tid);
+  fence_async_smem();
+  __syncthreads();
+  wgmma_fence();
+  qk_issue<DK, 64, NK, NK, 6, NWG>(dp, s_do + wg * 64 * 128, s_v);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<NK / 2>(s);
+  fence_regs<NK / 2>(dp);
+
+  // p = exp(s − m) / l, normalized before any use (the scale is in q's
+  // terms); Δ = Σ_j p·dp; ds = p·(dp − Δ) in place of dp.
+  const float sc = prepare_scores<NK>(s, 1.f, row0, 0, S, causal);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = exp_sum<NK>(s, i, sc, row_max<NK>(s, i, sc));
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+      s[4 * j + 2 * i] /= l;
+      s[4 * j + 2 * i + 1] /= l;
+    }
+  }
+  __syncthreads();  // every warpgroup's do·vᵀ is done with v's terms
+  store_terms<NK, NK>(smem, s_p - s0, kTerm, row0, s);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float delta = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) delta = fmaf(s[4 * j + 2 * i + e], dp[4 * j + 2 * i + e], delta);
+    delta = quad_sum(delta);
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        dp[x] = s[x] * (dp[x] - delta);
+      }
+  }
+  fence_async_smem();
+  __syncthreads();  // every warpgroup's p terms are in
+
+  // dv = pᵀ·do over all NK queries.
+  float acc[PD / 2];
+  f32_bwd_keys_product<DK, NK>(acc, s_p, s_do, wg);
+  store_rows_f32<DK>(acc, unit, dv + gbase, gs, row0, S, D);
+
+  // dq = ds·k·scale: ds from registers, split as the forward splits p.
+  if constexpr (!RES) {
+    __syncthreads();  // every warpgroup's dv is done with do's terms
+    stage_terms<DK, NK, NT>(s_y, k + base, st.ss, S, D, 1.f, tid);
+    fence_async_smem();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < PD / 2; ++i) acc[i] = 0.f;
+  pv_product<DK, NK, NK, true, KC>(acc, dp, RES ? s_k : s_y);
+  store_rows_f32<DK, false>(acc, scaled, dq + gbase, gs, row0, S, D);
+
+  // dk = dsᵀ·(q·scale): the ds terms replace the p terms.
+  __syncthreads();  // every warpgroup's dv is done with the p terms, dq with k's
+  store_terms<NK, NK>(smem, s_p - s0, kTerm, row0, dp);
+  if constexpr (!RES) stage_terms<DK, NK, NT>(s_y, q + base, st.ss, S, D, scale, tid);
+  fence_async_smem();
+  __syncthreads();
+  f32_bwd_keys_product<DK, NK>(acc, s_p, s_q, wg);
+  store_rows_f32<DK>(acc, unit, dk + gbase, gs, row0, S, D);
+}
+
+// S ≤ 64 (NWG = 1): the CTA walks its share of the heads, from
+// blockIdx.x·per_cta; S > 64: the CTA's one head, blockIdx.x, as the f32
+// forward.
+template <int DK, int NWG>
+__global__ void __launch_bounds__(NWG * mpt_tc::kWarpgroup, NWG == 1 ? 2 : 1)
+attn_small_bwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             float* __restrict__ dq, float* __restrict__ dk,
+                             float* __restrict__ dv, Strides st, int H, int S, int D, int BH,
+                             int per_cta, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t raw = mpt_tc::smem_addr(tc_smem), s0 = (raw + 1023) & ~1023u;
+  unsigned char* smem = tc_smem + (s0 - raw);
+  if constexpr (NWG == 1) {
+    const int first = blockIdx.x * per_cta, end = min(first + per_cta, BH);
+    for (int bh = first; bh < end; ++bh) {
+      __syncthreads();  // the last head's dsᵀ·q is done with the terms
+      f32_bwd_head<DK, NWG>(q, k, v, dout, dq, dk, dv, st, H, S, D, scale, causal, smem, s0, bh);
+    }
+  } else {
+    f32_bwd_head<DK, NWG>(q, k, v, dout, dq, dk, dv, st, H, S, D, scale, causal, smem, s0,
+                          blockIdx.x);
+  }
+}
+
+template <int DK, int NWG>
+int launch_bwd_tc_f32(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                      void* dk, void* dv, Strides st, int B, int S, int H, int D, float scale,
+                      int causal, cudaStream_t stream) {
+  constexpr int bytes = f32_bwd_smem_bytes<DK, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
+  static_assert(bytes <= kMaxSmem, "the f32 backward's tiles exceed a CTA's shared memory");
+  auto kernel = attn_small_bwd_tc_f32_kernel<DK, NWG>;
+  const int BH = B * H;
+  int per_cta = 1;  // S > 64: one CTA a head
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess && NWG == 1) err = heads_per_cta(kernel, threads, bytes, BH, &per_cta);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(BH + per_cta - 1) / per_cta, threads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), st, H, S, D, BH, per_cta, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+int launch_bwd_tc_f32_d(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                        void* dk, void* dv, Strides st, int B, int S, int H, int D, float scale,
+                        int causal, cudaStream_t stream) {
+  return S <= 64
+             ? launch_bwd_tc_f32<DK, 1>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, stream)
+             : launch_bwd_tc_f32<DK, 2>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, stream);
+}
+
 }  // namespace
 
 // The FFMA forward: q, k, v bf16, strided [B, S, H, D] with the strides
@@ -739,17 +970,20 @@ extern "C" int mpt_attn_small_fwd_tc_f32(const void* q, const void* k, const voi
   }
 }
 
-// The FFMA backward: q, k, v strided as above, f32 or bf16; dout, dq,
-// dk, dv: contiguous [B, S, H, D]; dtype 0 = f32, 1 = bf16.
+// The FFMA backward: q, k, v bf16, strided as above; dout, dq, dk, dv:
+// contiguous [B, S, H, D] bf16. Returns cudaGetLastError().
 extern "C" int mpt_attn_small_bwd(const void* q, const void* k, const void* v, const void* dout,
                                   void* dq, void* dk, void* dv, long long sb, long long ss,
                                   long long sh, int B, int S, int H, int D, float scale, int causal,
-                                  int dtype, void* stream) {
-  const Strides st{sb, ss, sh};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, s);
-  return launch_bwd<float>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, s);
+                                  void* stream) {
+  const size_t bytes = sizeof(float) * small_smem_floats(S, D);
+  cudaError_t err = allow_smem(attn_small_bwd_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  attn_small_bwd_kernel<<<B * H, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Strides{sb, ss, sh}, H, S, D, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 // The tensor-core backward: q, k, v as the tensor-core forward takes them,
@@ -767,6 +1001,29 @@ extern "C" int mpt_attn_small_bwd_tc(const void* q, const void* k, const void* v
 #define MPT_CASE(d) \
   case d:           \
     return launch_bwd_tc_d<d>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, s);
+    MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
+    MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
+#undef MPT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The f32 tensor-core backward: q, k, v f32 as the f32 forward takes them,
+// dout (16-byte aligned), dq, dk, dv contiguous [B, S, H, D] f32; S <= 128,
+// D % 4 == 0 and D <= 128. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int mpt_attn_small_bwd_tc_f32(const void* q, const void* k, const void* v,
+                                         const void* dout, void* dq, void* dk, void* dv,
+                                         long long sb, long long ss, long long sh, int B, int S,
+                                         int H, int D, float scale, int causal, void* stream) {
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > 128 || D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  switch ((D + 15) / 16 * 16) {
+#define MPT_CASE(dk_) \
+  case dk_:           \
+    return launch_bwd_tc_f32_d<dk_>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, s);
     MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
     MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
 #undef MPT_CASE

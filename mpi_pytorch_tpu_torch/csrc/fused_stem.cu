@@ -219,24 +219,35 @@ cudaError_t launch_argmax(const void* y, const void* a, const void* b, void* out
 // (67.1 MB) and a, and writes dy (67.1 MB): 176.2 MB, 0.053 ms at
 // 3.35 TB/s.
 //
-// Design: a GATHER, one thread per input (b, ih, iw, 8-channel group), so
-// dy is written once with a 16-byte store and nothing is atomic. An input
-// row ih is covered by the windows of output rows ih/2 and, for odd ih,
-// ih/2 + 1 (when in range); the same for columns: at most 4 windows. For
-// each, the thread adds g where k equals its offset in that window --
-// the TPU kernel's parity-phase gather, per element, summed in the same
-// order ((lo,lo), (lo,hi), (hi,lo), (hi,hi)). The re-reads of g/k/pooled
-// by neighbouring inputs hit L1/L2.
+// Design: a QUAD gather. One thread per (b, oh, ow, 8-channel group) writes
+// the 2x2 inputs (2oh, 2oh+1) x (2ow, 2ow+1), so dy is written once with
+// 16-byte stores and nothing is atomic. The window offsets are fixed per
+// input parity, so no thread branches differently from its neighbours
+// except at the grid's last row or column:
+//   (even, even) window (oh, ow) at k = 4;
+//   (even, odd)  (oh, ow) at 5, then (oh, ow+1) at 3;
+//   (odd, even)  (oh, ow) at 7, then (oh+1, ow) at 1;
+//   (odd, odd)   (oh, ow) at 8, (oh, ow+1) at 6, (oh+1, ow) at 2,
+//                (oh+1, ow+1) at 0
+// -- each sum in the order of the TPU kernel's parity phases, (lo, lo),
+// (lo, hi), (hi, lo), (hi, hi). A thread reads four windows of (g, k,
+// pooled), one per input it writes (a gather per input reads 2.25), all
+// four loads in flight at once (a window off the grid is its own window
+// again, naming no input); the windows it shares with its neighbours come
+// from L1/L2. Its position comes from one shift and two 32-bit divisions
+// (a 64-bit instantiation serves tensors of 2^31 elements or more).
 //
 // The channel sums cross every block, and a GPU grid has no order (the TPU
 // kernel carries them across its sequential grid in scratch). Each thread
-// walks kItems inputs of one fixed channel group, each block folds its
-// threads' sums per channel in a fixed order in shared memory and writes
-// one row of a [n_part, C] scratch, and a second kernel sums the rows per
-// channel with a fixed tree. No float atomics: two calls on the same inputs
-// give bitwise-equal da and db.
+// walks kBwdItems quads of one fixed channel group; the block folds its
+// threads' sums per channel by a fixed shuffle tree in each warp, then
+// warp by warp in shared memory, and writes one row of a [n_part, 2, C]
+// scratch. The last block to finish (a ticket from an integer atomic after
+// a fence; the entry zeroes the ticket) sums the rows in row order and
+// writes da and db. No float atomics: two calls on the same inputs give
+// bitwise-equal da and db, whichever block finishes last.
 constexpr int kBwdThreads = 256;
-constexpr int kBwdItems = 8;  // inputs per thread
+constexpr int kBwdItems = 16;  // quads per thread
 
 __device__ __forceinline__ void load8_i8(const int8_t* p, int (&k)[8]) {
   const unsigned long long u = *reinterpret_cast<const unsigned long long*>(p);
@@ -244,124 +255,183 @@ __device__ __forceinline__ void load8_i8(const int8_t* p, int (&k)[8]) {
   for (int c = 0; c < 8; ++c) k[c] = static_cast<int8_t>((u >> (8 * c)) & 0xff);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+// One window's masked gradient (g where pooled > 0, else 0) and index k.
+template <typename T, typename I>
+__device__ __forceinline__ void load_window(const T* g, const int8_t* idx, const T* pooled, I o,
+                                            float (&gm)[8], int (&k)[8]) {
+  float gv[8], pv[8];
+  load8(g + o, gv);
+  load8(pooled + o, pv);
+  load8_i8(idx + o, k);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) gm[c] = pv[c] > 0.f ? gv[c] : 0.f;
+}
+
+// du += gm where the window's index names the input (offset `want`).
+__device__ __forceinline__ void route(float (&du)[8], const float (&gm)[8], const int (&k)[8],
+                                      int want) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) du[c] += k[c] == want ? gm[c] : 0.f;
+}
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 stem_pool_bwd_kernel(const T* __restrict__ g, const int8_t* __restrict__ idx,
                      const T* __restrict__ pooled, const T* __restrict__ y,
-                     const float* __restrict__ a, T* __restrict__ dy,
-                     float* __restrict__ part_da, float* __restrict__ part_db,
+                     const float* __restrict__ a, T* __restrict__ dy, float* __restrict__ part,
+                     unsigned int* __restrict__ ticket, float* __restrict__ dadb,
                      int B, int H, int W, int C) {
-  const int H2 = H / 2, W2 = W / 2, G = C / 8;
-  const long long total = static_cast<long long>(B) * H * W * G;
-  const long long base = static_cast<long long>(blockIdx.x) * (kBwdThreads * kBwdItems);
-  const int tid = threadIdx.x;
-  // kBwdThreads % G == 0 (checked by the entry point) and base is a
-  // multiple of kBwdThreads, so this thread's channel group is fixed.
-  const int c0 = (tid % G) * 8;
+  const int H2 = H / 2, W2 = W / 2, G = C / 8, lg = __ffs(G) - 1;  // G is a power of two
+  const I quads = static_cast<I>(B) * H2 * W2 * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // kBwdThreads % G == 0 (checked by the entry point) and every block starts
+  // on a multiple of kBwdThreads, so this thread's channel group is fixed.
+  const int c0 = (tid & (G - 1)) * 8;
   float av[8], sa[8], sb[8];
   load8(a + c0, av);
 #pragma unroll
   for (int c = 0; c < 8; ++c) sa[c] = sb[c] = 0.f;
 
+  const I first = static_cast<I>(blockIdx.x) * (kBwdThreads * kBwdItems) + tid;
   for (int it = 0; it < kBwdItems; ++it) {
-    const long long i = base + tid + static_cast<long long>(it) * kBwdThreads;
-    if (i >= total) break;
-    long long r = i / G;
-    const int iw = static_cast<int>(r % W);
-    r /= W;
-    const int ih = static_cast<int>(r % H);
-    const long long n = r / H;
-    float du[8], gv[8], pv[8];
-    int kv[8];
+    const I i = first + static_cast<I>(it) * kBwdThreads;
+    if (i >= quads) break;
+    I r = i >> lg;
+    const int ow = static_cast<int>(r % W2);
+    r /= W2;
+    const int oh = static_cast<int>(r % H2);
+    const I n = r / H2;
+    const bool right = ow + 1 < W2, down = oh + 1 < H2;
+    // The four windows (oh, ow), (oh, ow+1), (oh+1, ow), (oh+1, ow+1), all
+    // loaded before any is used: a window off the grid reloads (oh, ow) and
+    // names no input (want −1), so the loads issue together, unbranched.
+    const I w00 = ((n * H2 + oh) * W2 + ow) * C + c0;
+    const I step[4] = {0, right ? C : 0, down ? static_cast<I>(W2) * C : 0,
+                       right && down ? static_cast<I>(W2 + 1) * C : 0};
+    float gm[4][8];
+    int k[4][8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) du[c] = 0.f;
+    for (int w = 0; w < 4; ++w) load_window(g, idx, pooled, w00 + step[w], gm[w], k[w]);
+    // du of the inputs (2oh, 2ow), (2oh, 2ow+1), (2oh+1, 2ow), (2oh+1, 2ow+1).
+    float du[4][8];
 #pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      const int oh = ih / 2 + rh;
-      if (rh == 1 && (!(ih & 1) || oh >= H2)) break;
-      const int dh = ih - 2 * oh + 1;
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int rw = 0; rw < 2; ++rw) {
-        const int ow = iw / 2 + rw;
-        if (rw == 1 && (!(iw & 1) || ow >= W2)) break;
-        const int want = dh * 3 + (iw - 2 * ow + 1);
-        const long long o = ((n * H2 + oh) * W2 + ow) * C + c0;
-        load8_i8(idx + o, kv);
-        load8(g + o, gv);
-        load8(pooled + o, pv);
+      for (int c = 0; c < 8; ++c) du[q][c] = 0.f;
+    route(du[0], gm[0], k[0], 4);
+    route(du[1], gm[0], k[0], 5);
+    route(du[1], gm[1], k[1], right ? 3 : -1);
+    route(du[2], gm[0], k[0], 7);
+    route(du[2], gm[2], k[2], down ? 1 : -1);
+    route(du[3], gm[0], k[0], 8);
+    route(du[3], gm[1], k[1], right ? 6 : -1);
+    route(du[3], gm[2], k[2], down ? 2 : -1);
+    route(du[3], gm[3], k[3], right && down ? 0 : -1);
+    const I in00 = ((n * H + 2 * oh) * W + 2 * ow) * C + c0;
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          if (kv[c] == want && pv[c] > 0.f) du[c] += gv[c];
+    for (int q = 0; q < 4; ++q) {
+      const I o = in00 + ((q >> 1) * static_cast<I>(W) + (q & 1)) * C;
+      float yv[8], dv[8];
+      load8(y + o, yv);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        dv[c] = du[q][c] * av[c];
+        sa[c] += du[q][c] * yv[c];
+        sb[c] += du[q][c];
       }
+      store8(dy + o, dv);
     }
-    const long long o = ((n * H + ih) * W + iw) * C + c0;
-    float yv[8], dv[8];
-    load8(y + o, yv);
+  }
+
+  // The block's sums, fixed order: in each warp a shuffle tree over the
+  // lanes of one channel group (lane % G), then the warps in order.
+  for (int off = 16; off >= G; off >>= 1)
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      dv[c] = du[c] * av[c];
-      sa[c] += du[c] * yv[c];
-      sb[c] += du[c];
+      sa[c] += __shfl_xor_sync(0xffffffffu, sa[c], off);
+      sb[c] += __shfl_xor_sync(0xffffffffu, sb[c], off);
     }
-    store8(dy + o, dv);
-  }
-
-  // Per-block fold, fixed order: channel c0 + e sums the threads of its
-  // group in increasing thread order.
-  __shared__ float s_a[kBwdThreads][9], s_b[kBwdThreads][9];  // 9: staggers banks
+  __shared__ __align__(16) float s_sum[kBwdThreads / 32 * 2 * 256];  // [warp][da | db][C]
+  if (lane < G) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    s_a[tid][c] = sa[c];
-    s_b[tid][c] = sb[c];
+    for (int c = 0; c < 8; ++c) {
+      s_sum[warp * 2 * C + c0 + c] = sa[c];
+      s_sum[warp * 2 * C + C + c0 + c] = sb[c];
+    }
   }
   __syncthreads();
-  if (tid < C) {
-    const int grp = tid / 8, e = tid % 8;
-    float ta = 0.f, tb = 0.f;
-    for (int j = grp; j < kBwdThreads; j += G) {
-      ta += s_a[j][e];
-      tb += s_b[j][e];
-    }
-    part_da[static_cast<long long>(blockIdx.x) * C + tid] = ta;
-    part_db[static_cast<long long>(blockIdx.x) * C + tid] = tb;
+  for (int col = tid; col < 2 * C; col += kBwdThreads) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdThreads / 32; ++w) t += s_sum[w * 2 * C + col];
+    part[static_cast<long long>(blockIdx.x) * 2 * C + col] = t;
   }
-}
 
-// One block per channel: sum the n_part block partials with a fixed tree.
-__global__ void __launch_bounds__(kBwdThreads)
-stem_pool_bwd_reduce_kernel(const float* __restrict__ part_da,
-                            const float* __restrict__ part_db,
-                            float* __restrict__ da, float* __restrict__ db,
-                            int n_part, int C) {
-  __shared__ float s_a[kBwdThreads], s_b[kBwdThreads];
-  const int c = blockIdx.x, tid = threadIdx.x;
-  float ta = 0.f, tb = 0.f;
-  for (int p = tid; p < n_part; p += kBwdThreads) {
-    ta += part_da[static_cast<long long>(p) * C + c];
-    tb += part_db[static_cast<long long>(p) * C + c];
-  }
-  s_a[tid] = ta;
-  s_b[tid] = tb;
+  // The last block to finish sums the rows.
+  __shared__ bool last;
+  __threadfence();
   __syncthreads();
-  for (int s = kBwdThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      s_a[tid] += s_a[tid + s];
-      s_b[tid] += s_b[tid + s];
+  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Thread tid sums float4 column c4 of rows r0, r0 + RP, ... (C / 2
+  // float4s a row, RP rows side by side), 16 rows' loads in flight at a
+  // time (rows past the last add zeros); then each column's RP sums in
+  // order. RP·2C = 1024 floats of s_sum.
+  const int n4 = C / 2, c4 = tid % n4, r0 = tid / n4, RP = kBwdThreads / n4;
+  const int rows = static_cast<int>(gridDim.x);
+  const float4* col = reinterpret_cast<const float4*>(part) + c4;  // row r at col[r·n4]
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int row0 = r0; row0 < rows; row0 += 16 * RP) {
+    float4 x[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int row = row0 + u * RP;
+      x[u] = row < rows ? __ldcg(col + static_cast<long long>(row) * n4)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      acc.x += x[u].x;
+      acc.y += x[u].y;
+      acc.z += x[u].z;
+      acc.w += x[u].w;
+    }
   }
-  if (tid == 0) {
-    da[c] = s_a[0];
-    db[c] = s_b[0];
+  // Every warp read the block sums out of s_sum before the ticket.
+  reinterpret_cast<float4*>(s_sum)[r0 * n4 + c4] = acc;
+  __syncthreads();
+  for (int col = tid; col < 2 * C; col += kBwdThreads) {
+    float t = 0.f;
+    for (int rr = 0; rr < RP; ++rr) t += s_sum[rr * 2 * C + col];
+    dadb[col] = t;
   }
 }
 
 long long bwd_parts(int B, int H, int W, int C) {
-  const long long total = static_cast<long long>(B) * H * W * (C / 8);
+  const long long quads = static_cast<long long>(B) * (H / 2) * (W / 2) * (C / 8);
   const long long per_block = static_cast<long long>(kBwdThreads) * kBwdItems;
-  return (total + per_block - 1) / per_block;
+  return (quads + per_block - 1) / per_block;
 }
 
+template <typename T, typename I>
+cudaError_t launch_bwd_i(const void* g, const void* idx, const void* pooled, const void* y,
+                         const void* a, void* dy, void* dadb, void* part, int n_part,
+                         int B, int H, int W, int C, cudaStream_t stream) {
+  float* rows = static_cast<float*>(part);
+  auto* ticket = reinterpret_cast<unsigned int*>(rows + static_cast<long long>(n_part) * 2 * C);
+  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), stream);
+  if (err != cudaSuccess) return err;
+  stem_pool_bwd_kernel<T, I><<<n_part, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const int8_t*>(idx),
+      static_cast<const T*>(pooled), static_cast<const T*>(y),
+      static_cast<const float*>(a), static_cast<T*>(dy), rows, ticket,
+      static_cast<float*>(dadb), B, H, W, C);
+  return cudaGetLastError();
+}
+
+// 32-bit offsets below 2^31 elements of y, 64-bit above.
 template <typename T>
 cudaError_t launch_bwd(const void* g, const void* idx, const void* pooled, const void* y,
                        const void* a, void* dy, void* dadb, void* part,
@@ -369,18 +439,10 @@ cudaError_t launch_bwd(const void* g, const void* idx, const void* pooled, const
   const long long n_part = bwd_parts(B, H, W, C);
   if (n_part == 0) return cudaMemsetAsync(dadb, 0, 2 * sizeof(float) * C, stream);
   if (n_part > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  float* part_da = static_cast<float*>(part);
-  float* part_db = part_da + n_part * C;
-  float* da = static_cast<float*>(dadb);
-  stem_pool_bwd_kernel<T><<<static_cast<unsigned>(n_part), kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const int8_t*>(idx),
-      static_cast<const T*>(pooled), static_cast<const T*>(y),
-      static_cast<const float*>(a), static_cast<T*>(dy), part_da, part_db, B, H, W, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stem_pool_bwd_reduce_kernel<<<C, kBwdThreads, 0, stream>>>(
-      part_da, part_db, da, da + C, static_cast<int>(n_part), C);
-  return cudaGetLastError();
+  const int rows = static_cast<int>(n_part);
+  if (static_cast<long long>(B) * H * W * C < 0x7fffffffLL)
+    return launch_bwd_i<T, int>(g, idx, pooled, y, a, dy, dadb, part, rows, B, H, W, C, stream);
+  return launch_bwd_i<T, long long>(g, idx, pooled, y, a, dy, dadb, part, rows, B, H, W, C, stream);
 }
 
 }  // namespace
@@ -412,8 +474,8 @@ extern "C" int mpt_stem_pool_argmax(const void* y, const void* a, const void* b,
   }
 }
 
-// Rows of the backward's f32 scratch (part f32 [2, rows, C]); -1 when the
-// grid would be too large.
+// Rows of the backward's scratch (part: f32 [rows, 2, C], then one u32
+// ticket); -1 when the grid would be too large.
 extern "C" int mpt_stem_bwd_parts(int B, int H, int W, int C) {
   const long long n = bwd_parts(B, H, W, C);
   return n > 0x7fffffffLL ? -1 : static_cast<int>(n);

@@ -17,8 +17,7 @@ refused launch (too many threads, too much shared memory) fails the call
 instead of silently never running. The wrappers share the rest of their
 launch plumbing here too: :class:`LaunchCounter`, :func:`on_cpu`,
 :func:`stream`, ``DTYPE_CODE`` and the attention kernels'
-:func:`attention_forward_route`, :func:`attention_route` (the backward's)
-and :func:`attention_layout`.
+:func:`attention_route` and :func:`attention_layout`.
 """
 
 from __future__ import annotations
@@ -88,10 +87,10 @@ SIGNATURES = {
     # sh), B, S, H, D[, block_q, block_k], scale, causal, stream
     "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
     "mpt_flash_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, dout, dq, dk, dv, q/k/v strides, B, S, H, D, scale, causal,
-    # dtype, stream
+    # the FFMA backward (bf16): q, k, v, dout, dq, dk, dv, q/k/v strides, B,
+    # S, H, D, scale, causal, stream
     "mpt_attn_small_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P,
     ),
     # the tensor-core forwards (bf16): q, k, v, out[, lse], q/k/v strides,
     # B, S, H, D, scale, causal, stream
@@ -103,6 +102,10 @@ SIGNATURES = {
     # the tensor-core tiny-S backward (bf16): q, k, v, dout, dq, dk, dv,
     # q/k/v strides, B, S, H, D, scale, causal, stream
     "mpt_attn_small_bwd_tc": (
+        _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    # the f32 tensor-core tiny-S backward: the same arguments, f32
+    "mpt_attn_small_bwd_tc_f32": (
         _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P,
     ),
 }
@@ -246,12 +249,11 @@ def stream(dev: torch.device) -> int:
 
 def attention_layout(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str, max_head_dim: int
-) -> tuple[tuple[int, int, int], int]:
-    """((sb, ss, sh), dtype code) of q, k, v as an attention kernel reads
-    them: strided [B, S, H, D] views sharing one set of strides (the
-    projections' outputs as they stand), the head dim contiguous, f32 or
-    bf16, D a multiple of 4 up to ``max_head_dim``. Raises on anything
-    else."""
+) -> tuple[int, int, int]:
+    """(sb, ss, sh) of q, k, v as an attention kernel reads them: strided
+    [B, S, H, D] views sharing one set of strides (the projections' outputs
+    as they stand), the head dim contiguous, f32 or bf16, D a multiple of 4
+    up to ``max_head_dim``. Raises on anything else."""
     if q.dtype not in DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"{what} kernel takes f32 or bf16 q, k, v of one dtype, got "
@@ -267,29 +269,23 @@ def attention_layout(
     d = q.shape[-1]
     if d % 4 or d > max_head_dim:
         raise ValueError(f"{what} kernel needs D % 4 == 0 and D <= {max_head_dim}, got D={d}")
-    return (q.stride(0), q.stride(1), q.stride(2)), DTYPE_CODE[q.dtype]
+    return q.stride(0), q.stride(1), q.stride(2)
 
 
 def attention_route(dtype: torch.dtype, d: int) -> str:
-    """Which kernel the tiny-S backward (K10) launches for q of ``dtype``
-    and head dim ``d``: ``"tensor_core"`` for bf16 with D a multiple of 16
-    up to 128 (wgmma takes k-steps of 16 bf16), else ``"ffma"`` (f32, or
-    bf16 with any other D; the f32 FFMA kernel). A stated rule, never a
-    fallback: a launch on either route that fails raises."""
-    return "tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "ffma"
-
-
-def attention_forward_route(dtype: torch.dtype, d: int) -> str:
-    """Which kernel the attention forwards (K8, K9) launch for q of
-    ``dtype`` and head dim ``d``: ``"tensor_core"`` for bf16 with D a
-    multiple of 16 up to 128; ``"tensor_core_f32"`` for f32 with D a
-    multiple of 4 up to 128 (q·scale, k and v split into three bf16 terms,
+    """Which kernel the attention kernels (the forwards K8, K9 and the
+    tiny-S backward K10) launch for q of ``dtype`` and head dim ``d``:
+    ``"tensor_core"`` for bf16 with D a multiple of 16 up to 128 (wgmma
+    takes k-steps of 16 bf16); ``"tensor_core_f32"`` for f32 with D a
+    multiple of 4 up to 128 (every f32 operand split into three bf16 terms,
     each product six exact term-pair products; the padding columns are
-    zero, so any such D); else ``"ffma"`` (bf16 with any other D). A stated
-    rule, never a fallback: a launch on any route that fails raises."""
+    zero, so any such D); else ``"ffma"`` (bf16 with any other D: the f32
+    FFMA kernels). Every S up to the kernels' 128 takes the same route. A
+    stated rule, never a fallback: a launch on any route that fails
+    raises."""
     if dtype == torch.float32 and d % 4 == 0 and d <= 128:
         return "tensor_core_f32"
-    return attention_route(dtype, d)
+    return "tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "ffma"
 
 
 def require_16b_rows(

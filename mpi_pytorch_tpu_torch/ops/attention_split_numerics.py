@@ -1,5 +1,5 @@
-"""The arithmetic of the f32 tensor-core attention forwards in plain torch,
-and the float64 attention it is held against.
+"""The arithmetic of the f32 tensor-core attention kernels in plain torch,
+and the float64 attention they are held against.
 
 The f32 route of K8 (``flash_forward``) and of K9
 (``attention_small_forward``) runs on Hopper's tensor cores
@@ -12,11 +12,13 @@ exponential takes it; the output is (p·v) ÷ l. :func:`emulate_small`
 (whole-row, as K9) and :func:`emulate_flash` (key blocks of 64 with the
 online recurrence, as K8) compute that with torch operations on any
 device; ``pairs=THREE`` keeps only the pairs of order 2^-8 and above, the
-control that shows the other three are part of the f32 function.
+control that shows the other three are part of the f32 function. K10's f32
+route (``attention_small_backward``) takes every one of its five products
+the same way: :func:`emulate_small_backward`.
 
 No kernel calls these: the tests hold them against the JAX kernels, and
-``chip_smoke.py`` holds them and the kernels against
-:func:`attention_f64` on the card's inputs.
+``chip_smoke.py`` holds them and the kernels against :func:`attention_f64`
+and :func:`attention_backward_f64` on the card's inputs.
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ import torch
 NEG = -1e30  # the kernels' mask value
 KEY_BLOCK = 64  # the flash kernel's k/v block
 LOG2E = 1.4426950408889634
-# The f32 tensor-core forwards against :func:`attention_f64` (max |error|
-# over max |reference|, ``relative_gap``): a limit that the six pairs keep
-# — their emulation here reads a few 1e-7 (f32 sums, the base-2
-# exponential), the kernels on an H100 up to about 2e-6, since a wgmma's
-# f32 sum is not rounded to nearest — and three pairs, the control, break
-# (near 1e-5).
+# The f32 tensor-core kernels against :func:`attention_f64` and
+# :func:`attention_backward_f64` (max |error| over max |reference|,
+# ``relative_gap``; for the backward the largest of dq's, dk's and dv's): a
+# limit that the six pairs keep — their emulation here reads a few 1e-7
+# (forwards 4e-7 to 7e-7, the backward 2e-7 to 4e-7 on the CPU), the
+# forwards on an H100 up to about 2e-6, since a wgmma's f32 sum is not
+# rounded to nearest — and three pairs, the control, break (forwards near
+# 1e-5, the backward 8e-6 to 1.6e-5).
 F64_REL = 4e-6
 # The term pairs (i, j) of a product, largest first (the kernels sum them
 # smallest first).
@@ -107,6 +111,42 @@ def emulate_flash(q, k, v, causal: bool = False, pairs=SIX) -> tuple[torch.Tenso
         m = m_new
     safe_l = torch.where(l > 0, l, torch.ones_like(l))
     return (acc / safe_l).transpose(1, 2), (m + torch.log(safe_l))[..., 0]
+
+
+def emulate_small_backward(q, k, v, do, causal: bool = False, pairs=SIX):
+    """K10's f32 tensor-core arithmetic on f32 [B, S, H, D] q, k, v, do:
+    p = 2^((s − m)·log2 e) / l over the whole row from s = (q·scale)·kᵀ,
+    dp = do·vᵀ, Δ = Σ_j p·dp, ds = p·(dp − Δ), dq = ds·k·scale, dk =
+    dsᵀ·(q·scale) (q's scaled terms serve both products), dv = pᵀ·do, every
+    product as ``split_product``. Returns (dq, dk, dv), [B, S, H, D]."""
+    qs = q * q.shape[-1] ** -0.5
+    sc = _scores(q, k, causal, pairs)
+    e = _exp(sc - sc.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dp = split_product("bqhd,bkhd->bhqk", do, v, pairs)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = split_product("bhqk,bkhd->bqhd", ds, k, pairs) * q.shape[-1] ** -0.5
+    dk = split_product("bhqk,bqhd->bkhd", ds, qs, pairs)
+    dv = split_product("bhqk,bqhd->bkhd", p, do, pairs)
+    return dq, dk, dv
+
+
+def attention_backward_f64(q, k, v, do, causal: bool = False) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of softmax((q·D^-0.5)·kᵀ)·v against the output
+    gradient do, in float64, from [B, S, H, D] inputs: [B, S, H, D] each."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    sc = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if causal:
+        s = q.shape[1]
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=q.device).tril(), float("-inf"))
+    p = torch.softmax(sc, -1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return dq, dk, dv
 
 
 def attention_f64(q, k, v, causal: bool = False) -> tuple[torch.Tensor, torch.Tensor]:

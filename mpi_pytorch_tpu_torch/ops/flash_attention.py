@@ -8,7 +8,7 @@ function as ``full_attention`` over [B, S, H, D] inputs.
   ``_attn_fwd_kernel``): one CTA per (batch·head, q-block) runs the online
   recurrence over the k-blocks and writes the output and the f32
   logsumexp of every row. Three routes, by
-  :func:`_build.attention_forward_route`: bf16 with D % 16 == 0 (D ≤ 128)
+  :func:`_build.attention_route`: bf16 with D % 16 == 0 (D ≤ 128)
   goes to the tensor-core kernel (wgmma, p·v through a p split into three
   bf16 terms that keeps it f32-exact); f32 (any D % 4 == 0 up to 128) to
   the f32 tensor-core kernel (q·scale, k, v and p split into three bf16
@@ -69,7 +69,7 @@ def flash_forward(
     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out [B, S, H, D] in q's dtype, lse f32 [B, H, S]): for CUDA tensors
-    the kernel of :func:`_build.attention_forward_route` — a tensor-core
+    the kernel of :func:`_build.attention_route` — a tensor-core
     kernel (its own tiles: ``block_q``/``block_k`` are checked but do not
     shape it) or the FFMA kernel (blocks as given); the plain version for
     CPU tensors."""
@@ -77,14 +77,14 @@ def flash_forward(
     if _build.on_cpu(q, "flash_attention"):
         return flash_forward_reference(q, k, v, causal)
     bsz, s, h, d = q.shape
-    (sb, ss, sh), _ = _build.attention_layout(q, k, v, "flash_attention", MAX_HEAD_DIM)
+    sb, ss, sh = _build.attention_layout(q, k, v, "flash_attention", MAX_HEAD_DIM)
     if not (1 <= block_q <= MAX_BLOCK and 1 <= block_k <= MAX_BLOCK):
         raise ValueError(
             f"flash_attention kernel takes blocks of 1..{MAX_BLOCK}, got {block_q}, {block_k}"
         )
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
-    route = _build.attention_forward_route(q.dtype, d)
+    route = _build.attention_route(q.dtype, d)
     if route != "ffma":
         _build.require_16b_rows(q, k, v, "flash_attention")
     lib = _build.load_library()

@@ -5,7 +5,7 @@ Counterpart of ``mpi_pytorch_tpu/ops/fused_attention_small.py``. The same
 function as ``full_attention`` over [B, S, H, D] inputs; the envelope is
 the JAX one: S ≤ 128 and D ≤ 128 go through the kernels, anything outside
 it is ``full_attention`` (the function's definition, not a fallback on
-failure). CUDA kernels in ``csrc/fused_attention_small.cu`` carry it, two
+failure). CUDA kernels in ``csrc/fused_attention_small.cu`` carry it, three
 for each direction:
 
 - the forward (TPU ``_fwd_kernel``): the whole row set of one (batch,
@@ -23,9 +23,11 @@ for each direction:
   dv = pᵀ·do — each (batch, head) writes its own gradients, so no
   atomics. By :func:`_build.attention_route`: bf16 with D % 16 == 0 runs
   the tensor-core kernel (p and ds split into three bf16 terms, Δ = Σ
-  p·dp), f32 and any other bf16 D the f32 FFMA kernel (o = p·v
-  recomputed, Δ = Σ do·o). The backward has no inference caller, so
-  every backward takes the rule as it is.
+  p·dp); f32 (any D % 4 == 0) the f32 tensor-core kernel (q·scale, k, v,
+  do, p and ds split into three bf16 terms, each product six exact
+  term-pair products, Δ = Σ p·dp); bf16 with any other D the FFMA kernel
+  (o = p·v recomputed, Δ = Σ do·o). The backward has no inference caller,
+  so every backward takes the rule as it is.
 
 They pair up in :class:`_FusedSmall`, whose residuals are q, k and v only,
 as the JAX ``_attn_grouped_fwd`` saves. q, k and v are read as the
@@ -44,13 +46,14 @@ import torch
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
-# Launches of each CUDA kernel (the plain versions never count): the
-# tensor-core kernels (bf16, D % 16 == 0; the forward's f32 one) and the
-# FFMA kernels of the forward and the backward.
+# Launches of each CUDA kernel (the plain versions never count): per
+# direction the tensor-core kernels (bf16, D % 16 == 0; f32) and the FFMA
+# kernel.
 forward_tc_counter = _build.LaunchCounter()
 forward_tc_f32_counter = _build.LaunchCounter()
 forward_ffma_counter = _build.LaunchCounter()
 backward_tc_counter = _build.LaunchCounter()
+backward_tc_f32_counter = _build.LaunchCounter()
 backward_ffma_counter = _build.LaunchCounter()
 
 # The tiny-S envelope (the JAX module's): every per-head score matrix fits
@@ -62,9 +65,9 @@ _NEG = -1e30  # the kernels' finite mask value
 
 
 def _route(dtype: torch.dtype, d: int, train: bool) -> str:
-    """The forward's kernel: :func:`_build.attention_forward_route`, except
-    that a bf16 inference call keeps the FFMA kernel where that rule would
-    take the bf16 tensor cores. f32 calls take the f32 tensor-core kernel
+    """The forward's kernel: :func:`_build.attention_route`, except that a
+    bf16 inference call keeps the FFMA kernel where that rule would take
+    the bf16 tensor cores. f32 calls take the f32 tensor-core kernel
     whether training or not.
 
     Why bf16 inference stays on FFMA: both kernels are within one bf16 ulp of
@@ -75,7 +78,7 @@ def _route(dtype: torch.dtype, d: int, train: bool) -> str:
     ties (top-2 gaps ≤ 1.1e-3 of the max, below bf16's resolution): 3–5 of
     256 on the serving check's seeded images against the FFMA kernel's 2,
     past its 99 % rule (H100 runs; ``PERF.md`` §6)."""
-    route = _build.attention_forward_route(dtype, d)
+    route = _build.attention_route(dtype, d)
     return "ffma" if route == "tensor_core" and not train else route
 
 
@@ -91,7 +94,7 @@ def attention_small_forward(
     if _build.on_cpu(q, "fused_attention_small"):
         return full_attention(q, k, v, causal=causal)
     bsz, s, h, d = q.shape
-    (sb, ss, sh), _ = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
+    sb, ss, sh = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
     if s > MAX_SEQ:
         raise ValueError(f"fused_attention_small kernel needs S <= {MAX_SEQ}, got S={s}")
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
@@ -150,7 +153,7 @@ def attention_small_backward(
     if _build.on_cpu(q, "fused_attention_small"):
         return attention_small_backward_reference(q, k, v, do, causal)
     bsz, s, h, d = q.shape
-    (sb, ss, sh), code = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
+    sb, ss, sh = _build.attention_layout(q, k, v, "fused_attention_small", MAX_HEAD_DIM)
     if s > MAX_SEQ:
         raise ValueError(f"fused_attention_small kernel needs S <= {MAX_SEQ}, got S={s}")
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
@@ -159,23 +162,19 @@ def attention_small_backward(
             f"{q.dtype} on {q.device}"
         )
     dq, dk, dv = (torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    tensor_core = _build.attention_route(q.dtype, d) == "tensor_core"
-    if tensor_core:
+    route = _build.attention_route(q.dtype, d)
+    if route != "ffma":
         _build.require_16b_rows(q, k, v, "fused_attention_small", do)
     lib = _build.load_library()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), sb, ss, sh)
+    entry = {"tensor_core": lib.mpt_attn_small_bwd_tc, "tensor_core_f32": lib.mpt_attn_small_bwd_tc_f32,
+             "ffma": lib.mpt_attn_small_bwd}[route]
     with torch.cuda.device(q.device):
-        if tensor_core:
-            rc = lib.mpt_attn_small_bwd_tc(
-                *ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device)
-            )
-        else:
-            rc = lib.mpt_attn_small_bwd(
-                *ptrs, bsz, s, h, d, d**-0.5, int(causal), code, _build.stream(q.device)
-            )
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), sb, ss, sh, bsz, s, h, d, d**-0.5, int(causal),
+                   _build.stream(q.device))
     _build.check(rc, "fused_attention_small backward")
-    (backward_tc_counter if tensor_core else backward_ffma_counter).add()
+    {"tensor_core": backward_tc_counter, "tensor_core_f32": backward_tc_f32_counter,
+     "ffma": backward_ffma_counter}[route].add()
     return dq, dk, dv
 
 

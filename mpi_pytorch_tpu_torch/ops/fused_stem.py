@@ -12,7 +12,9 @@ dtype. Three CUDA kernels in ``csrc/fused_stem.cu`` carry it:
   writes the first-match window index ``k = dh·3 + dw`` (int8);
 - the backward (TPU ``_bwd_kernel``): routes the pooled gradient through
   ``k`` to the ≤4 covering inputs, masks it with ``pooled > 0``, and gives
-  ``dy = du·a``, ``da = Σ du·y``, ``db = Σ du``.
+  ``dy = du·a``, ``da = Σ du·y``, ``db = Σ du`` — one pass, each thread
+  writing the 2×2 inputs of one window (a quad gather), ``da`` and ``db``
+  folded in fixed order by the last block to finish.
 
 The last two pair up in :class:`_StemPool`, the ``torch.autograd.Function``
 that mirrors the JAX ``custom_vjp`` ``_stem_pool_t``.
@@ -185,7 +187,8 @@ def stem_pool_backward(
         raise ValueError(f"stem backward: y {tuple(y.shape)} is too large for one grid")
     dy = torch.empty_like(y)
     dadb = torch.empty((2, c), dtype=torch.float32, device=y.device)
-    part = torch.empty((2, max(n_part, 1), c), dtype=torch.float32, device=y.device)
+    # The kernel's scratch: f32 [n_part, 2, C] block sums, then its u32 ticket.
+    part = torch.empty(n_part * 2 * c + 1, dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         code = lib.mpt_stem_pool_bwd(
             g.data_ptr(), k.data_ptr(), pooled.data_ptr(), y.data_ptr(), a.data_ptr(),

@@ -144,8 +144,8 @@ def test_cpu_tensors_launch_nothing():
     """The wrappers run their plain versions for CPU tensors, in bf16 too,
     and the kernels' launch counts do not move."""
     counters = (fas.forward_tc_counter, fas.forward_tc_f32_counter, fas.forward_ffma_counter,
-                fas.backward_tc_counter, fas.backward_ffma_counter, fa.tc_counter,
-                fa.tc_f32_counter, fa.ffma_counter)
+                fas.backward_tc_counter, fas.backward_tc_f32_counter, fas.backward_ffma_counter,
+                fa.tc_counter, fa.tc_f32_counter, fa.ffma_counter)
     before = [c.count for c in counters]
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(15, 64))
     for fn in (fas.fused_attention_small, fa.flash_attention):

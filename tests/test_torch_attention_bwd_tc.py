@@ -24,8 +24,8 @@ Tolerances:
   its largest magnitude).
 A single bf16 term of p and ds (off by up to 2^-8) misses both, at every
 case: it is a different function. The route rule (which dtypes and head
-dims reach the tensor cores) is checked case by case, and CPU tensors
-launch neither kernel.
+dims reach which kernel) is checked case by case, and CPU tensors launch
+no kernel.
 """
 
 import jax
@@ -153,25 +153,25 @@ def test_delta_from_p_dp_equals_delta_from_o():
         (torch.bfloat16, 40, "ffma"),
         (torch.bfloat16, 8, "ffma"),
         (torch.bfloat16, 144, "ffma"),
-        (torch.float32, 64, "ffma"),
-        (torch.float32, 128, "ffma"),
+        (torch.float32, 64, "tensor_core_f32"),
+        (torch.float32, 128, "tensor_core_f32"),
     ],
 )
 def test_backward_route(dtype, d, route):
-    """bf16 with D % 16 == 0 and D ≤ 128 takes the tensor-core backward;
-    f32 and any other bf16 D the FFMA backward. The backward has no
-    inference caller: in bf16 it takes the rule as the forwards' training
-    calls do, while an f32 training forward takes the f32 tensor-core
-    kernel and its backward stays on FFMA."""
+    """bf16 with D % 16 == 0 and D ≤ 128 takes the bf16 tensor-core
+    backward, f32 with D % 4 == 0 and D ≤ 128 the f32 tensor-core backward
+    (six term-pair products, ``test_torch_attention_bwd_f32_tc.py``), any
+    other bf16 D the FFMA backward. The backward has no inference caller:
+    it takes the rule as the forwards' training calls do, so a training
+    step's forward and backward run on the same route."""
     assert _build.attention_route(dtype, d) == route
-    forward = "tensor_core_f32" if dtype == torch.float32 else route
-    assert fas._route(dtype, d, train=True) == forward
+    assert fas._route(dtype, d, train=True) == route
 
 
 def test_cpu_tensors_launch_no_backward():
-    """On CPU tensors the backward runs its plain version on either route's
-    inputs, and neither backward counter moves."""
-    counters = (fas.backward_tc_counter, fas.backward_ffma_counter)
+    """On CPU tensors the backward runs its plain version on every route's
+    inputs, and no backward counter moves."""
+    counters = (fas.backward_tc_counter, fas.backward_tc_f32_counter, fas.backward_ffma_counter)
     before = [c.count for c in counters]
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = (t.to(dtype) for t in _inputs(700, 64))

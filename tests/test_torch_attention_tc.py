@@ -202,10 +202,10 @@ def test_two_terms_cross_the_one_ulp_check():
         (torch.bfloat16, 8, "ffma", "ffma"),
         (torch.bfloat16, 36, "ffma", "ffma"),
         (torch.bfloat16, 144, "ffma", "ffma"),
-        (torch.float32, 64, "tensor_core_f32", "ffma"),
-        (torch.float32, 16, "tensor_core_f32", "ffma"),
-        (torch.float32, 36, "tensor_core_f32", "ffma"),
-        (torch.float32, 128, "tensor_core_f32", "ffma"),
+        (torch.float32, 64, "tensor_core_f32", "tensor_core_f32"),
+        (torch.float32, 16, "tensor_core_f32", "tensor_core_f32"),
+        (torch.float32, 36, "tensor_core_f32", "tensor_core_f32"),
+        (torch.float32, 128, "tensor_core_f32", "tensor_core_f32"),
     ],
 )
 def test_route(dtype, d, forward, backward):
@@ -214,8 +214,9 @@ def test_route(dtype, d, forward, backward):
     kernels, any other bf16 D the FFMA kernels. The flash forward takes
     this rule as it is; the tiny-S forward takes it for its training
     forward and for f32 inference, and its bf16 inference calls keep the
-    FFMA kernel. K10's backward keeps its own rule: f32 stays on FFMA."""
-    assert _build.attention_forward_route(dtype, d) == forward
+    FFMA kernel. K10's backward takes the same rule: f32 reaches its f32
+    tensor-core kernel too."""
+    assert _build.attention_route(dtype, d) == forward
     assert _build.attention_route(dtype, d) == backward
     assert fas._route(dtype, d, train=True) == forward
     assert fas._route(dtype, d, train=False) == ("ffma" if forward == "tensor_core" else forward)
