@@ -17,9 +17,11 @@ Phases (any failure raises and the script exits non-zero):
    forward (K1), training forward with the window index (K2) and index
    backward (K3), the predict head in bf16 (K4: B = 1, 8, 512 at D = 512,
    B = 128 at vit_s16's D = 384, B = 128 and 512 at vit_b16's D = 768)
-   and f32 (K4 f32), exact argmax ties at the tensor-core heads' tile,
-   split, quad-lane and ragged-tile boundaries (K4 bf16 and K7, with one
-   and with two consumer warpgroups a CTA), the int8 predict head (K7:
+   and f32 (K4 f32: B = 8, 64, 512, with the float64 gap of its six-pair
+   logits beside the three-pair control), exact argmax ties at the
+   tensor-core heads' tile, split, quad-lane, warpgroup and ragged-tile
+   boundaries (K4 bf16 and f32 and K7, with one and with two consumer
+   warpgroups a CTA), the int8 predict head (K7:
    predictions equal on every row, B = 1, 8, 512, each timed), the heads'
    two calls bitwise equal, the
    training cross-entropy head's forward (K5) and backward (K6) at batch
@@ -410,12 +412,15 @@ def check_stem_backward(dev, gen) -> dict:
 # overall, the peak its operations are bounded by, the kernel row's name and
 # source. bf16 adds vit_s16's head width, D = 384, at its training batch,
 # and vit_b16's, D = 768, where a CTA keeps one consumer warpgroup's feats
-# tile (64 rows) at every batch.
+# tile (64 rows) at every batch. f32 runs at the f32 serving path's buckets
+# (8, 64) and at 512; its products are priced as the f32 attention rows
+# price theirs (``_attn_work``): each f32 product three TF32 products, the
+# tensor-core time of the six bf16 products the kernel takes.
 HEAD_CHECKS = {
     torch.bfloat16: (((1, D), (8, D), (512, D), (128, 384), (128, 768), (512, 768)), 1e-3,
                      1e-3, 0.99, "bf16", "head_predict", "head_predict_tc.cu"),
-    torch.float32: (((8, D), (512, D)), 1e-5, 1e-5, 1.0, "f32", "head_predict_f32",
-                    "fused_head_ce.cu"),
+    torch.float32: (((8, D), (64, D), (512, D)), 1e-5, 1e-5, 1.0, "tf32x3", "head_predict_f32",
+                    "head_predict_tc.cu"),
 }
 
 
@@ -441,13 +446,14 @@ def check_head(dev, gen, dtype) -> dict:
     (batch, D) case: loss within the dtype's rtol, argmax equal wherever the
     plain top-2 gap exceeds the dtype's share of |max| (bf16 1e-3, f32 1e-5 —
     f32 logits carry f32 rounding only, TF32 off) and on at least the
-    dtype's share of rows overall, two calls bitwise equal. Returns the
+    dtype's share of rows overall, two calls bitwise equal. f32 rows also
+    log the float64 gap of the logits (``_head_f64_gaps``). Returns the
     B = 512, D = 512 row."""
-    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, H100_PEAK_F32_FLOPS, bound_ms
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, H100_PEAK_TF32_FLOPS, bound_ms
     from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
 
     cases, rtol, gap, min_agree, peak, name, source = HEAD_CHECKS[dtype]
-    peak = {"bf16": H100_PEAK_BF16_FLOPS, "f32": H100_PEAK_F32_FLOPS}[peak]
+    products, peak = {"bf16": (1, H100_PEAK_BF16_FLOPS), "tf32x3": (3, H100_PEAK_TF32_FLOPS)}[peak]
     size = torch.finfo(dtype).bits // 8
     weights = {}
     rows = {}
@@ -477,7 +483,7 @@ def check_head(dev, gen, dtype) -> dict:
             raise AssertionError(f"{what}: padding rows carry loss")
         _bitwise_twice(lambda: fh.head_predict(feats, w, bias, labels), what)
         moved = size * bsz * d + size * V * d + 4 * V + 12 * bsz
-        bound, by = bound_ms(moved, (2 * bsz * d * V, peak))
+        bound, by = bound_ms(moved, (products * 2 * bsz * d * V, peak))
         row = {
             "name": name, "route": "cuda", "source": "mpi_pytorch_tpu_torch/csrc/" + source,
             "replaces": "mpi_pytorch_tpu/ops/fused_head_ce.py:313",
@@ -494,9 +500,33 @@ def check_head(dev, gen, dtype) -> dict:
                 lambda: torch.nn.functional.linear(feats, w, bias.to(dtype)), 50
             ),
         }
+        if dtype == torch.float32:
+            row["f64_gaps"] = _head_f64_gaps(feats, w, bias, labels, loss, ref_loss)
         log({"kernel_check": row})
         rows[bsz, d] = row
     return rows[512, D]
+
+
+def _head_f64_gaps(feats, w, bias, labels, loss, ref_loss) -> dict:
+    """K4 f32 against float64: the relative gap (max |error| over max
+    |logit|) of the six-pair logits the kernel forms, emulated in torch on
+    the card (``split_product``), and of the three-pair control; and the
+    largest loss error of the kernel and of the plain f32 version against
+    the float64 loss. Raises unless six pairs come closer than three."""
+    from mpi_pytorch_tpu_torch.ops.attention_split_numerics import SIX, THREE, relative_gap, split_product
+
+    ref = feats.double() @ w.double().t() + bias.double()
+    valid = labels >= 0
+    lse = torch.logsumexp(ref, -1)
+    picked = ref.gather(1, labels.clamp(min=0).long()[:, None])[:, 0]
+    loss64 = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    gaps = {label: relative_gap(split_product("bd,vd->bv", feats, w, pairs) + bias, ref)
+            for label, pairs in (("six_pairs", SIX), ("three_pairs", THREE))}
+    gaps["kernel_loss_abs"] = float((loss.double() - loss64).abs().max())
+    gaps["plain_loss_abs"] = float((ref_loss.double() - loss64).abs().max())
+    if not gaps["six_pairs"] < gaps["three_pairs"]:
+        raise AssertionError(f"head_predict_f32: six pairs no closer to float64 than three: {gaps}")
+    return gaps
 
 
 INT8_BATCHES = (1, 8, 512)
@@ -571,32 +601,34 @@ def check_head_int8(dev, gen) -> dict:
 
 def check_head_ties(dev, gen) -> None:
     """Exact ties where the tensor-core heads split their work, at B = 64
-    (one consumer warpgroup a CTA) and B = 512 (two, sharing each W stage,
-    with longer splits): W rows duplicated (and their biases) in pairs that
-    straddle a vocab tile boundary, a split boundary (from the wrappers' own
-    geometry), the lanes of a quad, two columns of one thread, one thread's
-    columns in two tiles of a split, two splits, and lie inside the ragged
-    last tile. Each row's features point at one pair, whose logit then
-    leads every other by far: K4 bf16 and K7 must return the pair's first
-    column on every row — the plain first-index argmax over f64 logits
-    (bf16) or over the int8 head's exact logits — and give the same bits
-    twice."""
+    (one consumer warpgroup a CTA; f32: one CTA of 64 rows) and B = 512
+    (two, sharing each W stage, with longer splits; f32: eight row tiles):
+    W rows duplicated (and their biases) in pairs that straddle a vocab
+    tile boundary, a split boundary (from the wrappers' own geometry), the
+    lanes of a quad, two columns of one thread, one thread's columns in two
+    tiles of a split, two splits, the two consumer warpgroups of an f32
+    tile, and lie inside the ragged last tile. Each row's features point at
+    one pair, whose logit then leads every other by far: K4 bf16 and f32 and
+    K7 must return the pair's first column on every row — the plain
+    first-index argmax over f64 logits (bf16, f32) or over the int8 head's
+    exact logits — and give the same bits twice."""
     for bsz in (64, 512):
-        for dtype in (torch.bfloat16, torch.int8):
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
             _check_ties(dev, gen, bsz, dtype)
 
 
 def _check_ties(dev, gen, bsz: int, dtype) -> None:
-    """One batch and head (bf16 or int8) of :func:`check_head_ties`."""
+    """One batch and head (bf16, f32 or int8) of :func:`check_head_ties`."""
     from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
     from mpi_pytorch_tpu_torch.ops import quantize as qz
 
-    elem = 1 if dtype == torch.int8 else 2
+    elem = torch.finfo(dtype).bits // 8 if dtype.is_floating_point else 1
     _, tiles_per_split = fh.tc_geometry(bsz, D, V, elem, fh._num_sms(dev.index),
                                         "check_head_ties")
     last = (V - 1) // 128 * 128  # the ragged last tile's first column
     split_end = tiles_per_split * 128
-    pairs = [(127, 128), (256, 258), (384, 392), (130, 386), (1000, 9000), (last + 3, V - 2)]
+    pairs = [(127, 128), (256, 258), (384, 392), (130, 386), (520, 600), (1000, 9000),
+             (last + 3, V - 2)]
     if all(split_end not in pair for pair in pairs):
         pairs.append((split_end - 1, split_end))
     w = 0.05 * torch.randn(V, D, generator=gen)
@@ -611,11 +643,11 @@ def _check_ties(dev, gen, bsz: int, dtype) -> None:
     labels[::7] = -1
     first = torch.tensor([pairs[p][0] for p in which.tolist()], dtype=torch.int32)
     labels, bias, first = labels.to(dev), bias.to(dev), first.to(dev)
-    if dtype == torch.bfloat16:
+    if dtype != torch.int8:
         wd, fd = w.to(dev, dtype), feats.to(dev, dtype)
         call = lambda: fh.head_predict(fd, wd, bias, labels)  # noqa: E731
         ref = (fd.double() @ wd.double().t() + bias.double()).argmax(-1).to(torch.int32)
-        name = "head_predict"
+        name = "head_predict" if dtype == torch.bfloat16 else "head_predict_f32"
     else:
         w_q, w_scale = _int8_head(dev, w)
         fd = feats.to(dev, torch.bfloat16)
@@ -911,7 +943,9 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
     FFMA kernel) the same, its f32 forward, training and inference (the f32
     tensor-core kernel), within rtol/atol 2e-5 (``_attn_check``) — and the
     f32 forward also at D = 40, D = 128 and S = 128 with D = 128, the FFMA
-    forward at bf16 D = 40; each twice, bitwise equal, on its route's
+    forward at bf16 D = 40, and its inference forward also on rows that
+    are not 16-byte aligned and at S = D = 128 (read from device memory
+    into its tiles); each twice, bitwise equal, on its route's
     counter only. K10's dq, dk, dv against autograd through
     ``full_attention`` in f32, two calls bitwise equal, on its route's
     counter only — bf16 (``_grad_check``) and f32 (rtol/atol 2e-5) at D = 64
@@ -953,6 +987,15 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
                                  counters, route, what)
             err = _attn_check(out, full_attention(q, k, v, causal=causal), what)
             fwd_err[ROUTE_SUFFIX[route]] = max(fwd_err[ROUTE_SUFFIX[route]], err)
+    # The bf16 inference forward's other way in: each head read from device
+    # memory into its tiles, for rows that are not 16-byte aligned (a view
+    # of D + 4 columns) and at S = D = 128, whose stage does not fit.
+    for shape, pad in (((b // 4, s, h, d), 4), ((8, 128, h, 128), 0)):
+        q, k, v = (t[..., :shape[3]] for t in _qkv(gen, shape[:3] + (shape[3] + pad,), dev))
+        what = f"K9 ffma {list(shape)} bf16 train=False{', rows unaligned' if pad else ''}"
+        out = _launch_twice(lambda: fas.attention_small_forward(q, k, v, False, train=False),
+                            counters, "ffma", what)
+        fwd_err["ffma"] = max(fwd_err["ffma"], _attn_check(out, full_attention(q, k, v), what))
     bwd_cases = [((b, seq, h, d), causal, dtype)
                  for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True))
                  for dtype in (torch.bfloat16, torch.float32)]

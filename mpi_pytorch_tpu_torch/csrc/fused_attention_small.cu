@@ -20,7 +20,8 @@
 //     splits (attention_tc.cuh);
 //   - attn_small_fwd_kernel, the forward for bf16 with any other
 //     D % 4 == 0, and every bf16 inference call (ops/fused_attention_small.py
-//     `_route`): f32 FFMA on the CUDA cores (attention_tiles.cuh);
+//     `_route`): f32 FFMA on the CUDA cores, every sum in the order of the
+//     plain f32 path (attention_tiles.cuh, small_fwd);
 //   - attn_small_bwd_tc_kernel, the backward for bf16 with D % 16 == 0 and
 //     D <= 128: tensor cores, the path vit_s16 trains through;
 //   - attn_small_bwd_tc_f32_kernel, the backward for f32 with D % 4 == 0
@@ -113,12 +114,42 @@
 // the p and ds terms; Y q, then do, then k, then q. S > 64 takes one CTA a
 // head, as the f32 forward.
 //
-// The FFMA kernels. One CTA per (batch, head) owns the whole row set in
+// The FFMA forward. It serves vit_s16's bf16 inference (serving and
+// validation), whose answers are held to the plain path's, so each of its
+// sums runs in one fixed order: a score is one fmaf chain over d ascending
+// from 0 on (q·scale rounded to f32, k); m the row's max; p = expf(s − m);
+// l summed as row_softmax sums it (lane L over columns L, L + 32, ..., then
+// the xor tree 16 … 1); p·v one fmaf chain over the keys ascending; ÷ l,
+// then rounded to bf16. Its outputs are the bits of the one-CTA-a-head
+// kernel it replaced, whose tile_mm and row_softmax took those orders.
+// Bound on an H100 by its FFMA: 805 MFLOP at [128, 64, 6, 64], 12.0 us at
+// 67 TFLOP/s (its bytes take 7.5 us). So the design feeds the FMA units:
+//   - register micro-tiles of 8 rows by 4 (S <= 64) or 8 keys, and 8 rows
+//     by 4 (D <= 64) or 8 head columns, whose operands come as 16-byte
+//     shared-memory loads that bring one r (or one key) for several
+//     outputs, never several r for one sum: q·scale transposed and p
+//     transposed in each warp's own tile, k and v row-major in f32 tiles
+//     (small_fwd in attention_tiles.cuh): 12 loads for 128 FFMA in the
+//     scores and 3 for 32 in p·v, against micro_mm's 8 scalar loads for 16;
+//   - a warp owns 16 whole query rows, so the softmax runs in registers
+//     with row_softmax's lane partials and tree, and p only passes through
+//     the warp's own tile (no barrier of the CTA);
+//   - persistent CTAs (four or eight warps) walk an even share of the
+//     heads, each head's bf16 q, k and v read from device memory in
+//     16-byte pieces straight into the f32 tiles (exact for k and v;
+//     q·scale rounds as load_rows rounds it): 49 KB at vit_s16's shape,
+//     four CTAs an SM, whose reads and products overlap each other's. (A
+//     cp.async stage of the next head, converted from shared memory,
+//     measured slower on an H100: its 24 KB cost a CTA an SM.) Rows that
+//     are not 16-byte aligned are read one element at a time;
+//   - out rows leave through the warp's tile as 16-byte stores.
+//
+// The FFMA backward. One CTA per (batch, head) owns the whole row set in
 // shared memory (three f32 tiles: two [S][D] and the [S][S] scores), so the
 // score tensor and the softmax chain never touch device memory, and each
-// CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by
-// their operations at the f32 peak; they hold bf16 with a head dim the
-// tensor-core kernels do not take, and the forward's bf16 inference calls.
+// CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by its
+// operations at the f32 peak; it holds bf16 with a head dim the
+// tensor-core kernels do not take.
 //
 // The TPU kernel's bh-grouping (several heads stacked into one MXU tile
 // with −1e30 cross-head blocks) and its sublane padding of S exist for the
@@ -145,35 +176,122 @@ __host__ __device__ inline int small_smem_floats(int S, int D) {
   return 2 * S * odd_ld(D) + S * odd_ld(S) + S;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Eight bf16 (16 bytes) as f32: exact, each the bf16 bits in the high half.
+__device__ __forceinline__ void unpack8(uint4 raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    f[2 * u] = __uint_as_float(w[u] << 16);
+    f[2 * u + 1] = __uint_as_float(w[u] & 0xffff0000u);
+  }
+}
+
+// The bf16 forward on the CUDA cores (attention_tiles.cuh, small_fwd): a
+// CTA of SP/16 warps (SP = 64 or 128 keys) walks `per_cta` heads; DH
+// 64-column blocks of the head dim. Each head's q, k and v are read from
+// device memory straight into the f32 tiles: 16 bytes at a time when `vec`
+// (rows 16-byte aligned, D % 8 == 0), else one element at a time.
+template <int SP, int DH>
+__global__ void __launch_bounds__(2 * SP, SP == 64 ? (DH == 1 ? 4 : 2) : 1)
 attn_small_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, int H, int S,
-                      int D, float scale, int causal) {
+                      int D, int BH, int per_cta, float scale, int causal, int vec) {
+  using small_fwd::kRows;
+  constexpr int NW = SP / 16, NT = 32 * NW, NB = SP / 16;
   extern __shared__ float smem[];
-  const int ldd = odd_ld(D), lds = odd_ld(S);
-  float* qv = smem;             // q·scale, then v   [S][ldd]
-  float* ks = qv + S * ldd;     // k                 [S][ldd]
-  float* ps = ks + S * ldd;     // scores, then p    [S][lds]
-  float* ls = ps + S * lds;     // l                 [S]
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const long long base = b * st.sb + h * st.sh;
-  load_rows(qv, ldd, q + base, st.ss, S, D, scale);
-  load_rows(ks, ldd, k + base, st.ss, S, D, 1.f);
-  __syncthreads();
-  tile_mm(
-      S, S, D, [&](int i, int r) { return qv[i * ldd + r]; },
-      [&](int j, int r) { return ks[j * ldd + r]; },
-      [&](int i, int j, float s) { ps[i * lds + j] = (causal && j > i) ? kNeg : s; });
-  __syncthreads();
-  row_softmax(ps, lds, S, S, ls, false);
-  load_rows(qv, ldd, v + base, st.ss, S, D, 1.f);  // q·scale is spent
-  __syncthreads();
-  bf16* ob = o + ((long long)b * S * H + h) * D;  // out is contiguous [B, S, H, D]
-  const long long os = (long long)H * D;
-  tile_mm(
-      S, D, S, [&](int i, int j) { return ps[i * lds + j]; },
-      [&](int d, int j) { return qv[j * ldd + d]; },
-      [&](int i, int d, float acc) { ob[i * os + d] = from_f32<bf16>(acc / ls[i]); });
+  const small_fwd::Smem L(SP, NW, D);
+  unsigned char* const sm = reinterpret_cast<unsigned char*>(smem);
+  float* const kf = reinterpret_cast<float*>(sm + L.k);
+  float* const vf = reinterpret_cast<float*>(sm + L.v);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, lr = lane >> 4, lc = lane & 15;
+  float* const own = reinterpret_cast<float*>(sm + L.own) + w * L.xp * kRows;  // this warp's tile
+  const int nc = D / 8;  // 16-byte chunks a row (vec)
+  const int first = blockIdx.x * per_cta, end = min(first + per_cta, BH);
+  // Out rows leave in pieces of `per` elements: 16 bytes, or 8 where a row
+  // is not a whole number of 16 bytes.
+  const int per = D % 8 == 0 ? 8 : 4, n_out = D / per;
+
+  for (int bh = first; bh < end; ++bh) {
+    const long long hb = (bh / H) * st.sb + (bh % H) * st.sh;
+    __syncthreads();  // the last head's tiles are spent
+    // k and v into their f32 tiles (every thread: k's rows, then v's),
+    // q·scale transposed into each warp's own tile (its 16 rows, zero past
+    // S): q·scale rounds to f32 as load_rows rounds it.
+    if (vec) {
+      for (int r = tid / nc, c = tid % nc; r < 2 * S; small_fwd::walk(r, c, NT / nc, NT % nc, nc)) {
+        const bool is_v = r >= S;
+        const int j = is_v ? r - S : r;
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>((is_v ? v : k) + hb + j * st.ss + 8 * c), f);
+        float* dst = (is_v ? vf + j * L.vp : kf + j * L.kp) + 8 * c;
+        *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+      }
+      for (int i = lane; i < kRows * nc; i += 32) {
+        const int x = i % kRows, c = i / kRows, row = kRows * w + x;
+        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (row < S) unpack8(*reinterpret_cast<const uint4*>(q + hb + row * st.ss + 8 * c), f);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) own[(8 * c + u) * kRows + x] = f[u] * scale;
+      }
+    } else {
+      for (int i = tid; i < 2 * S * D; i += NT) {
+        const int t = i / (S * D), j = (i / D) % S, d = i % D;
+        const float x = __bfloat162float((t ? v : k)[hb + j * st.ss + d]);
+        (t ? vf + j * L.vp : kf + j * L.kp)[d] = x;
+      }
+      for (int i = lane; i < kRows * D; i += 32) {
+        const int x = i % kRows, r = i / kRows, row = kRows * w + x;
+        own[r * kRows + x] = row < S ? __bfloat162float(q[hb + row * st.ss + r]) * scale : 0.f;
+      }
+    }
+    __syncthreads();  // the tiles are whole
+
+    const int i0 = kRows * w + 8 * lr;  // this lane's first query
+    float s[8][NB], l[8];
+    small_fwd::scores<NB>(s, own + 8 * lr, kf + lc * L.kp, L.kp, D);
+    small_fwd::softmax_rows<NB>(s, l, i0, lc, S, causal);
+    __syncwarp();  // the warp's q is read: p takes its tile, transposed
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float* dst = own + kRows * (lc + 16 * b) + 8 * lr;
+      *reinterpret_cast<float4*>(dst) = make_float4(s[0][b], s[1][b], s[2][b], s[3][b]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][b], s[5][b], s[6][b], s[7][b]);
+    }
+    __syncwarp();
+    float acc[8][4 * DH];
+    small_fwd::pv<DH>(acc, own + 8 * lr, vf + 4 * lc, L.vp, S);
+    __syncwarp();  // the warp's p is read: its rows of out take the tile
+    bf16* const ob = reinterpret_cast<bf16*>(own);  // [16][D]
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int h = 0; h < DH; ++h) {
+        const int col = 64 * h + 4 * lc;
+        if (col >= D) continue;
+        const float* x = acc[a] + 4 * h;
+        const __nv_bfloat162 p0 = __floats2bfloat162_rn(x[0] / l[a], x[1] / l[a]);
+        const __nv_bfloat162 p1 = __floats2bfloat162_rn(x[2] / l[a], x[3] / l[a]);
+        *reinterpret_cast<uint2*>(ob + (8 * lr + a) * D + col) =
+            make_uint2(mpt_tc::bf16x2_bits(p0), mpt_tc::bf16x2_bits(p1));
+      }
+    __syncwarp();
+    // The warp's rows to out (contiguous [B, S, H, D]).
+    bf16* const ob_g = o + ((long long)(bh / H) * S * H + bh % H) * D;
+    const long long os = (long long)H * D;
+    for (int x = lane / n_out, c = lane % n_out; x < kRows;
+         small_fwd::walk(x, c, 32 / n_out, 32 % n_out, n_out)) {
+      const int row = kRows * w + x;
+      if (row < S) {
+        if (per == 8)
+          *reinterpret_cast<uint4*>(ob_g + row * os + 8 * c) =
+              *reinterpret_cast<const uint4*>(ob + x * D + 8 * c);
+        else
+          *reinterpret_cast<uint2*>(ob_g + row * os + 4 * c) =
+              *reinterpret_cast<const uint2*>(ob + x * D + 4 * c);
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -908,22 +1026,47 @@ int launch_bwd_tc_f32_d(const void* q, const void* k, const void* v, const void*
              : launch_bwd_tc_f32<DK, 2>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, scale, causal, stream);
 }
 
+// The bf16 FFMA forward over BH = B·H heads: persistent CTAs (an even
+// share of the heads each, as many CTAs as fit), reading 16 bytes at a
+// time when q, k and v rows are 16-byte aligned and D % 8 == 0.
+template <int SP, int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, const Strides& st,
+                       int B, int S, int H, int D, float scale, int causal, bool aligned,
+                       cudaStream_t stream) {
+  constexpr int NT = 2 * SP;
+  const auto kernel = attn_small_fwd_kernel<SP, DH>;
+  const int bytes = small_fwd::Smem(SP, SP / 16, D).bytes, BH = B * H;
+  int per_cta = 0;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess || (err = heads_per_cta(kernel, NT, bytes, BH, &per_cta)) != cudaSuccess)
+    return err;
+  kernel<<<(BH + per_cta - 1) / per_cta, NT, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), st, H, S, D, BH, per_cta, scale, causal, aligned && D % 8 == 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The FFMA forward: q, k, v bf16, strided [B, S, H, D] with the strides
-// (sb, ss, sh) in elements and the head dim contiguous; out: contiguous
-// [B, S, H, D] bf16. scale = D^-0.5 as the caller rounds it to f32.
-// Returns cudaGetLastError().
+// (sb, ss, sh) in elements and the head dim contiguous, S <= 128,
+// D % 4 == 0 and D <= 128; out: contiguous [B, S, H, D] bf16. scale =
+// D^-0.5 as the caller rounds it to f32. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int mpt_attn_small_fwd(const void* q, const void* k, const void* v, void* out,
                                   long long sb, long long ss, long long sh, int B, int S, int H,
                                   int D, float scale, int causal, void* stream) {
-  const size_t bytes = sizeof(float) * small_smem_floats(S, D);
-  cudaError_t err = allow_smem(attn_small_fwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attn_small_fwd_kernel<<<B * H, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Strides{sb, ss, sh}, H, S, D, scale, causal);
-  return (int)cudaGetLastError();
+  if (S < 1 || S > 128 || D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  const Strides st{sb, ss, sh};
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) % 16 == 0 &&
+                       sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0;
+  if (S <= 64)
+    return (int)(D <= 64 ? launch_fwd<64, 1>(q, k, v, out, st, B, S, H, D, scale, causal, aligned, s)
+                         : launch_fwd<64, 2>(q, k, v, out, st, B, S, H, D, scale, causal, aligned, s));
+  return (int)(D <= 64 ? launch_fwd<128, 1>(q, k, v, out, st, B, S, H, D, scale, causal, aligned, s)
+                       : launch_fwd<128, 2>(q, k, v, out, st, B, S, H, D, scale, causal, aligned, s));
 }
 
 // The tensor-core forward: q, k, v bf16, strided [B, S, H, D] as above with

@@ -1,26 +1,16 @@
-// The classifier head's WMMA kernels: K4's f32 route and K5, the training
-// cross-entropy forward. (K4's bf16 route and the int8 head K7 run on wgmma
-// in head_predict_tc.cu.)
+// The classifier head's WMMA kernel: K5, the training cross-entropy
+// forward. (The predict heads, K4 in bf16 and f32 and the int8 head K7, run
+// on wgmma in head_predict_tc.cu.)
 //
-// K4's f32 route replaces mpi_pytorch_tpu/ops/fused_head_ce.py::
-// _predict_kernel with its shared epilogue online_predict_update for an f32
-// model, which keeps its head in f32 as the JAX head_predict does (f32
-// features select an f32 kernel there): per row of feats, the softmax
-// cross-entropy and the argmax of logits = feats @ W^T + b, without ever
-// storing the [B, V] logits. Semantics carried over exactly: argmax is the
-// FIRST index attaining the max (and across vocab blocks the earlier block
-// wins), loss = log(sum exp(logit - m)) + m - logit[label], and loss = 0
-// where label < 0 (batch padding rows). It accumulates with plain FFMA on
-// the CUDA cores -- no TF32, so the logits are exact f32 products. Its
-// bound at batch 512 is those operations at the f32 peak (2 * 512 * 512 *
-// 64500 = 33.8 GFLOP at 67 TFLOP/s, ~0.5 ms); at batch 8 the bytes of the
-// f32 W (132 MB, ~39 us).
-//
-// K5 replaces fused_head_ce.py::_fwd_kernel, the forward of the fused_head_ce
-// training op: the bf16 partial kernel below (bf16 WMMA, mma.sync, f32
+// K5 replaces mpi_pytorch_tpu/ops/fused_head_ce.py::_fwd_kernel, the
+// forward of the fused_head_ce training op: per row of feats, the softmax
+// cross-entropy of logits = feats @ W^T + b without ever storing the [B, V]
+// logits: the bf16 partial kernel below (bf16 WMMA, mma.sync, f32
 // accumulation; its argmax is computed and dropped) and a merge that writes
 // the loss and the global (m, l) the backward recomputes its softmax from.
-// Bound at batch 128: the 66 MB of bf16 W, ~20 us.
+// Semantics carried over exactly: loss = log(sum exp(logit - m)) + m -
+// logit[label], and loss = 0 where label < 0 (batch padding rows). Bound at
+// batch 128: the 66 MB of bf16 W, ~20 us.
 //
 // Design. A GPU grid has no sequential accumulator like the TPU grid's
 // vocab sweep, so the reduction runs in two passes (head_common.cuh):
@@ -35,10 +25,7 @@
 // one vocab split run together and read that slice of W from L2 after the
 // first one brings it in from DRAM. Enough splits are chosen (by the
 // wrapper) that even batch 1 puts ~2 CTAs on each of the 132 SMs. The
-// ragged vocab edge is masked in-kernel: W is never padded or copied. The
-// f32 tile product is a shared-memory SIMT GEMM (each thread 4 rows x 8
-// vocab columns of FFMA). This is the simple first version: no TMA, no
-// wgmma, no software pipelining of the K loop.
+// ragged vocab edge is masked in-kernel: W is never padded or copied.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -60,15 +47,10 @@ constexpr int LDC = BN + 4;   // f32 pitch of the epilogue tile
 constexpr int kStageBytes = (BM + BN) * LDS * 2;
 constexpr int kTileBytes = BM * LDC * 4;
 constexpr int kSmemBytes = kStageBytes > kTileBytes ? kStageBytes : kTileBytes;
-// f32 variant: K chunk and pitch (pitch 33: conflict-free column reads).
-constexpr int BK32 = 32;
-constexpr int LDS32 = BK32 + 1;
-constexpr int kStageBytes32 = (BM + BN) * LDS32 * 4;
-constexpr int kSmemBytes32 = kStageBytes32 > kTileBytes ? kStageBytes32 : kTileBytes;
 
 // Fold one [BM, BN] f32 tile of logits (Cs, before the bias) for vocab rows
 // n0.. into the per-row online state (max, first argmax, sum of exp
-// relative to the max, picked label logit). Shared by both variants.
+// relative to the max, picked label logit).
 __device__ __forceinline__ void fold_tile(const float* Cs, const float* __restrict__ bias,
                                           const int* __restrict__ labels, float* s_m,
                                           float* s_l, float* s_pick, int* s_arg, int row0,
@@ -232,121 +214,12 @@ head_partial_kernel(const __nv_bfloat16* __restrict__ feats,  // [B, D]
   store_partials(s_m, s_l, s_pick, s_arg, part_mlp, part_arg, row0, split, n_split, B, tid);
 }
 
-__global__ void __launch_bounds__(kThreads)
-head_partial_f32_kernel(const float* __restrict__ feats,  // [B, D]
-                        const float* __restrict__ w,      // [V, D]
-                        const float* __restrict__ bias,   // [V]
-                        const int* __restrict__ labels,   // [B]
-                        float* __restrict__ part_mlp,     // [3, n_split, B]
-                        int* __restrict__ part_arg,       // [n_split, B]
-                        int B, int D, int V, int tiles_per_split) {
-  // Staging buffers and the epilogue tile share one buffer, as above.
-  __shared__ __align__(128) unsigned char smem[kSmemBytes32];
-  __shared__ float s_m[BM], s_l[BM], s_pick[BM];
-  __shared__ int s_arg[BM];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + BM * LDS32;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tx = tid % 16, ty = tid / 16;  // 16 x 16 threads over the tile
-  const int row0 = blockIdx.x * BM;
-  const int split = blockIdx.y, n_split = gridDim.y;
-  const int v_begin = split * tiles_per_split * BN;
-  const int v_end = min(V, v_begin + tiles_per_split * BN);
-
-  if (tid < BM) {
-    s_m[tid] = -INFINITY;
-    s_l[tid] = 0.f;
-    s_pick[tid] = 0.f;
-    s_arg[tid] = 0;
-  }
-
-  for (int n0 = v_begin; n0 < v_end; n0 += BN) {
-    // Thread (ty, tx) computes rows ty*4 .. ty*4+3 and vocab columns
-    // tx, tx+16, ..., tx+112 of the tile.
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += BK32) {
-      // Stage feats[row0:+BM, k0:+BK32] and w[n0:+BN, k0:+BK32] with 16-byte
-      // loads; rows past B / v_end and columns past D are zero.
-      for (int i = tid; i < BM * (BK32 / 4); i += kThreads) {
-        const int r = i / (BK32 / 4), c = (i % (BK32 / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 + r < B && k0 + c < D)
-          v = *reinterpret_cast<const float4*>(feats + static_cast<size_t>(row0 + r) * D + k0 + c);
-        float* d = As + r * LDS32 + c;
-        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-      }
-      for (int i = tid; i < BN * (BK32 / 4); i += kThreads) {
-        const int r = i / (BK32 / 4), c = (i % (BK32 / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (n0 + r < v_end && k0 + c < D)
-          v = *reinterpret_cast<const float4*>(w + static_cast<size_t>(n0 + r) * D + k0 + c);
-        float* d = Bs + r * LDS32 + c;
-        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < BK32; ++kk) {
-        float av[4], bv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[(ty * 4 + i) * LDS32 + kk];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = Bs[(tx + 16 * j) * LDS32 + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * LDC + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-    fold_tile(Cs, bias, labels, s_m, s_l, s_pick, s_arg, row0, n0, v_end, B, warp, lane);
-    __syncthreads();  // the next tile's staging overwrites Cs
-  }
-
-  store_partials(s_m, s_l, s_pick, s_arg, part_mlp, part_arg, row0, split, n_split, B, tid);
-}
-
 }  // namespace
 
-// K4's f32 route: feats and w f32 [V, D] row-major (D % 16 == 0, 16-byte
-// aligned); bias f32 [V]; labels i32 [B]; loss f32 [B]; pred i32 [B].
-// Scratch: part_mlp f32 [3, n_split, B], part_arg i32 [n_split, B]. The
-// split geometry (tiles of mpt_head_tile_vocab() rows) must cover V with no
-// empty split.
-extern "C" int mpt_head_predict_f32(const void* feats, const void* w, const void* bias,
-                                    const void* labels, void* loss, void* pred, void* part_mlp,
-                                    void* part_arg, int B, int D, int V, int n_split,
-                                    int tiles_per_split, void* stream) {
-  const cudaError_t bad = check_geometry(B, D, V, n_split, tiles_per_split, BN);
-  if (bad != cudaSuccess) return bad;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + BM - 1) / BM, n_split);
-  head_partial_f32_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(feats), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(labels),
-      static_cast<float*>(part_mlp), static_cast<int*>(part_arg), B, D, V, tiles_per_split);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_merge(static_cast<const float*>(part_mlp), static_cast<const int*>(part_arg),
-                      static_cast<const int*>(labels), static_cast<float*>(loss),
-                      static_cast<int*>(pred), nullptr, nullptr, B, n_split, s);
-}
-
 // The training cross-entropy forward: feats and w bf16 ([B, D], [V, D]),
-// bias f32 [V], labels i32 [B] -> loss, m, l f32 [B]; scratch as for
-// mpt_head_predict_f32.
+// bias f32 [V], labels i32 [B] -> loss, m, l f32 [B]. Scratch: part_mlp
+// f32 [3, n_split, B], part_arg i32 [n_split, B]; the split geometry (tiles
+// of mpt_head_tile_vocab() rows) must cover V with no empty split.
 extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bias,
                                const void* labels, void* loss, void* m, void* l,
                                void* part_mlp, void* part_arg, int B, int D, int V,
@@ -366,7 +239,7 @@ extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bia
                       static_cast<float*>(m), static_cast<float*>(l), B, n_split, s);
 }
 
-// The tile geometry the wrappers of K5 and K4's f32 route plan splits with:
-// rows per CTA, vocab rows per tile.
+// The tile geometry K5's wrapper plans splits with: rows per CTA, vocab
+// rows per tile.
 extern "C" int mpt_head_tile_rows() { return BM; }
 extern "C" int mpt_head_tile_vocab() { return BN; }

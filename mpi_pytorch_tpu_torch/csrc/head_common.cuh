@@ -1,5 +1,5 @@
-// What the predict heads' two passes share (fused_head_ce.cu: K4's f32
-// route and K5; head_predict_tc.cu: K4's bf16 route and K7).
+// What the heads' two passes share (fused_head_ce.cu: K5;
+// head_predict_tc.cu: K4's bf16 and f32 routes and K7).
 //
 // Pass 1 (a partial kernel) leaves each vocab split's per-row state in a
 // scratch: part_mlp f32 [3, n_split, B] (the max m, the sum l of exp

@@ -5,7 +5,10 @@
 // Replaces two TPU kernels:
 //  - K4, mpi_pytorch_tpu/ops/fused_head_ce.py:313 `_predict_kernel` (with
 //    its epilogue `online_predict_update`, :259), for bf16 feats and W:
-//    `mpt_head_predict_bf16`. (Its f32 route stays in fused_head_ce.cu.)
+//    `mpt_head_predict_bf16`; for f32 feats and W (an f32 model keeps its
+//    head in f32, as the JAX head_predict does): `mpt_head_predict_f32`,
+//    each f32 product six exact bf16 products (the f32 route's section
+//    below).
 //  - K7, mpi_pytorch_tpu/ops/quantize.py:286 `_predict_int8_kernel`:
 //    `mpt_head_predict_int8`. feats are first quantized by
 //    quantize_activations' rule (quantize_rows_kernel), W is int8; the
@@ -24,6 +27,8 @@
 //  - B = 512: the products, 2·512·512·64 500 = 33.8 G operations: ~34 us
 //    at 989 TFLOP/s bf16, ~17 us at 1 979 TOP/s int8. So the products must
 //    run on wgmma with the tensor cores kept busy through the epilogue.
+//  - f32: the bytes of the f32 W, 132 MB (~39 us), up to B ≈ 64; at B = 512
+//    the six bf16 products a product, 203 G operations (~205 us).
 //
 // Design. Two passes, as the old kernels: the grid is (row tile, vocab
 // split), the row tile fastest, so the CTAs that share a vocab split run
@@ -68,6 +73,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"  // split3, the six pairs
 #include "head_common.cuh"
 #include "hopper.cuh"
 
@@ -166,6 +172,20 @@ struct RowState {
   float m[2], l[2], pick[2];
   int arg[2];
 };
+
+// (m, l, arg, pick) merged with another state: the larger max wins, equal
+// maxima go to the smaller column; l rescaled to the merged max.
+__device__ __forceinline__ void merge_state(float& m, float& l, int& arg, float& pick, float om,
+                                            float ol, int oa, float op) {
+  const float mn = fmaxf(m, om);
+  if (mn != -INFINITY) {
+    const float mL = mn * kLog2e;
+    l = l * exp2f(fmaf(m, kLog2e, -mL)) + ol * exp2f(fmaf(om, kLog2e, -mL));
+  }
+  if (om > m || (om == m && oa < arg)) arg = oa;
+  m = mn;
+  pick += op;
+}
 
 // Fold one tile's accumulators (this thread's rows 16w+g, 16w+g+8 at
 // columns n0 + 8j + 2t + e) into the thread's online state: the max and
@@ -421,26 +441,17 @@ head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
   for (int tile = 0; tile < n_tiles; ++tile)
     tile_step<Tr, C>(acc, v_begin + tile * kBN, L, rg, nk, stages, sa, cs, v_end, bias, scale_v);
 
-  // The quad's four states, merged: the larger max wins, equal maxima go
-  // to the smaller column; l rescaled to the merged max.
+  // The quad's four states, merged (merge_state).
   RowState& st = cs.st;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, st.m[i], off);
-      const float ol = __shfl_xor_sync(0xffffffffu, st.l[i], off);
-      const int oa = __shfl_xor_sync(0xffffffffu, st.arg[i], off);
-      const float mn = fmaxf(st.m[i], om);
-      if (mn != -INFINITY) {
-        const float mL = mn * kLog2e;
-        st.l[i] = st.l[i] * exp2f(fmaf(st.m[i], kLog2e, -mL)) + ol * exp2f(fmaf(om, kLog2e, -mL));
-      }
-      if (om > st.m[i] || (om == st.m[i] && oa < st.arg[i])) st.arg[i] = oa;
-      st.m[i] = mn;
-      st.pick[i] += __shfl_xor_sync(0xffffffffu, st.pick[i], off);
-    }
-  }
+    for (int off = 1; off < 4; off <<= 1)
+      merge_state(st.m[i], st.l[i], st.arg[i], st.pick[i],
+                  __shfl_xor_sync(0xffffffffu, st.m[i], off),
+                  __shfl_xor_sync(0xffffffffu, st.l[i], off),
+                  __shfl_xor_sync(0xffffffffu, st.arg[i], off),
+                  __shfl_xor_sync(0xffffffffu, st.pick[i], off));
   if (t == 0) {
     const size_t plane = static_cast<size_t>(n_split) * B;
 #pragma unroll
@@ -453,6 +464,307 @@ head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
       part_mlp[2 * plane + o] = st.pick[i];
       part_arg[o] = st.arg[i];
     }
+  }
+}
+
+// ------------------------------------------------------ K4's f32 route ---
+// f32 feats and W. Each f32 product is six exact bf16 products: feats and W
+// split into three bf16 terms each (attention_tc.cuh's split3), the pairs
+// (i, j), i + j <= 2, summed smallest first (pair_a, pair_b), as the f32
+// attention kernels take theirs. The roles of the operands are swapped
+// against the bf16 head: feats' three term tiles would take 3 KB a row at
+// D = 512, 192 KB for 64 rows, leaving no room for W's f32 stages beside
+// its terms, so feats is the resident shared-memory operand B (its terms
+// split once per CTA, N = 8 or 64 batch rows) and W the register operand A
+// of `wgmma ... m64nNk16` with A in registers: each consumer thread loads
+// its fragment of the raw f32 W stage (TMA, 128-byte swizzle) and splits it
+// in registers, so W is never held split in device memory or in shared
+// memory, and a stage is released as soon as it is read. The accumulator
+// is then [64 vocab rows × N batch rows] a warpgroup: each thread keeps an
+// online state (max, its first column, sum of exp, the label's logit) for
+// each of its N/4 batch rows over its two vocab rows a tile, ascending; at
+// the end of the split the eight lanes that share a batch row, then the
+// eight warps, merge (equal maxima going to the smaller column). Two
+// consumer warpgroups (64 vocab rows of a 128-row tile each) alternate on
+// the tensor cores: one splits its next stage while the other's products
+// run.
+constexpr int kF32Cols = kChunk / 4;  // K elements of f32 W a stage (two k-steps)
+
+// Bytes of the three feats term tiles of N rows over D (whole 64-column
+// atoms, padding zero).
+__host__ __device__ constexpr int f32_terms_bytes(int N, int D) { return 3 * chunks(D, 2) * N * kChunk; }
+
+// W stages that fit beside N rows of feats terms and N labels (0 when fewer
+// than two do).
+constexpr int f32_stages(int N, int D) {
+  const int left = (kSmemLimit - 1024 - f32_terms_bytes(N, D) - 4 * N) / (kStageBytes + 16);
+  return left < 2 ? 0 : (left > kMaxStages ? kMaxStages : left);
+}
+
+constexpr int f32_smem_bytes(int N, int D, int stages) {
+  return 1024 + f32_terms_bytes(N, D) + stages * (kStageBytes + 16) + 4 * N;
+}
+
+// Batch rows a CTA of the f32 head takes: 64 above B = 8 where they fit
+// (D <= 512), else 8; 0 when not even 8 fit.
+int f32_rows(int B, int D) {
+  if (B > 8 && f32_stages(64, D) > 0) return 64;
+  return f32_stages(8, D) > 0 ? 8 : 0;
+}
+
+// d[64 × N] (+)= A[64 × 16] · B[16 × N]: A (bf16 pairs) in registers, B
+// K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float* d, const uint32_t* a, uint64_t b,
+                                                int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float* d, const uint32_t* a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : MPT_WG_F8(d, 0), MPT_WG_F8(d, 8), MPT_WG_F8(d, 16), MPT_WG_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<8>(float* d, const uint32_t* a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// A thread's online state for each of its N/4 batch rows (8j + 2t + e at
+// index 2j + e).
+template <int N>
+struct ColState {
+  float m[N / 4], l[N / 4], pick[N / 4];
+  int arg[N / 4];
+};
+
+// Fold one tile's accumulators: this thread's vocab rows r0 and r0 + 8
+// (rows at or past v_end masked to −inf), bias b0, b1, into the state of
+// each of its batch rows; the labels of the CTA's rows in `lab`.
+template <int N>
+__device__ __forceinline__ void fold_f32(const float* acc, ColState<N>& st, int r0, int v_end,
+                                         float b0, float b1, const int* lab, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = 2 * j + e, col = 8 * j + 2 * t + e;
+      const float x0 = r0 < v_end ? acc[4 * j + e] + b0 : -INFINITY;
+      const float x1 = r0 + 8 < v_end ? acc[4 * j + 2 + e] + b1 : -INFINITY;
+      const bool up = x1 > x0;  // strict: the first row keeps a tie
+      const float mx = up ? x1 : x0;
+      st.arg[q] = mx > st.m[q] ? (up ? r0 + 8 : r0) : st.arg[q];  // strict: an earlier tile keeps a tie
+      const float mn = fmaxf(st.m[q], mx);
+      const float mL = mn == -INFINITY ? 0.f : mn * kLog2e;
+      st.l[q] = st.l[q] * exp2f(fmaf(st.m[q], kLog2e, -mL)) + exp2f(fmaf(x0, kLog2e, -mL)) +
+                exp2f(fmaf(x1, kLog2e, -mL));
+      st.m[q] = mn;
+      const int lb = lab[col];
+      st.pick[q] += (lb == r0 ? x0 : 0.f) + (lb == r0 + 8 ? x1 : 0.f);
+    }
+}
+
+// This thread's A fragments of the two k-steps of one W stage at sb (128
+// vocab rows × 32 f32, 128-byte swizzle), its vocab rows `row` and row + 8,
+// split into three bf16 terms: t[kk][term][i + 2h] holds (row + 8i, k-step
+// kk's columns 8h + 2t, 8h + 2t + 1).
+__device__ __forceinline__ void load_split(const unsigned char* stage, int row, int t,
+                                           uint32_t (&tm)[2][3][4]) {
+  float2 x[2][2][2];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * i, c = 4 * kk + 2 * h + (t >> 1);
+        x[kk][i][h] = *reinterpret_cast<const float2*>(stage + r * kChunk + ((c ^ (r & 7)) << 4) +
+                                                       8 * (t & 1));
+      }
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t w[3];
+        mpt_tc::split3(x[kk][i][h].x, x[kk][i][h].y, w);
+#pragma unroll
+        for (int n = 0; n < 3; ++n) tm[kk][n][i + 2 * h] = w[n];
+      }
+}
+
+constexpr int kF32Consumers = 2;  // consumer warpgroups: 64 vocab rows of a tile each
+
+template <int N>
+__global__ void __launch_bounds__((kF32Consumers + 1) * kWarpgroup, 1)
+head_predict_f32_kernel(const __grid_constant__ CUtensorMap w_map,  // [V, D] f32
+                        const float* __restrict__ feats,            // [B, D]
+                        const float* __restrict__ bias,             // [V]
+                        const int* __restrict__ labels,             // [B]
+                        float* __restrict__ part_mlp,  // [3, n_split, B]: m, l, picked
+                        int* __restrict__ part_arg,    // [n_split, B]
+                        int B, int D, int V, int tiles_per_split, int stages) {
+  constexpr int C = kF32Consumers, NC = C * kWarpgroup;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t raw = smem_addr(smem), base = (raw + 1023) & ~1023u;
+  unsigned char* const sm = smem + (base - raw);
+  const int nk = chunks(D, 2);                       // 64-column atoms of the feats terms
+  const uint32_t T = nk * N * kChunk;                // bytes of one term tile
+  const uint32_t feats_s = base, ring = base + 3 * T;
+  const uint32_t full = ring + stages * kStageBytes, empty = full + 8 * stages;
+  int* const lab = reinterpret_cast<int*>(sm + (empty + 8 * stages - base));
+  const int ns = (D + kF32Cols - 1) / kF32Cols;      // W stages a tile
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * N, split = blockIdx.y, n_split = gridDim.y;
+  const int v_begin = split * tiles_per_split * kBN;
+  const int v_end = min(V, v_begin + tiles_per_split * kBN);
+  const int n_tiles = (v_end - v_begin + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C) {  // the producer warpgroup: one lane issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (warp == 4 * C && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t)
+        for (int s = 0; s < ns; ++s) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes at once
+          mbar_expect_tx(full + 8 * stage, kStageBytes);
+          tma_load_2d(ring + stage * kStageBytes, &w_map, s * kF32Cols, v_begin + t * kBN,
+                      full + 8 * stage);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(232) : "memory");
+  // The CTA's feats rows split into three term tiles (rows past B and
+  // columns past D zero), and their labels (−1 past B).
+  const int c4s = nk * 16;  // float4s a padded row
+  for (int i = tid; i < N * c4s; i += NC) {
+    const int r = i / c4s, c4 = i % c4s;
+    const float4 x = row0 + r < B && 4 * c4 < D
+                         ? *reinterpret_cast<const float4*>(feats + static_cast<size_t>(row0 + r) * D + 4 * c4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint32_t lo[3], hi[3];
+    mpt_tc::split3(x.x, x.y, lo);
+    mpt_tc::split3(x.z, x.w, hi);
+    const uint32_t at = feats_s + swz<N>(r, c4 >> 1) + (c4 & 1) * 8;
+#pragma unroll
+    for (int n = 0; n < 3; ++n) mpt_tc::st_shared_v2(at + n * T, lo[n], hi[n]);
+  }
+  for (int i = tid; i < N; i += NC) lab[i] = row0 + i < B ? labels[row0 + i] : -1;
+  fence_async_smem();
+  named_barrier_sync(1, NC);
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int row = 64 * wg + 16 * (warp & 3) + g;  // this thread's first vocab row of a tile
+  ColState<N> st;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    st.m[q] = -INFINITY;
+    st.l[q] = 0.f;
+    st.pick[q] = 0.f;
+    st.arg[q] = 0;
+  }
+  float acc[N / 2];
+  uint32_t tm[2][3][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int r0 = v_begin + tile * kBN + row;
+    const float b0 = r0 < v_end ? __ldg(bias + r0) : 0.f;
+    const float b1 = r0 + 8 < v_end ? __ldg(bias + r0 + 8) : 0.f;
+    for (int s = 0; s < ns; ++s) {
+      mbar_wait(full + 8 * stage, phase);
+      load_split(sm + (ring - base) + stage * kStageBytes, row, t, tm);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);  // read: the stage goes back at once
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int n = 5; n >= 0; --n)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_rs_kmajor<N>(acc, tm[kk][mpt_tc::pair_a(n)],
+                             kmajor_desc<N>(feats_s + mpt_tc::pair_b(n) * T, 2 * s + kk),
+                             s > 0 || n < 5 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<N / 2>(acc);
+      fence_regs<24>(&tm[0][0][0]);
+    }
+    fold_f32<N>(acc, st, r0, v_end, b0, b1, lab, t);
+  }
+
+  // The eight lanes that share a batch row (lane bits 2-4), then the eight
+  // warps through shared memory (the ring, spent), in warp order.
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      merge_state(st.m[q], st.l[q], st.arg[q], st.pick[q],
+                  __shfl_xor_sync(0xffffffffu, st.m[q], off),
+                  __shfl_xor_sync(0xffffffffu, st.l[q], off),
+                  __shfl_xor_sync(0xffffffffu, st.arg[q], off),
+                  __shfl_xor_sync(0xffffffffu, st.pick[q], off));
+  named_barrier_sync(1, NC);  // every stage is read
+  float* const sm_m = reinterpret_cast<float*>(sm + (ring - base));
+  float* const sm_l = sm_m + 4 * C * N;
+  float* const sm_p = sm_l + 4 * C * N;
+  int* const sm_a = reinterpret_cast<int*>(sm_p + 4 * C * N);
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 2 * j + e, at = warp * N + 8 * j + 2 * t + e;
+        sm_m[at] = st.m[q];
+        sm_l[at] = st.l[q];
+        sm_p[at] = st.pick[q];
+        sm_a[at] = st.arg[q];
+      }
+  }
+  named_barrier_sync(1, NC);
+  if (tid < N && row0 + tid < B) {
+    float m = sm_m[tid], l = sm_l[tid], pick = sm_p[tid];
+    int arg = sm_a[tid];
+    for (int w = 1; w < 4 * C; ++w) {
+      const int at = w * N + tid;
+      merge_state(m, l, arg, pick, sm_m[at], sm_l[at], sm_a[at], sm_p[at]);
+    }
+    const size_t plane = static_cast<size_t>(n_split) * B, o = static_cast<size_t>(split) * B + row0 + tid;
+    part_mlp[o] = m;
+    part_mlp[plane + o] = l;
+    part_mlp[2 * plane + o] = pick;
+    part_arg[o] = arg;
   }
 }
 
@@ -548,6 +860,26 @@ cudaError_t launch_partial(const void* feats, const void* w, const float* bias,
                                   n_split, tiles_per_split, nk, s);
 }
 
+// K4's f32 partial kernel over f32 feats [B, D] and W [V, D]: N batch rows
+// a CTA (f32_rows), W streamed in stages of 128 vocab rows × 32 columns.
+template <int N>
+cudaError_t launch_f32(const float* feats, const float* w, const float* bias, const int* labels,
+                       float* part_mlp, int* part_arg, int B, int D, int V, int n_split,
+                       int tiles_per_split, cudaStream_t s) {
+  const int stages = f32_stages(N, D), bytes = f32_smem_bytes(N, D, stages);
+  CUtensorMap wm;
+  if (!encode_rows(&wm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, V, D, 4, kBN,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+    return cudaErrorNotSupported;
+  cudaError_t err = cudaFuncSetAttribute(head_predict_f32_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + N - 1) / N, n_split);
+  head_predict_f32_kernel<N><<<grid, (kF32Consumers + 1) * kWarpgroup, bytes, s>>>(
+      wm, feats, bias, labels, part_mlp, part_arg, B, D, V, tiles_per_split, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K4's bf16 route: feats bf16 [B, D], w bf16 [V, D] (D % 16 == 0, 16-byte
@@ -567,6 +899,32 @@ extern "C" int mpt_head_predict_bf16(const void* feats, const void* w, const voi
   int* arg = static_cast<int*>(part_arg);
   err = launch_partial<Bf16>(feats, w, static_cast<const float*>(bias), nullptr, lab, mlp, arg, B,
                              D, V, n_split, tiles_per_split, s);
+  if (err != cudaSuccess) return err;
+  return launch_merge(mlp, arg, lab, static_cast<float*>(loss), static_cast<int*>(pred), nullptr,
+                      nullptr, B, n_split, s);
+}
+
+// K4's f32 route: feats f32 [B, D], w f32 [V, D] (D % 16 == 0, 16-byte
+// aligned), bias f32 [V], labels i32 [B] -> loss f32 [B], pred i32 [B].
+// Scratch and split geometry as for mpt_head_predict_bf16, the row tile
+// mpt_head_tc_tile_rows(B, D, 4).
+extern "C" int mpt_head_predict_f32(const void* feats, const void* w, const void* bias,
+                                    const void* labels, void* loss, void* pred, void* part_mlp,
+                                    void* part_arg, int B, int D, int V, int n_split,
+                                    int tiles_per_split, void* stream) {
+  cudaError_t err = check_geometry(B, D, V, n_split, tiles_per_split, kBN);
+  if (err != cudaSuccess) return err;
+  const int N = f32_rows(B, D);
+  if (N == 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const float*>(feats);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* b = static_cast<const float*>(bias);
+  const int* lab = static_cast<const int*>(labels);
+  float* mlp = static_cast<float*>(part_mlp);
+  int* arg = static_cast<int*>(part_arg);
+  err = N == 64 ? launch_f32<64>(f, wf, b, lab, mlp, arg, B, D, V, n_split, tiles_per_split, s)
+                : launch_f32<8>(f, wf, b, lab, mlp, arg, B, D, V, n_split, tiles_per_split, s);
   if (err != cudaSuccess) return err;
   return launch_merge(mlp, arg, lab, static_cast<float*>(loss), static_cast<int*>(pred), nullptr,
                       nullptr, B, n_split, s);
@@ -610,9 +968,10 @@ extern "C" int mpt_head_predict_int8(const void* feats, void* feats_q, const voi
 }
 
 // The tensor-core heads' tile geometry the wrappers plan splits with: rows
-// a CTA for (B, D, element bytes) — 64 or 128, 0 when D is too wide for a
-// resident feats tile — and vocab rows a tile.
+// a CTA for (B, D, element bytes) — bf16 and int8 64 or 128, f32 (4) 8 or
+// 64; 0 when D is too wide for a resident feats tile — and vocab rows a
+// tile.
 extern "C" int mpt_head_tc_tile_rows(int B, int D, int elem_bytes) {
-  return 64 * consumer_groups(B, D, elem_bytes);
+  return elem_bytes == 4 ? f32_rows(B, D) : 64 * consumer_groups(B, D, elem_bytes);
 }
 extern "C" int mpt_head_tc_tile_vocab() { return kBN; }

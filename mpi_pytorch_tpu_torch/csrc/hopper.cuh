@@ -1,6 +1,6 @@
 // Generic Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // the attention kernels (attention_tc.cuh: K8, K9, K10) and the predict
-// heads (head_predict_tc.cu: K4 bf16, K7).
+// heads (head_predict_tc.cu: K4 bf16 and f32, K7).
 //
 // - Shared-memory tiles in the 128-byte swizzle that wgmma's descriptors
 //   read (`swz`), filled by 16-byte `cp.async` copies or by TMA.

@@ -17,7 +17,9 @@ for each direction:
   tensor-core kernel (q·scale, k, v and p split into three bf16 terms,
   each product six exact term-pair products); bf16 with any other D and
   every bf16 inference call (serving, validation) the f32 FFMA kernel,
-  whose sums run in the plain version's order (see :func:`_route`);
+  whose sums run in the plain version's order (see :func:`_route`): per
+  warp 16 whole query rows in 8-row register tiles, the softmax in
+  registers, persistent CTAs reading each head straight into f32 tiles;
 - the backward (TPU ``_bwd_kernel``): recomputes p (normalized before
   use), then Δ, ds = p·(do·vᵀ − Δ), dq = ds·k·scale, dk = dsᵀ·q·scale,
   dv = pᵀ·do — each (batch, head) writes its own gradients, so no
@@ -71,13 +73,16 @@ def _route(dtype: torch.dtype, d: int, train: bool) -> str:
     whether training or not.
 
     Why bf16 inference stays on FFMA: both kernels are within one bf16 ulp of
-    the plain version on every element, but the FFMA kernel sums q·kᵀ in
-    the order of the f32 GEMM the plain path runs, so its scores are the
-    plain path's bits; the tensor cores sum in another order. Served
-    vit_s16 answers then differ from the plain path's on a few more near
-    ties (top-2 gaps ≤ 1.1e-3 of the max, below bf16's resolution): 3–5 of
-    256 on the serving check's seeded images against the FFMA kernel's 2,
-    past its 99 % rule (H100 runs; ``PERF.md`` §6)."""
+    the plain version on every element, but the FFMA kernel takes every sum
+    in one fixed order (each score one fma chain over d ascending on
+    (q·scale, k), l by lane partials and an xor tree, p·v one fma chain over
+    the keys ascending), the order its outputs have kept since it was
+    written, so served answers do not move when its speed does; the tensor
+    cores sum in another order. Served vit_s16 answers then differ from
+    the plain path's on a few more near ties (top-2 gaps ≤ 1.1e-3 of the
+    max, below bf16's resolution): 3–5 of 256 on the serving check's
+    seeded images against the FFMA kernel's 2, past its 99 % rule (H100
+    runs; ``PERF.md`` §6)."""
     route = _build.attention_route(dtype, d)
     return "ffma" if route == "tensor_core" and not train else route
 

@@ -25,9 +25,11 @@ back ``[V, D]`` too.
 On a CUDA tensor :func:`head_predict` launches a kernel or raises: bf16
 feats and W through the wgmma kernel of ``csrc/head_predict_tc.cu``
 (TMA-fed, the softmax and argmax folded in registers), or f32 feats and W
-through the f32 kernel of ``csrc/fused_head_ce.cu`` (plain FFMA, no TF32:
-an f32 model keeps an exact f32 head, as the JAX function's f32 kernel
-does), with f32 bias and int32 labels. On a CPU tensor it runs
+through that file's f32 wgmma kernel (an f32 model keeps an f32 head, as
+the JAX function's f32 kernel does: each f32 product is six exact bf16
+products of three-term splits of feats and W, summed smallest first, the
+arithmetic ``ops/attention_split_numerics.split_product`` writes down;
+no TF32), with f32 bias and int32 labels. On a CPU tensor it runs
 :func:`head_predict_reference`, the plain PyTorch version.
 :func:`fused_head_ce` on a CUDA tensor runs its forward kernel (the bf16
 WMMA partial kernel of ``csrc/fused_head_ce.cu`` with a merge that keeps
@@ -46,7 +48,7 @@ import torch.nn.functional as F
 from mpi_pytorch_tpu_torch.ops import _build
 
 # Launches of head_predict's kernels (one per call on the card): the bf16
-# tensor-core kernel, and the f32 kernel.
+# tensor-core kernel, and the f32 one.
 counter = _build.LaunchCounter()
 counter_f32 = _build.LaunchCounter()
 # Launches of the training op's forward and backward kernels (one per call
@@ -56,8 +58,8 @@ ce_backward_counter = _build.LaunchCounter()
 
 # CTAs to aim for on each SM of an H100 (132 SMs) when choosing the number
 # of vocab splits, so that even batch 1 fills the card: about two for the
-# WMMA kernels (K4's f32 route, K5) and K6; one for the tensor-core heads
-# (K4 bf16, K7), each of which holds most of an SM's shared memory.
+# WMMA kernel (K5) and K6; one for the tensor-core heads (K4 bf16 and f32,
+# K7), each of which holds most of an SM's shared memory.
 _TARGET_CTAS_PER_SM = 2
 _TC_CTAS_PER_SM = 1
 
@@ -106,7 +108,7 @@ def split_geometry(
 
 
 def wmma_geometry(rows: int, vocab: int, num_sms: int) -> tuple[int, int]:
-    """The split geometry of the WMMA head kernels (K4's f32 route, K5)."""
+    """The split geometry of the WMMA head kernel (K5)."""
     lib = _build.load_library()
     return split_geometry(rows, vocab, num_sms, lib.mpt_head_tile_rows(),
                           lib.mpt_head_tile_vocab(), _TARGET_CTAS_PER_SM)
@@ -114,14 +116,14 @@ def wmma_geometry(rows: int, vocab: int, num_sms: int) -> tuple[int, int]:
 
 def tc_geometry(rows: int, d: int, vocab: int, elem_bytes: int, num_sms: int,
                 what: str) -> tuple[int, int]:
-    """The split geometry of the tensor-core heads (K4 bf16, K7) for feats
-    of ``elem_bytes``-byte elements; raises when D is too wide for their
-    resident feats tile."""
+    """The split geometry of the tensor-core heads (K4 bf16 and f32, K7)
+    for feats of ``elem_bytes``-byte elements; raises when D is too wide
+    for their resident feats tile."""
     lib = _build.load_library()
     block_rows = lib.mpt_head_tc_tile_rows(rows, d, elem_bytes)
     if block_rows == 0:
         raise ValueError(
-            f"{what} kernel keeps a 64-row feats tile in shared memory: D={d} is too wide"
+            f"{what} kernel keeps a feats tile in shared memory: D={d} is too wide"
         )
     return split_geometry(rows, vocab, num_sms, block_rows, lib.mpt_head_tc_tile_vocab(),
                           _TC_CTAS_PER_SM)
@@ -180,12 +182,11 @@ def head_predict(
     dev = feats.device
     check_kernel_operands("head_predict", dev, feats=feats, w=w, b=b, labels=labels)
     lib = _build.load_library()
+    n_split, tiles_per_split = tc_geometry(bsz, d, vocab, feats.element_size(),
+                                           _num_sms(dev.index), "head_predict")
     if feats.dtype == torch.bfloat16:
-        n_split, tiles_per_split = tc_geometry(bsz, d, vocab, 2, _num_sms(dev.index),
-                                               "head_predict")
         entry, launches = lib.mpt_head_predict_bf16, counter
     else:
-        n_split, tiles_per_split = wmma_geometry(bsz, vocab, _num_sms(dev.index))
         entry, launches = lib.mpt_head_predict_f32, counter_f32
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
