@@ -23,11 +23,13 @@ Phases (any failure raises and the script exits non-zero):
    boundaries (K4 bf16 and f32 and K7, with one and with two consumer
    warpgroups a CTA), the int8 predict head (K7:
    predictions equal on every row, B = 1, 8, 512, each timed), the heads'
-   two calls bitwise equal, the
-   training cross-entropy head's forward (K5) and backward (K6) at batch
-   128, the tiny-S attention forward (K9) and backward (K10) at vit_s16's
-   128 px shape (and S = 50, 65, 128, causal; the f32 forward also at
-   D = 40, 128; K10 also at D = 32, 128, 40), and the flash forward (K8)
+   two calls bitwise equal, the training cross-entropy head's forward
+   (K5) and backward (K6) at batch 8, 128 and 512 (timed at 128, K6 also
+   kernel by kernel), the plain predict step's top-k on logits with
+   planted ties against a stable descending sort (ROADMAP C4), the tiny-S
+   attention forward (K9) and backward (K10) at vit_s16's 128 px shape
+   (and S = 50, 65, 128, causal; the f32 forward also at D = 40, 128; K10
+   also at D = 32, 128, 40), and the flash forward (K8)
    at its 224 px shape and a longer causal S (f32 also at D = 40, 128) —
    each on its three routes (the bf16 tensor-core kernels, the f32
    tensor-core kernels, the FFMA kernels at bf16 D = 40 and K9's bf16
@@ -145,6 +147,13 @@ VIT_FLOOD = 256
 VIT_GRAD_GAP = 1e-5
 # Adam steps of the training cross-entropy op's path.
 HEAD_STEPS = 5
+# Batches the training cross-entropy op's kernels are checked at: below one
+# 64-row chunk of the backward's first pass, the path's batch, and four
+# 128-row chunks; the timed rows run at TRAIN_BATCH.
+HEAD_CE_BATCHES = (8, TRAIN_BATCH, 512)
+# The plain predict step's top-k on the card (ROADMAP C4): k, and rows of
+# bf16-rounded logits over V classes with planted ties.
+TOPK, TOPK_ROWS = 5, 512
 
 
 def log(obj) -> None:
@@ -209,6 +218,25 @@ def device_ms(fn, iters: int) -> float:
     busy_us = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
                   for e in fullest if e.count)
     return busy_us / 1e3
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """The card's busy time a call of each kernel ``fn`` launches (name cut
+    to 60 characters → ms), from one ``torch.profiler`` trace of ``iters``
+    calls after a short warmup: where a kernel of several launches spends
+    its time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def _ulp_check(got, ref, what: str) -> float:
@@ -670,23 +698,15 @@ def _check_ties(dev, gen, bsz: int, dtype) -> None:
                             "tiles_per_split": tiles_per_split, "rows_equal": bsz}})
 
 
-def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
-    """K5/K6 against ``fused_head_ce_reference`` at B = 128, D = 512,
-    V = 64 500: an f32 W master, bf16 feats, every 7th label −1, a per-row
-    random upstream gradient. Loss rtol 1e-5; dfeats, dW, db within
-    relative L2 2e-3; two backward calls bitwise equal. Then forward and
-    backward timed beside their plain versions and cuBLAS yardsticks (K5:
-    the bf16 logits GEMM; K6: the two gradient GEMMs on a given bf16
-    dlog)."""
-    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, bound_ms
-    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
-
-    bsz = TRAIN_BATCH
-    w = (0.01 * torch.randn(V, D, generator=gen)).to(dev)
-    b = (0.1 * torch.randn(V, generator=gen)).to(dev)
+def _head_ce_case(fh, w, b, bsz: int, gen, dev) -> dict:
+    """One batch of :func:`check_head_ce_train`: bf16 feats, every 7th label
+    −1, one label in V's last (ragged) vocab tile, a random upstream
+    gradient; kernels against the plain version through autograd, and two
+    backward calls bitwise equal."""
     feats = torch.randn(bsz, D, generator=gen).to(dev, torch.bfloat16)
     labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
     labels[::7] = -1
+    labels[1 % bsz] = V - 3
     labels = labels.to(dev)
     g = torch.rand(bsz, generator=gen).to(dev)
     out = {}
@@ -698,22 +718,45 @@ def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     (loss, *grads), (ref_loss, *ref_grads) = out["kernels"], out["plain"]
     if not torch.allclose(loss, ref_loss, rtol=1e-5, atol=0):
-        raise AssertionError(f"head CE loss off by {float((loss - ref_loss).abs().max())}")
+        raise AssertionError(f"head CE B={bsz}: loss off by {float((loss - ref_loss).abs().max())}")
     gaps = {}
     for gname, got, ref in zip(("dfeats", "dW", "db"), grads, ref_grads):
         gaps[gname] = float((got.float() - ref.float()).norm() / ref.float().norm())
         if gaps[gname] > 2e-3:
-            raise AssertionError(f"head CE {gname}: relative L2 gap {gaps[gname]}")
+            raise AssertionError(f"head CE B={bsz} {gname}: relative L2 gap {gaps[gname]}")
+    if bool((grads[0][labels < 0] != 0).any()):
+        raise AssertionError(f"head CE B={bsz}: padding rows got a feats gradient")
     wb = w.to(torch.bfloat16)
     _, m, l = fh._ce_forward(feats, wb, b, labels)
     first = fh._ce_backward(feats, wb, b, labels, m, l, g)
     again = fh._ce_backward(feats, wb, b, labels, m, l, g)
     if not all(torch.equal(x, y) for x, y in zip(first, again)):
-        raise AssertionError("head CE backward: two calls on the same inputs differ")
-    log({"head_ce_train_check": {"batch": bsz, "loss_max_abs_err": float((loss - ref_loss).abs().max()),
-                                 "grad_rel_l2": gaps, "backward_bitwise_repeatable": True}})
+        raise AssertionError(f"head CE B={bsz} backward: two calls on the same inputs differ")
+    loss_err = float((loss - ref_loss).abs().max())
+    grad_err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(grads, ref_grads))
+    log({"head_ce_train_check": {"batch": bsz, "loss_max_abs_err": loss_err, "grad_rel_l2": gaps,
+                                 "grad_max_abs_err": grad_err, "backward_bitwise_repeatable": True}})
+    return {"feats": feats, "wb": wb, "labels": labels, "g": g, "m": m, "l": l,
+            "loss_err": loss_err, "grad_err": grad_err}
 
-    fb = feats.detach()
+
+def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
+    """K5/K6 against ``fused_head_ce_reference`` at D = 512, V = 64 500 and
+    B = 8, 128, 512 (``HEAD_CE_BATCHES``): an f32 W master, bf16 feats,
+    every 7th label −1 and one in the ragged last vocab tile, a per-row
+    random upstream gradient. Loss rtol 1e-5; dfeats, dW, db within
+    relative L2 2e-3; padding rows' dfeats 0; two backward calls bitwise
+    equal. Then forward and backward timed at B = 128 beside their plain
+    versions and cuBLAS yardsticks (K5: the bf16 logits GEMM; K6: the two
+    gradient GEMMs on a given bf16 dlog)."""
+    from mpi_pytorch_tpu_torch.hardware import H100_PEAK_BF16_FLOPS, bound_ms
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+
+    w = (0.01 * torch.randn(V, D, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(V, generator=gen)).to(dev)
+    cases = {bsz: _head_ce_case(fh, w, b, bsz, gen, dev) for bsz in HEAD_CE_BATCHES}
+    case, bsz = cases[TRAIN_BATCH], TRAIN_BATCH
+    fb, wb, labels, g, m, l = (case[k] for k in ("feats", "wb", "labels", "g", "m", "l"))
     dlog = (torch.randn(bsz, V, generator=gen) * 1e-3).to(dev, torch.bfloat16)
     product = 2 * bsz * D * V
     # K5: bf16 feats and W, f32 b, labels read; loss, m, l written. K6: the
@@ -722,27 +765,24 @@ def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
     fwd_moved = 2 * bsz * D + 2 * V * D + 4 * V + 4 * bsz + 12 * bsz
     bwd_moved = 2 * bsz * D + 2 * V * D + 4 * V + 16 * bsz + 4 * V * D + 4 * V + 2 * bsz * D
     rows = []
-    for name, line, moved, n_products, kernel, plain, library, err in (
-        ("head_ce_forward", 71, fwd_moved, 1,
+    for name, line, moved, n_products, source, kernel, plain, library, err in (
+        ("head_ce_forward", 71, fwd_moved, 1, "head_predict_tc.cu",
          lambda: fh._ce_forward(fb, wb, b, labels),
          lambda: fh.fused_head_ce_forward_reference(fb, wb, b, labels),
-         lambda: torch.nn.functional.linear(fb, wb),
-         float((loss - ref_loss).abs().max())),
-        ("head_ce_backward", 109, bwd_moved, 3,
+         lambda: torch.nn.functional.linear(fb, wb), case["loss_err"]),
+        ("head_ce_backward", 109, bwd_moved, 3, "fused_head_ce_bwd.cu",
          lambda: fh._ce_backward(fb, wb, b, labels, m, l, g),
          lambda: fh.fused_head_ce_backward_reference(fb, wb, b, labels, m, l, g),
-         lambda: (dlog.t() @ fb, dlog @ wb),
-         max(float((x.float() - y.float()).abs().max()) for x, y in zip(grads, ref_grads))),
+         lambda: (dlog.t() @ fb, dlog @ wb), case["grad_err"]),
     ):
         bound, by = bound_ms(moved, (n_products * product, H100_PEAK_BF16_FLOPS))
         row = {
-            "name": name, "route": "cuda",
-            "source": "mpi_pytorch_tpu_torch/csrc/" + (
-                "fused_head_ce.cu" if n_products == 1 else "fused_head_ce_bwd.cu"),
+            "name": name, "route": "cuda", "source": "mpi_pytorch_tpu_torch/csrc/" + source,
             "replaces": f"mpi_pytorch_tpu/ops/fused_head_ce.py:{line}",
             "batch": bsz, "max_abs_err": err,
             "kernel_ms": time_ms(kernel, 50),
             "device_ms": device_ms(kernel, 50), "plain_ms": time_ms(plain, 10),
+            "device_ms_by_kernel": device_ms_by_kernel(kernel, 50),
             "bound_ms": bound, "bound_by": by,
             # Yardstick only, never called by the port.
             "library_ms": time_ms(library, 50),
@@ -750,6 +790,63 @@ def check_head_ce_train(dev, gen) -> tuple[dict, dict]:
         log({"kernel_check": row})
         rows.append(row)
     return rows[0], rows[1]
+
+
+def _tied_logits(gen, rows: int) -> torch.Tensor:
+    """bf16-rounded f32 logits [rows, V] from few levels (ties everywhere),
+    with planted rows: the top value held by more than k columns, ties
+    straddling the k-th place, zeros of both signs at the top."""
+    x = torch.randint(-8, 9, (rows, V), generator=gen).float() * 0.375
+    x = (x + torch.randn(rows, V, generator=gen) * (torch.rand(rows, 1, generator=gen) < 0.5))
+    x = x.to(torch.bfloat16).float()
+    top = float(x.max()) + 1
+    x[0, [7, 3, 250, 11, 90, 4, V - 1]] = top
+    x[1, [20, 5]] = top
+    x[1, [30, 1, 200, 150, 77]] = top - 1
+    x[2] = torch.where(torch.arange(V) % 2 == 1, 0.0, -0.0)
+    x[3] = -1.0
+    x[3, [9, 40]] = -0.0
+    x[3, [60, 2]] = 0.0
+    return x
+
+
+def check_topk_ties(dev, gen) -> None:
+    """ROADMAP C4 on the card: the plain predict step (``make_predict_step``
+    with ``topk``, its model here returning fixed bf16-rounded logits with
+    planted ties) must give each row's top k as ``jax.lax.top_k`` orders
+    them — by value descending in its total order of floats (+0.0 above
+    −0.0), equal values by index ascending: a NumPy stable descending
+    argsort over that order, row for row. Column 0 must be the first-index
+    argmax wherever the row's max is not a signed zero. Logs how many rows
+    a bare ``torch.topk`` on the card orders otherwise."""
+    from mpi_pytorch_tpu_torch.evaluate import make_predict_step
+
+    x = _tied_logits(gen, TOPK_ROWS)
+    bits = x.numpy().view(np.int32)
+    order = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits).astype(np.int64)
+    want = np.argsort(-order, axis=-1, kind="stable")[:, :TOPK].astype(np.int32)
+    logits = x.to(dev)
+
+    class Fixed(torch.nn.Module):
+        def forward(self, _):
+            return logits
+
+    images = torch.zeros((TOPK_ROWS, 2, 2, 3), dtype=torch.uint8, device=dev)
+    labels = torch.zeros((TOPK_ROWS,), dtype=torch.int32, device=dev)
+    _, got = make_predict_step(torch.float32, topk=TOPK)(Fixed(), images, labels)
+    _, top1 = make_predict_step(torch.float32)(Fixed(), images, labels)
+    torch.cuda.synchronize()
+    got, top1 = got.cpu().numpy(), top1.cpu().numpy()
+    bad = np.flatnonzero((got != want).any(axis=1))
+    if bad.size:
+        raise AssertionError(f"top-{TOPK} ties: rows {bad[:10].tolist()} give {got[bad[0]].tolist()}, "
+                             f"want {want[bad[0]].tolist()}")
+    signed_zero = (x.amax(dim=-1) == 0).numpy()
+    if not np.array_equal(got[~signed_zero, 0], top1[~signed_zero]):
+        raise AssertionError(f"top-{TOPK} column 0 differs from the argmax")
+    bare = torch.topk(logits, TOPK, dim=-1).indices.cpu().numpy()
+    log({"topk_tie_check": {"rows": TOPK_ROWS, "k": TOPK, "rows_equal": TOPK_ROWS,
+                            "bare_torch_topk_rows_differing": int((bare != want).any(axis=1).sum())}})
 
 
 def _qkv(gen, shape, dev, n: int = 3, dtype=torch.bfloat16):
@@ -1992,6 +2089,7 @@ def main() -> int:
     flash, flash_f32, flash_ffma = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
+    check_topk_ties(dev, gen)
     launches = serve_resnet18(dev)
     stem["launches"], head["launches"] = launches["stem"], launches["head"]
     head_f32["launches"] = serve_resnet18_f32(dev)

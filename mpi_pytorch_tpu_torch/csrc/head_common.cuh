@@ -1,11 +1,12 @@
-// What the heads' two passes share (fused_head_ce.cu: K5;
-// head_predict_tc.cu: K4's bf16 and f32 routes and K7).
+// What the heads' two passes share (head_predict_tc.cu: K4's bf16 and
+// f32 routes, K7 and the training forward K5).
 //
 // Pass 1 (a partial kernel) leaves each vocab split's per-row state in a
 // scratch: part_mlp f32 [3, n_split, B] (the max m, the sum l of exp
 // relative to m, the picked label logit) and part_arg i32 [n_split, B]
-// (the first column attaining m). Pass 2, a merge kernel, finishes the
-// rows (head_merge_kernel, below).
+// (the first column attaining m; not written when no argmax is asked
+// for). Pass 2, a merge kernel, finishes the rows (head_merge_kernel,
+// below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,7 +32,8 @@ inline cudaError_t check_geometry(int B, int D, int V, int n_split, int tiles_pe
 // splits s, s + 32, ... in order: the larger max wins (strict: a lower
 // split keeps a tie), l rescaled to it; then a fixed shuffle tree merges
 // the lanes, equal maxima going to the smaller column (the lower split's).
-// pred may be null (the training forward needs no argmax); m_out and l_out,
+// pred may be null (the training forward needs no argmax: part_arg is then
+// neither read nor needed, and may be null too); m_out and l_out,
 // when given, receive the row's global max and its sum of exp relative to
 // it (the training backward's residuals).
 constexpr int kMergeRows = 8;  // rows (warps) a block
@@ -53,7 +55,7 @@ head_merge_kernel(const float* __restrict__ part_mlp, const int* __restrict__ pa
     if (m > M) {
       l = l * expf(M - m) + ls;
       M = m;
-      arg = part_arg[o];
+      if (pred != nullptr) arg = part_arg[o];
     } else {
       l += ls * expf(m - M);
     }

@@ -2,7 +2,7 @@
 // the softmax cross-entropy and the first-index argmax of
 // logits = feats·Wᵀ + b, without ever storing the [B, V] logits.
 //
-// Replaces two TPU kernels:
+// Replaces three TPU kernels:
 //  - K4, mpi_pytorch_tpu/ops/fused_head_ce.py:313 `_predict_kernel` (with
 //    its epilogue `online_predict_update`, :259), for bf16 feats and W:
 //    `mpt_head_predict_bf16`; for f32 feats and W (an f32 model keeps its
@@ -15,6 +15,12 @@
 //    int8 × int8 sums are exact int32, then float(acc)·scale_v[c] and + b[c]
 //    as two separately rounded f32 operations (__fmul_rn, __fadd_rn: an FMA
 //    would round once and give other bits than the plain version's).
+//  - K5, mpi_pytorch_tpu/ops/fused_head_ce.py:71 `_fwd_kernel`, the forward
+//    of the fused_head_ce training op: `mpt_head_ce_fwd`, K4's bf16 kernel
+//    with no argmax kept (kArg = false: the fold takes the max alone and
+//    the quad shuffles no column), and a merge that also writes the rows'
+//    global (m, l), from which the backward (fused_head_ce_bwd.cu)
+//    recomputes its softmax.
 // Semantics carried over exactly: the argmax is the FIRST column attaining
 // the max (a tie keeps the earlier column within a tile, across tiles,
 // across the lanes of a quad and across splits), loss = log Σ exp(logit −
@@ -67,7 +73,6 @@
 // Determinism: fixed-order sums (k-steps ascending; a thread's columns
 // ascending; fixed shuffle trees; a lane's splits ascending), no atomics:
 // two calls on the same inputs give the same bits.
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -189,11 +194,12 @@ __device__ __forceinline__ void merge_state(float& m, float& l, int& arg, float&
 
 // Fold one tile's accumulators (this thread's rows 16w+g, 16w+g+8 at
 // columns n0 + 8j + 2t + e) into the thread's online state: the max and
-// its first column, then the sum of exp relative to the new max and the
-// label's logit. `cols` holds the tile's bias (and, int8, scale) in shared
-// memory. kRagged: V's last tile, its columns past v_end masked to −inf
-// before the max.
-template <typename Tr, bool kRagged>
+// (kArg) its first column, then the sum of exp relative to the new max and
+// the label's logit. `cols` holds the tile's bias (and, int8, scale) in
+// shared memory. kRagged: V's last tile, its columns past v_end masked to
+// −inf before the max. !kArg (the training forward, K5, which keeps no
+// argmax): the max alone, no column compared or carried.
+template <typename Tr, bool kRagged, bool kArg>
 __device__ __forceinline__ void fold_tile(const typename Tr::Acc* acc, RowState& st, int n0,
                                           int v_end, const int (&lab)[2], const float* cols,
                                           int t) {
@@ -214,14 +220,18 @@ __device__ __forceinline__ void fold_tile(const typename Tr::Acc* acc, RowState&
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float x = logit(j, i, e);
-        const bool up = x > mx[i];  // strict: the first column keeps a tie
-        mx[i] = up ? x : mx[i];
-        ax[i] = up ? c0 + 8 * j + e : ax[i];
+        if constexpr (kArg) {
+          const bool up = x > mx[i];  // strict: the first column keeps a tie
+          mx[i] = up ? x : mx[i];
+          ax[i] = up ? c0 + 8 * j + e : ax[i];
+        } else {
+          mx[i] = fmaxf(mx[i], x);
+        }
       }
   float mL[2], sum[2] = {0.f, 0.f}, pick[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    st.arg[i] = mx[i] > st.m[i] ? ax[i] : st.arg[i];  // strict: an earlier tile keeps a tie
+    if constexpr (kArg) st.arg[i] = mx[i] > st.m[i] ? ax[i] : st.arg[i];  // strict: an earlier tile keeps a tie
     const float mn = fmaxf(st.m[i], mx[i]);
     // mn = −inf: every column of this thread masked so far; l stays 0.
     mL[i] = mn == -INFINITY ? 0.f : mn * kLog2e;
@@ -311,7 +321,7 @@ __device__ __forceinline__ void load_columns(Consumer& cs, int n0, int v_end,
 // The fold of tile n0 (whose columns this thread loaded as its products
 // started): its columns into the warpgroup's buffer (once the previous
 // fold has read it), then the fold.
-template <typename Tr>
+template <typename Tr, bool kArg>
 __device__ __forceinline__ void fold(const typename Tr::Acc* acc, Consumer& cs, int n0, int v_end) {
   const int i = threadIdx.x & (kWarpgroup - 1), wg = threadIdx.x / kWarpgroup;
   named_barrier_sync(1 + wg, kWarpgroup);
@@ -319,9 +329,9 @@ __device__ __forceinline__ void fold(const typename Tr::Acc* acc, Consumer& cs, 
   if constexpr (Tr::kBytes == 1) cs.cols[kBN + i] = cs.scale_col;
   named_barrier_sync(1 + wg, kWarpgroup);
   if (n0 + kBN > v_end)  // V's last tile: CTA-uniform
-    fold_tile<Tr, true>(acc, cs.st, n0, v_end, cs.lab, cs.cols, threadIdx.x & 3);
+    fold_tile<Tr, true, kArg>(acc, cs.st, n0, v_end, cs.lab, cs.cols, threadIdx.x & 3);
   else
-    fold_tile<Tr, false>(acc, cs.st, n0, v_end, cs.lab, cs.cols, threadIdx.x & 3);
+    fold_tile<Tr, false, kArg>(acc, cs.st, n0, v_end, cs.lab, cs.cols, threadIdx.x & 3);
 }
 
 // One vocab tile n0: its products into `acc`, K chunk by chunk through the
@@ -332,7 +342,7 @@ __device__ __forceinline__ void fold(const typename Tr::Acc* acc, Consumer& cs, 
 // an accumulator — a second accumulator set, folded while the next tile's
 // products run, measured no faster on an H100 than this order, with 64
 // registers more.
-template <typename Tr, int C>
+template <typename Tr, int C, bool kArg>
 __device__ __forceinline__ void tile_step(typename Tr::Acc* acc, int n0, const Layout& L, Ring& rg,
                                           int nk, int stages, uint32_t sa, Consumer& cs, int v_end,
                                           const float* __restrict__ bias,
@@ -348,7 +358,7 @@ __device__ __forceinline__ void tile_step(typename Tr::Acc* acc, int n0, const L
   wgmma_wait<0>();
   release(L, rg, 0, stages);
   fence_regs<64>(acc);
-  fold<Tr>(acc, cs, n0, v_end);
+  fold<Tr, kArg>(acc, cs, n0, v_end);
 }
 
 // Registers a thread after setmaxnreg: the producer warpgroup gives most
@@ -358,7 +368,9 @@ __device__ __forceinline__ void tile_step(typename Tr::Acc* acc, int n0, const L
 // runs converged from here on.
 constexpr int kProducerRegs = 40;
 
-template <typename Tr, int C>
+// kArg: keep the first column attaining the max (K4, K7); the training
+// forward K5 keeps none, and part_arg is then not written.
+template <typename Tr, int C, bool kArg>
 __global__ void __launch_bounds__((C + 1) * kWarpgroup, 1)
 head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
                        const __grid_constant__ CUtensorMap w_map,      // [V, D]
@@ -366,7 +378,7 @@ head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
                        const float* __restrict__ scale_v,              // [V] (int8 only)
                        const int* __restrict__ labels,                 // [B]
                        float* __restrict__ part_mlp,  // [3, n_split, B]: m, l, picked
-                       int* __restrict__ part_arg,    // [n_split, B]
+                       int* __restrict__ part_arg,    // [n_split, B] (kArg)
                        int B, int V, int tiles_per_split, int nk, int stages) {
   constexpr int R = 64 * C;                      // feats rows a CTA
   constexpr int kElems = kChunk / Tr::kBytes;    // K elements a chunk
@@ -439,9 +451,10 @@ head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
   Ring rg{0, 0, 0u, 0, 0};
   mbar_wait(L.feats_bar, 0);
   for (int tile = 0; tile < n_tiles; ++tile)
-    tile_step<Tr, C>(acc, v_begin + tile * kBN, L, rg, nk, stages, sa, cs, v_end, bias, scale_v);
+    tile_step<Tr, C, kArg>(acc, v_begin + tile * kBN, L, rg, nk, stages, sa, cs, v_end, bias,
+                           scale_v);
 
-  // The quad's four states, merged (merge_state).
+  // The quad's four states, merged (merge_state; !kArg: no column shuffled).
   RowState& st = cs.st;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -450,7 +463,7 @@ head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
       merge_state(st.m[i], st.l[i], st.arg[i], st.pick[i],
                   __shfl_xor_sync(0xffffffffu, st.m[i], off),
                   __shfl_xor_sync(0xffffffffu, st.l[i], off),
-                  __shfl_xor_sync(0xffffffffu, st.arg[i], off),
+                  kArg ? __shfl_xor_sync(0xffffffffu, st.arg[i], off) : 0,
                   __shfl_xor_sync(0xffffffffu, st.pick[i], off));
   if (t == 0) {
     const size_t plane = static_cast<size_t>(n_split) * B;
@@ -462,7 +475,7 @@ head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
       part_mlp[o] = st.m[i];
       part_mlp[plane + o] = st.l[i];
       part_mlp[2 * plane + o] = st.pick[i];
-      part_arg[o] = st.arg[i];
+      if constexpr (kArg) part_arg[o] = st.arg[i];
     }
   }
 }
@@ -785,63 +798,23 @@ __global__ void quantize_rows_kernel(const T* __restrict__ x, signed char* __res
 }
 
 // ------------------------------------------------------------ host side ---
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
-// library links no libcuda); null when the driver lacks it.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major [rows, cols] tensor of `bytes`-byte elements read in boxes of
-// box_rows × 128 bytes, 128-byte swizzle, out-of-bounds elements zero.
-bool encode_rows(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rows, int cols,
-                 int bytes, int box_rows, CUtensorMapL2promotion promotion) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunk / bytes),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename Tr, int C>
+template <typename Tr, int C, bool kArg>
 cudaError_t launch_c(const CUtensorMap& fm, const CUtensorMap& wm, const float* bias,
                      const float* scale_v, const int* labels, float* part_mlp, int* part_arg,
                      int B, int V, int n_split, int tiles_per_split, int nk, cudaStream_t s) {
   const int stages = ring_stages(C, nk), bytes = smem_bytes(C, nk, stages);
-  cudaError_t err = cudaFuncSetAttribute(head_predict_tc_kernel<Tr, C>,
+  cudaError_t err = cudaFuncSetAttribute(head_predict_tc_kernel<Tr, C, kArg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + 64 * C - 1) / (64 * C), n_split);
-  head_predict_tc_kernel<Tr, C><<<grid, (C + 1) * kWarpgroup, bytes, s>>>(
+  head_predict_tc_kernel<Tr, C, kArg><<<grid, (C + 1) * kWarpgroup, bytes, s>>>(
       fm, wm, bias, scale_v, labels, part_mlp, part_arg, B, V, tiles_per_split, nk, stages);
   return cudaGetLastError();
 }
 
-// The partial kernel over feats [B, D] and W [V, D] of Tr's type.
-template <typename Tr>
+// The partial kernel over feats [B, D] and W [V, D] of Tr's type; kArg as
+// for head_predict_tc_kernel.
+template <typename Tr, bool kArg = true>
 cudaError_t launch_partial(const void* feats, const void* w, const float* bias,
                            const float* scale_v, const int* labels, float* part_mlp,
                            int* part_arg, int B, int D, int V, int n_split, int tiles_per_split,
@@ -854,10 +827,10 @@ cudaError_t launch_partial(const void* feats, const void* w, const float* bias,
       !encode_rows(&wm, Tr::kMap, w, V, D, Tr::kBytes, kBN, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
     return cudaErrorNotSupported;
   const int nk = chunks(D, Tr::kBytes);
-  return C == 2 ? launch_c<Tr, 2>(fm, wm, bias, scale_v, labels, part_mlp, part_arg, B, V,
-                                  n_split, tiles_per_split, nk, s)
-                : launch_c<Tr, 1>(fm, wm, bias, scale_v, labels, part_mlp, part_arg, B, V,
-                                  n_split, tiles_per_split, nk, s);
+  return C == 2 ? launch_c<Tr, 2, kArg>(fm, wm, bias, scale_v, labels, part_mlp, part_arg, B,
+                                        V, n_split, tiles_per_split, nk, s)
+                : launch_c<Tr, 1, kArg>(fm, wm, bias, scale_v, labels, part_mlp, part_arg, B,
+                                        V, n_split, tiles_per_split, nk, s);
 }
 
 // K4's f32 partial kernel over f32 feats [B, D] and W [V, D]: N batch rows
@@ -902,6 +875,28 @@ extern "C" int mpt_head_predict_bf16(const void* feats, const void* w, const voi
   if (err != cudaSuccess) return err;
   return launch_merge(mlp, arg, lab, static_cast<float*>(loss), static_cast<int*>(pred), nullptr,
                       nullptr, B, n_split, s);
+}
+
+// K5, the training cross-entropy forward: feats and w bf16 ([B, D],
+// [V, D], D % 16 == 0, 16-byte aligned), bias f32 [V], labels i32 [B] ->
+// loss, m, l f32 [B]: K4's bf16 partial kernel without its argmax, then the
+// merge, which keeps each row's global max m and sum l for the backward.
+// Scratch part_mlp f32 [3, n_split, B]; the split geometry as for
+// mpt_head_predict_bf16.
+extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bias,
+                               const void* labels, void* loss, void* m, void* l, void* part_mlp,
+                               int B, int D, int V, int n_split, int tiles_per_split,
+                               void* stream) {
+  cudaError_t err = check_geometry(B, D, V, n_split, tiles_per_split, kBN);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lab = static_cast<const int*>(labels);
+  float* mlp = static_cast<float*>(part_mlp);
+  err = launch_partial<Bf16, false>(feats, w, static_cast<const float*>(bias), nullptr, lab, mlp,
+                                    nullptr, B, D, V, n_split, tiles_per_split, s);
+  if (err != cudaSuccess) return err;
+  return launch_merge(mlp, nullptr, lab, static_cast<float*>(loss), nullptr,
+                      static_cast<float*>(m), static_cast<float*>(l), B, n_split, s);
 }
 
 // K4's f32 route: feats f32 [B, D], w f32 [V, D] (D % 16 == 0, 16-byte

@@ -1,6 +1,6 @@
 // Generic Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// the attention kernels (attention_tc.cuh: K8, K9, K10) and the predict
-// heads (head_predict_tc.cu: K4 bf16 and f32, K7).
+// the attention kernels (attention_tc.cuh: K8, K9, K10) and the heads
+// (head_predict_tc.cu: K4 bf16 and f32, K5, K7; fused_head_ce_bwd.cu: K6).
 //
 // - Shared-memory tiles in the 128-byte swizzle that wgmma's descriptors
 //   read (`swz`), filled by 16-byte `cp.async` copies or by TMA.
@@ -8,9 +8,10 @@
 //   fence / commit / wait of its asynchronous products.
 // - mbarriers and the 2-D TMA load that completes on one, for kernels
 //   whose operand strides are fixed for the call (a tensor map is encoded
-//   on the host per call).
+//   on the host per call, `encode_rows`).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -120,6 +121,12 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at named barrier `id` without waiting: the threads that sync on
+// it wait for these arrivals (with theirs, `threads` in all).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ------------------------------------------------------- mbarrier, TMA ---
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -167,6 +174,48 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// ------------------------------------------------------ host: TMA maps ---
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// library links no libcuda); null when the driver lacks it.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major [rows, cols] tensor of `bytes`-byte elements read in boxes of
+// box_rows × 128 bytes, 128-byte swizzle, out-of-bounds elements zero.
+inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rows,
+                        int cols, int bytes, int box_rows, CUtensorMapL2promotion promotion) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace mpt_hopper

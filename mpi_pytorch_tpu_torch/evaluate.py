@@ -6,7 +6,8 @@ One predict step yields both the eval metrics and the per-image
 predictions from the same forward. Two paths:
 
 - plain: the model's logits, recast to f32, then argmax (``topk == 1``)
-  or the top-k class indices, best first;
+  or the top-k class indices, best first, equal logits in index order as
+  ``jax.lax.top_k`` gives them (``ops.losses.topk_indices``);
 - fused (``--fused-head-eval``): the model runs up to the pooled [B, D]
   features (``model.features``; every model's head is ``model.fc``), and
   ``ops.fused_head_ce.head_predict`` streams the head's weights
@@ -39,6 +40,7 @@ from mpi_pytorch_tpu_torch.models.registry import (
     prepare_for_inference,
 )
 from mpi_pytorch_tpu_torch.ops.fused_head_ce import head_predict
+from mpi_pytorch_tpu_torch.ops.losses import topk_indices
 from mpi_pytorch_tpu_torch.ops.quantize import head_predict_int8, int8_head_operands, quantize_model
 from mpi_pytorch_tpu_torch.train.step import COMPUTE_DTYPES, ingest_images, metrics_from_logits
 
@@ -149,7 +151,7 @@ def make_predict_step(
         def predict(model, images, labels):
             logits = model(model_input(images)).float()
             if topk > 1:
-                preds = torch.topk(logits, topk, dim=-1).indices.to(torch.int32)
+                preds = topk_indices(logits, topk)
             else:
                 preds = torch.argmax(logits, dim=-1).to(torch.int32)
             return metrics_from_logits(logits, labels), preds

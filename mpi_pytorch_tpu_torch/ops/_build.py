@@ -61,11 +61,7 @@ SIGNATURES = {
     # tiles_per_split, stream
     "mpt_head_predict_bf16": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
     "mpt_head_predict_f32": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
-    # the WMMA head kernels' tile geometry (K4 f32, K5): rows per CTA,
-    # vocab rows per tile
-    "mpt_head_tile_rows": (),
-    "mpt_head_tile_vocab": (),
-    # the tensor-core heads' (K4 bf16, K7): rows per CTA for (B, D, element
+    # the tensor-core heads' (K4, K5, K7): rows per CTA for (B, D, element
     # bytes), 0 when D is too wide; vocab rows per tile
     "mpt_head_tc_tile_rows": (_I, _I, _I),
     "mpt_head_tc_tile_vocab": (),
@@ -73,16 +69,18 @@ SIGNATURES = {
     # part_mlp, part_arg, B, D, V, n_split, tiles_per_split, act_scale,
     # dtype, stream
     "mpt_head_predict_int8": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _I, _P),
-    # feats, w, bias, labels, loss, m, l, part_mlp, part_arg,
+    # feats, w, bias, labels, loss, m, l, part_mlp,
     # B, D, V, n_split, tiles_per_split, stream
-    "mpt_head_ce_fwd": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
+    "mpt_head_ce_fwd": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
     # feats, w, bias, labels, m, l, g, dlog, dw, db, part, dfeats,
-    # B, D, V, n_split, chunks_per_split, stream
-    "mpt_head_ce_bwd": (_P,) * 12 + (_I, _I, _I, _I, _I, _P),
-    # the backward's tiles: vocab rows, batch rows, D columns
+    # B, D, V, n_ctas, n_split, tiles_per_split, stream
+    "mpt_head_ce_bwd": (_P,) * 12 + (_I, _I, _I, _I, _I, _I, _P),
+    # the backward's tiles: vocab rows, pass 2's batch rows and D columns;
+    # pass 1's batch rows a chunk for (B, D), 0 when D is too wide
     "mpt_head_ce_bwd_tile_vocab": (),
     "mpt_head_ce_bwd_tile_rows": (),
     "mpt_head_ce_bwd_tile_cols": (),
+    "mpt_head_ce_bwd_rows": (_I, _I),
     # the FFMA forwards (bf16): q, k, v, out[, lse], q/k/v strides (sb, ss,
     # sh), B, S, H, D[, block_q, block_k], scale, causal, stream
     "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),

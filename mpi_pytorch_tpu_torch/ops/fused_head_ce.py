@@ -32,10 +32,12 @@ arithmetic ``ops/attention_split_numerics.split_product`` writes down;
 no TF32), with f32 bias and int32 labels. On a CPU tensor it runs
 :func:`head_predict_reference`, the plain PyTorch version.
 :func:`fused_head_ce` on a CUDA tensor runs its forward kernel (the bf16
-WMMA partial kernel of ``csrc/fused_head_ce.cu`` with a merge that keeps
-the rows' max and sum for the backward) and its backward kernels
-(``csrc/fused_head_ce_bwd.cu``); on a CPU tensor the plain forward and
-backward of :func:`fused_head_ce_reference`.
+wgmma kernel of ``csrc/head_predict_tc.cu`` without its argmax, with a
+merge that keeps the rows' max and sum for the backward) and its backward
+kernels (``csrc/fused_head_ce_bwd.cu``: the logits recomputed on wgmma
+vocab × batch, dlog in registers as the A operand of dW, then dfeats as a
+split-K wgmma product); on a CPU tensor the plain forward and backward of
+:func:`fused_head_ce_reference`.
 """
 
 from __future__ import annotations
@@ -57,10 +59,9 @@ ce_forward_counter = _build.LaunchCounter()
 ce_backward_counter = _build.LaunchCounter()
 
 # CTAs to aim for on each SM of an H100 (132 SMs) when choosing the number
-# of vocab splits, so that even batch 1 fills the card: about two for the
-# WMMA kernel (K5) and K6; one for the tensor-core heads (K4 bf16 and f32,
-# K7), each of which holds most of an SM's shared memory.
-_TARGET_CTAS_PER_SM = 2
+# of vocab splits, so that even batch 1 fills the card: one, for every
+# head kernel (K4 bf16 and f32, K5, K6, K7) holds most of an SM's shared
+# memory.
 _TC_CTAS_PER_SM = 1
 
 
@@ -107,18 +108,11 @@ def split_geometry(
     return -(-v_tiles // tiles_per_split), tiles_per_split
 
 
-def wmma_geometry(rows: int, vocab: int, num_sms: int) -> tuple[int, int]:
-    """The split geometry of the WMMA head kernel (K5)."""
-    lib = _build.load_library()
-    return split_geometry(rows, vocab, num_sms, lib.mpt_head_tile_rows(),
-                          lib.mpt_head_tile_vocab(), _TARGET_CTAS_PER_SM)
-
-
 def tc_geometry(rows: int, d: int, vocab: int, elem_bytes: int, num_sms: int,
                 what: str) -> tuple[int, int]:
-    """The split geometry of the tensor-core heads (K4 bf16 and f32, K7)
-    for feats of ``elem_bytes``-byte elements; raises when D is too wide
-    for their resident feats tile."""
+    """The split geometry of the tensor-core heads (K4 bf16 and f32, K5,
+    K7) for feats of ``elem_bytes``-byte elements; raises when D is too
+    wide for their resident feats tile."""
     lib = _build.load_library()
     block_rows = lib.mpt_head_tc_tile_rows(rows, d, elem_bytes)
     if block_rows == 0:
@@ -260,34 +254,49 @@ def _ce_forward(feats, w, b, labels):
     check_kernel_operands("fused_head_ce forward", dev, feats=feats, w=w, b=b, labels=labels)
     bsz, d = feats.shape
     vocab = w.shape[0]
-    n_split, tiles_per_split = wmma_geometry(bsz, vocab, _num_sms(dev.index))
+    n_split, tiles_per_split = tc_geometry(bsz, d, vocab, 2, _num_sms(dev.index),
+                                           "fused_head_ce forward")
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
-    part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
     loss, m, l = (torch.empty((bsz,), dtype=torch.float32, device=dev) for _ in range(3))
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.mpt_head_ce_fwd(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), m.data_ptr(), l.data_ptr(), part_mlp.data_ptr(),
-            part_arg.data_ptr(), bsz, d, vocab, n_split, tiles_per_split, _build.stream(dev),
+            bsz, d, vocab, n_split, tiles_per_split, _build.stream(dev),
         )
     _build.check(code, "fused_head_ce forward")
     ce_forward_counter.add()
     return loss, m, l
 
 
-def backward_geometry(rows: int, d: int, vocab: int, num_sms: int) -> tuple[int, int, int, int, int]:
-    """(Vp, Bp, Dp, n_split, chunks_per_split) of the backward kernels: the
-    padded sizes of their scratch, and enough vocab splits of the dfeats
-    product that its grid holds about ``2 × num_sms`` CTAs, none empty."""
+def backward_plan(rows: int, d: int, vocab: int, num_sms: int, tile_vocab: int,
+                  tile_rows: int, tile_cols: int) -> dict[str, int]:
+    """The backward kernels' geometry for a batch of ``rows`` and D = ``d``:
+    the padded sizes of their scratch — dlogᵀ [vp, bs] (bs: 16-byte rows),
+    the dfeats partials [n_split, bp, dp] — the CTAs of pass 1 (an even
+    share of the vocab tiles each, at most one an SM), and pass 2's vocab
+    splits of ``tiles_per_split`` tiles: as many as keep its grid within
+    one CTA an SM, none empty."""
+    tiles = -(-vocab // tile_vocab)
+    bp, dp = -(-rows // tile_rows) * tile_rows, -(-d // tile_cols) * tile_cols
+    n_ctas = -(-tiles // -(-tiles // min(tiles, num_sms)))
+    want = max(1, _TC_CTAS_PER_SM * num_sms // ((bp // tile_rows) * (dp // tile_cols)))
+    per_split = -(-tiles // min(want, tiles))
+    return {"vp": tiles * tile_vocab, "bs": -(-rows // 8) * 8, "bp": bp, "dp": dp,
+            "n_ctas": n_ctas, "n_split": -(-tiles // per_split), "tiles_per_split": per_split}
+
+
+def backward_geometry(rows: int, d: int, vocab: int, num_sms: int) -> dict[str, int]:
+    """:func:`backward_plan` with the kernels' own tiles; raises when D is
+    too wide for pass 1's resident feats chunk."""
     lib = _build.load_library()
-    bv, br, dc = (lib.mpt_head_ce_bwd_tile_vocab(), lib.mpt_head_ce_bwd_tile_rows(),
-                  lib.mpt_head_ce_bwd_tile_cols())
-    vp, bp, dp = -(-vocab // bv) * bv, -(-rows // br) * br, -(-d // dc) * dc
-    chunks = vp // bv
-    want = max(1, -(-_TARGET_CTAS_PER_SM * num_sms // ((bp // br) * (dp // dc))))
-    per_split = -(-chunks // min(want, chunks))
-    return vp, bp, dp, -(-chunks // per_split), per_split
+    if lib.mpt_head_ce_bwd_rows(rows, d) == 0:
+        raise ValueError(
+            f"fused_head_ce backward kernel keeps a feats chunk in shared memory: D={d} is too wide"
+        )
+    return backward_plan(rows, d, vocab, num_sms, lib.mpt_head_ce_bwd_tile_vocab(),
+                         lib.mpt_head_ce_bwd_tile_rows(), lib.mpt_head_ce_bwd_tile_cols())
 
 
 def _ce_backward(feats, w, b, labels, m, l, g):
@@ -299,9 +308,9 @@ def _ce_backward(feats, w, b, labels, m, l, g):
                           m=m, l=l, g=g)
     bsz, d = feats.shape
     vocab = w.shape[0]
-    vp, bp, dp, n_split, per_split = backward_geometry(bsz, d, vocab, _num_sms(dev.index))
-    dlog = torch.empty((bsz, vp), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((n_split, bp, dp), dtype=torch.float32, device=dev)
+    geo = backward_geometry(bsz, d, vocab, _num_sms(dev.index))
+    dlog = torch.empty((geo["vp"], geo["bs"]), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((geo["n_split"], geo["bp"], geo["dp"]), dtype=torch.float32, device=dev)
     dw = torch.empty((vocab, d), dtype=torch.float32, device=dev)
     db = torch.empty((vocab,), dtype=torch.float32, device=dev)
     dfeats = torch.empty((bsz, d), dtype=torch.bfloat16, device=dev)
@@ -310,8 +319,8 @@ def _ce_backward(feats, w, b, labels, m, l, g):
         code = lib.mpt_head_ce_bwd(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), m.data_ptr(),
             l.data_ptr(), g.data_ptr(), dlog.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            part.data_ptr(), dfeats.data_ptr(), bsz, d, vocab, n_split, per_split,
-            _build.stream(dev),
+            part.data_ptr(), dfeats.data_ptr(), bsz, d, vocab, geo["n_ctas"], geo["n_split"],
+            geo["tiles_per_split"], _build.stream(dev),
         )
     _build.check(code, "fused_head_ce backward")
     ce_backward_counter.add()

@@ -1,6 +1,6 @@
-"""What the design of the tensor-core predict heads decides (K4's bf16 route
-and K7, ``csrc/head_predict_tc.cu``), held on the CPU against the JAX
-package.
+"""What the design of the tensor-core heads decides (K4's bf16 route, K7
+and the training forward K5, ``csrc/head_predict_tc.cu``), held on the CPU
+against the JAX package.
 
 A CUDA kernel cannot run here, so :func:`emulate_tc_head` repeats the
 kernels' order of reduction in torch: vocab splits of whole 128-column
@@ -13,12 +13,16 @@ by a (value, column) shuffle tree in which equal maxima go to the smaller
 column, then the splits merged one warp a row, lane s over splits s,
 s + 32, ... . It is held against the JAX ``head_predict`` and
 ``head_predict_int8`` run as Pallas kernels in interpret mode, with exact
-ties at tile, split, quad-lane and ragged-tile boundaries.
+ties at tile, split, quad-lane and ragged-tile boundaries. K5 runs the same
+fold without the argmax and keeps the merged (m, l) for the backward:
+:func:`emulate_tc_ce_forward` is held against the JAX op's forward
+(``_fwd_kernel``, interpret mode), its loss and its (m, l) residuals.
 
 Tolerances: predictions exact (the ties are exact in both, and no other
 row has a near tie at these seeds); loss rtol 1e-5 with atol 1e-5 (both
 sides sum f32 terms, in different orders, and exp2 of a rounded product
-stands for exp).
+stands for exp); K5's m rtol 1e-6 (the max of f32 sums taken in another
+order), l rtol 1e-5.
 """
 
 import math
@@ -31,6 +35,7 @@ import pytest
 import torch
 
 from mpi_pytorch_tpu.ops import quantize as jqz
+from mpi_pytorch_tpu.ops.fused_head_ce import _fwd_impl as jax_ce_forward
 from mpi_pytorch_tpu.ops.fused_head_ce import head_predict as jax_head_predict
 from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
 from mpi_pytorch_tpu_torch.ops import quantize as qz
@@ -57,8 +62,6 @@ def _constants(source: str) -> dict[str, int]:
 
 TC = _constants("head_predict_tc.cu")
 TC_TILE_VOCAB = TC["kBN"]
-WMMA_TILE_ROWS = _constants("fused_head_ce.cu")["BM"]
-WMMA_TILE_VOCAB = _constants("fused_head_ce.cu")["BN"]
 
 
 def tc_ring_stages(consumers: int, d: int, elem_bytes: int) -> int:
@@ -109,10 +112,10 @@ def _exp_rel(x, m):
     return torch.exp(x - m)
 
 
-def emulate_tc_head(logits: torch.Tensor, labels: torch.Tensor, n_split: int,
-                    tiles_per_split: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(loss, pred) of f32 ``logits`` [B, V] reduced in the tensor-core
-    heads' order (module docstring)."""
+def _tc_reduce(logits: torch.Tensor, labels: torch.Tensor, n_split: int,
+               tiles_per_split: int) -> tuple[torch.Tensor, ...]:
+    """The merged (m, l, arg, picked logit) [B] of f32 ``logits`` [B, V]
+    reduced in the tensor-core heads' order (module docstring)."""
     rows, vocab = logits.shape
     lab = labels.long()
     t = torch.arange(4)
@@ -164,8 +167,28 @@ def emulate_tc_head(logits: torch.Tensor, labels: torch.Tensor, n_split: int,
         o = lanes ^ off
         P = P + P[:, o]
         M, L, A = _merge_pair(M, L, A, M[:, o], L[:, o], A[:, o], _exp_rel)
-    loss = torch.where(labels >= 0, torch.log(L[:, 0]) + M[:, 0] - P[:, 0], torch.zeros(rows))
-    return loss, A[:, 0].to(torch.int32)
+    return M[:, 0], L[:, 0], A[:, 0], P[:, 0]
+
+
+def _ce_loss(m, l, pick, labels):
+    return torch.where(labels >= 0, torch.log(l) + m - pick, torch.zeros_like(m))
+
+
+def emulate_tc_head(logits: torch.Tensor, labels: torch.Tensor, n_split: int,
+                    tiles_per_split: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, pred) of f32 ``logits`` [B, V] reduced in the tensor-core
+    heads' order (module docstring)."""
+    m, l, arg, pick = _tc_reduce(logits, labels, n_split, tiles_per_split)
+    return _ce_loss(m, l, pick, labels), arg.to(torch.int32)
+
+
+def emulate_tc_ce_forward(logits: torch.Tensor, labels: torch.Tensor, n_split: int,
+                          tiles_per_split: int) -> tuple[torch.Tensor, ...]:
+    """K5's (loss, m, l): the same fold and merge with no argmax kept — the
+    kernel's fold takes the max alone, which leaves m, l and the picked
+    logit as they are."""
+    m, l, _, pick = _tc_reduce(logits, labels, n_split, tiles_per_split)
+    return _ce_loss(m, l, pick, labels), m, l
 
 
 # ---------------------------------------------------------------- inputs ---
@@ -253,6 +276,28 @@ def test_int8_fold_order_matches_pallas(rows, num_sms):
     assert pred.numpy()[tied].tolist() == [pairs[r % len(pairs)][0] for r in tied]
 
 
+@pytest.mark.parametrize("num_sms", [132, 3])
+@pytest.mark.parametrize("rows", [1, 8, 70, 128])
+def test_ce_forward_fold_matches_pallas(rows, num_sms):
+    """(a) K5: the bf16 fold over ``tc_geometry``'s splits, no argmax,
+    against the JAX op's Pallas forward (``_fwd_kernel``): the loss and the
+    rows' (m, l) that the backward recomputes its softmax from."""
+    n_split, per_split = tc_geometry(rows, D, 2, V, num_sms)
+    feats, w, b, labels, _ = _inputs(rows, 30 + rows, per_split * TC_TILE_VOCAB)
+    fb, wb = _bf16(feats), _bf16(w)
+    ref_loss, ref_m, ref_l, *_ = jax_ce_forward(
+        jnp.asarray(fb).astype(jnp.bfloat16), jnp.asarray(w.T), jnp.asarray(b),
+        jnp.asarray(labels), True,
+    )
+    logits = (torch.from_numpy(fb).double() @ torch.from_numpy(wb).double().t()).float()
+    logits = logits + torch.from_numpy(b)
+    loss, m, l = emulate_tc_ce_forward(logits, torch.from_numpy(labels), n_split, per_split)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(m.numpy(), np.asarray(ref_m)[:, 0], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(l.numpy(), np.asarray(ref_l)[:, 0], rtol=1e-5, atol=0)
+    assert np.all(loss.numpy()[labels < 0] == 0)
+
+
 def test_quad_tie_goes_to_the_smaller_column():
     """The quad's merge compares (value, column): equal maxima in four
     lanes end at the smallest column whichever lane holds it."""
@@ -292,12 +337,13 @@ def test_tc_tile_rows_follow_shared_memory():
     assert TC["kMinStages"] <= tc_ring_stages(1, 768, 2) <= TC["kMaxStages"]
 
 
-def test_wmma_split_geometry_unchanged():
-    """(b) K5's and K4 f32's geometry: two CTAs an SM, the same splits as
-    before the tensor-core heads came."""
-    got = {rows: fh.split_geometry(rows, 64500, 132, WMMA_TILE_ROWS, WMMA_TILE_VOCAB,
-                                   fh._TARGET_CTAS_PER_SM) for rows in (1, 8, 128, 512)}
-    assert got == {1: (252, 2), 8: (252, 2), 128: (126, 4), 512: (32, 16)}
+def test_ce_forward_split_geometry():
+    """(b) K5's geometry is K4 bf16's (``tc_geometry`` with 2-byte feats):
+    at resnet18's D = 512 and V = 64 500 on 132 SMs, one wave of one CTA an
+    SM, whose consumer warpgroups take 64 rows each."""
+    got = {rows: tc_geometry(rows, 512, 2, 64500, 132) for rows in (1, 8, 128, 512)}
+    assert got == {1: (126, 4), 8: (126, 4), 128: (126, 4), 512: (32, 16)}
+    assert [tc_tile_rows(r, 512, 2) for r in (8, 128, 512)] == [64, 128, 128]
 
 
 def test_int8_epilogue_rounds_twice():
