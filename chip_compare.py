@@ -1,9 +1,10 @@
-"""Hold this checkout's K9 FFMA forward, K4 f32 head and training CE head
-(K5 forward, K6 backward) against another checkout's on one NVIDIA GPU —
-for example the parent commit, unpacked by ``git archive`` into a
-git-ignored directory:
+"""Hold this checkout's K9 FFMA forward, K4 f32 head and bf16 attention at
+a head dim that is not a multiple of 16 (K8 forward, K10 backward) against
+another checkout's on one
+NVIDIA GPU — for example the parent commit, unpacked by ``git archive``
+into a git-ignored directory:
 
-    python3 chip_compare.py PARENT_DIR [--only k9|k4|k5|k6]
+    python3 chip_compare.py PARENT_DIR [--only {k9,k4,k8,k10} ...]
 
 It builds the parent's ``mpi_pytorch_tpu_torch/csrc`` file of each entry
 compared (``PARENT_SOURCES``) with nvcc into ``build/parent_kernels``, in
@@ -20,17 +21,19 @@ through ctypes, then:
 - k4: ``mpt_head_predict_f32`` of both at B = 8, 64, 512, D = 512,
   V = 64 500, each against the plain f32 version (loss rtol 1e-5, argmax
   equal wherever the plain top-2 gap exceeds 1e-5·|max|), timed in turns.
-- k5: ``mpt_head_ce_fwd`` of both at B = 128, D = 512, V = 64 500 (bf16,
-  every 7th label −1): each against the plain forward (loss rtol 1e-5),
-  the largest difference of loss, m and l between the two logged, timed
-  in turns.
-- k6: ``mpt_head_ce_bwd`` of both on the same (m, l, g): dfeats, dW and db
-  each against the plain backward (relative L2 within 2e-3) and between
-  the two (relative L2 and largest difference logged), timed in turns.
+- k8: the parent's FFMA flash forward ``mpt_flash_fwd`` (bf16, blocks of
+  128) against this checkout's ``flash_forward`` (its bf16 tensor-core
+  kernel, zero-padded) at [128, 196, 6, 40]; k10: the parent's FFMA
+  backward ``mpt_attn_small_bwd`` against this checkout's
+  ``attention_small_backward`` at [128, 64, 6, 40]. Each output (and K8's
+  lse) against the plain version (one bf16 ulp, ``chip_smoke._grad_check``
+  for gradients, lse within 1e-5); the largest difference between the two
+  logged — not bitwise: their sums run in other orders; timed in turns.
 
-The parent's entry points take the arguments and scratch of the tree
-before the training head's redesign (``PARENT_SIGNATURES``): K5's WMMA
-kernel with its argmax scratch, K6's three-kernel backward.
+k9 and k4 take this checkout's entry points and signatures. k8 and k10
+build the FFMA attention entries of a tree from before the padded
+tensor-core route, which this checkout no longer has
+(``PARENT_SIGNATURES``), so they run only against such a tree.
 
 Each case prints one JSON line; the last line is ``{"ok": true, ...}``. A
 failed check raises. Exits 2 without a card.
@@ -51,19 +54,21 @@ REPO = Path(__file__).resolve().parent
 # The parent source that carries each compared entry point.
 PARENT_SOURCES = {"k9": ("fused_attention_small.cu", "mpt_attn_small_fwd"),
                   "k4": ("head_predict_tc.cu", "mpt_head_predict_f32"),
-                  "k5": ("fused_head_ce.cu", "mpt_head_ce_fwd"),
-                  "k6": ("fused_head_ce_bwd.cu", "mpt_head_ce_bwd")}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+                  "k8": ("flash_attention.cu", "mpt_flash_fwd"),
+                  "k10": ("fused_attention_small.cu", "mpt_attn_small_bwd")}
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # The parent's argument types where they differ from this checkout's.
 PARENT_SIGNATURES = {
-    # feats, w, bias, labels, loss, m, l, part_mlp, part_arg, B, D, V,
-    # n_split, tiles_per_split, stream
-    "mpt_head_ce_fwd": (_P,) * 9 + (_I,) * 5 + (_P,),
-    # feats, w, bias, labels, m, l, g, dlog, dw, db, part, dfeats, B, D, V,
-    # n_split, chunks_per_split, stream
-    "mpt_head_ce_bwd": (_P,) * 12 + (_I,) * 5 + (_P,),
+    # q, k, v, out, lse, q/k/v strides, B, S, H, D, block_q, block_k,
+    # scale, causal, stream
+    "mpt_flash_fwd": (_P,) * 5 + (_L,) * 3 + (_I,) * 6 + (_F, _I, _P),
+    # q, k, v, dout, dq, dk, dv, q/k/v strides, B, S, H, D, scale, causal,
+    # stream
+    "mpt_attn_small_bwd": (_P,) * 7 + (_L,) * 3 + (_I,) * 4 + (_F, _I, _P),
 }
-CE_BATCH = 128
+# The timed shapes of the K8 and K10 comparisons: vit_s16's at D = 40.
+K8_SHAPE = (128, 196, 6, 40)
+K10_SHAPE = (128, 64, 6, 40)
 V, D = 64500, 512
 K9_CASES = (  # (shape, causal, aligned)
     ((1, 64, 6, 64), False, True), ((8, 64, 6, 64), False, True), ((32, 64, 6, 64), False, True),
@@ -78,7 +83,7 @@ def log(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def start_parent_build(parent: Path, only: str | None) -> tuple[Path, list]:
+def start_parent_build(parent: Path, only: list[str]) -> tuple[Path, list]:
     """nvcc for the parent source of each compared entry, all started at
     once; returns the target library and the (object, process) pairs."""
     from mpi_pytorch_tpu_torch.ops import _build
@@ -87,12 +92,11 @@ def start_parent_build(parent: Path, only: str | None) -> tuple[Path, list]:
     out.mkdir(parents=True, exist_ok=True)
     src = parent / "mpi_pytorch_tpu_torch" / "csrc"
     procs = []
-    target = out / f"libparent_{parent.name}_{only or 'all'}.so"
+    target = out / f"libparent_{parent.name}_{'_'.join(only)}.so"
     if target.exists():  # built by an earlier run of this command
         return target, procs
-    for key, (name, _) in PARENT_SOURCES.items():
-        if only not in (None, key):
-            continue
+    names = {name for key, (name, _) in PARENT_SOURCES.items() if key in only}
+    for name in sorted(names):
         obj = out / f"{parent.name}_{Path(name).stem}.o"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-c", str(src / name), "-o", str(obj)]
         procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -100,7 +104,7 @@ def start_parent_build(parent: Path, only: str | None) -> tuple[Path, list]:
     return target, procs
 
 
-def finish_parent_build(target: Path, procs: list, only: str | None) -> ctypes.CDLL:
+def finish_parent_build(target: Path, procs: list, only: list[str]) -> ctypes.CDLL:
     from mpi_pytorch_tpu_torch.ops import _build
 
     for obj, proc in procs:
@@ -115,10 +119,10 @@ def finish_parent_build(target: Path, procs: list, only: str | None) -> ctypes.C
             raise RuntimeError(f"parent link failed:\n{link.stdout}{link.stderr}")
     lib = ctypes.CDLL(str(target))
     for key, (_, name) in PARENT_SOURCES.items():
-        if only not in (None, key):
+        if key not in only:
             continue
         fn = getattr(lib, name)
-        fn.argtypes = list(PARENT_SIGNATURES.get(name, _build.SIGNATURES[name]))
+        fn.argtypes = list(PARENT_SIGNATURES[name] if name in PARENT_SIGNATURES else _build.SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib
 
@@ -235,119 +239,99 @@ def compare_k4(parent, dev, gen) -> None:
         log({"k4_f32": row})
 
 
-def _ce_inputs(dev, gen):
-    """The training CE head's operands at CE_BATCH: bf16 feats and W, f32
-    bias, int32 labels (every 7th −1, one in V's ragged last tile), f32 g."""
-    w = (0.01 * torch.randn(V, D, generator=gen)).to(dev, torch.bfloat16)
-    b = (0.1 * torch.randn(V, generator=gen)).to(dev)
-    feats = torch.randn(CE_BATCH, D, generator=gen).to(dev, torch.bfloat16)
-    labels = torch.randint(0, V, (CE_BATCH,), generator=gen, dtype=torch.int32)
-    labels[::7] = -1
-    labels[1] = V - 3
-    g = torch.rand(CE_BATCH, generator=gen).to(dev)
-    return feats, w, b, labels.to(dev), g
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
 
 
-def _parent_ce_fwd(lib, feats, w, b, labels):
-    """The parent's K5: its WMMA kernel's split geometry (64-row, 128-column
-    tiles, two CTAs an SM) and scratch."""
-    from mpi_pytorch_tpu_torch.ops import _build
-    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
-
-    dev, (bsz, d), vocab = feats.device, feats.shape, w.shape[0]
-    n_split, per_split = fh.split_geometry(bsz, vocab, fh._num_sms(dev.index), 64, 128, 2)
-    part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
-    part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
-    loss, m, l = (torch.empty((bsz,), dtype=torch.float32, device=dev) for _ in range(3))
-    rc = lib.mpt_head_ce_fwd(feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-                             loss.data_ptr(), m.data_ptr(), l.data_ptr(), part_mlp.data_ptr(),
-                             part_arg.data_ptr(), bsz, d, vocab, n_split, per_split,
-                             _build.stream(dev))
-    _build.check(rc, "parent mpt_head_ce_fwd")
-    return loss, m, l
-
-
-def _parent_ce_bwd(lib, feats, w, b, labels, m, l, g):
-    """The parent's K6: 64-row vocab and batch tiles, 128 D columns, dfeats
-    splits for about two CTAs an SM."""
-    from mpi_pytorch_tpu_torch.ops import _build
-    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
-
-    dev, (bsz, d), vocab = feats.device, feats.shape, w.shape[0]
-    vp, bp, dp = -(-vocab // 64) * 64, -(-bsz // 64) * 64, -(-d // 128) * 128
-    chunks = vp // 64
-    want = max(1, -(-2 * fh._num_sms(dev.index) // ((bp // 64) * (dp // 128))))
-    per_split = -(-chunks // min(want, chunks))
-    n_split = -(-chunks // per_split)
-    dlog = torch.empty((bsz, vp), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((n_split, bp, dp), dtype=torch.float32, device=dev)
-    dw = torch.empty((vocab, d), dtype=torch.float32, device=dev)
-    db = torch.empty((vocab,), dtype=torch.float32, device=dev)
-    dfeats = torch.empty((bsz, d), dtype=torch.bfloat16, device=dev)
-    rc = lib.mpt_head_ce_bwd(feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-                             m.data_ptr(), l.data_ptr(), g.data_ptr(), dlog.data_ptr(),
-                             dw.data_ptr(), db.data_ptr(), part.data_ptr(), dfeats.data_ptr(),
-                             bsz, d, vocab, n_split, per_split, _build.stream(dev))
-    _build.check(rc, "parent mpt_head_ce_bwd")
-    return dfeats, dw, db
-
-
-def _rel_l2(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
-
-
-def compare_k5(parent, dev, gen) -> None:
+def _turns(runs: dict, iters: int) -> dict:
+    """Busy ms of the two runs in turns: parent, this, this, parent."""
     import chip_smoke
-    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
 
-    feats, w, b, labels, _ = _ce_inputs(dev, gen)
-    ref = fh.fused_head_ce_forward_reference(feats, w, b, labels)
-    runs = {"parent": lambda: _parent_ce_fwd(parent, feats, w, b, labels),
-            "this": lambda: fh._ce_forward(feats, w, b, labels)}
-    out, row = {}, {"batch": CE_BATCH}
+    turns = [chip_smoke.device_ms(runs[n], iters) for n in ("parent", "this", "this", "parent")]
+    return {"parent_this_this_parent_ms": turns, "parent_ms": (turns[0] + turns[3]) / 2,
+            "this_ms": (turns[1] + turns[2]) / 2}
+
+
+def _parent_flash(lib, q, k, v):
+    """The parent's FFMA flash forward, blocks of 128 as its wrapper cut
+    them at S = 196."""
+    from mpi_pytorch_tpu_torch.ops import _build
+
+    b, s, h, d = q.shape
+    blk = min(128, max(8, s))
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rc = lib.mpt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                           *q.stride()[:3], b, s, h, d, blk, blk, d**-0.5, 0, _build.stream(q.device))
+    _build.check(rc, "parent mpt_flash_fwd")
+    return out, lse
+
+
+def _parent_small_bwd(lib, q, k, v, do):
+    from mpi_pytorch_tpu_torch.ops import _build
+
+    b, s, h, d = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    rc = lib.mpt_attn_small_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], b, s, h, d, d**-0.5, 0,
+                                _build.stream(q.device))
+    _build.check(rc, "parent mpt_attn_small_bwd")
+    return dq, dk, dv
+
+
+def compare_k8(parent, dev, gen) -> None:
+    import chip_smoke
+    from mpi_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = chip_smoke._qkv(gen, K8_SHAPE, dev)
+    ref, ref_lse = fa.flash_forward_reference(q, k, v)
+    runs = {"parent": lambda: _parent_flash(parent, q, k, v), "this": lambda: fa.flash_forward(q, k, v)}
+    out, row = {}, {"shape": list(K8_SHAPE), "dtype": "bfloat16"}
     for name, fn in runs.items():
         out[name] = fn()
         torch.cuda.synchronize()
-        row[name] = {"loss_max_abs_err": float((out[name][0] - ref[0]).abs().max())}
-        if not torch.allclose(out[name][0], ref[0], rtol=1e-5, atol=0):
-            raise AssertionError(f"K5 {name}: {row[name]}")
-    row["max_abs_diff"] = {k: float((x - y).abs().max())
-                           for k, x, y in zip(("loss", "m", "l"), out["parent"], out["this"])}
-    turns = [chip_smoke.device_ms(runs[n], 50) for n in ("parent", "this", "this", "parent")]
-    row.update(parent_this_this_parent_ms=turns, parent_ms=(turns[0] + turns[3]) / 2,
-               this_ms=(turns[1] + turns[2]) / 2)
-    log({"k5": row})
+        err = chip_smoke._ulp_check(out[name][0], ref, f"K8 {name}")
+        lse_err = _max_diff(out[name][1], ref_lse)
+        if lse_err > 1e-5 + 1e-5 * float(ref_lse.abs().max()):
+            raise AssertionError(f"K8 {name}: lse off by {lse_err}")
+        row[name] = {"max_abs_err_vs_plain": err, "lse_max_abs_err_vs_plain": lse_err}
+    row["between"] = {"bitwise": False, "why": "the trees sum in other orders",
+                      "out_max_abs_diff": _max_diff(out["parent"][0], out["this"][0]),
+                      "out_elements_differing": int((out["parent"][0] != out["this"][0]).sum()),
+                      "lse_max_abs_diff": _max_diff(out["parent"][1], out["this"][1])}
+    row.update(_turns(runs, 20))
+    log({"k8": row})
 
 
-def compare_k6(parent, dev, gen) -> None:
+def compare_k10(parent, dev, gen) -> None:
     import chip_smoke
-    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+    from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
+    from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
 
-    feats, w, b, labels, g = _ce_inputs(dev, gen)
-    _, m, l = fh._ce_forward(feats, w, b, labels)
-    ref = fh.fused_head_ce_backward_reference(feats, w, b, labels, m, l, g)
-    runs = {"parent": lambda: _parent_ce_bwd(parent, feats, w, b, labels, m, l, g),
-            "this": lambda: fh._ce_backward(feats, w, b, labels, m, l, g)}
-    names = ("dfeats", "dW", "db")
-    out, row = {}, {"batch": CE_BATCH}
+    q, k, v, do = chip_smoke._qkv(gen, K10_SHAPE, dev, 4)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    full_attention(*leaves).backward(do.float())
+    runs = {"parent": lambda: _parent_small_bwd(parent, q, k, v, do),
+            "this": lambda: fas.attention_small_backward(q, k, v, do)}
+    names = ("dq", "dk", "dv")
+    out, row = {}, {"shape": list(K10_SHAPE), "dtype": "bfloat16"}
     for name, fn in runs.items():
         out[name] = fn()
         torch.cuda.synchronize()
-        row[name] = {k: _rel_l2(x, y) for k, x, y in zip(names, out[name], ref)}
-        if max(row[name].values()) > 2e-3:
-            raise AssertionError(f"K6 {name}: relative L2 against the plain backward {row[name]}")
-    row["between"] = {k: {"rel_l2": _rel_l2(x, y), "max_abs_diff": float((x.float() - y.float()).abs().max())}
-                      for k, x, y in zip(names, out["this"], out["parent"])}
-    turns = [chip_smoke.device_ms(runs[n], 20) for n in ("parent", "this", "this", "parent")]
-    row.update(parent_this_this_parent_ms=turns, parent_ms=(turns[0] + turns[3]) / 2,
-               this_ms=(turns[1] + turns[2]) / 2)
-    log({"k6": row})
+        row[name] = {f"{g}_max_abs_err_vs_plain": chip_smoke._grad_check(x, leaf.grad, f"K10 {name} {g}")
+                     for g, x, leaf in zip(names, out[name], leaves)}
+    row["between"] = {"bitwise": False, "why": "the trees sum in other orders",
+                      **{f"{g}_max_abs_diff": _max_diff(x, y)
+                         for g, x, y in zip(names, out["parent"], out["this"])}}
+    row.update(_turns(runs, 50))
+    log({"k10": row})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="a checkout whose csrc to compare with")
-    ap.add_argument("--only", choices=tuple(PARENT_SOURCES))
+    ap.add_argument("--only", nargs="+", choices=tuple(PARENT_SOURCES), default=list(PARENT_SOURCES),
+                    help="the comparisons to run (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
@@ -358,20 +342,20 @@ def main() -> int:
     print(card_report().splitlines()[0], flush=True)
     target, procs = start_parent_build(args.parent.resolve(), args.only)
     _build.load_library()
-    log_ptxas(("attn_small_fwd_kernel", "head_predict_f32_kernel", "head_predict_tc_kernel",
-               "ce_bwd"))
+    log_ptxas(("attn_small_fwd_kernel", "head_predict_f32_kernel", "flash_fwd_tc_kernel",
+               "attn_small_bwd_tc_kernel"))
     parent = finish_parent_build(target, procs, args.only)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    if args.only in (None, "k9"):
+    if "k9" in args.only:
         compare_k9(parent, dev, gen)
-    if args.only in (None, "k4"):
+    if "k4" in args.only:
         compare_k4(parent, dev, gen)
-    if args.only in (None, "k5"):
-        compare_k5(parent, dev, gen)
-    if args.only in (None, "k6"):
-        compare_k6(parent, dev, gen)
+    if "k8" in args.only:
+        compare_k8(parent, dev, gen)
+    if "k10" in args.only:
+        compare_k10(parent, dev, gen)
     log({"ok": True, "device": torch.cuda.get_device_name(0)})
     return 0
 

@@ -29,11 +29,14 @@ Phases (any failure raises and the script exits non-zero):
    planted ties against a stable descending sort (ROADMAP C4), the tiny-S
    attention forward (K9) and backward (K10) at vit_s16's 128 px shape
    (and S = 50, 65, 128, causal; the f32 forward also at D = 40, 128; K10
-   also at D = 32, 128, 40), and the flash forward (K8)
-   at its 224 px shape and a longer causal S (f32 also at D = 40, 128) —
-   each on its three routes (the bf16 tensor-core kernels, the f32
-   tensor-core kernels, the FFMA kernels at bf16 D = 40 and K9's bf16
-   inference), each on its route's counter only, two calls bitwise
+   also at D = 32, 128, and in bf16 at the padded head dims D = 40, 36, 8,
+   120, on rows 8-byte and 2-byte aligned, S = 50, 65 and causal), and the
+   flash forward (K8) at its 224 px shape and a longer causal S (f32 also
+   at D = 40, 128; bf16 also at D = 40, 36, 8, 120 and on rows 8-byte and
+   2-byte aligned) — each on its routes (the bf16 tensor-core kernels, at
+   every D % 4 == 0 for K8 and K10, the f32 tensor-core kernels, K9's FFMA
+   kernel for its bf16 inference and its bf16 D = 40), each on its route's
+   counter only, two calls bitwise
    equal; the f32 tensor-core kernels also against float64 attention (and
    its gradients) on their timed inputs, within a limit
    (``attention_split_numerics.F64_REL``) that their six-pair torch
@@ -69,8 +72,8 @@ Phases (any failure raises and the script exits non-zero):
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
-   (K8's tensor-core kernel), each with its launches counted exactly (the
-   FFMA forwards none) and its step-1 loss within 1e-3 of an
+   (K8's tensor-core kernel), each with its launches counted exactly (K9's
+   FFMA forward in validation only) and its step-1 loss within 1e-3 of an
    ``attn_impl="full"`` twin's;
 8. K2/K3 inside the real train step, f32 (TF32 off), same weights and
    batches: against the stem's plain versions, losses, step-1 stem
@@ -1000,10 +1003,10 @@ def _check_k10(fas, full_attention, q, k, v, do, causal: bool, what: str) -> flo
     two launches. Returns the max abs error."""
     from mpi_pytorch_tpu_torch.ops import _build
 
-    counters = {"tensor_core": fas.backward_tc_counter, "tensor_core_f32": fas.backward_tc_f32_counter,
-                "ffma": fas.backward_ffma_counter}
+    counters = {"tc": fas.backward_tc_counter, PADDED_SUFFIX: fas.backward_tc_pad_counter,
+                "f32tc": fas.backward_tc_f32_counter}
     grads = _launch_twice(lambda: fas.attention_small_backward(q, k, v, do, causal), counters,
-                           _build.attention_route(q.dtype, q.shape[-1]), what)
+                           _suffix(_build.attention_route(q.dtype, q.shape[-1]), q.shape[-1]), what)
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
     full_attention(*leaves, causal=causal).backward(do.float())
     check = _grad_check if q.dtype == torch.bfloat16 else _attn_check
@@ -1012,20 +1015,36 @@ def _check_k10(fas, full_attention, q, k, v, do, causal: bool, what: str) -> flo
 
 
 # An attention kernel's route (``_build.attention_route``) → the suffix
-# of its kernel's row and launch count.
+# of its kernel's row and launch count; bf16 head dims that are not a
+# multiple of 16 (the tensor-core kernels zero-padded to the next one) have
+# rows and counters of their own, timed at D = 40.
 ROUTE_SUFFIX = {"tensor_core": "tc", "tensor_core_f32": "f32tc", "ffma": "ffma"}
+PADDED_SUFFIX = "tc_d40"
 
 
-def _launch_twice(fn, counters: dict, route: str, what: str):
+def _suffix(route: str, d: int) -> str:
+    return PADDED_SUFFIX if route == "tensor_core" and d % 16 else ROUTE_SUFFIX[route]
+
+
+def _views(gen, shape, dev, n: int, offset: int):
+    """n bf16 tensors of ``shape`` [B, S, H, D] as views of [B, S, H, D + 4]
+    from column ``offset``: their rows start on 8 bytes (offset 0, rows of
+    D + 4 elements with D % 8 == 4 or 0) or 2 bytes (offset 1)."""
+    d = shape[3]
+    return [t[..., offset:offset + d] for t in _qkv(gen, shape[:3] + (d + 4,), dev, n)]
+
+
+def _launch_twice(fn, counters: dict, key: str, what: str):
     """Two calls of an attention kernel's wrapper, synchronized: the
-    route's counter (and only it) moved by two, and the two results bitwise
-    equal. Returns the first result."""
+    counter under ``key`` (its kernel's suffix, ``_suffix``), and only it,
+    moved by two, and the two results bitwise equal. Returns the first
+    result."""
     before = {name: c.count for name, c in counters.items()}
     out, again = fn(), fn()
     torch.cuda.synchronize()
     moved = {name: c.count - before[name] for name, c in counters.items()}
-    if moved != {name: 2 * (name == route) for name in counters}:
-        raise AssertionError(f"{what}: launches {moved}, want two on {route}")
+    if moved != {name: 2 * (name == key) for name in counters}:
+        raise AssertionError(f"{what}: launches {moved}, want two on {key}")
     pairs = zip(out, again) if isinstance(out, tuple) else ((out, again),)
     if not all(torch.equal(x, y) for x, y in pairs):
         raise AssertionError(f"{what}: two calls on the same inputs differ")
@@ -1048,21 +1067,24 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
     counter only — bf16 (``_grad_check``) and f32 (rtol/atol 2e-5) at D = 64
     and every S, both tensor-core kernels also at D = 128 and the
     envelope's corner S = 128, D = 128, the bf16 one at D = 32, the f32 one
-    at D = 40, and the FFMA kernel at bf16 D = 40. Then each timed beside
+    at D = 40, and the bf16 one at the head dims it takes zero-padded to a
+    multiple of 16 (D = 40, 36, 8, 120; S = 50, 65, 128 and causal at
+    D = 40; q, k, v views whose rows start on 8 bytes, copied in 8-byte
+    pieces, and on 2 bytes, element by element). Then each timed beside
     its plain version and ``scaled_dot_product_attention`` (its backward
     for K10) in the same dtype and shape; the f32 tensor-core rows also
     against float64 (``_f64_check``, ``_f64_grad_check``). Returns the rows
     (K9 tensor-core, K9 f32 tensor-core, K9 FFMA at bf16 inference, K10
-    tensor-core, K10 f32 tensor-core, K10 FFMA at bf16 D = 40)."""
+    tensor-core, K10 f32 tensor-core, K10 tensor-core at bf16 D = 40)."""
     from mpi_pytorch_tpu_torch.ops import _build
     from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
     from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
 
-    counters = {"tensor_core": fas.forward_tc_counter, "tensor_core_f32": fas.forward_tc_f32_counter,
+    counters = {"tc": fas.forward_tc_counter, "f32tc": fas.forward_tc_f32_counter,
                 "ffma": fas.forward_ffma_counter}
     b, s, h, d = ATTN_SMALL_SHAPE
     fwd_err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
-    bwd_err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
+    bwd_err = dict.fromkeys((*ROUTE_SUFFIX.values(), PADDED_SUFFIX), 0.0)
     forwards = ((torch.bfloat16, True, "tensor_core"), (torch.bfloat16, False, "ffma"),
                 (torch.float32, True, "tensor_core_f32"), (torch.float32, False, "tensor_core_f32"))
     cases = [((b, seq, h, d), causal, forwards)
@@ -1081,7 +1103,7 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
             q, k, v = _qkv(gen, shape, dev, 3, dtype)
             what = f"K9 {route} {tag} {str(dtype).removeprefix('torch.')} train={train}"
             out = _launch_twice(lambda: fas.attention_small_forward(q, k, v, causal, train=train),
-                                 counters, route, what)
+                                 counters, ROUTE_SUFFIX[route], what)
             err = _attn_check(out, full_attention(q, k, v, causal=causal), what)
             fwd_err[ROUTE_SUFFIX[route]] = max(fwd_err[ROUTE_SUFFIX[route]], err)
     # The bf16 inference forward's other way in: each head read from device
@@ -1093,25 +1115,44 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
         out = _launch_twice(lambda: fas.attention_small_forward(q, k, v, False, train=False),
                             counters, "ffma", what)
         fwd_err["ffma"] = max(fwd_err["ffma"], _attn_check(out, full_attention(q, k, v), what))
-    bwd_cases = [((b, seq, h, d), causal, dtype)
+    bwd_cases = [((b, seq, h, d), causal, dtype, None)
                  for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True))
                  for dtype in (torch.bfloat16, torch.float32)]
     # The backward's other head dims: the bf16 tensor-core kernel at D = 32
     # and 128 (and S = 128 with D = 128, where its shared memory holds one
     # stage); the f32 one at D = 40 (not a multiple of 16), 128 (two
     # slots, inputs staged again between products) and S = 128 with
-    # D = 128 (193 KB); the FFMA kernel at a bf16 D the tensor cores do not
-    # take.
-    bwd_cases += [((b // 2, s, h, 32), False, torch.bfloat16), ((b // 2, s, h, 128), False, torch.bfloat16),
-                  ((8, 128, h, 128), False, torch.bfloat16), ((b // 2, s, h, 40), False, torch.float32),
-                  ((b // 2, s, h, 128), False, torch.float32), ((8, 128, h, 128), False, torch.float32),
-                  ((b // 2, s, h, 40), False, torch.bfloat16)]
-    for shape, causal, dtype in bwd_cases:
+    # D = 128 (193 KB).
+    bwd_cases += [((b // 2, s, h, 32), False, torch.bfloat16, None),
+                  ((b // 2, s, h, 128), False, torch.bfloat16, None),
+                  ((8, 128, h, 128), False, torch.bfloat16, None),
+                  ((b // 2, s, h, 40), False, torch.float32, None),
+                  ((b // 2, s, h, 128), False, torch.float32, None),
+                  ((8, 128, h, 128), False, torch.float32, None)]
+    # The bf16 tensor-core kernel at head dims that are not a multiple of
+    # 16, zero-padded to the next one: 16-byte rows (D = 40, 8, 120; D = 40
+    # also at S = 50, 65, 128 and causal), 8-byte rows (D = 36, and the
+    # first 40 of 44 columns: q, k, v as views) and 2-byte rows (a view
+    # from column 1).
+    bwd_cases += [((b // 2, seq, h, 40), causal, torch.bfloat16, None)
+                  for seq, causal in ((s, False), (50, False), (65, False), (128, False), (s, True))]
+    bwd_cases += [((b // 2, s, h, 36), False, torch.bfloat16, None),
+                  ((b // 2, s, h, 8), False, torch.bfloat16, None),
+                  ((b // 2, s, h, 120), False, torch.bfloat16, None),
+                  ((8, 128, h, 120), False, torch.bfloat16, None),
+                  ((b // 2, 65, h, 36), True, torch.bfloat16, None),
+                  ((b // 2, s, h, 40), False, torch.bfloat16, 0),
+                  ((b // 2, 65, h, 40), False, torch.bfloat16, 1)]
+    for shape, causal, dtype, offset in bwd_cases:
         route = _build.attention_route(dtype, shape[-1])
-        q, k, v, do = _qkv(gen, shape, dev, 4, dtype)
-        what = f"K10 {route} {list(shape)} {str(dtype).removeprefix('torch.')}{', causal' if causal else ''}"
-        bwd_err[ROUTE_SUFFIX[route]] = max(bwd_err[ROUTE_SUFFIX[route]], _check_k10(
-            fas, full_attention, q, k, v, do, causal, what))
+        if offset is None:
+            q, k, v, do = _qkv(gen, shape, dev, 4, dtype)
+        else:
+            (q, k, v), (do,) = _views(gen, shape, dev, 3, offset), _qkv(gen, shape, dev, 1)
+        what = (f"K10 {route} {list(shape)} {str(dtype).removeprefix('torch.')}"
+                f"{', causal' if causal else ''}{'' if offset is None else f', view from column {offset}'}")
+        key = _suffix(route, shape[-1])
+        bwd_err[key] = max(bwd_err[key], _check_k10(fas, full_attention, q, k, v, do, causal, what))
 
     source = "mpi_pytorch_tpu_torch/csrc/fused_attention_small.cu"
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1134,7 +1175,7 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
                        f32=dtype == torch.float32), 50, 20, f64_gaps=gaps))
     for shape, dtype, suffix in ((ATTN_SMALL_SHAPE, torch.bfloat16, "tc"),
                                  (ATTN_SMALL_SHAPE, torch.float32, "f32tc"),
-                                 ((b, s, h, 40), torch.bfloat16, "ffma")):
+                                 ((b, s, h, 40), torch.bfloat16, PADDED_SUFFIX)):
         q, k, v, do = _qkv(gen, shape, dev, 4, dtype)
         leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
         out_t, dot = sdpa(*leaves), do.transpose(1, 2).contiguous()
@@ -1159,42 +1200,58 @@ def check_attention_small(dev, gen) -> tuple[dict, ...]:
 
 
 def check_flash(dev, gen) -> tuple[dict, ...]:
-    """K8 on its three kernels against its plain version at vit_s16's
-    224 px shape and at a longer causal S: bf16 (the tensor-core route)
-    within one bf16 ulp of ``full_attention``, f32 (the f32 tensor-core
-    route; also at D = 40 and D = 128) within rtol/atol 2e-5
-    (``_attn_check``), and the FFMA kernel at bf16 D = 40, its one route
-    left; the lse within rtol/atol 1e-5 of ``torch.logsumexp`` of the plain
-    scores; each twice, bitwise equal, on its route's counter only. Then
-    each kernel timed beside its plain version and
-    ``scaled_dot_product_attention``, after one ``flash_backward_yardstick``
-    line: the blocked torch backward's busy time beside SDPA's backward
-    and their bound. Returns the rows (tensor-core, f32 tensor-core, FFMA)."""
+    """K8 on its two kernels against its plain version at vit_s16's
+    224 px shape and at a longer causal S: bf16 (the tensor-core route;
+    also zero-padded at D = 40, 36, 8 and 120, at the long causal S with
+    D = 40 and 36, and on q, k, v views whose rows start on 8 bytes and on
+    2 bytes) within one bf16 ulp of ``full_attention``, f32 (the f32
+    tensor-core route; also at D = 40 and D = 128) within rtol/atol 2e-5
+    (``_attn_check``); the lse within rtol/atol 1e-5 of ``torch.logsumexp``
+    of the plain scores; each twice, bitwise equal, on its route's counter
+    only. Then each kernel timed beside its plain version and
+    ``scaled_dot_product_attention`` (bf16 also at D = 40), after one
+    ``flash_backward_yardstick`` line: the blocked torch backward's busy
+    time beside SDPA's backward and their bound. Returns the rows
+    (tensor-core, f32 tensor-core, tensor-core at bf16 D = 40)."""
     from mpi_pytorch_tpu_torch.hardware import bound_ms
+    from mpi_pytorch_tpu_torch.ops import _build
     from mpi_pytorch_tpu_torch.ops import flash_attention as fa
 
-    counters = {"tensor_core": fa.tc_counter, "tensor_core_f32": fa.tc_f32_counter,
-                "ffma": fa.ffma_counter}
+    counters = {"tc": fa.tc_counter, PADDED_SUFFIX: fa.tc_pad_counter, "f32tc": fa.tc_f32_counter}
     b, s, h, d = FLASH_SHAPE
-    ffma_shape = (b, s, h, 40)
-    err = dict.fromkeys(ROUTE_SUFFIX.values(), 0.0)
-    cases = [(shape, causal, dtype, route)
+    padded_shape = (b, s, h, 40)
+    err = dict.fromkeys(("tc", "f32tc", PADDED_SUFFIX), 0.0)
+    cases = [(shape, causal, dtype, None)
              for shape, causal in ((FLASH_SHAPE, False), (FLASH_LONG_SHAPE, True))
-             for dtype, route in ((torch.bfloat16, "tensor_core"), (torch.float32, "tensor_core_f32"))]
-    cases += [((b // 8, s, h, 40), False, torch.float32, "tensor_core_f32"),
-              ((b // 8, s, h, 128), False, torch.float32, "tensor_core_f32"),
-              (ffma_shape, False, torch.bfloat16, "ffma")]
-    for shape, causal, dtype, route in cases:
-        q, k, v = _qkv(gen, shape, dev, 3, dtype)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [((b // 8, s, h, 40), False, torch.float32, None),
+              ((b // 8, s, h, 128), False, torch.float32, None)]
+    # bf16 head dims that are not a multiple of 16, zero-padded to the next
+    # one: 16-byte rows (D = 40, 8, 120), 8-byte rows (D = 36, and the first
+    # 40 of 44 columns as views), 2-byte rows (a view from column 1).
+    long_b, long_s, long_h, _ = FLASH_LONG_SHAPE
+    cases += [(padded_shape, False, torch.bfloat16, None),
+              ((b // 8, s, h, 36), False, torch.bfloat16, None),
+              ((b // 8, s, h, 8), False, torch.bfloat16, None),
+              ((b // 8, s, h, 120), False, torch.bfloat16, None),
+              ((long_b, long_s, long_h, 40), True, torch.bfloat16, None),
+              ((long_b, long_s, long_h, 36), True, torch.bfloat16, None),
+              ((b // 8, s, h, 40), False, torch.bfloat16, 0),
+              ((b // 8, s, h, 36), True, torch.bfloat16, 1)]
+    for shape, causal, dtype, offset in cases:
+        route = _build.attention_route(dtype, shape[-1])
+        q, k, v = _qkv(gen, shape, dev, 3, dtype) if offset is None else _views(gen, shape, dev, 3, offset)
         blk = min(fa.DEFAULT_BLOCK_Q, max(8, shape[1]))
-        tag = f"K8 {route} {list(shape)} {str(dtype).removeprefix('torch.')}{', causal' if causal else ''}"
+        tag = (f"K8 {route} {list(shape)} {str(dtype).removeprefix('torch.')}{', causal' if causal else ''}"
+               f"{'' if offset is None else f', view from column {offset}'}")
+        key = _suffix(route, shape[-1])
         out, lse = _launch_twice(lambda: fa.flash_forward(q, k, v, causal, blk, blk), counters,
-                                  route, tag)
+                                  key, tag)
         ref, ref_lse = fa.flash_forward_reference(q, k, v, causal)
         e = _attn_check(out, ref, tag)
         if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5):
             raise AssertionError(f"{tag} lse: off by {float((lse - ref_lse).abs().max())}")
-        err[ROUTE_SUFFIX[route]] = max(err[ROUTE_SUFFIX[route]], e, float((lse - ref_lse).abs().max()))
+        err[key] = max(err[key], e, float((lse - ref_lse).abs().max()))
     # The yardstick that places a flash backward kernel (no TPU kernel
     # stands behind the blocked backward, so it is no row of the kernels
     # line): the busy time of ``flash_backward`` and of SDPA's backward on
@@ -1220,7 +1277,7 @@ def check_flash(dev, gen) -> tuple[dict, ...]:
     }})
     rows = []
     for shape, dtype, suffix in ((FLASH_SHAPE, torch.bfloat16, "tc"), (FLASH_SHAPE, torch.float32, "f32tc"),
-                                 (ffma_shape, torch.bfloat16, "ffma")):
+                                 (padded_shape, torch.bfloat16, PADDED_SUFFIX)):
         q, k, v = _qkv(gen, shape, dev, 3, dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         gaps = (_f64_check("flash_forward_f32tc", q, k, v, *fa.flash_forward(q, k, v, False))
@@ -1707,8 +1764,9 @@ def train_vit(dev) -> dict:
     train step and every validation batch on their kernels (flash: the
     tensor-core kernel for both; tiny-S: the tensor-core kernel in train
     steps, FFMA in validation), K10's bf16 tensor-core kernel once per
-    block in every train step (its other kernels never), the full runs
-    none; step-1
+    block in every train step (its other kernels never), the kernels
+    zero-padded at a head dim that is not a multiple of 16 never (the
+    heads are 64 wide), the full runs none; step-1
     losses within 1e-3 of the full twin's. Returns every counted kernel's
     launches over the two kernel runs (zero where none)."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
@@ -1720,9 +1778,9 @@ def train_vit(dev) -> dict:
         "attention_small_forward_ffma": fused_attention_small.forward_ffma_counter,
         "attention_small_backward_tc": fused_attention_small.backward_tc_counter,
         "attention_small_backward_f32tc": fused_attention_small.backward_tc_f32_counter,
-        "attention_small_backward_ffma": fused_attention_small.backward_ffma_counter,
         "flash_forward_tc": flash_attention.tc_counter,
-        "flash_forward_ffma": flash_attention.ffma_counter,
+        f"flash_forward_{PADDED_SUFFIX}": flash_attention.tc_pad_counter,
+        f"attention_small_backward_{PADDED_SUFFIX}": fused_attention_small.backward_tc_pad_counter,
         "attention_small_forward_f32tc": fused_attention_small.forward_tc_f32_counter,
         "flash_forward_f32tc": flash_attention.tc_f32_counter,
     }
@@ -1878,7 +1936,7 @@ def vit_step_checks(dev) -> None:
     three ways per configuration: through the kernels (the f32 tensor-core
     forwards and K10's f32 tensor-core kernel, each of which must launch
     once per block in every step; the FFMA and bf16 forwards and K10's
-    bf16 and FFMA kernels never); the same model
+    bf16 kernels, zero-padded or not, never); the same model
     with the kernels' plain versions in their place; and
     ``attn_impl="full"``. Losses rtol 1e-4 both ways; the step-1 gradients
     of ``patch_embed`` and block 0's q, k, v and out projections, kernels
@@ -1925,8 +1983,8 @@ def vit_step_checks(dev) -> None:
         counted = {"flash": {"flash_forward_f32tc": fa.tc_f32_counter},
                    "fused-small": {"attention_small_forward_f32tc": fas.forward_tc_f32_counter,
                                    "attention_small_backward_f32tc": fas.backward_tc_f32_counter}}[attn_impl]
-        idle = (fa.tc_counter, fa.ffma_counter, fas.forward_tc_counter, fas.forward_ffma_counter,
-                fas.backward_tc_counter, fas.backward_ffma_counter)
+        idle = (fa.tc_counter, fa.tc_pad_counter, fas.forward_tc_counter, fas.forward_ffma_counter,
+                fas.backward_tc_counter, fas.backward_tc_pad_counter)
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                         allow_tf32=False):
             for counter in (*counted.values(), *idle):
@@ -2084,9 +2142,9 @@ def main() -> int:
     head = check_head(dev, gen, torch.bfloat16)
     head_f32 = check_head(dev, gen, torch.float32)
     check_head_ties(dev, gen)
-    attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_ffma = (
+    attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_pad = (
         check_attention_small(dev, gen))
-    flash, flash_f32, flash_ffma = check_flash(dev, gen)
+    flash, flash_f32, flash_pad = check_flash(dev, gen)
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
     check_topk_ties(dev, gen)
@@ -2105,11 +2163,10 @@ def main() -> int:
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))
-    # The FFMA attention kernels' one route left in training (bf16 with
-    # D % 16 != 0) is on no path a model runs: their counts stay 0 through
-    # vit_s16's training.
-    for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_ffma, flash,
-                flash_f32, flash_ffma):
+    # The padded rows read 0: vit_s16's heads are 64 wide, and train_vit
+    # fails if its runs launch a padded kernel.
+    for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_pad, flash,
+                flash_f32, flash_pad):
         row["launches"] = vit_launches[row["name"]]
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
@@ -2121,8 +2178,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
-            flash, flash_f32, flash_ffma, attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd,
-            attn_bwd_f32, attn_bwd_ffma)
+            flash, flash_f32, flash_pad, attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd,
+            attn_bwd_f32, attn_bwd_pad)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["device_ms"]

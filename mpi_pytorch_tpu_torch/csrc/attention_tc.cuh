@@ -38,6 +38,15 @@
 // position c ^ (r % 8). Eight threads copy one whole 128-byte row, so a
 // warp's copy touches four full lines of device memory and four rows of
 // shared memory without a bank conflict; the output leaves the same way.
+// K8's and K10's bf16 kernels take any D % 4 == 0 up to 128: each is
+// instantiated per DK = D rounded up to 16 (the k-steps of q·kᵀ and do·vᵀ),
+// with the real D given at run time (or, for D = DK on 16-byte rows, fixed
+// at compile time), and the columns D..DK−1 are zeros written at every
+// load, so they add exact zeros to every product. Rows that start on 8
+// bytes only (D % 8 == 4, or the first D columns of a wider view) are
+// copied in 8-byte pieces, and rows on 2 or 4 bytes element by element
+// (`load_tile`); the output's first D columns leave in 16- or 8-byte
+// pieces (`store_rows`).
 // (With a layout whose copies split rows into half lines, issuing the
 // copies and the stores took most of K9's time on an H100.) No TMA
 // descriptor is encoded per call for operands whose strides change
@@ -105,19 +114,64 @@ __host__ __device__ constexpr int tile_bytes() {
   return R * padded<D>() * 2;
 }
 
-// R rows × D elements of a [.., S, .., D] operand (row stride ss elements,
-// the head dim contiguous, rows 16-byte aligned) into the R-row tile at
-// dst; rows at or past `valid`, and the padding columns, are zero-filled.
-// Eight consecutive threads copy one row: a warp reads four whole 128-byte
-// rows and writes four swizzled rows of shared memory.
-template <int D, int R>
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a, uint32_t b) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b) : "memory");
+}
+
+// How `load_tile` copies an operand's rows: 16-byte pieces where every row
+// starts on 16 bytes (and so D % 8 == 0); 8-byte pieces where the rows
+// start on 8 bytes (D % 8 == 4, or the first D columns of a wider view);
+// else four elements at a time through registers (a view whose rows start
+// on 2 or 4 bytes). The same bf16 values land either way.
+enum RowPieces : int { kPieces16 = 0, kPieces8 = 1, kPiecesElem = 2 };
+
+// The pieces for bf16 operands of head dim D (a multiple of 4) given the
+// bitwise or of their addresses and of their element strides.
+__host__ inline int row_pieces(uintptr_t addresses, long long strides, int D) {
+  const unsigned long long bytes = addresses | (unsigned long long)(2 * strides) | (2u * D);
+  return bytes % 16 == 0 ? kPieces16 : bytes % 8 == 0 ? kPieces8 : kPiecesElem;
+}
+
+// R rows × D elements (D a multiple of 4, at most DK) of a [.., S, .., D]
+// operand (row stride ss elements, the head dim contiguous) into the R-row
+// tile at dst, laid out for the k-steps of DK = D rounded up to 16: rows
+// at or past `valid`, and every column at or past D, are written as zeros
+// at every load, so a reused ring stage or a persistent CTA's next head
+// never keeps a stale value (an Inf or NaN would turn a product with the
+// zero of the other operand into NaN). 16-byte pieces: eight consecutive
+// threads copy one row, so a warp reads four whole 128-byte rows and
+// writes four swizzled rows of shared memory; 8-byte pieces and elements
+// (`pieces`): sixteen threads a row, each piece the half of a swizzled
+// 16-byte chunk.
+template <int DK, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long long ss,
-                                          int valid, int t, int nt) {
-  constexpr int NC = padded<D>() / 8;  // 16-byte chunks a row
-  for (int i = t; i < R * NC; i += nt) {
-    const int r = i / NC, c = i % NC;
-    const bool ok = r < valid && c < D / 8;
-    cp_async16(dst + swz<R>(r, c), ok ? src + r * ss + c * 8 : src, ok);
+                                          int valid, int D, int pieces, int t, int nt) {
+  if (pieces == kPieces16) {
+    constexpr int NC = padded<DK>() / 8;  // 16-byte chunks a row
+    for (int i = t; i < R * NC; i += nt) {
+      const int r = i / NC, c = i % NC;
+      const bool ok = r < valid && c < D / 8;
+      cp_async16(dst + swz<R>(r, c), ok ? src + r * ss + c * 8 : src, ok);
+    }
+    return;
+  }
+  constexpr int NH = padded<DK>() / 4;  // 8-byte halves a row
+  for (int i = t; i < R * NH; i += nt) {
+    const int r = i / NH, c = i % NH;
+    const bool ok = r < valid && c < D / 4;
+    const uint32_t at = dst + swz<R>(r, c >> 1) + (c & 1) * 8;
+    const __nv_bfloat16* from = src + r * ss + c * 4;
+    if (pieces == kPieces8) {
+      cp_async8(at, ok ? from : src, ok);
+    } else {
+      uint32_t lo = 0, hi = 0;
+      if (ok) {
+        const unsigned short* e = reinterpret_cast<const unsigned short*>(from);
+        lo = e[0] | (uint32_t)e[1] << 16;
+        hi = e[2] | (uint32_t)e[3] << 16;
+      }
+      st_shared_v2(at, lo, hi);
+    }
   }
 }
 
@@ -403,20 +457,22 @@ __device__ __forceinline__ void qk_product(float* s, uint32_t sq, uint32_t sk) {
 // `first` of the RQ-row tile at byte `tile` of smem, the fragment's row i
 // divided by f[i] (kDivide: the forward's ÷ l) or times it (the backward's
 // scale), written as bf16 through this warp's 16 rows of that tile (each
-// lane's bf16 pairs land in distinct banks), then read back as 16-byte
-// chunks — eight lanes a 128-byte row — and stored to rows row_base + r
-// (< S) of out, row stride `os`. Only this warp's rows are touched, so a
-// __syncwarp orders the two; a warp that stages twice through the same
-// rows syncs its lanes in between.
-template <int D, int RQ, bool kDivide = true>
+// lane's bf16 pairs land in distinct banks), then the first D columns (D a
+// multiple of 4, at most DK) read back and stored to rows row_base + r
+// (< S) of out, row stride `os`: 16-byte chunks, eight lanes a 128-byte
+// row, where D % 8 == 0 (out's rows then start on 16 bytes), else 8-byte
+// halves. Only this warp's rows are touched, so a __syncwarp orders the
+// two; a warp that stages twice through the same rows syncs its lanes in
+// between.
+template <int DK, int RQ, bool kDivide = true>
 __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile, int first,
                                            const float* o, const float (&f)[2],
-                                           __nv_bfloat16* out, long long os, int row_base, int S) {
-  constexpr int NC = D / 8;  // real 16-byte chunks a row
+                                           __nv_bfloat16* out, long long os, int row_base, int S,
+                                           int D) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < padded<D>() / 8; ++j)
+  for (int j = 0; j < padded<DK>() / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float x0 = o[4 * j + 2 * i], x1 = o[4 * j + 2 * i + 1];
@@ -426,11 +482,26 @@ __device__ __forceinline__ void store_rows(unsigned char* smem, uint32_t tile, i
       *reinterpret_cast<uint32_t*>(smem + at) = bf16x2_bits(v);
     }
   __syncwarp();
-  for (int i = lane; i < 16 * NC; i += 32) {
-    const int r = 16 * warp + i / NC, c = i % NC;
-    if (row_base + r < S)
-      *reinterpret_cast<uint4*>(out + (row_base + r) * os + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + tile + swz<RQ>(first + r, c));
+  // The loops run over DK's pieces (a trip count and divisors known at
+  // compile time) and skip those at or past D.
+  if (D % 8 == 0) {
+    constexpr int NC = DK / 8;  // 16-byte chunks a row
+#pragma unroll
+    for (int i = lane; i < 16 * NC; i += 32) {
+      const int r = 16 * warp + i / NC, c = i % NC;
+      if (row_base + r < S && c < D / 8)
+        *reinterpret_cast<uint4*>(out + (row_base + r) * os + c * 8) =
+            *reinterpret_cast<const uint4*>(smem + tile + swz<RQ>(first + r, c));
+    }
+  } else {
+    constexpr int NH = DK / 4;  // 8-byte halves a row
+#pragma unroll
+    for (int i = lane; i < 16 * NH; i += 32) {
+      const int r = 16 * warp + i / NH, c = i % NH;
+      if (row_base + r < S && c < D / 4)
+        *reinterpret_cast<uint2*>(out + (row_base + r) * os + c * 4) =
+            *reinterpret_cast<const uint2*>(smem + tile + swz<RQ>(first + r, c >> 1) + (c & 1) * 8);
+    }
   }
 }
 
@@ -456,9 +527,6 @@ __device__ __forceinline__ void store_terms(unsigned char* smem, uint32_t tile, 
 }
 
 // ------------------------------------------------------- f32 forwards ---
-__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a, uint32_t b) {
-  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b) : "memory");
-}
 
 // R rows × `cols` f32 values of an operand in device memory (row stride ss
 // floats, rows 16-byte aligned), each times mul, into the three bf16 term

@@ -1,14 +1,14 @@
-// Shared building blocks of the attention kernels (fused_attention_small.cu,
-// flash_attention.cu): f32 shared-memory tiles, a 4×4 register micro-tile
-// product and a warp-per-row softmax (K8's FFMA forward, K10's FFMA
-// backward), and the register tiles of K9's FFMA forward (`small_fwd`).
+// Shared pieces of the attention kernels (fused_attention_small.cu,
+// flash_attention.cu, and the tensor-core tiles of attention_tc.cuh): the
+// mask value, the operands' strides, the shared-memory opt-in, and the
+// register tiles of K9's bf16 FFMA forward (`small_fwd`).
 //
-// Every product here runs as f32 FFMA on the CUDA cores, so the kernels are
-// bounded by their operations (67 TFLOP/s f32 on an H100 SXM), not by their
-// bytes: q·kᵀ and p·v of a whole row set stay in shared memory, and nothing
-// of size S×S reaches device memory. Sums run in a fixed order (the reduction
-// index ascending in each thread, then a fixed shuffle tree), so two calls
-// on the same inputs give the same bits.
+// That forward's products run as f32 FFMA on the CUDA cores, so it is
+// bounded by its operations (67 TFLOP/s f32 on an H100 SXM), not by its
+// bytes: q·kᵀ and p·v of a whole row set stay in shared memory and
+// registers, and nothing of size S×S reaches device memory. Its sums run in
+// a fixed order (the reduction index ascending in each thread, then a fixed
+// shuffle tree), so two calls on the same inputs give the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,7 +16,6 @@
 
 namespace mpt_attn {
 
-constexpr int kThreads = 256;
 // The finite mask value of the TPU kernels: exp(kNeg − m) is exactly 0 for
 // any real row max m, and the online recurrence never sees −inf − −inf.
 constexpr float kNeg = -1e30f;
@@ -27,142 +26,23 @@ struct Strides {
   long long sb, ss, sh;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// An odd leading dimension ≥ n: a warp reading a column of a row-major tile
-// then touches 32 different banks.
-__host__ __device__ __forceinline__ int odd_ld(int n) { return n | 1; }
-
-// rows × d elements of a [.., S, .., D] operand (row stride `ss`, the head
-// dim contiguous) into the f32 tile dst[r · ld + c], each times `mul`.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, long long ss,
-                                          int rows, int d, float mul) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
-    const int r = idx / d, c = idx - r * d;
-    dst[r * ld + c] = to_f32(src[r * ss + c]) * mul;
-  }
-}
-
-// The micro-tile geometry of an X × Y product: thread-tile t covers rows
-// {tx + a·nx} and columns {ty + b·ny}, a, b < 4, with nx = ⌈X/4⌉, ny = ⌈Y/4⌉.
-// Strided, not contiguous: the lanes of a warp take consecutive ty, so they
-// read consecutive (or broadcast) words of either operand layout.
-struct Tiles {
-  int X, Y, nx, ny;
-  __device__ Tiles(int X_, int Y_) : X(X_), Y(Y_), nx((X_ + 3) >> 2), ny((Y_ + 3) >> 2) {}
-  __device__ int count() const { return nx * ny; }
-};
-
-// acc[a][b] = Σ_{r<R} A(x_a, r) · B(y_b, r) for thread-tile t, r ascending.
-// Rows and columns past X, Y are clamped for reading; callers skip them.
-template <typename FA, typename FB>
-__device__ __forceinline__ void micro_mm(const Tiles& g, int t, int R, FA A, FB B,
-                                         float (&acc)[4][4]) {
-  const int tx = t / g.ny, ty = t - tx * g.ny;
-  int xs[4], ys[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    xs[a] = min(tx + a * g.nx, g.X - 1);
-    ys[a] = min(ty + a * g.ny, g.Y - 1);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int r = 0; r < R; ++r) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      av[a] = A(xs[a], r);
-      bv[a] = B(ys[a], r);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-  }
-}
-
-// C[x][y] = Σ_{r<R} A(x, r) · B(y, r) over X × Y, handed to epi(x, y, c):
-// every (x, y) by exactly one thread of the block.
-template <typename FA, typename FB, typename Epi>
-__device__ __forceinline__ void tile_mm(int X, int Y, int R, FA A, FB B, Epi epi) {
-  const Tiles g(X, Y);
-  for (int t = threadIdx.x; t < g.count(); t += blockDim.x) {
-    float acc[4][4];
-    micro_mm(g, t, R, A, B, acc);
-    const int tx = t / g.ny, ty = t - tx * g.ny;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int x = tx + a * g.nx, y = ty + b * g.ny;
-        if (x < X && y < Y) epi(x, y, acc[a][b]);
-      }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Whole-row softmax over cols entries of each of `rows` rows of p (leading
-// dim ld), one warp per row: m = max, p ← exp(s − m), l = Σ p; with
-// `normalize`, p ← p / l as well. l lands in l_out[row].
-__device__ __forceinline__ void row_softmax(float* p, int ld, int rows, int cols, float* l_out,
-                                            bool normalize) {
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < rows; i += nw) {
-    float* row = p + i * ld;
-    float m = kNeg;  // every entry is ≥ kNeg: the same max as from −inf
-    for (int j = lane; j < cols; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < cols; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    if (normalize)
-      for (int j = lane; j < cols; j += 32) row[j] = row[j] / l;
-    if (lane == 0) l_out[i] = l;
-  }
-}
-
 // ------------------------------------------------ the tiny-S forward ---
 // Register tiles of attn_small_fwd_kernel (fused_attention_small.cu), the
-// bf16 FFMA forward. It computes every sum in the order micro_mm,
-// row_softmax and tile_mm take above, so its outputs are their bits; what
-// differs is how operands reach the FMA units. Warp w owns query rows
-// 16w..16w+15; lane (lr = lane / 16, lc = lane % 16) holds rows
-// 16w + 8lr + a, a < 8, so eight rows share each operand load:
+// bf16 FFMA forward. It computes every sum in the order of the one-CTA-a-
+// head kernel it replaced (a score one fmaf chain over r ascending; a row's
+// max and sum over 32 lanes, lane L taking columns L, L + 32, ..., then the
+// xor tree 16, 8, 4, 2, 1; p·v one fmaf chain over the keys ascending), so
+// its outputs are that kernel's bits; what differs is how operands reach
+// the FMA units. Warp w owns query rows 16w..16w+15; lane (lr = lane / 16,
+// lc = lane % 16) holds rows 16w + 8lr + a, a < 8, so eight rows share each
+// operand load:
 //   - scores: columns (keys) lc + 16b, b < NB, from q·scale transposed in
 //     the warp's own tile ([r][16 rows]: two 16-byte loads give the eight
 //     rows' q at one r) and k row-major (one 16-byte load gives a key's k at
 //     four r); each score one fmaf chain over r ascending from 0;
 //   - the softmax in registers: a row lies in the 16 lanes of one lr, and
-//     row_softmax's lane L (columns L, L + 32, ...) is lane lc's even b
-//     (L = lc) or odd b (L = lc + 16), so its partials, and the xor tree
+//     the 32-lane order's lane L (columns L, L + 32, ...) is lane lc's even
+//     b (L = lc) or odd b (L = lc + 16), so its partials, and the xor tree
 //     from 16 down, are formed from the same terms in the same order;
 //   - out: columns 4lc + c + 64h from v row-major (one 16-byte load a key),
 //     p transposed in the warp's tile; one fmaf chain over the keys
@@ -234,7 +114,7 @@ __device__ __forceinline__ void scores(float (&s)[8][NB], const float* qt, const
   }
 }
 
-// Row a's softmax as row_softmax takes it, for query i0 + a: keys at or
+// Row a's softmax in the 32-lane order, for query i0 + a: keys at or
 // past S (and, when causal, past the query) at kNeg; m = the max; s ←
 // expf(s − m); l = lane L's partial over columns L, L + 32, ... ascending,
 // then the xor tree 16, 8, 4, 2, 1. Returns l, the same in all 16 lanes.
@@ -252,7 +132,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][NB], float (&l)[8], i
     }
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float even = 0.f, odd = 0.f;  // lanes lc and lc + 16 of row_softmax
+    float even = 0.f, odd = 0.f;  // lanes lc and lc + 16 of the 32-lane order
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       s[a][b] = expf(s[a][b] - m);

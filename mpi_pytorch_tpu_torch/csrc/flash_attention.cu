@@ -1,12 +1,10 @@
 // Flash attention forward (K8): block-tiled online-softmax attention that
-// writes the output and the f32 logsumexp of every row. Three kernels:
-//   - flash_fwd_tc_kernel, bf16 with D % 16 == 0 and D <= 128: tensor cores
-//     (attention_tc.cuh), the path vit_s16 trains through;
-//   - flash_fwd_tc_f32_kernel, f32 with D % 4 == 0 and D <= 128: tensor
-//     cores on three-term bf16 splits (attention_tc.cuh), the f32 step's;
-//   - flash_fwd_kernel, bf16 with any other D % 4 == 0, D <= 128: f32 FFMA
-//     on the CUDA cores (attention_tiles.cuh), blocks of at most 128
-//     queries and 128 keys as the caller gives them.
+// writes the output and the f32 logsumexp of every row. Two kernels, both
+// on the tensor cores (attention_tc.cuh), both for any D % 4 == 0 up to 128
+// (instantiated per DK = D rounded up to 16, the real D given at run time):
+//   - flash_fwd_tc_kernel, bf16: the path vit_s16 trains through;
+//   - flash_fwd_tc_f32_kernel, f32: on three-term bf16 splits, the f32
+//     step's.
 //
 // Replaces mpi_pytorch_tpu/ops/flash_attention.py:53 `_attn_fwd_kernel`.
 // What it computes, per (batch·head, q-block): over the k-blocks in order,
@@ -39,7 +37,13 @@
 // mask and folds the scale into the exponent's FMA; a last block of at
 // most 16 or 32 real keys takes a narrower product (196 keys leave 4 past
 // 192); the exponential is the hardware's base-2 one. The output leaves
-// through the q tile as 16-byte stores.
+// through the q tile as 16-byte stores. A head dim that is not a multiple
+// of 16 (D = 40: DK = 48) takes DK/16 k-steps of q·kᵀ over zero-padded
+// columns and the same p·v and shared memory as DK's multiple of 64; rows
+// that start on 8 bytes only (D = 36) are copied, and the output stored, in
+// 8-byte pieces. Such a call runs its own instantiation (kNarrow), so a
+// head dim that is a multiple of 16 on 16-byte rows keeps D and the copies
+// fixed at compile time.
 //
 // The f32 tensor-core kernel. The bf16 kernel's tiles, recurrence and fast
 // paths (a narrower last block, no mask or scale on a full block), with
@@ -54,152 +58,16 @@
 // (`stage_terms`), while the other CTA on the SM computes: 97 KB of shared
 // memory for D <= 64 (two CTAs an SM, 128 registers a thread), 193 KB
 // above. The output and lse leave in f32 straight from the fragments.
-//
-// The FFMA kernel. acc stays in registers (4×4 micro-tiles, at most four a
-// thread), m, l and α in shared memory beside the f32 q tile, one k/v tile
-// and the block's scores. Keys past S are left out of the block's sums,
-// where the TPU kernel adds their exact zeros. Bounded by its operations
-// at the f32 peak, it holds bf16 with a head dim the tensor-core kernel
-// does not take.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attention_tc.cuh"
-#include "attention_tiles.cuh"
 
 namespace {
 
-using namespace mpt_attn;
-using bf16 = __nv_bfloat16;
-
-constexpr int kMaxBlock = 128;
-constexpr int kMaxHeadDim = 128;
-// Output micro-tiles a thread may own: ⌈128/4⌉·⌈128/4⌉ / kThreads.
-constexpr int kMaxTiles = (kMaxBlock / 4) * (kMaxHeadDim / 4) / kThreads;
-
-__host__ __device__ inline int flash_smem_floats(int BQ, int BK, int D) {
-  return (BQ + BK) * odd_ld(D) + BQ * odd_ld(BK) + 3 * BQ;
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 Strides st, int H, int S, int D, int BQ, int BK, int n_q, float scale,
-                 int causal) {
-  extern __shared__ float smem[];
-  const int ldd = odd_ld(D), ldk = odd_ld(BK);
-  float* qs = smem;            // q·scale           [BQ][ldd]
-  float* kv = qs + BQ * ldd;   // k, then v         [BK][ldd]
-  float* ps = kv + BK * ldd;   // scores, then p    [BQ][ldk]
-  float* m_s = ps + BQ * ldk;  // running max       [BQ]
-  float* l_s = m_s + BQ;       // running sum       [BQ]
-  float* a_s = l_s + BQ;       // this block's α    [BQ]
-  const int bh = blockIdx.x / n_q, qb = blockIdx.x - bh * n_q;
-  const int b = bh / H, h = bh - b * H;
-  const int q0 = qb * BQ, rows = min(BQ, S - q0);
-  const long long base = b * st.sb + h * st.sh;
-
-  load_rows(qs, ldd, q + base + q0 * st.ss, st.ss, rows, D, scale);
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    m_s[i] = kNeg;
-    l_s[i] = 0.f;
-  }
-  const Tiles og(rows, D);
-  float acc[kMaxTiles][4][4];
-#pragma unroll
-  for (int u = 0; u < kMaxTiles; ++u)
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[u][a][c] = 0.f;
-
-  const int n_k = (S + BK - 1) / BK;
-  for (int kb = 0; kb < n_k; ++kb) {
-    const int k0 = kb * BK, cols = min(BK, S - k0);
-    if (causal && k0 > q0 + rows - 1) break;  // uniform across the CTA
-    __syncthreads();  // the last block's readers of kv and ps are done
-    load_rows(kv, ldd, k + base + k0 * st.ss, st.ss, cols, D, 1.f);
-    __syncthreads();
-    tile_mm(
-        rows, cols, D, [&](int i, int r) { return qs[i * ldd + r]; },
-        [&](int j, int r) { return kv[j * ldd + r]; },
-        [&](int i, int j, float s) {
-          ps[i * ldk + j] = (causal && k0 + j > q0 + i) ? kNeg : s;
-        });
-    __syncthreads();
-    // The online update, one warp per row; v lands in kv meanwhile.
-    {
-      const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-      for (int i = threadIdx.x >> 5; i < rows; i += nw) {
-        float* row = ps + i * ldk;
-        float m_cur = kNeg;
-        for (int j = lane; j < cols; j += 32) m_cur = fmaxf(m_cur, row[j]);
-        m_cur = warp_max(m_cur);
-        const float m_prev = m_s[i];
-        const float m_new = fmaxf(m_prev, m_cur);
-        float l = 0.f;
-        for (int j = lane; j < cols; j += 32) {
-          const float p = expf(row[j] - m_new);
-          row[j] = p;
-          l += p;
-        }
-        l = warp_sum(l);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          a_s[i] = alpha;
-          l_s[i] = alpha * l_s[i] + l;
-          m_s[i] = m_new;
-        }
-      }
-    }
-    load_rows(kv, ldd, v + base + k0 * st.ss, st.ss, cols, D, 1.f);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kMaxTiles; ++u) {
-      const int t = threadIdx.x + u * blockDim.x;
-      if (t < og.count()) {
-        float pv[4][4];
-        micro_mm(
-            og, t, cols, [&](int i, int j) { return ps[i * ldk + j]; },
-            [&](int d, int j) { return kv[j * ldd + d]; }, pv);
-        const int tx = t / og.ny;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float alpha = a_s[min(tx + a * og.nx, rows - 1)];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[u][a][c] = acc[u][a][c] * alpha + pv[a][c];
-        }
-      }
-    }
-  }
-  __syncthreads();  // the last update of m_s and l_s is visible
-
-  bf16* ob = o + ((long long)b * S * H + h) * D + (long long)q0 * H * D;
-  const long long os = (long long)H * D;
-#pragma unroll
-  for (int u = 0; u < kMaxTiles; ++u) {
-    const int t = threadIdx.x + u * blockDim.x;
-    if (t < og.count()) {
-      const int tx = t / og.ny, ty = t - tx * og.ny;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int x = tx + a * og.nx;
-        if (x >= rows) continue;
-        const float l = l_s[x];
-        const float safe_l = l > 0.f ? l : 1.f;  // a fully masked row
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int y = ty + c * og.ny;
-          if (y < D) ob[x * os + y] = from_f32<bf16>(acc[u][a][c] / safe_l);
-        }
-      }
-    }
-  }
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    const float l = l_s[i];
-    lse[(long long)bh * S + q0 + i] = m_s[i] + logf(l > 0.f ? l : 1.f);
-  }
-}
+using mpt_attn::allow_smem;
+using mpt_attn::kNeg;
+using mpt_attn::Strides;
 
 // ------------------------------------------------------ tensor cores ---
 
@@ -208,9 +76,9 @@ constexpr int kTcBlockK = 64;
 
 // Shared memory: the q tile, then two stages of (k, v) blocks, bf16 rows
 // padded to whole 128-byte atoms, plus 1 KB to start the tiles on 1024.
-template <int D>
+template <int DK>
 constexpr int tc_smem_bytes() {
-  return mpt_tc::tile_bytes<D, kTcBlockQ>() + 4 * mpt_tc::tile_bytes<D, kTcBlockK>() + 1024;
+  return mpt_tc::tile_bytes<DK, kTcBlockQ>() + 4 * mpt_tc::tile_bytes<DK, kTcBlockK>() + 1024;
 }
 
 // One k-block of N keys from k0 for this warpgroup's 64 queries: the
@@ -240,15 +108,21 @@ __device__ __forceinline__ void flash_block(float* acc, float (&m)[2], float (&l
   pv_product<D, N, kTcBlockK, F32>(acc, s, sv);
 }
 
-template <int D>
-__global__ void __launch_bounds__(2 * mpt_tc::kWarpgroup, D <= 64 ? 2 : 1)
+// The bf16 kernel at DK (D rounded up to 16). kNarrow: q, k and v's first
+// D columns (d_arg) copied in `pieces_arg` (attention_tc.cuh, `row_pieces`),
+// the rest zeros; else D = DK on 16-byte rows, both fixed at compile time
+// (every model's head dim: the run-time D and the narrow copies measured
+// slower at D = 64 on an H100).
+template <int DK, bool kNarrow>
+__global__ void __launch_bounds__(2 * mpt_tc::kWarpgroup, DK <= 64 ? 2 : 1)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ lse, Strides st, int H, int S, int n_q, float scale,
-                    int causal) {
+                    float* __restrict__ lse, Strides st, int H, int S, int d_arg, int pieces_arg,
+                    int n_q, float scale, int causal) {
   using namespace mpt_tc;
+  const int D = kNarrow ? d_arg : DK, pieces = kNarrow ? pieces_arg : kPieces16;
   constexpr int NT = 2 * kWarpgroup, BQ = kTcBlockQ, BK = kTcBlockK;
-  constexpr uint32_t kTileQ = tile_bytes<D, BQ>(), kTileK = tile_bytes<D, BK>();
+  constexpr uint32_t kTileQ = tile_bytes<DK, BQ>(), kTileK = tile_bytes<DK, BK>();
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t raw = smem_addr(tc_smem), s_q = (raw + 1023) & ~1023u;
   unsigned char* smem = tc_smem + (s_q - raw);
@@ -260,26 +134,26 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const long long base = b * st.sb + h * st.sh;
   const __nv_bfloat16 *kh = k + base, *vh = v + base;
 
-  load_tile<D, BQ>(s_q, q + base + q0 * st.ss, st.ss, S - q0, tid, NT);
-  load_tile<D, BK>(s_kv, kh, st.ss, S, tid, NT);
-  load_tile<D, BK>(s_kv + kTileK, vh, st.ss, S, tid, NT);
+  load_tile<DK, BQ>(s_q, q + base + q0 * st.ss, st.ss, S - q0, D, pieces, tid, NT);
+  load_tile<DK, BK>(s_kv, kh, st.ss, S, D, pieces, tid, NT);
+  load_tile<DK, BK>(s_kv + kTileK, vh, st.ss, S, D, pieces, tid, NT);
   cp_async_commit();
 
   // k-blocks that hold a key at or before the CTA's last query.
   const int n_k = causal ? last_q / BK + 1 : (S + BK - 1) / BK;
   const int row0 = q0 + wg * 64 + warp * 16;  // this warp's first query
   const uint32_t sq = s_q + wg * 64 * 128;     // this warpgroup's q rows
-  float acc[padded<D>() / 2];
+  float acc[padded<DK>() / 2];
 #pragma unroll
-  for (int i = 0; i < padded<D>() / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < padded<DK>() / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
   for (int kb = 0; kb < n_k; ++kb) {
     if (kb + 1 < n_k) {  // the next block into the other stage
       const int k1 = (kb + 1) * BK;
       const uint32_t nxt = s_kv + ((kb + 1) & 1) * 2 * kTileK;
-      load_tile<D, BK>(nxt, kh + k1 * st.ss, st.ss, S - k1, tid, NT);
-      load_tile<D, BK>(nxt + kTileK, vh + k1 * st.ss, st.ss, S - k1, tid, NT);
+      load_tile<DK, BK>(nxt, kh + k1 * st.ss, st.ss, S - k1, D, pieces, tid, NT);
+      load_tile<DK, BK>(nxt + kTileK, vh + k1 * st.ss, st.ss, S - k1, D, pieces, tid, NT);
     }
     cp_async_commit();
     cp_async_wait<1>();  // q and this block have landed
@@ -290,19 +164,19 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     // (S = 196: 4 keys past 192), so padding costs less of the softmax.
     const int k0 = kb * BK, left = S - k0;
     if (left > 32)
-      flash_block<D, 64>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
+      flash_block<DK, 64>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
     else if (left > 16)
-      flash_block<D, 32>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
+      flash_block<DK, 32>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
     else
-      flash_block<D, 16>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
+      flash_block<DK, 16>(acc, m, l, sq, sk, sv, scale, row0, k0, S, causal);
     __syncthreads();  // every reader of this stage is done before it refills
   }
   cp_async_wait<0>();
 
   const float safe_l[2] = {l[0] > 0.f ? l[0] : 1.f, l[1] > 0.f ? l[1] : 1.f};  // fully masked rows
   // The q tile is free (the loop ended on a barrier after the last product).
-  store_rows<D, BQ>(smem, 0, wg * 64, acc, safe_l, o + ((long long)b * S * H + h) * D,
-                    (long long)H * D, q0 + wg * 64, S);
+  store_rows<DK, BQ>(smem, 0, wg * 64, acc, safe_l, o + ((long long)b * S * H + h) * D,
+                     (long long)H * D, q0 + wg * 64, S, D);
   if ((threadIdx.x & 3) == 0) {
     const int g = (threadIdx.x & 31) >> 2;
 #pragma unroll
@@ -313,17 +187,19 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int D>
+template <int DK>
 int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, Strides st, int B,
-              int S, int H, float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = tc_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, bytes);
+              int S, int H, int D, int pieces, float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = tc_smem_bytes<DK>();
+  const auto kernel = D != DK || pieces != mpt_tc::kPieces16 ? flash_fwd_tc_kernel<DK, true>
+                                                             : flash_fwd_tc_kernel<DK, false>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_q = (S + kTcBlockQ - 1) / kTcBlockQ;
-  flash_fwd_tc_kernel<D><<<n_q * B * H, 2 * mpt_tc::kWarpgroup, bytes, stream>>>(
+  kernel<<<n_q * B * H, 2 * mpt_tc::kWarpgroup, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, st, H, S, n_q,
-      scale, causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, st, H, S, D,
+      pieces, n_q, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -414,32 +290,11 @@ int launch_tc_f32(const void* q, const void* k, const void* v, void* o, float* l
 
 }  // namespace
 
-// The FFMA kernel: q, k, v bf16, strided [B, S, H, D] with the strides
-// (sb, ss, sh) in elements and the head dim contiguous, D % 4 == 0 and
-// D <= 128; out contiguous [B, S, H, D] bf16; lse f32 [B·H, S]; blocks of
-// block_q queries and block_k keys (1..128). scale = D^-0.5 as the caller
-// rounds it to f32. Returns cudaGetLastError() (cudaErrorInvalidValue for
-// a block or head dim the kernel does not take).
-extern "C" int mpt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                             long long sb, long long ss, long long sh, int B, int S, int H, int D,
-                             int block_q, int block_k, float scale, int causal, void* stream) {
-  if (block_q < 1 || block_k < 1 || block_q > kMaxBlock || block_k > kMaxBlock ||
-      D > kMaxHeadDim || D % 4)
-    return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * flash_smem_floats(block_q, block_k, D);
-  cudaError_t err = allow_smem(flash_fwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int n_q = (S + block_q - 1) / block_q;
-  flash_fwd_kernel<<<n_q * B * H, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), Strides{sb, ss, sh}, H, S, D, block_q,
-      block_k, n_q, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// The tensor-core kernel: q, k, v bf16, strided [B, S, H, D] as above with
-// every row 16-byte aligned and D % 16 == 0, D <= 128; out contiguous
-// [B, S, H, D] bf16; lse f32 [B·H, S]. Returns cudaGetLastError()
+// The tensor-core kernel: q, k, v bf16, strided [B, S, H, D] with the
+// strides (sb, ss, sh) in elements and the head dim contiguous, D % 4 == 0
+// and D <= 128, rows on any boundary (copied in the widest pieces they
+// allow); out contiguous [B, S, H, D] bf16; lse f32 [B·H, S]. scale =
+// D^-0.5 as the caller rounds it to f32. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for a head dim it does not take).
 extern "C" int mpt_flash_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
                                 long long sb, long long ss, long long sh, int B, int S, int H,
@@ -447,10 +302,14 @@ extern "C" int mpt_flash_fwd_tc(const void* q, const void* k, const void* v, voi
   const Strides st{sb, ss, sh};
   auto s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  switch (D) {
-#define MPT_CASE(d) \
-  case d:           \
-    return launch_tc<d>(q, k, v, out, l, st, B, S, H, scale, causal, s);
+  if (D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  const int pieces = mpt_tc::row_pieces(
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v),
+      sb | ss | sh, D);
+  switch ((D + 15) / 16 * 16) {
+#define MPT_CASE(dk) \
+  case dk:           \
+    return launch_tc<dk>(q, k, v, out, l, st, B, S, H, D, pieces, scale, causal, s);
     MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
     MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
 #undef MPT_CASE

@@ -11,7 +11,7 @@
 //             dk = dsᵀ·q·scale (q unscaled); dv = pᵀ·do.
 // The residuals are q, k and v only: no logsumexp and no saved output.
 //
-// Six kernels:
+// Five kernels:
 //   - attn_small_fwd_tc_kernel, the training forward for bf16 with
 //     D % 16 == 0 and D <= 128: tensor cores (attention_tc.cuh), the path
 //     vit_s16 trains through;
@@ -22,12 +22,10 @@
 //     D % 4 == 0, and every bf16 inference call (ops/fused_attention_small.py
 //     `_route`): f32 FFMA on the CUDA cores, every sum in the order of the
 //     plain f32 path (attention_tiles.cuh, small_fwd);
-//   - attn_small_bwd_tc_kernel, the backward for bf16 with D % 16 == 0 and
-//     D <= 128: tensor cores, the path vit_s16 trains through;
+//   - attn_small_bwd_tc_kernel, the backward for bf16 with any D % 4 == 0
+//     up to 128: tensor cores, the path vit_s16 trains through;
 //   - attn_small_bwd_tc_f32_kernel, the backward for f32 with D % 4 == 0
-//     and D <= 128: tensor cores on three-term bf16 splits;
-//   - attn_small_bwd_kernel, the backward for bf16 with any other
-//     D % 4 == 0: f32 FFMA.
+//     and D <= 128: tensor cores on three-term bf16 splits.
 //
 // The tensor-core forward. Bound on an H100 by its bytes: q, k, v read and
 // out written in bf16, 25.2 MB at vit_s16's 128 px training shape
@@ -91,7 +89,16 @@
 // 89 KB, two CTAs an SM; at S = 128, D = 128 the inputs take 128 KB and
 // the terms 96 KB, so that shape runs with one stage. Each head's dk and dv
 // belong to one CTA: no atomics, fixed-order sums, the same bits on every
-// call.
+// call. Any D % 4 == 0: instantiated per DK = D rounded up to 16, the real D
+// at run time. q, k, v and do land with their columns D..DK−1 (and the rest
+// of each 64-element row) zero at every load of a stage, so s = q·kᵀ and
+// dp = do·vᵀ over DK/16 k-steps are the products over D, Δ and ds with
+// them; dv, dq and dk come out zero in those columns and only their first
+// D columns are stored. Rows that start on 8 bytes only (D = 36) are
+// copied, and the gradients stored, in 8-byte pieces. Shared memory is
+// DK's multiple of 64's (D = 40 takes D = 64's 89 KB). Such a call runs its
+// own instantiation (kNarrow), so a head dim that is a multiple of 16 on
+// 16-byte rows keeps D fixed at compile time.
 //
 // The f32 tensor-core backward. The bf16 backward's warpgroups, whole-row
 // softmax, Δ = Σ_j p·dp and transposed p and ds terms, with every product
@@ -118,10 +125,10 @@
 // validation), whose answers are held to the plain path's, so each of its
 // sums runs in one fixed order: a score is one fmaf chain over d ascending
 // from 0 on (q·scale rounded to f32, k); m the row's max; p = expf(s − m);
-// l summed as row_softmax sums it (lane L over columns L, L + 32, ..., then
+// l summed by a warp of 32 lanes (lane L over columns L, L + 32, ..., then
 // the xor tree 16 … 1); p·v one fmaf chain over the keys ascending; ÷ l,
 // then rounded to bf16. Its outputs are the bits of the one-CTA-a-head
-// kernel it replaced, whose tile_mm and row_softmax took those orders.
+// kernel it replaced, which took those orders.
 // Bound on an H100 by its FFMA: 805 MFLOP at [128, 64, 6, 64], 12.0 us at
 // 67 TFLOP/s (its bytes take 7.5 us). So the design feeds the FMA units:
 //   - register micro-tiles of 8 rows by 4 (S <= 64) or 8 keys, and 8 rows
@@ -130,26 +137,20 @@
 //     outputs, never several r for one sum: q·scale transposed and p
 //     transposed in each warp's own tile, k and v row-major in f32 tiles
 //     (small_fwd in attention_tiles.cuh): 12 loads for 128 FFMA in the
-//     scores and 3 for 32 in p·v, against micro_mm's 8 scalar loads for 16;
+//     scores and 3 for 32 in p·v, against 8 scalar loads for 16 of a 4×4
+//     tile of threads;
 //   - a warp owns 16 whole query rows, so the softmax runs in registers
-//     with row_softmax's lane partials and tree, and p only passes through
+//     with those lane partials and that tree, and p only passes through
 //     the warp's own tile (no barrier of the CTA);
 //   - persistent CTAs (four or eight warps) walk an even share of the
 //     heads, each head's bf16 q, k and v read from device memory in
 //     16-byte pieces straight into the f32 tiles (exact for k and v;
-//     q·scale rounds as load_rows rounds it): 49 KB at vit_s16's shape,
+//     q·scale one f32 product): 49 KB at vit_s16's shape,
 //     four CTAs an SM, whose reads and products overlap each other's. (A
 //     cp.async stage of the next head, converted from shared memory,
 //     measured slower on an H100: its 24 KB cost a CTA an SM.) Rows that
 //     are not 16-byte aligned are read one element at a time;
 //   - out rows leave through the warp's tile as 16-byte stores.
-//
-// The FFMA backward. One CTA per (batch, head) owns the whole row set in
-// shared memory (three f32 tiles: two [S][D] and the [S][S] scores), so the
-// score tensor and the softmax chain never touch device memory, and each
-// CTA writes its own dq, dk, dv: no atomics, deterministic. Bounded by its
-// operations at the f32 peak; it holds bf16 with a head dim the
-// tensor-core kernels do not take.
 //
 // The TPU kernel's bh-grouping (several heads stacked into one MXU tile
 // with −1e30 cross-head blocks) and its sublane padding of S exist for the
@@ -167,14 +168,9 @@ namespace {
 using namespace mpt_attn;
 using mpt_tc::kMaxSmem;
 using mpt_tc::padded;
+using mpt_tc::kPieces16;
 using mpt_tc::tile_bytes;
 using bf16 = __nv_bfloat16;
-
-// Floats of dynamic shared memory: two [S][D] tiles, the [S][S] scores and
-// one [S] vector.
-__host__ __device__ inline int small_smem_floats(int S, int D) {
-  return 2 * S * odd_ld(D) + S * odd_ld(S) + S;
-}
 
 // Eight bf16 (16 bytes) as f32: exact, each the bf16 bits in the high half.
 __device__ __forceinline__ void unpack8(uint4 raw, float (&f)[8]) {
@@ -216,7 +212,7 @@ attn_small_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // the last head's tiles are spent
     // k and v into their f32 tiles (every thread: k's rows, then v's),
     // q·scale transposed into each warp's own tile (its 16 rows, zero past
-    // S): q·scale rounds to f32 as load_rows rounds it.
+    // S): q·scale rounds to f32, one product of the f32 q and the scale.
     if (vec) {
       for (int r = tid / nc, c = tid % nc; r < 2 * S; small_fwd::walk(r, c, NT / nc, NT % nc, nc)) {
         const bool is_v = r >= S;
@@ -294,80 +290,6 @@ attn_small_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attn_small_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                      Strides st, int H, int S, int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ldd = odd_ld(D), lds = odd_ld(S);
-  float* xs = smem;            // q·scale → v → k      [S][ldd]
-  float* ys = xs + S * ldd;    // k → o → do → q       [S][ldd]
-  float* ps = ys + S * ldd;    // scores → p → ds      [S][lds]
-  float* vec = ps + S * lds;   // l, then Δ            [S]
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const long long base = b * st.sb + h * st.sh;
-  const long long gs = (long long)H * D;  // row stride of do, dq, dk, dv
-  const long long gbase = ((long long)b * S * H + h) * D;
-  const bf16* dob = dout + gbase;
-
-  load_rows(xs, ldd, q + base, st.ss, S, D, scale);
-  load_rows(ys, ldd, k + base, st.ss, S, D, 1.f);
-  __syncthreads();
-  tile_mm(
-      S, S, D, [&](int i, int r) { return xs[i * ldd + r]; },
-      [&](int j, int r) { return ys[j * ldd + r]; },
-      [&](int i, int j, float s) { ps[i * lds + j] = (causal && j > i) ? kNeg : s; });
-  __syncthreads();
-  row_softmax(ps, lds, S, S, vec, true);  // p normalized before any use
-  load_rows(xs, ldd, v + base, st.ss, S, D, 1.f);
-  __syncthreads();
-  // o = p·v, recomputed, into ys (k is spent).
-  tile_mm(
-      S, D, S, [&](int i, int j) { return ps[i * lds + j]; },
-      [&](int d, int j) { return xs[j * ldd + d]; },
-      [&](int i, int d, float acc) { ys[i * ldd + d] = acc; });
-  __syncthreads();
-  // Δ_i = Σ_d do·o, one warp per row.
-  {
-    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-    for (int i = threadIdx.x >> 5; i < S; i += nw) {
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(dob[i * gs + d]), ys[i * ldd + d], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) vec[i] = acc;
-    }
-  }
-  __syncthreads();
-  load_rows(ys, ldd, dob, gs, S, D, 1.f);
-  __syncthreads();
-  // dv = pᵀ·do.
-  tile_mm(
-      S, D, S, [&](int j, int i) { return ps[i * lds + j]; },
-      [&](int d, int i) { return ys[i * ldd + d]; },
-      [&](int j, int d, float acc) { dv[gbase + j * gs + d] = from_f32<bf16>(acc); });
-  __syncthreads();
-  // dp = do·vᵀ, and ds = p·(dp − Δ) in place of p (each entry has one owner).
-  tile_mm(
-      S, S, D, [&](int i, int r) { return ys[i * ldd + r]; },
-      [&](int j, int r) { return xs[j * ldd + r]; },
-      [&](int i, int j, float dp) { ps[i * lds + j] = ps[i * lds + j] * (dp - vec[i]); });
-  __syncthreads();
-  load_rows(xs, ldd, k + base, st.ss, S, D, 1.f);
-  load_rows(ys, ldd, q + base, st.ss, S, D, 1.f);
-  __syncthreads();
-  // dq = ds·k·scale; dk = dsᵀ·q·scale.
-  tile_mm(
-      S, D, S, [&](int i, int j) { return ps[i * lds + j]; },
-      [&](int d, int j) { return xs[j * ldd + d]; },
-      [&](int i, int d, float acc) { dq[gbase + i * gs + d] = from_f32<bf16>(acc * scale); });
-  tile_mm(
-      S, D, S, [&](int j, int i) { return ps[i * lds + j]; },
-      [&](int d, int i) { return ys[i * ldd + d]; },
-      [&](int j, int d, float acc) { dk[gbase + j * gs + d] = from_f32<bf16>(acc * scale); });
-}
-
-
 // ------------------------------------------------------ tensor cores ---
 
 // Persistent CTAs: the heads each of `kernel`'s CTAs walks (*per_cta), an
@@ -414,9 +336,9 @@ attn_small_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int b = bh / H, h = bh - b * H;
     const long long base = b * st.sb + h * st.sh;
     const uint32_t dst = s0 + stage * kStage;
-    load_tile<D, NK>(dst, q + base, st.ss, S, tid, NT);
-    load_tile<D, NK>(dst + kTile, k + base, st.ss, S, tid, NT);
-    load_tile<D, NK>(dst + 2 * kTile, v + base, st.ss, S, tid, NT);
+    load_tile<D, NK>(dst, q + base, st.ss, S, D, kPieces16, tid, NT);
+    load_tile<D, NK>(dst + kTile, k + base, st.ss, S, D, kPieces16, tid, NT);
+    load_tile<D, NK>(dst + 2 * kTile, v + base, st.ss, S, D, kPieces16, tid, NT);
   };
   load_head(first, 0);
   cp_async_commit();
@@ -455,7 +377,7 @@ attn_small_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     // four warps' register operands, so all four are past q·kᵀ.
     const int b = bh / H, h = bh - b * H;
     store_rows<D, NK>(smem, sq - s0, wg * 64, acc, l, o + ((long long)b * S * H + h) * D,
-                      (long long)H * D, wg * 64, S);
+                      (long long)H * D, wg * 64, S, D);
   }
   cp_async_wait<0>();
 }
@@ -611,27 +533,34 @@ template <int NWG>
 __host__ __device__ constexpr int bwd_tc_term_bytes() {
   return 64 * NWG * 64 * NWG * 2;
 }
-template <int D, int NWG>
+template <int DK, int NWG>
 __host__ __device__ constexpr int bwd_tc_stages() {
-  return 8 * tile_bytes<D, 64 * NWG>() + 3 * bwd_tc_term_bytes<NWG>() + 1024 <= kMaxSmem ? 2 : 1;
+  return 8 * tile_bytes<DK, 64 * NWG>() + 3 * bwd_tc_term_bytes<NWG>() + 1024 <= kMaxSmem ? 2 : 1;
 }
-template <int D, int NWG>
+template <int DK, int NWG>
 __host__ __device__ constexpr int bwd_tc_smem_bytes() {
-  return 4 * bwd_tc_stages<D, NWG>() * tile_bytes<D, 64 * NWG>() + 3 * bwd_tc_term_bytes<NWG>() +
+  return 4 * bwd_tc_stages<DK, NWG>() * tile_bytes<DK, 64 * NWG>() + 3 * bwd_tc_term_bytes<NWG>() +
          1024;
 }
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * mpt_tc::kWarpgroup, NWG == 1 && D <= 64 ? 2 : 1)
+// The backward at DK (D rounded up to 16). kNarrow: q, k, v and do's first
+// D columns (d_arg) copied in `pieces_arg` (attention_tc.cuh, `row_pieces`),
+// the rest zeros; else D = DK on 16-byte rows, both fixed at compile time
+// (every model's head dim: the run-time D measured slower at D = 64 on an
+// H100).
+template <int DK, int NWG, bool kNarrow>
+__global__ void __launch_bounds__(NWG * mpt_tc::kWarpgroup, NWG == 1 && DK <= 64 ? 2 : 1)
 attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                         Strides st, int H, int S, int BH, int per_cta, float scale, int causal) {
+                         Strides st, int H, int S, int d_arg, int pieces_arg, int BH, int per_cta,
+                         float scale, int causal) {
   using namespace mpt_tc;
-  constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup, PD = padded<D>();
-  constexpr int ST = bwd_tc_stages<D, NWG>();
-  constexpr uint32_t kTile = tile_bytes<D, NK>(), kStage = 4 * kTile;
+  const int D = kNarrow ? d_arg : DK, pieces = kNarrow ? pieces_arg : kPieces16;
+  constexpr int NK = 64 * NWG, NT = NWG * kWarpgroup, PD = padded<DK>();
+  constexpr int ST = bwd_tc_stages<DK, NWG>();
+  constexpr uint32_t kTile = tile_bytes<DK, NK>(), kStage = 4 * kTile;
   constexpr uint32_t kTerm = bwd_tc_term_bytes<NWG>();
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t raw = smem_addr(tc_smem), s0 = (raw + 1023) & ~1023u;
@@ -648,10 +577,11 @@ attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int b = bh / H, h = bh - b * H;
     const long long base = b * st.sb + h * st.sh;
     const uint32_t dst = s0 + stage * kStage;
-    load_tile<D, NK>(dst, q + base, st.ss, S, tid, NT);
-    load_tile<D, NK>(dst + kTile, k + base, st.ss, S, tid, NT);
-    load_tile<D, NK>(dst + 2 * kTile, v + base, st.ss, S, tid, NT);
-    load_tile<D, NK>(dst + 3 * kTile, dout + ((long long)b * S * H + h) * D, gs, S, tid, NT);
+    load_tile<DK, NK>(dst, q + base, st.ss, S, D, pieces, tid, NT);
+    load_tile<DK, NK>(dst + kTile, k + base, st.ss, S, D, pieces, tid, NT);
+    load_tile<DK, NK>(dst + 2 * kTile, v + base, st.ss, S, D, pieces, tid, NT);
+    load_tile<DK, NK>(dst + 3 * kTile, dout + ((long long)b * S * H + h) * D, gs, S, D, pieces, tid,
+                      NT);
   };
   if constexpr (ST == 2) {
     load_head(first, 0);
@@ -681,8 +611,8 @@ attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     wgmma_fence();
 #pragma unroll
     for (int kh = 0; kh < NWG; ++kh) {  // 64 keys a product
-      qk_issue<D, 64, NK, NK>(s + 32 * kh, sq + wg * 64 * 128, sk + kh * 64 * 128);
-      qk_issue<D, 64, NK, NK>(dp + 32 * kh, sdo + wg * 64 * 128, sv + kh * 64 * 128);
+      qk_issue<DK, 64, NK, NK>(s + 32 * kh, sq + wg * 64 * 128, sk + kh * 64 * 128);
+      qk_issue<DK, 64, NK, NK>(dp + 32 * kh, sdo + wg * 64 * 128, sv + kh * 64 * 128);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -741,14 +671,14 @@ attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<PD / 2>(acc);
-    store_rows<D, NK, false>(smem, stage_rows, wg * 64, acc, unit, dv + gbase, gs, wg * 64, S);
+    store_rows<DK, NK, false>(smem, stage_rows, wg * 64, acc, unit, dv + gbase, gs, wg * 64, S, D);
 
     // dq = ds·k·scale: ds from registers, split as p is for p·v.
 #pragma unroll
     for (int i = 0; i < PD / 2; ++i) acc[i] = 0.f;
-    pv_product<D, NK, NK>(acc, dp, sk);
+    pv_product<DK, NK, NK>(acc, dp, sk);
     __syncwarp();
-    store_rows<D, NK, false>(smem, stage_rows, wg * 64, acc, scaled, dq + gbase, gs, wg * 64, S);
+    store_rows<DK, NK, false>(smem, stage_rows, wg * 64, acc, scaled, dq + gbase, gs, wg * 64, S, D);
 
     __syncthreads();  // every warpgroup's dv has read the p terms
     store_terms<NK, NK>(smem, sp - s0, kTerm, row0, dp);
@@ -771,18 +701,19 @@ attn_small_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     wgmma_wait<0>();
     fence_regs<PD / 2>(acc);
     __syncwarp();
-    store_rows<D, NK, false>(smem, stage_rows, wg * 64, acc, scaled, dk + gbase, gs, wg * 64, S);
+    store_rows<DK, NK, false>(smem, stage_rows, wg * 64, acc, scaled, dk + gbase, gs, wg * 64, S, D);
   }
   cp_async_wait<0>();
 }
 
-template <int D, int NWG>
+template <int DK, int NWG>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                  void* dk, void* dv, Strides st, int B, int S, int H, float scale, int causal,
-                  cudaStream_t stream) {
-  constexpr int bytes = bwd_tc_smem_bytes<D, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
+                  void* dk, void* dv, Strides st, int B, int S, int H, int D, int pieces,
+                  float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = bwd_tc_smem_bytes<DK, NWG>(), threads = NWG * mpt_tc::kWarpgroup;
   static_assert(bytes <= kMaxSmem, "the tensor-core backward's tiles exceed a CTA's shared memory");
-  auto kernel = attn_small_bwd_tc_kernel<D, NWG>;
+  const auto kernel = D != DK || pieces != kPieces16 ? attn_small_bwd_tc_kernel<DK, NWG, true>
+                                                     : attn_small_bwd_tc_kernel<DK, NWG, false>;
   const int BH = B * H;
   int per_cta = 0;
   cudaError_t err = allow_smem(kernel, bytes);
@@ -791,16 +722,18 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
   kernel<<<(BH + per_cta - 1) / per_cta, threads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), st, H, S, BH, per_cta, scale, causal);
+      static_cast<bf16*>(dv), st, H, S, D, pieces, BH, per_cta, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK>
 int launch_bwd_tc_d(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                    void* dk, void* dv, Strides st, int B, int S, int H, float scale, int causal,
-                    cudaStream_t stream) {
-  if (S <= 64) return launch_bwd_tc<D, 1>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, stream);
-  return launch_bwd_tc<D, 2>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, stream);
+                    void* dk, void* dv, Strides st, int B, int S, int H, int D, int pieces,
+                    float scale, int causal, cudaStream_t stream) {
+  return S <= 64 ? launch_bwd_tc<DK, 1>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, pieces, scale,
+                                        causal, stream)
+                 : launch_bwd_tc<DK, 2>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, pieces, scale,
+                                        causal, stream);
 }
 
 // -------------------------------------------- f32 tensor-core backward ---
@@ -1113,37 +1046,26 @@ extern "C" int mpt_attn_small_fwd_tc_f32(const void* q, const void* k, const voi
   }
 }
 
-// The FFMA backward: q, k, v bf16, strided as above; dout, dq, dk, dv:
-// contiguous [B, S, H, D] bf16. Returns cudaGetLastError().
-extern "C" int mpt_attn_small_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                  void* dq, void* dk, void* dv, long long sb, long long ss,
-                                  long long sh, int B, int S, int H, int D, float scale, int causal,
-                                  void* stream) {
-  const size_t bytes = sizeof(float) * small_smem_floats(S, D);
-  cudaError_t err = allow_smem(attn_small_bwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  attn_small_bwd_kernel<<<B * H, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Strides{sb, ss, sh}, H, S, D, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// The tensor-core backward: q, k, v as the tensor-core forward takes them,
-// dout (16-byte aligned), dq, dk, dv contiguous [B, S, H, D] bf16; S <= 128,
-// D % 16 == 0 and D <= 128. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape it does not take).
+// The tensor-core backward: q, k, v bf16, strided as the FFMA forward takes
+// them, rows on any boundary (copied in the widest pieces they allow);
+// dout, dq, dk, dv contiguous [B, S, H, D] bf16; S <= 128, D % 4 == 0 and
+// D <= 128. Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// it does not take).
 extern "C" int mpt_attn_small_bwd_tc(const void* q, const void* k, const void* v,
                                      const void* dout, void* dq, void* dk, void* dv, long long sb,
                                      long long ss, long long sh, int B, int S, int H, int D,
                                      float scale, int causal, void* stream) {
   const Strides st{sb, ss, sh};
   auto s = static_cast<cudaStream_t>(stream);
-  if (S < 1 || S > 128) return (int)cudaErrorInvalidValue;
-  switch (D) {
-#define MPT_CASE(d) \
-  case d:           \
-    return launch_bwd_tc_d<d>(q, k, v, dout, dq, dk, dv, st, B, S, H, scale, causal, s);
+  if (S < 1 || S > 128 || D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  const int pieces = mpt_tc::row_pieces(
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout),
+      sb | ss | sh, D);
+  switch ((D + 15) / 16 * 16) {
+#define MPT_CASE(dk_) \
+  case dk_:           \
+    return launch_bwd_tc_d<dk_>(q, k, v, dout, dq, dk, dv, st, B, S, H, D, pieces, scale, causal, s);
     MPT_CASE(16) MPT_CASE(32) MPT_CASE(48) MPT_CASE(64)
     MPT_CASE(80) MPT_CASE(96) MPT_CASE(112) MPT_CASE(128)
 #undef MPT_CASE

@@ -3,7 +3,7 @@
 // (head_predict_tc.cu: K4 bf16 and f32, K5, K7; fused_head_ce_bwd.cu: K6).
 //
 // - Shared-memory tiles in the 128-byte swizzle that wgmma's descriptors
-//   read (`swz`), filled by 16-byte `cp.async` copies or by TMA.
+//   read (`swz`), filled by 16- or 8-byte `cp.async` copies or by TMA.
 // - wgmma's shared-memory descriptors (K-major and MN-major), and the
 //   fence / commit / wait of its asynchronous products.
 // - mbarriers and the 2-D TMA load that completes on one, for kernels
@@ -37,6 +37,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global → shared, asynchronously (the `.ca` form: `.cg` takes 16
+// bytes only); zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 

@@ -81,15 +81,9 @@ SIGNATURES = {
     "mpt_head_ce_bwd_tile_rows": (),
     "mpt_head_ce_bwd_tile_cols": (),
     "mpt_head_ce_bwd_rows": (_I, _I),
-    # the FFMA forwards (bf16): q, k, v, out[, lse], q/k/v strides (sb, ss,
-    # sh), B, S, H, D[, block_q, block_k], scale, causal, stream
+    # the tiny-S FFMA forward (bf16): q, k, v, out, q/k/v strides (sb, ss,
+    # sh), B, S, H, D, scale, causal, stream
     "mpt_attn_small_fwd": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
-    "mpt_flash_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # the FFMA backward (bf16): q, k, v, dout, dq, dk, dv, q/k/v strides, B,
-    # S, H, D, scale, causal, stream
-    "mpt_attn_small_bwd": (
-        _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P,
-    ),
     # the tensor-core forwards (bf16): q, k, v, out[, lse], q/k/v strides,
     # B, S, H, D, scale, causal, stream
     "mpt_attn_small_fwd_tc": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _I, _P),
@@ -273,27 +267,31 @@ def attention_layout(
 def attention_route(dtype: torch.dtype, d: int) -> str:
     """Which kernel the attention kernels (the forwards K8, K9 and the
     tiny-S backward K10) launch for q of ``dtype`` and head dim ``d``:
-    ``"tensor_core"`` for bf16 with D a multiple of 16 up to 128 (wgmma
-    takes k-steps of 16 bf16); ``"tensor_core_f32"`` for f32 with D a
-    multiple of 4 up to 128 (every f32 operand split into three bf16 terms,
-    each product six exact term-pair products; the padding columns are
-    zero, so any such D); else ``"ffma"`` (bf16 with any other D: the f32
-    FFMA kernels). Every S up to the kernels' 128 takes the same route. A
-    stated rule, never a fallback: a launch on any route that fails
-    raises."""
-    if dtype == torch.float32 and d % 4 == 0 and d <= 128:
-        return "tensor_core_f32"
-    return "tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 and d <= 128 else "ffma"
+    ``"tensor_core"`` for bf16 with D a multiple of 4 up to 128 (wgmma
+    takes k-steps of 16 bf16: the kernels are instantiated per D rounded up
+    to 16, and the columns past D are zeros written at every load, so they
+    add exact zeros to every product); ``"tensor_core_f32"`` for f32 with D
+    a multiple of 4 up to 128 (every f32 operand split into three bf16
+    terms, each product six exact term-pair products, the same padding);
+    else ``"ffma"``, which no K8 or K10 kernel takes (``attention_layout``
+    refuses such a D) and K9's ``_route`` refines. Every S up to the
+    kernels' 128 takes the same route. A stated rule, never a fallback: a
+    launch on any route that fails raises."""
+    if d % 4 or d > 128:
+        return "ffma"
+    return {torch.float32: "tensor_core_f32", torch.bfloat16: "tensor_core"}.get(dtype, "ffma")
 
 
 def require_16b_rows(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str, *contiguous: torch.Tensor
 ) -> None:
-    """The tensor-core kernels copy rows of q, k and v (and of the
-    ``contiguous`` [B, S, H, D] operands, such as the backward's do) in
-    16-byte pieces: raises unless each starts on 16 bytes and q, k, v's
-    (shared) B, S, H strides are multiples of 16 bytes (8 bf16 or 4 f32
-    elements)."""
+    """The f32 tensor-core kernels and K9's bf16 training forward copy rows
+    of q, k and v (and of the ``contiguous`` [B, S, H, D] operands, such as
+    the backward's do) in 16-byte pieces: raises unless each starts on 16
+    bytes and q, k, v's (shared) B, S, H strides are multiples of 16 bytes
+    (8 bf16 or 4 f32 elements). K8's and K10's bf16 kernels need none of
+    it: they copy each row in the widest pieces it allows (16 or 8 bytes,
+    else element by element)."""
     per = 16 // q.element_size()
     if any(t.data_ptr() % 16 for t in (q, k, v, *contiguous)) or any(x % per for x in q.stride()[:3]):
         raise ValueError(

@@ -1,5 +1,5 @@
-"""The arithmetic of the f32 tensor-core attention kernels in plain torch,
-and the float64 attention they are held against.
+"""The arithmetic of the tensor-core attention kernels in plain torch,
+and the float64 attention the f32 ones are held against.
 
 The f32 route of K8 (``flash_forward``) and of K9
 (``attention_small_forward``) runs on Hopper's tensor cores
@@ -16,9 +16,22 @@ control that shows the other three are part of the f32 function. K10's f32
 route (``attention_small_backward``) takes every one of its five products
 the same way: :func:`emulate_small_backward`.
 
+The bf16 route of K8, K9's training forward and K10 takes q·kᵀ and do·vᵀ
+as exact bf16 products summed in f32, the scale applied to the f32 scores
+afterwards, and every product of the f32 p or ds with a bf16 operand (p·v,
+pᵀ·do, ds·k, dsᵀ·q) as the first three bf16 terms of p or ds, each times
+the bf16 operand an exact product, summed in f32 (largest first):
+:func:`emulate_small_bf16`, :func:`emulate_flash_bf16` and
+:func:`emulate_small_backward_bf16`. A head dim D that is not a multiple of
+16 runs zero-padded to DK = D rounded up to 16: the emulations take q, k, v
+(and do) with their last dim already padded (:func:`pad_head`) and the real
+``d`` for the scale, so a test can show that zero padding columns change no
+bit of the first D output columns and that stale ones do.
+
 No kernel calls these: the tests hold them against the JAX kernels, and
-``chip_smoke.py`` holds them and the kernels against :func:`attention_f64`
-and :func:`attention_backward_f64` on the card's inputs.
+``chip_smoke.py`` holds the f32 ones and the kernels against
+:func:`attention_f64` and :func:`attention_backward_f64` on the card's
+inputs.
 """
 
 from __future__ import annotations
@@ -129,6 +142,97 @@ def emulate_small_backward(q, k, v, do, causal: bool = False, pairs=SIX):
     dk = split_product("bhqk,bqhd->bkhd", ds, qs, pairs)
     dv = split_product("bhqk,bqhd->bkhd", p, do, pairs)
     return dq, dk, dv
+
+
+def pad_head(x: torch.Tensor, dk: int, value: torch.Tensor | float = 0.0) -> torch.Tensor:
+    """x [.., D] widened to dk columns, the new ones ``value`` (a scalar, or
+    a tensor of x's shape but dk − D columns): as the bf16 kernels stage a
+    head dim that is not a multiple of 16, whose padding columns must be
+    zero."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.full((*x.shape[:-1], dk - x.shape[-1]), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, value.to(x.dtype)], dim=-1)
+
+
+def _bf16_scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """[B, H, S, S] f32: exact bf16 products summed in f32, then · scale;
+    −1e30 past the diagonal when causal."""
+    s = q.shape[1]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=q.device).tril(), NEG)
+    return sc
+
+
+def _split_mm(x: torch.Tensor, y: torch.Tensor, terms: int) -> torch.Tensor:
+    """x (f32) times y (bf16 values) as the bf16 kernels take it: each of
+    the first ``terms`` bf16 terms of x (``split3``) times y, an exact
+    product, summed in f32, largest first."""
+    return sum(t @ y.float() for t in split3(x)[:terms])
+
+
+def _scale(q: torch.Tensor, d: int | None) -> float:
+    return (q.shape[-1] if d is None else d) ** -0.5
+
+
+def emulate_small_bf16(q, k, v, causal: bool = False, terms: int = 3, d: int | None = None):
+    """K9's bf16 tensor-core arithmetic on bf16 [B, S, H, DK] q, k, v
+    (columns past ``d`` the padding; ``d`` defaults to DK): whole-row
+    softmax, out = (p·v) / l, f32 [B, S, H, DK] before the bf16 rounding."""
+    sc = _bf16_scores(q, k, causal, _scale(q, d))
+    p = _exp(sc - sc.amax(-1, keepdim=True))
+    return (_split_mm(p, v.transpose(1, 2), terms) / p.sum(-1, keepdim=True)).transpose(1, 2)
+
+
+def emulate_flash_bf16(q, k, v, causal: bool = False, terms: int = 3, d: int | None = None):
+    """K8's bf16 tensor-core arithmetic on bf16 [B, S, H, DK] q, k, v
+    (columns past ``d`` the padding): key blocks of 64 (the last padded
+    with −1e30 keys and zero values; the kernel's narrower last block adds
+    the same padded keys' exact zeros), the online recurrence m, l, acc·α;
+    out = acc / safe_l (f32 [B, S, H, DK] before rounding) and lse = m +
+    log(safe_l) [B, H, S]."""
+    b, s, h, dk = q.shape
+    n = -(-s // KEY_BLOCK) * KEY_BLOCK
+    sc = torch.nn.functional.pad(_bf16_scores(q, k, causal, _scale(q, d)), (0, n - s), value=NEG)
+    vt = torch.nn.functional.pad(v.transpose(1, 2), (0, 0, 0, n - s))
+    m = torch.full((b, h, s, 1), NEG, device=q.device)
+    l = torch.zeros((b, h, s, 1), device=q.device)
+    acc = torch.zeros((b, h, s, dk), device=q.device)
+    for k0 in range(0, n, KEY_BLOCK):
+        blk = sc[..., k0:k0 + KEY_BLOCK]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = _exp(blk - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _split_mm(p, vt[:, :, k0:k0 + KEY_BLOCK], terms)
+        m = m_new
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    return (acc / safe_l).transpose(1, 2), (m + torch.log(safe_l))[..., 0]
+
+
+def emulate_small_backward_bf16(q, k, v, do, causal: bool = False, terms: int = 3,
+                                d: int | None = None):
+    """K10's bf16 tensor-core arithmetic on bf16 [B, S, H, DK] q, k, v, do
+    (columns past ``d`` the padding): s = q·kᵀ·scale and dp = do·vᵀ exact
+    products summed in f32, p = 2^((s − m)·log2 e) / l over the whole row,
+    Δ = Σ_j p·dp, ds = p·(dp − Δ), dq = ds·k·scale, dk = dsᵀ·q·scale, dv =
+    pᵀ·do, p and ds by their first ``terms`` bf16 terms. Returns (dq, dk,
+    dv), f32 [B, S, H, DK] before the bf16 rounding."""
+    s = q.shape[1]
+    scale = _scale(q, d)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # [B, H, S, DK]
+    sc = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=q.device).tril(), NEG)
+    e = _exp(sc - sc.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dp = dof @ vf.transpose(-1, -2)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = _split_mm(ds, kf, terms) * scale
+    dk = _split_mm(ds.transpose(-1, -2), qf, terms) * scale
+    dv = _split_mm(p.transpose(-1, -2), dof, terms)
+    return tuple(g.transpose(1, 2) for g in (dq, dk, dv))
 
 
 def attention_backward_f64(q, k, v, do, causal: bool = False) -> tuple[torch.Tensor, ...]:

@@ -7,14 +7,15 @@ function as ``full_attention`` over [B, S, H, D] inputs.
 - The forward is a CUDA kernel in ``csrc/flash_attention.cu`` (TPU
   ``_attn_fwd_kernel``): one CTA per (batch·head, q-block) runs the online
   recurrence over the k-blocks and writes the output and the f32
-  logsumexp of every row. Three routes, by
-  :func:`_build.attention_route`: bf16 with D % 16 == 0 (D ≤ 128)
-  goes to the tensor-core kernel (wgmma, p·v through a p split into three
-  bf16 terms that keeps it f32-exact); f32 (any D % 4 == 0 up to 128) to
-  the f32 tensor-core kernel (q·scale, k, v and p split into three bf16
-  terms, each product six exact term-pair products); both choose their own
-  tiles for Hopper (128 queries, k/v blocks of 64). bf16 with any other D
-  goes to the f32 FFMA kernel, blocked as the caller says.
+  logsumexp of every row. Two routes, by
+  :func:`_build.attention_route`: bf16 (any D % 4 == 0 up to 128) goes to
+  the tensor-core kernel (wgmma, p·v through a p split into three bf16
+  terms that keeps it f32-exact; a D that is not a multiple of 16 runs
+  zero-padded to the next one, its rows copied in 16- or 8-byte pieces or
+  element by element as their alignment allows); f32 (any D % 4 == 0 up to
+  128) to the f32 tensor-core kernel (q·scale, k, v and p split into three
+  bf16 terms, each product six exact term-pair products). Both choose
+  their own tiles for Hopper (128 queries, k/v blocks of 64).
 - The backward is the JAX ``_bwd_blocked`` in torch, block for block: per
   k-block, the probabilities recomputed from the saved logsumexp, then dv,
   dp, ds, dq (accumulated) and dk — O(S·block) memory, never S×S. The JAX
@@ -22,9 +23,9 @@ function as ``full_attention`` over [B, S, H, D] inputs.
   kernel here either.
 
 Block sizes follow the JAX wrapper: ``min(block, max(8, S))``, 128 by
-default; they set the FFMA kernel's tiles, the plain version's and the
-blocked backward's. Padded keys get −1e30 and a fully masked row's sum
-counts as 1. On a CUDA tensor the forward launches its route's kernel
+default; they set the blocked backward's tiles (the forward kernels check
+them but tile for Hopper). Padded keys get −1e30 and a fully masked row's
+sum counts as 1. On a CUDA tensor the forward launches its route's kernel
 (f32 or bf16, D % 4 == 0, D ≤ 128, blocks ≤ 128) or raises; on a CPU
 tensor it runs its plain version, :func:`flash_forward_reference`.
 """
@@ -37,11 +38,11 @@ from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
 # Launches of the forward kernel of each route (the plain version never
-# counts): the tensor-core kernels (bf16 with D % 16 == 0; f32) and the
-# FFMA kernel.
+# counts): the bf16 tensor-core kernel at D % 16 == 0 and zero-padded at
+# other D, and the f32 tensor-core kernel.
 tc_counter = _build.LaunchCounter()
+tc_pad_counter = _build.LaunchCounter()
 tc_f32_counter = _build.LaunchCounter()
-ffma_counter = _build.LaunchCounter()
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -69,10 +70,9 @@ def flash_forward(
     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out [B, S, H, D] in q's dtype, lse f32 [B, H, S]): for CUDA tensors
-    the kernel of :func:`_build.attention_route` — a tensor-core
-    kernel (its own tiles: ``block_q``/``block_k`` are checked but do not
-    shape it) or the FFMA kernel (blocks as given); the plain version for
-    CPU tensors."""
+    the tensor-core kernel of :func:`_build.attention_route` (bf16 or f32,
+    any D % 4 == 0 up to 128; its own tiles: ``block_q``/``block_k`` are
+    checked but do not shape it); the plain version for CPU tensors."""
     check_qkv(q, k, v)
     if _build.on_cpu(q, "flash_attention"):
         return flash_forward_reference(q, k, v, causal)
@@ -85,21 +85,18 @@ def flash_forward(
     out = torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
     route = _build.attention_route(q.dtype, d)
-    if route != "ffma":
+    if route == "tensor_core_f32":
         _build.require_16b_rows(q, k, v, "flash_attention")
     lib = _build.load_library()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), sb, ss, sh)
+    entry = lib.mpt_flash_fwd_tc if route == "tensor_core" else lib.mpt_flash_fwd_tc_f32
     with torch.cuda.device(q.device):
-        if route == "ffma":
-            rc = lib.mpt_flash_fwd(
-                *ptrs, bsz, s, h, d, block_q, block_k, d**-0.5, int(causal),
-                _build.stream(q.device),
-            )
-        else:
-            entry = lib.mpt_flash_fwd_tc if route == "tensor_core" else lib.mpt_flash_fwd_tc_f32
-            rc = entry(*ptrs, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device))
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), sb, ss,
+                   sh, bsz, s, h, d, d**-0.5, int(causal), _build.stream(q.device))
     _build.check(rc, "flash_attention forward")
-    {"tensor_core": tc_counter, "tensor_core_f32": tc_f32_counter, "ffma": ffma_counter}[route].add()
+    if route == "tensor_core_f32":
+        tc_f32_counter.add()
+    else:
+        (tc_pad_counter if d % 16 else tc_counter).add()
     return out, lse
 
 

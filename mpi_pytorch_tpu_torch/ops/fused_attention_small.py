@@ -6,7 +6,7 @@ function as ``full_attention`` over [B, S, H, D] inputs; the envelope is
 the JAX one: S ≤ 128 and D ≤ 128 go through the kernels, anything outside
 it is ``full_attention`` (the function's definition, not a fallback on
 failure). CUDA kernels in ``csrc/fused_attention_small.cu`` carry it, three
-for each direction:
+for the forward and two for the backward:
 
 - the forward (TPU ``_fwd_kernel``): the whole row set of one (batch,
   head) on one CTA, a full-row max/exp/sum, AV, then ÷ l. By
@@ -15,21 +15,23 @@ for each direction:
   f32-exact; persistent CTAs with the next head's q, k, v in flight);
   every f32 forward (any D % 4 == 0, training and inference) the f32
   tensor-core kernel (q·scale, k, v and p split into three bf16 terms,
-  each product six exact term-pair products); bf16 with any other D and
-  every bf16 inference call (serving, validation) the f32 FFMA kernel,
+  each product six exact term-pair products); bf16 with any other D
+  (training too) and every bf16 inference call (serving, validation) the
+  f32 FFMA kernel,
   whose sums run in the plain version's order (see :func:`_route`): per
   warp 16 whole query rows in 8-row register tiles, the softmax in
   registers, persistent CTAs reading each head straight into f32 tiles;
 - the backward (TPU ``_bwd_kernel``): recomputes p (normalized before
   use), then Δ, ds = p·(do·vᵀ − Δ), dq = ds·k·scale, dk = dsᵀ·q·scale,
   dv = pᵀ·do — each (batch, head) writes its own gradients, so no
-  atomics. By :func:`_build.attention_route`: bf16 with D % 16 == 0 runs
+  atomics. By :func:`_build.attention_route`: bf16 (any D % 4 == 0) runs
   the tensor-core kernel (p and ds split into three bf16 terms, Δ = Σ
-  p·dp); f32 (any D % 4 == 0) the f32 tensor-core kernel (q·scale, k, v,
-  do, p and ds split into three bf16 terms, each product six exact
-  term-pair products, Δ = Σ p·dp); bf16 with any other D the FFMA kernel
-  (o = p·v recomputed, Δ = Σ do·o). The backward has no inference caller,
-  so every backward takes the rule as it is.
+  p·dp; a D that is not a multiple of 16 zero-padded to the next one, its
+  rows copied in 16- or 8-byte pieces or element by element as their
+  alignment allows); f32 (any D % 4 == 0) the f32 tensor-core kernel
+  (q·scale, k, v, do, p and ds split into three bf16 terms, each product
+  six exact term-pair products, Δ = Σ p·dp). The backward has no
+  inference caller, so every backward takes the rule as it is.
 
 They pair up in :class:`_FusedSmall`, whose residuals are q, k and v only,
 as the JAX ``_attn_grouped_fwd`` saves. q, k and v are read as the
@@ -48,15 +50,16 @@ import torch
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 
-# Launches of each CUDA kernel (the plain versions never count): per
-# direction the tensor-core kernels (bf16, D % 16 == 0; f32) and the FFMA
-# kernel.
+# Launches of each CUDA kernel (the plain versions never count): the
+# forward's tensor-core kernels (bf16 with D % 16 == 0; f32) and FFMA
+# kernel, the backward's tensor-core kernels (bf16 at D % 16 == 0, bf16
+# zero-padded at other D; f32).
 forward_tc_counter = _build.LaunchCounter()
 forward_tc_f32_counter = _build.LaunchCounter()
 forward_ffma_counter = _build.LaunchCounter()
 backward_tc_counter = _build.LaunchCounter()
+backward_tc_pad_counter = _build.LaunchCounter()
 backward_tc_f32_counter = _build.LaunchCounter()
-backward_ffma_counter = _build.LaunchCounter()
 
 # The tiny-S envelope (the JAX module's): every per-head score matrix fits
 # one CTA's shared memory whole.
@@ -67,10 +70,12 @@ _NEG = -1e30  # the kernels' finite mask value
 
 
 def _route(dtype: torch.dtype, d: int, train: bool) -> str:
-    """The forward's kernel: :func:`_build.attention_route`, except that a
-    bf16 inference call keeps the FFMA kernel where that rule would take
-    the bf16 tensor cores. f32 calls take the f32 tensor-core kernel
-    whether training or not.
+    """The forward's kernel: :func:`_build.attention_route`, except that
+    bf16 keeps the FFMA kernel for every inference call and for a training
+    call whose D is not a multiple of 16 (the bf16 tensor-core forward is
+    instantiated per D % 16 == 0 only; the backward and K8 take such a D
+    zero-padded). f32 calls take the f32 tensor-core kernel whether
+    training or not.
 
     Why bf16 inference stays on FFMA: both kernels are within one bf16 ulp of
     the plain version on every element, but the FFMA kernel takes every sum
@@ -84,7 +89,7 @@ def _route(dtype: torch.dtype, d: int, train: bool) -> str:
     seeded images against the FFMA kernel's 2, past its 99 % rule (H100
     runs; ``PERF.md`` §6)."""
     route = _build.attention_route(dtype, d)
-    return "ffma" if route == "tensor_core" and not train else route
+    return "ffma" if route == "tensor_core" and (not train or d % 16) else route
 
 
 def attention_small_forward(
@@ -168,18 +173,19 @@ def attention_small_backward(
         )
     dq, dk, dv = (torch.empty((bsz, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     route = _build.attention_route(q.dtype, d)
-    if route != "ffma":
+    if route == "tensor_core_f32":
         _build.require_16b_rows(q, k, v, "fused_attention_small", do)
     lib = _build.load_library()
-    entry = {"tensor_core": lib.mpt_attn_small_bwd_tc, "tensor_core_f32": lib.mpt_attn_small_bwd_tc_f32,
-             "ffma": lib.mpt_attn_small_bwd}[route]
+    entry = lib.mpt_attn_small_bwd_tc if route == "tensor_core" else lib.mpt_attn_small_bwd_tc_f32
     with torch.cuda.device(q.device):
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), sb, ss, sh, bsz, s, h, d, d**-0.5, int(causal),
                    _build.stream(q.device))
     _build.check(rc, "fused_attention_small backward")
-    {"tensor_core": backward_tc_counter, "tensor_core_f32": backward_tc_f32_counter,
-     "ffma": backward_ffma_counter}[route].add()
+    if route == "tensor_core_f32":
+        backward_tc_f32_counter.add()
+    else:
+        (backward_tc_pad_counter if d % 16 else backward_tc_counter).add()
     return dq, dk, dv
 
 

@@ -144,16 +144,17 @@ def test_cpu_tensors_launch_nothing():
     """The wrappers run their plain versions for CPU tensors, in bf16 too,
     and the kernels' launch counts do not move."""
     counters = (fas.forward_tc_counter, fas.forward_tc_f32_counter, fas.forward_ffma_counter,
-                fas.backward_tc_counter, fas.backward_tc_f32_counter, fas.backward_ffma_counter,
-                fa.tc_counter, fa.tc_f32_counter, fa.ffma_counter)
+                fas.backward_tc_counter, fas.backward_tc_pad_counter, fas.backward_tc_f32_counter,
+                fa.tc_counter, fa.tc_pad_counter, fa.tc_f32_counter)
     before = [c.count for c in counters]
-    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(15, 64))
-    for fn in (fas.fused_attention_small, fa.flash_attention):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = fn(*leaves)
-        out.backward(do)
-        assert out.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in leaves)
-        torch.testing.assert_close(out, full_attention(q, k, v), rtol=0, atol=0)
+    for d in (D, 40):
+        q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(15, 64, d))
+        for fn in (fas.fused_attention_small, fa.flash_attention):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            assert out.dtype == torch.bfloat16 and all(t.grad.dtype == torch.bfloat16 for t in leaves)
+            torch.testing.assert_close(out, full_attention(q, k, v), rtol=0, atol=0)
     assert [c.count for c in counters] == before
 
 

@@ -1,7 +1,7 @@
 """The arithmetic of the tensor-core tiny-S attention backward (K10), on the
 CPU, against the JAX package.
 
-For bf16 with D % 16 == 0 the backward of ``fused_attention_small`` runs on
+For bf16 (any D % 4 == 0) the backward of ``fused_attention_small`` runs on
 Hopper's tensor cores (``attn_small_bwd_tc_kernel`` in
 ``csrc/fused_attention_small.cu``): s = q·kᵀ and dp = do·vᵀ are exact bf16
 products summed in f32, the scale applied to the f32 scores; p = 2^((s −
@@ -11,7 +11,8 @@ and every product of the f32 p or ds with a bf16 operand (dv = pᵀ·do, dq
 = ds·k·scale, dk = dsᵀ·q·scale) takes the first three bf16 terms of p or
 ds (t0 = bf16(x), t1 = bf16(x − t0), t2 = bf16(x − t0 − t1)), each times
 the bf16 operand an exact product, summed in f32. No CUDA kernel runs
-here, so a test-only torch emulation of those numerics is held against
+here, so a torch emulation of those numerics
+(``ops/attention_split_numerics.emulate_small_backward_bf16``) is held against
 ``jax.vjp`` through the JAX ``fused_attention_small`` kernel in Pallas
 interpret mode, as its own tests run it, on numpy-seeded bf16 q, k, v and
 do at vit_s16's head shape (H = 6, D = 64) with a small batch.
@@ -37,11 +38,12 @@ import torch
 from mpi_pytorch_tpu.ops.fused_attention_small import fused_attention_small as jax_fused_small
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
+from mpi_pytorch_tpu_torch.ops.attention_split_numerics import (
+    emulate_small_backward_bf16 as emulate_backward,
+)
 
 B, H, D = 2, 6, 64
-NEG = -1e30  # the kernels' mask value
 F32_REL = 1e-5
-LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 
 CASES = [(64, False), (50, False), (65, False), (128, False), (64, True)]
 IDS = [f"s{s}{'_causal' if c else ''}" for s, c in CASES]
@@ -52,42 +54,6 @@ def _inputs(seed: int, s: int) -> list[torch.Tensor]:
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((B, s, H, D)).astype(np.float32)).to(torch.bfloat16)
             for _ in range(4)]
-
-
-def _terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
-    """The first ``n`` bf16 terms of the f32 x, as f32 tensors."""
-    out, rest = [], x
-    for _ in range(n):
-        t = rest.to(torch.bfloat16).float()
-        out.append(t)
-        rest = rest - t
-    return out
-
-
-def _split_mm(x: torch.Tensor, y: torch.Tensor, terms: int) -> torch.Tensor:
-    """x (f32) times y (bf16 values) as the kernel takes it: each bf16 term
-    of x times y, an exact product, summed in f32."""
-    return sum(t @ y for t in _terms(x, terms))
-
-
-def emulate_backward(q, k, v, do, causal: bool, terms: int = 3):
-    """K10's tensor-core arithmetic: (dq, dk, dv) f32 [B, S, H, D] before
-    the bf16 rounding."""
-    s = q.shape[1]
-    scale = q.shape[-1] ** -0.5
-    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # [B, H, S, D]
-    sc = (qf @ kf.transpose(-1, -2)) * scale
-    if causal:
-        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), NEG)
-    e = torch.exp2((sc - sc.amax(-1, keepdim=True)) * LOG2E)
-    p = e / e.sum(-1, keepdim=True)
-    dp = dof @ vf.transpose(-1, -2)
-    delta = (p * dp).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
-    dq = _split_mm(ds, kf, terms) * scale
-    dk = _split_mm(ds.transpose(-1, -2), qf, terms) * scale
-    dv = _split_mm(p.transpose(-1, -2), dof, terms)
-    return tuple(g.transpose(1, 2) for g in (dq, dk, dv))
 
 
 def _jax_grads(q, k, v, do, causal: bool) -> list[np.ndarray]:
@@ -150,28 +116,31 @@ def test_delta_from_p_dp_equals_delta_from_o():
         (torch.bfloat16, 16, "tensor_core"),
         (torch.bfloat16, 32, "tensor_core"),
         (torch.bfloat16, 128, "tensor_core"),
-        (torch.bfloat16, 40, "ffma"),
-        (torch.bfloat16, 8, "ffma"),
+        (torch.bfloat16, 40, "tensor_core"),
+        (torch.bfloat16, 8, "tensor_core"),
         (torch.bfloat16, 144, "ffma"),
         (torch.float32, 64, "tensor_core_f32"),
         (torch.float32, 128, "tensor_core_f32"),
     ],
 )
 def test_backward_route(dtype, d, route):
-    """bf16 with D % 16 == 0 and D ≤ 128 takes the bf16 tensor-core
-    backward, f32 with D % 4 == 0 and D ≤ 128 the f32 tensor-core backward
-    (six term-pair products, ``test_torch_attention_bwd_f32_tc.py``), any
-    other bf16 D the FFMA backward. The backward has no inference caller:
-    it takes the rule as the forwards' training calls do, so a training
-    step's forward and backward run on the same route."""
+    """bf16 with D % 4 == 0 and D ≤ 128 takes the bf16 tensor-core
+    backward (a D that is not a multiple of 16 zero-padded to the next
+    one, ``test_torch_attention_pad_tc.py``), f32 with D % 4 == 0 and
+    D ≤ 128 the f32 tensor-core backward (six term-pair products,
+    ``test_torch_attention_bwd_f32_tc.py``). The backward has no inference
+    caller: it takes the rule as it is, and so does the tiny-S training
+    forward, except that a bf16 D that is not a multiple of 16 keeps its
+    FFMA forward."""
     assert _build.attention_route(dtype, d) == route
-    assert fas._route(dtype, d, train=True) == route
+    padded_bf16 = dtype == torch.bfloat16 and d % 16 != 0
+    assert fas._route(dtype, d, train=True) == ("ffma" if padded_bf16 else route)
 
 
 def test_cpu_tensors_launch_no_backward():
     """On CPU tensors the backward runs its plain version on every route's
     inputs, and no backward counter moves."""
-    counters = (fas.backward_tc_counter, fas.backward_tc_f32_counter, fas.backward_ffma_counter)
+    counters = (fas.backward_tc_counter, fas.backward_tc_pad_counter, fas.backward_tc_f32_counter)
     before = [c.count for c in counters]
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = (t.to(dtype) for t in _inputs(700, 64))

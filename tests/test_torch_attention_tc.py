@@ -7,10 +7,11 @@ exact bf16 products summed in f32, scaled afterwards; p = 2^((s − m)·log2
 e) as the hardware's base-2 exponential takes it; the f32 p splits
 into three bf16 terms (t0 = bf16(p), t1 = bf16(p − t0), t2 = bf16(p − t0
 − t1)), each times the bf16 v an exact product, summed in f32; the output
-is that sum ÷ l. No CUDA kernel runs here, so a test-only torch emulation
-of those numerics — whole-row for K9, key blocks of 64 with the online
-recurrence for K8, as the kernels tile (the kernel's narrower last block
-adds the same padded keys' exact zeros) — is held against the JAX
+is that sum ÷ l. No CUDA kernel runs here, so a torch emulation of those
+numerics (``ops/attention_split_numerics.py``) — whole-row for K9, key
+blocks of 64 with the online recurrence for K8, as the kernels tile (the
+kernel's narrower last block adds the same padded keys' exact zeros) — is
+held against the JAX
 ``fused_attention_small`` and ``flash_attention`` kernels in Pallas
 interpret mode, as their own tests run them, on numpy-seeded bf16 q, k, v
 at vit_s16's shapes (H = 6, Dh = 64) with a small batch.
@@ -27,7 +28,9 @@ Two tests guard the split: a single bf16 p (t0 only, off by up to 2^-8)
 misses the f32 tolerance by two orders of magnitude; two terms (p to
 2^-17) stay inside it but cross the one-ulp check at outputs near zero, on
 a seeded batch where three terms hold. The route rule itself (which
-dtypes and head dims reach the tensor cores) is checked case by case.
+dtypes and head dims reach the tensor cores) is checked case by case; the
+bf16 head dims that are not a multiple of 16 are held against the JAX
+kernels in ``test_torch_attention_pad_tc.py``.
 """
 
 import jax.numpy as jnp
@@ -40,77 +43,17 @@ from mpi_pytorch_tpu.ops.fused_attention_small import fused_attention_small as j
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops import flash_attention as fa
 from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
+from mpi_pytorch_tpu_torch.ops.attention_split_numerics import emulate_flash_bf16 as emulate_flash
+from mpi_pytorch_tpu_torch.ops.attention_split_numerics import emulate_small_bf16 as emulate_small
 
 B, H, D = 2, 6, 64
-NEG = -1e30  # the kernels' mask value
-KEY_BLOCK = 64  # the flash kernel's k/v block
 F32_REL = 1e-5
-LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 
 
 def _qkv(seed: int, s: int, b: int = B) -> list[torch.Tensor]:
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((b, s, H, D)).astype(np.float32)).to(torch.bfloat16)
             for _ in range(3)]
-
-
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
-    """[B, H, S, S] f32: exact bf16 products summed in f32, then · scale;
-    −1e30 past the diagonal when causal."""
-    s = q.shape[1]
-    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
-    if causal:
-        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), NEG)
-    return sc
-
-
-def _exp(x: torch.Tensor) -> torch.Tensor:
-    """exp as the kernels take it: 2^(x·log2 e), the product rounded to f32."""
-    return torch.exp2(x * LOG2E)
-
-
-def _pv(p: torch.Tensor, v: torch.Tensor, terms: int) -> torch.Tensor:
-    """p [B, H, S, N] f32 times v [B, H, N, D] bf16 as the kernels take it:
-    the first ``terms`` bf16 terms of p, each times v (exact products),
-    summed in f32."""
-    out, rest = 0.0, p
-    for _ in range(terms):
-        t = rest.to(torch.bfloat16).float()
-        out, rest = out + t @ v.float(), rest - t
-    return out
-
-
-def emulate_small(q, k, v, causal: bool, terms: int = 3) -> torch.Tensor:
-    """K9's tensor-core arithmetic: whole-row softmax, out = (p·v) / l,
-    f32 [B, S, H, D] before the bf16 rounding."""
-    sc = _scores(q, k, causal)
-    p = _exp(sc - sc.amax(-1, keepdim=True))
-    return (_pv(p, v.transpose(1, 2), terms) / p.sum(-1, keepdim=True)).transpose(1, 2)
-
-
-def emulate_flash(q, k, v, causal: bool, terms: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
-    """K8's tensor-core arithmetic: key blocks of 64 (the last padded with
-    −1e30 keys and zero values), the online recurrence m, l, acc·α; out =
-    acc / safe_l (f32 [B, S, H, D] before rounding) and lse = m + log(safe_l)
-    [B, H, S]."""
-    s = q.shape[1]
-    n = -(-s // KEY_BLOCK) * KEY_BLOCK
-    sc = torch.nn.functional.pad(_scores(q, k, causal), (0, n - s), value=NEG)
-    vt = torch.nn.functional.pad(v.transpose(1, 2), (0, 0, 0, n - s))
-    b = q.shape[0]
-    m = torch.full((b, H, s, 1), NEG)
-    l = torch.zeros((b, H, s, 1))
-    acc = torch.zeros((b, H, s, D))
-    for k0 in range(0, n, KEY_BLOCK):
-        blk = sc[..., k0:k0 + KEY_BLOCK]
-        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = _exp(blk - m_new)
-        l = alpha * l + p.sum(-1, keepdim=True)
-        acc = acc * alpha + _pv(p, vt[:, :, k0:k0 + KEY_BLOCK], terms)
-        m = m_new
-    safe_l = torch.where(l > 0, l, torch.ones_like(l))
-    return (acc / safe_l).transpose(1, 2), (m + torch.log(safe_l))[..., 0]
 
 
 def _jax_small(q, k, v, causal: bool, dtype) -> np.ndarray:
@@ -199,8 +142,8 @@ def test_two_terms_cross_the_one_ulp_check():
         (torch.bfloat16, 16, "tensor_core", "tensor_core"),
         (torch.bfloat16, 48, "tensor_core", "tensor_core"),
         (torch.bfloat16, 128, "tensor_core", "tensor_core"),
-        (torch.bfloat16, 8, "ffma", "ffma"),
-        (torch.bfloat16, 36, "ffma", "ffma"),
+        (torch.bfloat16, 8, "ffma", "tensor_core"),
+        (torch.bfloat16, 36, "ffma", "tensor_core"),
         (torch.bfloat16, 144, "ffma", "ffma"),
         (torch.float32, 64, "tensor_core_f32", "tensor_core_f32"),
         (torch.float32, 16, "tensor_core_f32", "tensor_core_f32"),
@@ -209,23 +152,23 @@ def test_two_terms_cross_the_one_ulp_check():
     ],
 )
 def test_route(dtype, d, forward, backward):
-    """The forwards: bf16 with D % 16 == 0 and D ≤ 128 reaches the bf16
-    tensor cores, f32 with any D % 4 == 0 up to 128 the f32 tensor-core
-    kernels, any other bf16 D the FFMA kernels. The flash forward takes
-    this rule as it is; the tiny-S forward takes it for its training
-    forward and for f32 inference, and its bf16 inference calls keep the
-    FFMA kernel. K10's backward takes the same rule: f32 reaches its f32
-    tensor-core kernel too."""
-    assert _build.attention_route(dtype, d) == forward
+    """``backward``: the rule as :func:`_build.attention_route` states it,
+    which K8's flash forward and K10's backward take as it is: bf16 with
+    any D % 4 == 0 up to 128 reaches the bf16 tensor cores (a D that is not
+    a multiple of 16 zero-padded to the next one), f32 with any such D the
+    f32 tensor-core kernels. ``forward``: the tiny-S forward's training
+    route, which keeps the FFMA kernel for a bf16 D that is not a multiple
+    of 16; its f32 inference calls take the f32 tensor cores too, and its
+    bf16 inference calls keep the FFMA kernel."""
     assert _build.attention_route(dtype, d) == backward
     assert fas._route(dtype, d, train=True) == forward
-    assert fas._route(dtype, d, train=False) == ("ffma" if forward == "tensor_core" else forward)
+    assert fas._route(dtype, d, train=False) == ("ffma" if dtype == torch.bfloat16 else forward)
 
 
 def test_cpu_tensors_count_no_route():
     """On CPU tensors the forwards run their plain versions on every
     route's inputs, and no route's launch count moves."""
-    counters = (fa.tc_counter, fa.tc_f32_counter, fa.ffma_counter, fas.forward_tc_counter,
+    counters = (fa.tc_counter, fa.tc_pad_counter, fa.tc_f32_counter, fas.forward_tc_counter,
                 fas.forward_tc_f32_counter, fas.forward_ffma_counter)
     before = [c.count for c in counters]
     for dtype in (torch.bfloat16, torch.float32):
