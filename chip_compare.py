@@ -1,10 +1,8 @@
-"""Hold this checkout's K9 FFMA forward, K4 f32 head and bf16 attention at
-a head dim that is not a multiple of 16 (K8 forward, K10 backward) against
-another checkout's on one
-NVIDIA GPU — for example the parent commit, unpacked by ``git archive``
-into a git-ignored directory:
+"""Hold this checkout's K9 FFMA forward, K4 f32 head and K2 stem training
+forward against another checkout's on one NVIDIA GPU — for example the
+parent commit, unpacked by ``git archive`` into a git-ignored directory:
 
-    python3 chip_compare.py PARENT_DIR [--only {k9,k4,k8,k10} ...]
+    python3 chip_compare.py PARENT_DIR [--only {k9,k4,k2} ...]
 
 It builds the parent's ``mpi_pytorch_tpu_torch/csrc`` file of each entry
 compared (``PARENT_SOURCES``) with nvcc into ``build/parent_kernels``, in
@@ -21,19 +19,16 @@ through ctypes, then:
 - k4: ``mpt_head_predict_f32`` of both at B = 8, 64, 512, D = 512,
   V = 64 500, each against the plain f32 version (loss rtol 1e-5, argmax
   equal wherever the plain top-2 gap exceeds 1e-5·|max|), timed in turns.
-- k8: the parent's FFMA flash forward ``mpt_flash_fwd`` (bf16, blocks of
-  128) against this checkout's ``flash_forward`` (its bf16 tensor-core
-  kernel, zero-padded) at [128, 196, 6, 40]; k10: the parent's FFMA
-  backward ``mpt_attn_small_bwd`` against this checkout's
-  ``attention_small_backward`` at [128, 64, 6, 40]. Each output (and K8's
-  lse) against the plain version (one bf16 ulp, ``chip_smoke._grad_check``
-  for gradients, lse within 1e-5); the largest difference between the two
-  logged — not bitwise: their sums run in other orders; timed in turns.
+- k2: ``mpt_stem_pool_argmax`` of both on the same inputs at the training
+  shape [128, 64, 64, 64] bf16 (random, tie-heavy with a NaN, all relu
+  zero) and at ``chip_smoke.STEM_ARGMAX_EDGES`` (random, all relu zero):
+  pooled bitwise equal, NaN in the same places, and k equal on every
+  window whose max is finite (``chip_smoke.check_stem_argmax_equal``).
+  Then both timed in turns at the training shape.
 
-k9 and k4 take this checkout's entry points and signatures. k8 and k10
-build the FFMA attention entries of a tree from before the padded
-tensor-core route, which this checkout no longer has
-(``PARENT_SIGNATURES``), so they run only against such a tree.
+Each takes this checkout's entry point and signature: a comparison goes
+once no parent tree has its entry any more, and its logged numbers stay
+in PERF.md.
 
 Each case prints one JSON line; the last line is ``{"ok": true, ...}``. A
 failed check raises. Exits 2 without a card.
@@ -54,21 +49,7 @@ REPO = Path(__file__).resolve().parent
 # The parent source that carries each compared entry point.
 PARENT_SOURCES = {"k9": ("fused_attention_small.cu", "mpt_attn_small_fwd"),
                   "k4": ("head_predict_tc.cu", "mpt_head_predict_f32"),
-                  "k8": ("flash_attention.cu", "mpt_flash_fwd"),
-                  "k10": ("fused_attention_small.cu", "mpt_attn_small_bwd")}
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# The parent's argument types where they differ from this checkout's.
-PARENT_SIGNATURES = {
-    # q, k, v, out, lse, q/k/v strides, B, S, H, D, block_q, block_k,
-    # scale, causal, stream
-    "mpt_flash_fwd": (_P,) * 5 + (_L,) * 3 + (_I,) * 6 + (_F, _I, _P),
-    # q, k, v, dout, dq, dk, dv, q/k/v strides, B, S, H, D, scale, causal,
-    # stream
-    "mpt_attn_small_bwd": (_P,) * 7 + (_L,) * 3 + (_I,) * 4 + (_F, _I, _P),
-}
-# The timed shapes of the K8 and K10 comparisons: vit_s16's at D = 40.
-K8_SHAPE = (128, 196, 6, 40)
-K10_SHAPE = (128, 64, 6, 40)
+                  "k2": ("fused_stem.cu", "mpt_stem_pool_argmax")}
 V, D = 64500, 512
 K9_CASES = (  # (shape, causal, aligned)
     ((1, 64, 6, 64), False, True), ((8, 64, 6, 64), False, True), ((32, 64, 6, 64), False, True),
@@ -122,7 +103,7 @@ def finish_parent_build(target: Path, procs: list, only: list[str]) -> ctypes.CD
         if key not in only:
             continue
         fn = getattr(lib, name)
-        fn.argtypes = list(PARENT_SIGNATURES[name] if name in PARENT_SIGNATURES else _build.SIGNATURES[name])
+        fn.argtypes = list(_build.SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib
 
@@ -239,10 +220,6 @@ def compare_k4(parent, dev, gen) -> None:
         log({"k4_f32": row})
 
 
-def _max_diff(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
-
-
 def _turns(runs: dict, iters: int) -> dict:
     """Busy ms of the two runs in turns: parent, this, this, parent."""
     import chip_smoke
@@ -252,79 +229,41 @@ def _turns(runs: dict, iters: int) -> dict:
             "this_ms": (turns[1] + turns[2]) / 2}
 
 
-def _parent_flash(lib, q, k, v):
-    """The parent's FFMA flash forward, blocks of 128 as its wrapper cut
-    them at S = 196."""
+def _k2(lib, y, a, b) -> tuple[torch.Tensor, torch.Tensor]:
     from mpi_pytorch_tpu_torch.ops import _build
 
-    b, s, h, d = q.shape
-    blk = min(128, max(8, s))
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    rc = lib.mpt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                           *q.stride()[:3], b, s, h, d, blk, blk, d**-0.5, 0, _build.stream(q.device))
-    _build.check(rc, "parent mpt_flash_fwd")
-    return out, lse
+    bsz, h, w, c = y.shape
+    out = torch.empty((bsz, h // 2, w // 2, c), dtype=y.dtype, device=y.device)
+    idx = torch.empty((bsz, h // 2, w // 2, c), dtype=torch.int8, device=y.device)
+    rc = lib.mpt_stem_pool_argmax(y.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  idx.data_ptr(), bsz, h, w, c, _build.DTYPE_CODE[y.dtype],
+                                  _build.stream(y.device))
+    _build.check(rc, "mpt_stem_pool_argmax")
+    return out, idx
 
 
-def _parent_small_bwd(lib, q, k, v, do):
+def compare_k2(parent, dev, gen) -> None:
+    import chip_smoke
     from mpi_pytorch_tpu_torch.ops import _build
 
-    b, s, h, d = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    rc = lib.mpt_attn_small_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], b, s, h, d, d**-0.5, 0,
-                                _build.stream(q.device))
-    _build.check(rc, "parent mpt_attn_small_bwd")
-    return dq, dk, dv
-
-
-def compare_k8(parent, dev, gen) -> None:
-    import chip_smoke
-    from mpi_pytorch_tpu_torch.ops import flash_attention as fa
-
-    q, k, v = chip_smoke._qkv(gen, K8_SHAPE, dev)
-    ref, ref_lse = fa.flash_forward_reference(q, k, v)
-    runs = {"parent": lambda: _parent_flash(parent, q, k, v), "this": lambda: fa.flash_forward(q, k, v)}
-    out, row = {}, {"shape": list(K8_SHAPE), "dtype": "bfloat16"}
-    for name, fn in runs.items():
-        out[name] = fn()
+    this = _build.load_library()
+    cases = [(chip_smoke.STEM_TRAIN_SHAPE, torch.bfloat16, kind)
+             for kind in ("random", "tie_heavy_nan", "all_relu_zero")]
+    cases += [(shape, dtype, kind) for shape, dtype in chip_smoke.STEM_ARGMAX_EDGES
+              for kind in ("random", "all_relu_zero")]
+    for shape, dtype, kind in cases:
+        y, a, b = chip_smoke.stem_argmax_input(shape, dtype, kind, dev, gen)
+        (new, new_k), (old, old_k) = _k2(this, y, a, b), _k2(parent, y, a, b)
         torch.cuda.synchronize()
-        err = chip_smoke._ulp_check(out[name][0], ref, f"K8 {name}")
-        lse_err = _max_diff(out[name][1], ref_lse)
-        if lse_err > 1e-5 + 1e-5 * float(ref_lse.abs().max()):
-            raise AssertionError(f"K8 {name}: lse off by {lse_err}")
-        row[name] = {"max_abs_err_vs_plain": err, "lse_max_abs_err_vs_plain": lse_err}
-    row["between"] = {"bitwise": False, "why": "the trees sum in other orders",
-                      "out_max_abs_diff": _max_diff(out["parent"][0], out["this"][0]),
-                      "out_elements_differing": int((out["parent"][0] != out["this"][0]).sum()),
-                      "lse_max_abs_diff": _max_diff(out["parent"][1], out["this"][1])}
-    row.update(_turns(runs, 20))
-    log({"k8": row})
-
-
-def compare_k10(parent, dev, gen) -> None:
-    import chip_smoke
-    from mpi_pytorch_tpu_torch.ops import fused_attention_small as fas
-    from mpi_pytorch_tpu_torch.ops.ring_attention import full_attention
-
-    q, k, v, do = chip_smoke._qkv(gen, K10_SHAPE, dev, 4)
-    leaves = [t.float().requires_grad_() for t in (q, k, v)]
-    full_attention(*leaves).backward(do.float())
-    runs = {"parent": lambda: _parent_small_bwd(parent, q, k, v, do),
-            "this": lambda: fas.attention_small_backward(q, k, v, do)}
-    names = ("dq", "dk", "dv")
-    out, row = {}, {"shape": list(K10_SHAPE), "dtype": "bfloat16"}
-    for name, fn in runs.items():
-        out[name] = fn()
-        torch.cuda.synchronize()
-        row[name] = {f"{g}_max_abs_err_vs_plain": chip_smoke._grad_check(x, leaf.grad, f"K10 {name} {g}")
-                     for g, x, leaf in zip(names, out[name], leaves)}
-    row["between"] = {"bitwise": False, "why": "the trees sum in other orders",
-                      **{f"{g}_max_abs_diff": _max_diff(x, y)
-                         for g, x, y in zip(names, out["parent"], out["this"])}}
-    row.update(_turns(runs, 50))
-    log({"k10": row})
+        what = f"K2 {list(shape)} {dtype} {kind}"
+        chip_smoke.check_stem_argmax_equal(new, new_k, old, old_k, what)
+        log({"k2_bitwise": {"shape": list(shape), "dtype": str(dtype), "input": kind,
+                            "pooled_bitwise": True, "k_equal_on_finite": True,
+                            "windows_not_centre": int((new_k != 4).sum())}})
+    y, a, b = chip_smoke.stem_argmax_input(chip_smoke.STEM_TRAIN_SHAPE, torch.bfloat16, "random", dev,
+                                           gen)
+    runs = {"parent": lambda: _k2(parent, y, a, b), "this": lambda: _k2(this, y, a, b)}
+    log({"k2_turns_ms": {"shape": list(chip_smoke.STEM_TRAIN_SHAPE), **_turns(runs, 50)}})
 
 
 def main() -> int:
@@ -342,8 +281,7 @@ def main() -> int:
     print(card_report().splitlines()[0], flush=True)
     target, procs = start_parent_build(args.parent.resolve(), args.only)
     _build.load_library()
-    log_ptxas(("attn_small_fwd_kernel", "head_predict_f32_kernel", "flash_fwd_tc_kernel",
-               "attn_small_bwd_tc_kernel"))
+    log_ptxas(("attn_small_fwd_kernel", "head_predict_f32_kernel", "stem_pool_argmax"))
     parent = finish_parent_build(target, procs, args.only)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -352,10 +290,8 @@ def main() -> int:
         compare_k9(parent, dev, gen)
     if "k4" in args.only:
         compare_k4(parent, dev, gen)
-    if "k8" in args.only:
-        compare_k8(parent, dev, gen)
-    if "k10" in args.only:
-        compare_k10(parent, dev, gen)
+    if "k2" in args.only:
+        compare_k2(parent, dev, gen)
     log({"ok": True, "device": torch.cuda.get_device_name(0)})
     return 0
 

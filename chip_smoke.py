@@ -14,9 +14,11 @@ Phases (any failure raises and the script exits non-zero):
    the kernels line's ``ms``) and CUDA events around back-to-back calls —
    beside its plain version, a one-call PyTorch yardstick where one
    exists, and its roofline bound: the stem's eval
-   forward (K1), training forward with the window index (K2) and index
-   backward (K3), the predict head in bf16 (K4: B = 1, 8, 512 at D = 512,
-   B = 128 at vit_s16's D = 384, B = 128 and 512 at vit_b16's D = 768)
+   forward (K1), training forward with the window index (K2: bitwise the
+   plain version on random, tie-heavy and all-relu-zero inputs and at
+   edge shapes) and index backward (K3), the predict head in bf16 (K4:
+   B = 1, 8, 512 at D = 512, B = 128 at vit_s16's D = 384, B = 128 and
+   512 at vit_b16's D = 768)
    and f32 (K4 f32: B = 8, 64, 512, with the float64 gap of its six-pair
    logits beside the three-pair control), exact argmax ties at the
    tensor-core heads' tile, split, quad-lane, warpgroup and ragged-tile
@@ -320,27 +322,77 @@ def _stem_train_inputs(dev, gen):
     return a, b, y, ties
 
 
+# K2's inputs beyond the training shape: K3's edge shapes (below), the
+# 224 px conv1 output, H/2 = 35 (a short last band of the kernel's
+# two-row bands), C = 24 (three channel groups, so a warp's column runs
+# are not a power of two) and W/2 = 260 in f32 (column blocks of one
+# channel group); each random and all-relu-zero.
+STEM_ARGMAX_EDGES = (((16, 2, 2, 64), torch.bfloat16), ((8, 6, 10, 64), torch.bfloat16),
+                     ((4, 16, 16, 256), torch.float32), ((32, 112, 112, 64), torch.bfloat16),
+                     ((4, 70, 64, 64), torch.bfloat16), ((4, 10, 14, 24), torch.bfloat16),
+                     ((2, 6, 520, 8), torch.float32))
+
+
+def stem_argmax_input(shape, dtype, kind: str, dev, gen):
+    """(y, a, b) for K2: y normal, or coarse integers with a NaN
+    ("tie_heavy_nan": most windows tie); a in [0.5, 1.5); b normal·0.5, or
+    −1e3 everywhere ("all_relu_zero": every window ties at 0)."""
+    c = shape[-1]
+    a = (0.5 + torch.rand(c, generator=gen)).to(dev)
+    b = (0.5 * torch.randn(c, generator=gen)).to(dev)
+    if kind == "all_relu_zero":
+        b = torch.full((c,), -1e3, device=dev)
+    if kind == "tie_heavy_nan":
+        y = torch.randint(-2, 3, shape, generator=gen).to(dev, dtype)
+        y[0, shape[1] // 2, shape[2] - 1, 3] = float("nan")
+    else:
+        y = torch.randn(shape, generator=gen).to(dev, dtype)
+    return y, a, b
+
+
+def check_stem_argmax_equal(pooled, k, ref_p, ref_k, what: str) -> float:
+    """K2's outputs against another run's: pooled bitwise (NaN in the same
+    places), k equal on every window whose max is finite. Returns the max
+    abs difference of pooled on finite values (0.0 once it passes)."""
+    nan = torch.isnan(ref_p.float())
+    if not torch.equal(torch.isnan(pooled.float()), nan):
+        raise AssertionError(f"{what}: NaN positions differ")
+    if not torch.equal(pooled[~nan], ref_p[~nan]):
+        raise AssertionError(f"{what}: pooled differs on {int((pooled[~nan] != ref_p[~nan]).sum())} values")
+    if not torch.equal(k[~nan], ref_k[~nan]):
+        raise AssertionError(f"{what}: k differs on {int((k[~nan] != ref_k[~nan]).sum())} finite windows")
+    diff = (pooled[~nan].float() - ref_p[~nan].float()).abs()
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def check_stem_argmax(dev, gen) -> dict:
-    """K2 against its plain version at the training shape, on random and on
-    tie-heavy inputs with a NaN: pooled within one bf16 ulp (NaN where the
-    plain version has NaN), the window index k exactly equal on every
-    window whose plain value is finite."""
+    """K2 against its plain version at the training shape, on random,
+    tie-heavy (with a NaN) and all-relu-zero inputs, and at
+    ``STEM_ARGMAX_EDGES``: pooled bitwise the plain version's (both round
+    the product and the sum of the affine separately), NaN in the same
+    places, and k equal on every window whose max is finite
+    (``check_stem_argmax_equal``). The all-relu-zero and edge inputs draw
+    from a generator of their own, so the later checks' inputs are those
+    of earlier runs. Then timed at the training shape; raises when its
+    busy time reads below its bound."""
     from mpi_pytorch_tpu_torch.hardware import H100_PEAK_F32_FLOPS, bound_ms
     from mpi_pytorch_tpu_torch.ops import fused_stem as fs
 
     a, b, y, ties = _stem_train_inputs(dev, gen)
+    edge_gen = torch.Generator().manual_seed(SEED + 13)
+    cases = [("random", y, a, b), ("tie_heavy_nan", ties, a, b),
+             ("all_relu_zero", *stem_argmax_input(STEM_TRAIN_SHAPE, torch.bfloat16, "all_relu_zero",
+                                                  dev, edge_gen))]
+    for shape, dtype in STEM_ARGMAX_EDGES:
+        for kind in ("random", "all_relu_zero"):
+            cases.append((f"{list(shape)} {dtype} {kind}",
+                          *stem_argmax_input(shape, dtype, kind, dev, edge_gen)))
     max_err = 0.0
-    for name, inp in (("random", y), ("tie_heavy_nan", ties)):
-        pooled, k = fs.stem_pool_argmax(inp, a, b)
+    for name, inp, a_c, b_c in cases:
+        pooled, k = fs.stem_pool_argmax(inp, a_c, b_c)
         torch.cuda.synchronize()
-        ref_p, ref_k = fs.stem_pool_argmax_reference(inp, a, b)
-        max_err = max(max_err, _ulp_check(pooled, ref_p, f"stem argmax ({name})"))
-        fin = ~torch.isnan(ref_p.float())
-        if not torch.equal(k[fin], ref_k[fin]):
-            raise AssertionError(
-                f"stem argmax ({name}): k differs on {int((k[fin] != ref_k[fin]).sum())} "
-                "finite windows"
-            )
+        max_err = max(max_err, check_stem_argmax_equal(
+            pooled, k, *fs.stem_pool_argmax_reference(inp, a_c, b_c), f"stem argmax ({name})"))
     n_in, n_out = y.numel(), y.numel() // 4
     c = y.shape[-1]
     moved = 2 * n_in + 2 * n_out + n_out + 8 * c  # y, pooled (bf16), k (int8), a, b
@@ -350,7 +402,8 @@ def check_stem_argmax(dev, gen) -> dict:
         "name": "stem_pool_argmax", "route": "cuda",
         "source": "mpi_pytorch_tpu_torch/csrc/fused_stem.cu",
         "replaces": "mpi_pytorch_tpu/ops/fused_stem.py:257",
-        "shape": list(STEM_TRAIN_SHAPE), "dtype": "bfloat16", "max_abs_err": max_err,
+        "shape": list(STEM_TRAIN_SHAPE), "dtype": "bfloat16",
+        "max_abs_err": max_err, "cases": len(cases),
         "kernel_ms": time_ms(lambda: fs.stem_pool_argmax(y, a, b), 50),
         "device_ms": device_ms(lambda: fs.stem_pool_argmax(y, a, b), 50),
         "plain_ms": time_ms(lambda: fs.stem_pool_argmax_reference(y, a, b), 10),
@@ -359,6 +412,8 @@ def check_stem_argmax(dev, gen) -> dict:
         "library_ms": None,
     }
     log({"kernel_check": row})
+    if row["device_ms"] < bound:
+        raise AssertionError(f"stem_pool_argmax: device_ms {row['device_ms']} below its bound {bound} ms")
     return row
 
 

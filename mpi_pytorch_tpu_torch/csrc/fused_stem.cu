@@ -26,6 +26,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace {
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
@@ -132,78 +136,309 @@ cudaError_t launch(const void* y, const void* a, const void* b, void* out,
 // same as its default bf16 ones).
 //
 // Bound: bytes. At [128,64,64,64] bf16 it reads y (67.1 MB) and writes the
-// pooled output (16.8 MB) and k (8.4 MB): 0.028 ms at 3.35 TB/s. Design as
-// the eval forward above, plus one 8-byte store of k per thread.
+// pooled output (16.8 MB) and k (8.4 MB): 0.0275 ms at 3.35 TB/s.
+//
+// Design: a staged band. A tile is one image n, a band of R output rows
+// (oh0 ...), a block of TW output columns (ow0 ...) and a slice of CS
+// channels; its inputs are rows 2·oh0 − 1 ... 2·(oh0 + R) − 1 and columns
+// 2·ow0 − 1 ... 2·(ow0 + TW) − 1, clipped to the grid. Tiles are numbered
+// band fastest, and each persistent CTA (as many as fit on the card) takes
+// one contiguous run of them, so its next tile is mostly the band below
+// this one. The top input row of a band, 2·oh0 − 1, is the bottom row of
+// the band above: the CTA carries that row's column fold in registers from
+// tile to tile, and stages and folds it (the halo row) only for the first
+// tile of its run. The staged rows come into shared memory by 1-D bulk
+// copies (`bulk_load`) that complete on the stage's mbarrier: in NHWC a
+// band of whole rows is one contiguous range and one copy; a column block
+// takes a copy a row, a channel slice a copy a pixel. A ring of kArgStages
+// stages loads the next tiles while this one is folded. y leaves device
+// memory once, but for one halo row a CTA. The tile's shape is set on the
+// host per call (`arg_tiles`): CS the widest slice of C up to 256 bytes a
+// pixel, TW so that a CTA holds at most kArgThreads threads, R so that a
+// stage holds at most kArgStageBytes. (Chosen on the card at the training
+// shape: 256 threads and 48 KB stages, two CTAs an SM, ran ahead of 128
+// threads with 16–40 KB stages, 64 threads, and a third stage.)
+//
+// Thread (j, g) owns output column ow0 + j and the slice's channels
+// 8g ... 8g + 7 and walks down the band. For each input row it takes the
+// affine and relu of its own two columns 2·ow and 2·ow + 1; the left one,
+// 2·ow − 1, is its left neighbour's right column, taken by a shuffle (the
+// first column of each warp takes it itself). So each input element's
+// affine runs once, but for those warp edges. Then the column fold over dw
+// (value, dw), then the row fold over dh, both in _pool_argmax_t's order:
+// strict > for the index, a NaN-propagating max for the value (one
+// max.NaN instruction, as relu is). An odd input row's column fold serves
+// both output rows it belongs to. On every window whose max is finite this
+// gives the row-major first match of the plain version.
+//
+// Padding is -inf BY COORDINATE: a row or column off the grid is never
+// copied nor read, so nothing depends on what a stage held before. (A
+// copy's zero fill would not do: relu(0·a + b) = relu(b) can beat every
+// real element, and even a zero wins ties against the real relu zeros.)
 //
 // The affine rounds the product and the sum separately (no FMA), as the
 // plain PyTorch version's y * a + b does: the two then agree bit for bit on
-// every activation, so on every window's max and on every index k.
-template <typename T>
-__global__ void stem_pool_argmax_kernel(const T* __restrict__ y,
-                                        const float* __restrict__ a,
-                                        const float* __restrict__ b,
-                                        T* __restrict__ out,
-                                        int8_t* __restrict__ idx,
-                                        int B, int H, int W, int C) {
-  const int H2 = H / 2, W2 = W / 2, G = C / 8;
-  const long long total = static_cast<long long>(B) * H2 * W2 * G;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int g = static_cast<int>(i % G);
-  long long r = i / G;
-  const int ow = static_cast<int>(r % W2);
-  r /= W2;
-  const int oh = static_cast<int>(r % H2);
-  const long long n = r / H2;
-  const int c0 = g * 8;
+// every activation, so on every window's max and on every index k. Index
+// math is 32-bit in shared memory; global offsets are 32-bit below 2^31
+// elements of y and 64-bit above. A tile's coordinates cost three 32-bit
+// divisions, a thread's (j, g) one.
+constexpr int kArgThreads = 256;           // the most a CTA holds
+constexpr int kArgStageBytes = 48 * 1024;  // the most a stage holds
+constexpr int kArgStages = 2;
 
-  float av[8], bv[8], m[8], v[8];
-  int kk[8];
-  load8(a + c0, av);
-  load8(b + c0, bv);
+// The tiles of one call: the grid's sizes, the tile's shape (cs channels,
+// g = cs / 8 groups, tw columns, r rows), the tile counts of each axis and
+// in all, and a stage's bytes.
+struct ArgTiles {
+  int H, W, C, H2, W2;
+  int cs, g, tw, r;
+  int n_sl, n_cb, n_band, tiles, stage_bytes;
+};
+
+// One tile: image n, output rows oh0 ... oh0 + rows − 1, output columns
+// ow0 ... ow0 + cols − 1, channels c0 ... c0 + cs − 1; the first staged
+// input row and column (gr0, gc0) and the staged columns (ncols). `halo`:
+// row 2·oh0 − 1 is staged (the first tile of a run, below the grid's top).
+struct ArgTile {
+  int n, oh0, rows, ow0, cols, c0, gr0, gc0, ncols;
+  bool halo;
+};
+
+__device__ __forceinline__ ArgTile arg_tile(const ArgTiles& p, int tile, bool first) {
+  ArgTile u;
+  int t = tile / p.n_band;
+  u.oh0 = (tile - t * p.n_band) * p.r;
+  const int sl_n = t / p.n_cb;
+  u.ow0 = (t - sl_n * p.n_cb) * p.tw;
+  u.n = sl_n / p.n_sl;
+  u.c0 = (sl_n - u.n * p.n_sl) * p.cs;
+  u.rows = min(p.r, p.H2 - u.oh0);
+  u.cols = min(p.tw, p.W2 - u.ow0);
+  u.halo = first && u.oh0 > 0;
+  u.gr0 = u.halo ? 2 * u.oh0 - 1 : 2 * u.oh0;
+  u.gc0 = max(2 * u.ow0 - 1, 0);
+  u.ncols = 2 * (u.ow0 + u.cols) - u.gc0;
+  return u;
+}
+
+// Warp 0: the copies of `tile`'s inputs into `stage`, completing on `bar`.
+template <typename T, typename I>
+__device__ __forceinline__ void arg_issue(const T* y, const ArgTiles& p, int tile, bool first,
+                                          uint32_t stage, uint32_t bar, int lane) {
+  using namespace mpt_hopper;
+  const ArgTile u = arg_tile(p, tile, first);
+  const int nrows = 2 * (u.oh0 + u.rows) - u.gr0;
+  const uint32_t pix = p.cs * sizeof(T);
+  if (lane == 0) mbar_expect_tx(bar, nrows * u.ncols * pix);
+  __syncwarp();
+  const T* src = y + ((static_cast<I>(u.n) * p.H + u.gr0) * p.W + u.gc0) * p.C + u.c0;
+  const I row = static_cast<I>(p.W) * p.C;
+  if (p.cs == p.C && u.ncols == p.W) {  // whole rows: one range
+    if (lane == 0) bulk_load(stage, src, nrows * u.ncols * pix, bar);
+  } else if (p.cs == p.C) {  // a range a row
+    for (int r = lane; r < nrows; r += 32)
+      bulk_load(stage + r * u.ncols * pix, src + r * row, u.ncols * pix, bar);
+  } else {  // a range a pixel
+    for (int r = 0; r < nrows; ++r)
+      for (int c = lane; c < u.ncols; c += 32)
+        bulk_load(stage + (r * u.ncols + c) * pix, src + r * row + static_cast<I>(c) * p.C, pix,
+                  bar);
+  }
+}
+
+// max that propagates NaN from either side (lax.max, torch.maximum), in one
+// instruction.
+__device__ __forceinline__ float max_nan1(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float affine_relu(float y, float a, float b) {
+  return max_nan1(__fadd_rn(__fmul_rn(y, a), b), 0.f);
+}
+
+// The column fold of input row gr at this thread's centre: (v, dw) over
+// dw = 0, 1, 2 in _pool_argmax_t's order. Every thread of the CTA calls
+// it with the same gr (the shuffle needs the whole warp); `live` threads
+// read the stage, the others carry -inf.
+template <typename T>
+__device__ __forceinline__ void arg_column(const T* stage, const ArgTiles& p, const ArgTile& u,
+                                           int gr, int lc, int g, bool live, bool own_left,
+                                           const float (&av)[8], const float (&bv)[8],
+                                           float (&v)[8], int (&dw)[8]) {
+  const T* px = stage + ((gr - u.gr0) * u.ncols + lc) * p.cs + 8 * g;
+  float zc[8], zr[8], zl[8];
+  if (live) {
+    load8(px, zc);
+    load8(px + p.cs, zr);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    m[c] = -INFINITY;
-    kk[c] = 0;
+    for (int c = 0; c < 8; ++c) {
+      zc[c] = affine_relu(zc[c], av[c], bv[c]);
+      zr[c] = affine_relu(zr[c], av[c], bv[c]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) zc[c] = zr[c] = -INFINITY;
   }
 #pragma unroll
-  for (int dh = 0; dh < 3; ++dh) {
-    const int ih = 2 * oh - 1 + dh;
-    if (ih < 0 || ih >= H) continue;
+  for (int c = 0; c < 8; ++c) zl[c] = __shfl_up_sync(0xffffffffu, zr[c], p.g);
+  if (own_left) {
+    // Column 2·ow − 1: off the grid where lc == 0 (ow == 0), else staged.
+    if (live && lc > 0) {
+      load8(px - p.cs, zl);
 #pragma unroll
-    for (int dw = 0; dw < 3; ++dw) {
-      const int iw = 2 * ow - 1 + dw;
-      if (iw < 0 || iw >= W) continue;
-      load8(y + ((n * H + ih) * W + iw) * C + c0, v);
+      for (int c = 0; c < 8; ++c) zl[c] = affine_relu(zl[c], av[c], bv[c]);
+    } else {
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float z = relu_nan(__fadd_rn(__fmul_rn(v[c], av[c]), bv[c]));
-        if (z > m[c]) kk[c] = dh * 3 + dw;  // strict: the first max keeps the window
-        m[c] = max_nan(m[c], z);
-      }
+      for (int c = 0; c < 8; ++c) zl[c] = -INFINITY;
     }
   }
-  const long long o = ((n * H2 + oh) * W2 + ow) * C + c0;
-  store8(out + o, m);
-  unsigned long long packed = 0;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) packed |= static_cast<unsigned long long>(kk[c]) << (8 * c);
-  *reinterpret_cast<unsigned long long*>(idx + o) = packed;
+  for (int c = 0; c < 8; ++c) {
+    dw[c] = zc[c] > zl[c] ? 1 : 0;  // strict: the first max keeps the window
+    v[c] = max_nan1(zl[c], zc[c]);
+    if (zr[c] > v[c]) dw[c] = 2;
+    v[c] = max_nan1(v[c], zr[c]);
+  }
+}
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(kArgThreads)
+stem_pool_argmax_band_kernel(const T* __restrict__ y, const float* __restrict__ a,
+                             const float* __restrict__ b, T* __restrict__ out,
+                             int8_t* __restrict__ idx, ArgTiles p) {
+  using namespace mpt_hopper;
+  extern __shared__ __align__(128) unsigned char arg_smem[];
+  __shared__ __align__(8) uint64_t full[kArgStages];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int j = tid / p.g, g = tid - j * p.g;
+  // The first of each run of p.g lanes that share a column has no left
+  // neighbour in the warp.
+  const bool own_left = lane < p.g;
+  if (tid == 0) {
+    for (int s = 0; s < kArgStages; ++s) mbar_init(smem_addr(&full[s]), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const uint32_t stage0 = smem_addr(arg_smem);
+  // This CTA's run of tiles: an even share, in order.
+  const int first = static_cast<int>(static_cast<long long>(blockIdx.x) * p.tiles / gridDim.x);
+  const int last = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * p.tiles / gridDim.x);
+  if (tid < 32)
+    for (int s = 0; s < kArgStages && first + s < last; ++s)
+      arg_issue<T, I>(y, p, first + s, s == 0, stage0 + s * p.stage_bytes, smem_addr(&full[s]),
+                      lane);
+
+  float av[8], bv[8], tv[8];  // tv, tdw: the column fold of the band's top row
+  int tdw[8];
+  for (int tile = first, it = 0; tile < last; ++tile, ++it) {
+    const int s = it % kArgStages;
+    const ArgTile u = arg_tile(p, tile, tile == first);
+    const T* stage = reinterpret_cast<const T*>(arg_smem + s * p.stage_bytes);
+    const bool live = j < u.cols;
+    const int ow = u.ow0 + j, lc = 2 * ow - u.gc0;
+    const int c0 = u.c0 + 8 * g;
+    load8(a + c0, av);
+    load8(b + c0, bv);
+    mbar_wait(smem_addr(&full[s]), (it / kArgStages) & 1);
+
+    if (u.oh0 == 0) {  // the padding row above the grid
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        tv[c] = -INFINITY;
+        tdw[c] = 0;
+      }
+    } else if (u.halo) {
+      arg_column(stage, p, u, 2 * u.oh0 - 1, lc, g, live, own_left, av, bv, tv, tdw);
+    }  // else: carried from the band above, the previous tile
+    for (int i = 0; i < u.rows; ++i) {
+      const int oh = u.oh0 + i;
+      float mv[8], bt[8], m[8];
+      int mdw[8], bdw[8];
+      arg_column(stage, p, u, 2 * oh, lc, g, live, own_left, av, bv, mv, mdw);
+      arg_column(stage, p, u, 2 * oh + 1, lc, g, live, own_left, av, bv, bt, bdw);
+      unsigned long long packed = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int k = tdw[c];  // dh = 0
+        if (mv[c] > tv[c]) k = 3 + mdw[c];
+        m[c] = max_nan1(tv[c], mv[c]);
+        if (bt[c] > m[c]) k = 6 + bdw[c];
+        m[c] = max_nan1(m[c], bt[c]);
+        packed |= static_cast<unsigned long long>(k) << (8 * c);
+        tv[c] = bt[c];  // the odd row is the next output row's dh = 0
+        tdw[c] = bdw[c];
+      }
+      if (live) {
+        const I o = ((static_cast<I>(u.n) * p.H2 + oh) * p.W2 + ow) * p.C + c0;
+        store8(out + o, m);
+        *reinterpret_cast<unsigned long long*>(idx + o) = packed;
+      }
+    }
+    __syncthreads();  // every thread has read stage s
+    if (tid < 32 && tile + kArgStages < last)
+      arg_issue<T, I>(y, p, tile + kArgStages, false, stage0 + s * p.stage_bytes,
+                      smem_addr(&full[s]), lane);
+  }
+}
+
+// The tiles of a call (see the design note above): CS the widest multiple
+// of 8 dividing C up to 256 bytes a pixel; TW the column blocks' even share
+// of W/2 with at most kArgThreads threads (and 127 columns) a CTA; R the
+// most rows a stage of kArgStageBytes holds with its halo row, at least 1.
+ArgTiles arg_tiles(int B, int H, int W, int C, int elem) {
+  ArgTiles p;
+  p.H = H, p.W = W, p.C = C, p.H2 = H / 2, p.W2 = W / 2;
+  p.cs = 8;
+  for (int cs = 16; cs <= C && cs * elem <= 256; cs += 8)
+    if (C % cs == 0) p.cs = cs;
+  p.g = p.cs / 8;
+  const int tw_max = std::min(kArgThreads / p.g, 127);
+  p.n_cb = (p.W2 + tw_max - 1) / tw_max;
+  p.tw = (p.W2 + p.n_cb - 1) / p.n_cb;
+  const int row_bytes = (2 * p.tw + 1) * p.cs * elem;
+  p.r = std::max(1, std::min(p.H2, (kArgStageBytes / row_bytes - 1) / 2));
+  p.n_band = (p.H2 + p.r - 1) / p.r;
+  p.n_sl = C / p.cs;
+  p.stage_bytes = ((2 * p.r + 1) * row_bytes + 127) / 128 * 128;
+  const long long tiles = static_cast<long long>(B) * p.n_band * p.n_cb * p.n_sl;
+  p.tiles = tiles > (1 << 30) ? -1 : static_cast<int>(tiles);
+  return p;
+}
+
+template <typename T, typename I>
+cudaError_t launch_argmax_i(const void* y, const void* a, const void* b, void* out, void* idx,
+                            const ArgTiles& p, cudaStream_t stream) {
+  auto kernel = stem_pool_argmax_band_kernel<T, I>;
+  const int threads = (p.tw * p.g + 31) / 32 * 32;
+  const int bytes = kArgStages * p.stage_bytes;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+          cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes)) !=
+          cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = std::min(p.tiles, sms * per_sm);
+  kernel<<<grid, threads, bytes, stream>>>(
+      static_cast<const T*>(y), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<T*>(out), static_cast<int8_t*>(idx), p);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_argmax(const void* y, const void* a, const void* b, void* out,
                           void* idx, int B, int H, int W, int C, cudaStream_t stream) {
-  const long long total = static_cast<long long>(B) * (H / 2) * (W / 2) * (C / 8);
-  if (total == 0) return cudaSuccess;
-  constexpr int kThreads = 256;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  stem_pool_argmax_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<T*>(out),
-      static_cast<int8_t*>(idx), B, H, W, C);
-  return cudaGetLastError();
+  if (static_cast<long long>(B) * (H / 2) * (W / 2) * C == 0) return cudaSuccess;
+  const ArgTiles p = arg_tiles(B, H, W, C, sizeof(T));
+  if (p.tiles < 0) return cudaErrorInvalidConfiguration;
+  if (static_cast<long long>(B) * H * W * C < 0x7fffffffLL)
+    return launch_argmax_i<T, int>(y, a, b, out, idx, p, stream);
+  return launch_argmax_i<T, long long>(y, a, b, out, idx, p, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 // Generic Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // the attention kernels (attention_tc.cuh: K8, K9, K10) and the heads
-// (head_predict_tc.cu: K4 bf16 and f32, K5, K7; fused_head_ce_bwd.cu: K6).
+// (head_predict_tc.cu: K4 bf16 and f32, K5, K7; fused_head_ce_bwd.cu: K6);
+// the stem's training forward (fused_stem.cu: K2) takes the mbarrier and
+// the 1-D bulk copy.
 //
 // - Shared-memory tiles in the 128-byte swizzle that wgmma's descriptors
 //   read (`swz`), filled by 16- or 8-byte `cp.async` copies or by TMA.
@@ -8,7 +10,8 @@
 //   fence / commit / wait of its asynchronous products.
 // - mbarriers and the 2-D TMA load that completes on one, for kernels
 //   whose operand strides are fixed for the call (a tensor map is encoded
-//   on the host per call, `encode_rows`).
+//   on the host per call, `encode_rows`), and the 1-D bulk copy of one
+//   contiguous range (`bulk_load`, no tensor map).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -181,6 +184,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, as one bulk copy of the async proxy (no tensor map),
+// completing its bytes on `bar`. Nothing outside the range is touched.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
