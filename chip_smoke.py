@@ -69,8 +69,18 @@ Phases (any failure raises and the script exits non-zero):
    mpi_pytorch_tpu_torch.train`` runs) on resnet18, 64 500 classes, 128 px,
    batch 128, bf16, Adam 4e-4, fused stem, synthetic data, the DEBUG
    sample of 3 200 rows (20 steps an epoch), two epochs, validation, one
-   checkpoint kept: K2 and K3 must launch on every step and the loss must
-   fall; then the same run with the plain stem (step-1 loss within 1e-3);
+   checkpoint kept (the fused run with ``track_best``: the last checkpoint
+   and the one ``best.json`` names): K2 and K3 must launch on every step
+   and the loss must fall; then the same run with the plain stem (step-1
+   loss within 1e-3);
+6b. evaluation, the end of the main path: ``evaluate.evaluate`` (what
+   ``python -m mpi_pytorch_tpu_torch.evaluate`` runs) over the fused run's
+   checkpoint at full width, fused stem and fused head, writing the
+   predictions CSV: K1 and K4 launch once a batch, the CSV holds every test
+   row in order and reproduces the reported accuracy, and its labels agree
+   with the plain stem's and plain head's on the same rows by the serving
+   rule (``E2E_GAP``); then ``use_best`` loads the file ``best.json``
+   names, and ``--quantize-eval`` with the fused head launches K7;
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
@@ -1751,9 +1761,12 @@ def _vit_cfg(tmp: str, attn_impl: str, image: int):
                       num_epochs=VIT_EPOCHS)
 
 
-def train_resnet18(dev) -> dict:
+def train_resnet18(dev, run_dir: str) -> dict:
     """The training path at full width through ``trainer.train``, fused
-    stem then plain stem; returns K2's and K3's launches in the fused run."""
+    stem then plain stem; returns K2's and K3's launches in the fused run.
+    The fused run tracks its best validation accuracy and writes into
+    ``run_dir``, which :func:`evaluate_resnet18` evaluates next."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
     from mpi_pytorch_tpu_torch.ops import fused_stem
     from mpi_pytorch_tpu_torch.train.trainer import train
@@ -1764,7 +1777,7 @@ def train_resnet18(dev) -> dict:
     runs = {}
     for name, fused in (("fused", True), ("plain", False)):
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = _train_cfg(tmp, fused_stem=fused)
+            cfg = _train_cfg(run_dir if fused else tmp, fused_stem=fused, track_best=fused)
             fused_stem.argmax_counter.reset()
             fused_stem.backward_counter.reset()
             t0 = time.perf_counter()
@@ -1774,18 +1787,30 @@ def train_resnet18(dev) -> dict:
                 "stem_pool_argmax": fused_stem.argmax_counter.count,
                 "stem_pool_backward": fused_stem.backward_counter.count,
             }
-            saved = sorted(os.listdir(cfg.checkpoint_dir))
+            saved = [p for p in sorted(os.listdir(cfg.checkpoint_dir)) if p.endswith(".pt")]
+            marker = ckpt.best_marker(cfg.checkpoint_dir)
         losses = summary.step_losses
         if len(losses) != TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
             raise AssertionError(f"{name} training: step losses {losses}")
-        if saved != [f"ckpt_{TRAIN_EPOCHS - 1:05d}.pt"] or summary.val_accuracy is None:
-            raise AssertionError(f"{name} training: checkpoints {saved}, val {summary.val_accuracy}")
+        last = f"ckpt_{TRAIN_EPOCHS - 1:05d}.pt"
+        # Retention keeps the last keep_checkpoints (1) and, under
+        # track_best, the file best.json named at the last save: at most
+        # one more, and the marked file is among them.
+        if fused:
+            kept = (marker is not None and last in saved and marker["checkpoint"] in saved
+                    and len(saved) <= cfg.keep_checkpoints + 1
+                    and marker["accuracy"] == summary.best_accuracy)
+        else:
+            kept = saved == [last] and marker is None
+        if not kept or summary.val_accuracy is None:
+            raise AssertionError(f"{name} training: checkpoints {saved}, best {marker}, "
+                                 f"val {summary.val_accuracy}")
         runs[name] = {
             "step_losses": losses, "wall_s": wall,
             "epoch_losses": summary.epoch_losses, "epoch_times_s": summary.epoch_times,
             "ms_per_step_last_epoch": 1e3 * summary.epoch_times[-1] / TRAIN_STEPS_PER_EPOCH,
             "img_per_s": summary.images_per_sec, "val_accuracy": summary.val_accuracy,
-            "launches": launches,
+            "launches": launches, "checkpoints": saved, "best": marker,
         }
         log({"train": {"stem": name, **runs[name]}})
     fused, plain = runs["fused"], runs["plain"]
@@ -1806,6 +1831,107 @@ def train_resnet18(dev) -> dict:
         raise AssertionError(f"step-1 loss, fused vs plain stem: relative gap {gaps[0]}")
     log({"train_fused_vs_plain_bf16": {"step_rel_gap": gaps}})
     return fused["launches"]
+
+
+def evaluate_resnet18(dev, run_dir: str) -> None:
+    """``evaluate.evaluate`` over the fused training run's checkpoint
+    directory at full width: (a) fused stem and fused head with the
+    predictions CSV — a first pass, then the checked one: K1 and K4 once a
+    batch, one row per test row in manifest order, the CSV's accuracy the
+    reported one; (b) the same rows through the plain stem and plain head
+    (``_plain_top1`` in the same batches): ``_agreement``; (c) ``use_best``
+    evaluates the file ``best.json`` names; (d) ``--quantize-eval`` with
+    the fused head launches K7 once. Where the pass's time goes: the loader
+    alone over the same rows, and the card's busy time of one pass."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.evaluate import (
+        build_inference,
+        evaluate,
+        evaluate_with_predictions,
+        quantize_eval_report,
+    )
+    from mpi_pytorch_tpu_torch.hardware import card_report
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce, fused_stem, quantize
+    from mpi_pytorch_tpu_torch.train.trainer import make_loader
+    from mpi_pytorch_tpu_torch.utils.logging import init_logger
+
+    t_phase = time.perf_counter()
+    csv_path = os.path.join(run_dir, "predictions.csv")
+    cfg = _train_cfg(run_dir, fused_stem=True, fused_head_eval=True, predictions_file=csv_path,
+                     eval_log_file=os.path.join(run_dir, "evaluation.log"))
+    train_m, test_m = load_manifests(cfg)
+    batches = -(-len(test_m) // cfg.batch_size)
+    first = evaluate(cfg, device=dev)  # cuDNN's algorithm search, the test rows' making
+    fused_stem.counter.reset()
+    fused_head_ce.counter.reset()
+    summary = evaluate(cfg, device=dev)
+    launches = {"stem": fused_stem.counter.count, "head": fused_head_ce.counter.count}
+    if launches != {"stem": batches, "head": batches}:
+        raise AssertionError(f"evaluate: {launches} launches over {batches} batches")
+    with open(csv_path) as f:
+        header, *rows = f.read().splitlines()
+    body = [r.split(",") for r in rows]
+    if header != "file_name,predicted_label,predicted_category_id" or (
+        [b[0] for b in body] != list(test_m.filenames)
+    ):
+        raise AssertionError(f"predictions CSV: header {header!r}, {len(body)} rows "
+                             f"for {len(test_m)} test rows")
+    csv_acc = sum(int(b[2]) == int(c) for b, c in zip(body, test_m.category_ids)) / len(body)
+    if abs(csv_acc - summary.accuracy) > 1e-12:
+        raise AssertionError(f"CSV accuracy {csv_acc} against reported {summary.accuracy}")
+
+    # (b) The plain path over the same checkpoint and rows.
+    marker = ckpt.best_marker(cfg.checkpoint_dir)
+    latest = ckpt.latest_checkpoint(cfg.checkpoint_dir)
+    weights = ckpt.load_for_eval(latest)[0]
+    plain = build_inference(dataclasses.replace(cfg, fused_stem=False, fused_head_eval=False),
+                            dev, weights)
+    t0 = time.perf_counter()
+    images = np.concatenate([b[0] for b in make_loader(cfg, test_m, train=False).epoch(0)])
+    loader_s = time.perf_counter() - t0
+    ref, gap = _plain_top1(plain, images, cfg.batch_size, dev)
+    preds = np.array([int(b[1]) for b in body])
+    agree, clear, frac = _agreement(preds, ref, gap, "evaluated resnet18")
+    del plain
+    fused = build_inference(cfg, dev, weights)
+    logger = init_logger("MPT_EVAL", cfg.eval_log_file)
+    busy_ms = device_ms(
+        lambda: evaluate_with_predictions(cfg, fused, train_m, test_m, logger), 1)
+    del fused
+
+    # (c) --use-best: the metrics-only pass over the marked file.
+    best_path = os.path.join(cfg.checkpoint_dir, marker["checkpoint"])
+    best = evaluate(dataclasses.replace(cfg, use_best=True, predictions_file="",
+                                        fused_head_eval=False), device=dev)
+    with open(cfg.eval_log_file) as f:
+        loaded = [line for line in f if "loaded checkpoint" in line][-1]
+    if f"loaded checkpoint {best_path} " not in loaded:
+        raise AssertionError(f"use_best loaded {loaded.strip()!r}, best.json names {best_path}")
+
+    # (d) --quantize-eval through the fused int8 head.
+    quantize.counter.reset()
+    report = quantize_eval_report(
+        dataclasses.replace(cfg, quantize_eval=True, predictions_file="", serve_topk=1),
+        device=dev)
+    if quantize.counter.count != 1 or report["samples"] != cfg.quantize_calib or (
+        report["top5_agree"] is not None or not np.isfinite(report["max_logit_drift"])
+    ):
+        raise AssertionError(f"quantize-eval: {quantize.counter.count} K7 launches, {report}")
+    log({"evaluate": {
+        "card": card_report().splitlines()[0], "model": "resnet18", "num_classes": V,
+        "image": IMG, "dtype": "bfloat16", "images": summary.num_images, "batches": batches,
+        "wall_s": summary.wall_s, "img_per_s": summary.images_per_sec,
+        "first_pass_wall_s": first.wall_s, "first_pass_img_per_s": first.images_per_sec,
+        "loader_alone_s": loader_s, "card_busy_ms_per_pass": busy_ms,
+        "accuracy": summary.accuracy, "mean_loss": summary.mean_loss, "csv_accuracy": csv_acc,
+        "launches": launches, "top1_agree_plain": frac, "clear_rows": int(clear.sum()),
+        "largest_flipped_gap": float(gap[~agree].max()) if not agree.all() else None,
+        "checkpoint": os.path.basename(latest), "best": marker,
+        "use_best_accuracy": best.accuracy, "use_best_mean_loss": best.mean_loss,
+        "quant_parity": report, "quant_k7_launches": quantize.counter.count,
+        "phase_s": time.perf_counter() - t_phase,
+    }})
 
 
 def train_vit(dev) -> dict:
@@ -2212,7 +2338,9 @@ def main() -> int:
     head_ce_fwd["launches"] = ce_launches["head_ce_forward"]
     head_ce_bwd["launches"] = ce_launches["head_ce_backward"]
     serve_vit(dev)
-    train_launches = train_resnet18(dev)
+    with tempfile.TemporaryDirectory() as run_dir:
+        train_launches = train_resnet18(dev, run_dir)
+        evaluate_resnet18(dev, run_dir)
     stem_argmax["launches"] = train_launches["stem_pool_argmax"]
     stem_backward["launches"] = train_launches["stem_pool_backward"]
     vit_launches = train_vit(dev)

@@ -6,12 +6,16 @@ model, optimizer, generator}`` (the model's and the optimizer's
 temporary file, then ``os.replace`` — so a crash mid-write never corrupts
 the resume path; the last ``keep`` checkpoints are kept, and
 :func:`latest_checkpoint` resolves the newest for ``from_checkpoint``.
-The converter to and from the JAX package's msgpack checkpoints and the
-topology sidecar are not ported yet.
+``best.json`` (``{epoch, accuracy, checkpoint}``, written by the trainer's
+``track_best``) names the best-validation checkpoint, which retention never
+deletes and ``evaluate --use-best`` loads; :func:`load_for_eval` reads a
+checkpoint's model weights alone. The converter to and from the JAX
+package's msgpack checkpoints and the topology sidecar are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 
@@ -20,6 +24,7 @@ import torch
 from mpi_pytorch_tpu_torch.train.state import TrainState
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
+_BEST = "best.json"
 
 
 def _ckpt_path(ckpt_dir: str, epoch: int) -> str:
@@ -48,10 +53,35 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 
 
 def _cleanup(ckpt_dir: str, keep: int) -> None:
-    """Keep the newest ``keep`` checkpoints (``keep <= 0`` keeps all)."""
-    if keep > 0:
-        for path in checkpoint_paths(ckpt_dir)[:-keep]:
+    """Keep the newest ``keep`` checkpoints (``keep <= 0`` keeps all) and
+    the one ``best.json`` names, however old it is."""
+    if keep <= 0:
+        return
+    best = best_marker(ckpt_dir)
+    pinned = os.path.basename(best["checkpoint"]) if best else None
+    for path in checkpoint_paths(ckpt_dir)[:-keep]:
+        if os.path.basename(path) != pinned:
             os.remove(path)
+
+
+def best_marker(ckpt_dir: str) -> dict | None:
+    """``best.json`` (``{epoch, accuracy, checkpoint}``), if present."""
+    path = os.path.join(ckpt_dir, _BEST)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def write_best_marker(ckpt_dir: str, *, epoch: int, accuracy: float, ckpt_path: str) -> None:
+    """Point ``best.json`` at ``ckpt_path`` atomically (the file name only,
+    so the directory can move)."""
+    path = os.path.join(ckpt_dir, _BEST)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"epoch": epoch, "accuracy": accuracy,
+                   "checkpoint": os.path.basename(ckpt_path)}, f)
+    os.replace(tmp, path)
 
 
 def save_checkpoint(
@@ -86,3 +116,11 @@ def restore_checkpoint(path: str, state: TrainState) -> tuple[int, float]:
     if state.generator is not None and payload["generator"] is not None:
         state.generator.set_state(payload["generator"].cpu())
     return int(payload["epoch"]), float(payload["loss"])
+
+
+def load_for_eval(path: str) -> tuple[dict[str, torch.Tensor], int, float]:
+    """``(model state_dict, epoch, loss)`` of ``path`` on the CPU — the
+    weights alone, no optimizer moments — for ``evaluate.build_inference``
+    to load into the f32 model before it casts to the compute dtype."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return payload["model"], int(payload["epoch"]), float(payload["loss"])

@@ -2,9 +2,10 @@
 port reads, under the same field names and defaults, and ``parse_config``
 with the same strict ``--kebab-case`` flags.
 
-Only the fields the ported paths use are carried (serving, and the single
-device trainer); ``validate_config`` carries the matching checks. Fields
-are added here as later slices port the code that reads them.
+Only the fields the ported paths use are carried (serving, the single
+device trainer and evaluation); ``validate_config`` carries the matching
+checks. Fields are added here as later slices port the code that reads
+them.
 """
 
 from __future__ import annotations
@@ -99,14 +100,28 @@ class Config:
 
     # --- checkpoint ---
     keep_checkpoints: int = 3
+    # Train: after each validation that beats the best so far, best.json
+    # names that epoch's checkpoint, and retention never deletes it.
+    track_best: bool = False
+    # Evaluate: load the checkpoint best.json names instead of the latest.
+    use_best: bool = False
 
     # --- recovery: abort (raise on a non-finite step) | skip (discard it) ---
     bad_step_policy: str = "abort"
     # skip: consecutive discarded steps before aborting anyway.
     max_skipped_steps: int = 10
 
+    # --- evaluation ---
+    # evaluate: one CSV row (file_name, predicted_label,
+    # predicted_category_id) per test image, in manifest order; "" disables.
+    predictions_file: str = ""
+    # evaluate --quantize-eval: the int8-against-float parity report (top-1
+    # and top-5 agreement, max logit drift) on the seeded calibration batch.
+    quantize_eval: bool = False
+
     # --- observability ---
     log_file: str = "training.log"
+    eval_log_file: str = "evaluation.log"
     metrics_file: str = "metrics.jsonl"  # structured JSONL metrics; "" disables
     log_every_steps: int = 10
 
@@ -163,6 +178,11 @@ class Config:
             )
         if self.warmup_steps < 0:
             raise ValueError(f"warmup_steps must be >= 0, got {self.warmup_steps}")
+        if self.track_best and not self.validate:
+            raise ValueError(
+                "track_best needs validation accuracy to rank checkpoints "
+                "(set validate=True, or drop track_best)"
+            )
         if self.bad_step_policy not in ("abort", "skip"):
             raise ValueError(
                 f"bad_step_policy must be abort|skip, got {self.bad_step_policy!r} "

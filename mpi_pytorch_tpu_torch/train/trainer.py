@@ -3,7 +3,8 @@
 Stage by stage, as the JAX trainer (and the reference ``main.py:49-189``):
 manifests (``load_manifests``) → ``DataLoader`` → model and optimizer
 (``create_model_bundle`` + ``make_optimizer``) → ``from_checkpoint`` resume
-→ the epoch loop of train steps → one checkpoint per epoch → validation.
+→ the epoch loop of train steps → one checkpoint per epoch → validation
+(and, with ``track_best``, ``best.json`` naming the best epoch's checkpoint).
 
 One process on one device: the data-parallel mesh, elastic resume,
 rollback, preemption, the device/host caches and the run telemetry of the
@@ -46,6 +47,7 @@ class TrainSummary:
     epoch_losses: list = field(default_factory=list)
     # Every step's loss in run order (skipped steps included, as NaN).
     step_losses: list = field(default_factory=list)
+    best_accuracy: float | None = None  # track_best: best val acc this run
 
 
 def pad_batch(images: np.ndarray, labels: np.ndarray, target: int):
@@ -133,26 +135,27 @@ def build_training(cfg: Config, device: torch.device):
 
 
 def evaluate_manifest(
-    cfg: Config, state: TrainState, manifest: Manifest, loader: DataLoader | None = None
+    cfg: Config, model: torch.nn.Module, manifest: Manifest, loader: DataLoader | None = None
 ) -> tuple[float, float]:
     """Batched eval over ``manifest`` → (accuracy, mean loss). The tail
     batch is padded to the batch size (label −1 rows count nowhere); the
-    model returns to training mode afterwards."""
-    device = next(state.model.parameters()).device
+    model runs in eval mode and returns to the mode it was in."""
+    device = next(model.parameters()).device
     eval_step = make_eval_step(COMPUTE_DTYPES[cfg.compute_dtype])
     loader = loader or make_loader(cfg, manifest, train=False)
     correct = total = 0
     loss_sum = 0.0
-    state.model.eval()
+    was_training = model.training
+    model.eval()
     try:
         for images, labels in loader.epoch(0):
             images, labels = pad_batch(images, labels, cfg.batch_size)
-            m = eval_step(state.model, *to_device(images, labels, device))
+            m = eval_step(model, *to_device(images, labels, device))
             correct += int(m["correct"])
             total += int(m["count"])
             loss_sum += float(m["loss"])
     finally:
-        state.model.train()
+        model.train(was_training)
     if total == 0:
         return 0.0, float("nan")
     return correct / total, loss_sum / total
@@ -191,6 +194,14 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             epoch, last_loss = ckpt.restore_checkpoint(path, state)
             start_epoch = epoch + 1
             logger.info("resumed from %s (epoch %d, loss %.4f)", path, start_epoch, last_loss)
+
+    # A resumed run never demotes a stored best: best.json outlives the run
+    # (no marker: any first accuracy wins).
+    best_accuracy = float("-inf")
+    if cfg.track_best:
+        marker = ckpt.best_marker(cfg.checkpoint_dir)
+        if marker is not None:
+            best_accuracy = marker["accuracy"]
 
     skip = cfg.bad_step_policy == "skip"
     train_step = make_train_step(COMPUTE_DTYPES[cfg.compute_dtype], bad_step_skip=skip)
@@ -277,10 +288,17 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             val_manifest = train_manifest if cfg.val_on_train else test_manifest
             if val_loader is None:
                 val_loader = make_loader(cfg, val_manifest, train=False)
-            acc, vloss = evaluate_manifest(cfg, state, val_manifest, val_loader)
+            acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader)
             summary.val_accuracy = acc
             logger.info("Accuracy of the network: %.4f (val_on_train=%s)", acc, cfg.val_on_train)
             metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss})
+            if cfg.track_best and acc > best_accuracy:
+                # The epoch's checkpoint was saved (synchronously) above,
+                # so the marker never names a file that is not there.
+                best_accuracy = summary.best_accuracy = acc
+                ckpt.write_best_marker(cfg.checkpoint_dir, epoch=epoch, accuracy=acc,
+                                       ckpt_path=path)
+                logger.info("best checkpoint so far: %s (val acc %.4f)", path, acc)
     summary.images_per_sec = total_images / total_time if total_time > 0 else 0.0
     return summary
 
