@@ -81,6 +81,21 @@ Phases (any failure raises and the script exits non-zero):
    with the plain stem's and plain head's on the same rows by the serving
    rule (``E2E_GAP``); then ``use_best`` loads the file ``best.json``
    names, and ``--quantize-eval`` with the fused head launches K7;
+6c. data parallelism (``data_parallel``): ``torchrun --standalone
+   --nproc-per-node 1 -m mpi_pytorch_tpu_torch.train`` — the real entry
+   point as a world of one over NCCL — on the fused run's configuration
+   for one epoch, then ``-m mpi_pytorch_tpu_torch.evaluate
+   --predictions-file`` with the fused head on its checkpoint, loading the
+   kernels this script built: NCCL in the log, K2 and K3 once a step, K1
+   once a validation batch, K1 and K4 once an eval batch (the metrics
+   records' launches), one checkpoint, the step-1 loss within 1e-3 of the
+   one-process run's, the CSV in manifest order; then two ranks on the one
+   card over gloo (``parallel.launch.run_world``): three auto-mode f32
+   steps against one process on the whole batches (losses and step-1
+   grad norm rtol 1e-4, ``bn1``'s running statistics rtol 1e-5, K2 and
+   K3 once a step on each rank), the share of a step the collectives
+   take, and one spmd-mode step on an uneven batch (the ranks' running
+   statistics bitwise equal, the loss the count-weighted mean);
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
@@ -106,11 +121,13 @@ no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -1763,7 +1780,8 @@ def _vit_cfg(tmp: str, attn_impl: str, image: int):
 
 def train_resnet18(dev, run_dir: str) -> dict:
     """The training path at full width through ``trainer.train``, fused
-    stem then plain stem; returns K2's and K3's launches in the fused run.
+    stem then plain stem; returns the fused run (K2's and K3's launches,
+    its losses and epoch times).
     The fused run tracks its best validation accuracy and writes into
     ``run_dir``, which :func:`evaluate_resnet18` evaluates next."""
     from mpi_pytorch_tpu_torch import checkpoint as ckpt
@@ -1830,7 +1848,7 @@ def train_resnet18(dev, run_dir: str) -> dict:
     if gaps[0] > 1e-3:
         raise AssertionError(f"step-1 loss, fused vs plain stem: relative gap {gaps[0]}")
     log({"train_fused_vs_plain_bf16": {"step_rel_gap": gaps}})
-    return fused["launches"]
+    return fused
 
 
 def evaluate_resnet18(dev, run_dir: str) -> None:
@@ -1932,6 +1950,317 @@ def evaluate_resnet18(dev, run_dir: str) -> None:
         "quant_parity": report, "quant_k7_launches": quantize.counter.count,
         "phase_s": time.perf_counter() - t_phase,
     }})
+
+
+DP_RANKS = 2  # ranks sharing the one card in the gloo check
+DP_STEPS = 3
+
+
+def _torchrun(module: str, argv: list[str], timeout: int) -> tuple[float, str]:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1
+    -m module argv`` from the checkout's root: the real entry point as a
+    one-rank world; raises unless it exits 0. Returns (wall s, output)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", module, *argv]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} under torchrun exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return wall, proc.stdout + proc.stderr
+
+
+def _records(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _dp_cli(tmp: str) -> list[str]:
+    """The flags of ``_train_cfg``'s fused run, one epoch."""
+    return [
+        "--model-name", "resnet18", "--num-classes", str(V), "--image-size", str(IMG),
+        "--batch-size", str(TRAIN_BATCH), "--compute-dtype", "bfloat16",
+        "--learning-rate", str(LR), "--optimizer", "adam", "--fused-stem", "true",
+        "--synthetic-data", "true", "--debug", "true", "--debug-sample-size", str(TRAIN_ROWS),
+        "--test-csv", str(REPO / "data" / "test_sample.csv"), "--num-epochs", "1",
+        "--validate", "true", "--checkpoint-dir", os.path.join(tmp, "checkpoints"),
+        "--keep-checkpoints", "1", "--log-file", os.path.join(tmp, "training.log"),
+        "--eval-log-file", os.path.join(tmp, "evaluation.log"),
+        "--metrics-file", os.path.join(tmp, "metrics.jsonl"), "--log-every-steps", "5",
+        "--seed", str(SEED),
+    ]
+
+
+def _dp_batches(dev, shape: dict):
+    """Three f32-step batches of ``shape`` (uint8 images, seeded), and an
+    uneven one for the spmd step: rank 1's half holds an eighth of the
+    batch as valid rows (16 of 128)."""
+    rng = np.random.default_rng(SEED + 6)
+    n, img = shape["batch"], shape["image"]
+    batches = [
+        (torch.from_numpy(rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8)).to(dev),
+         torch.from_numpy(rng.integers(0, shape["classes"], (n,), dtype=np.int32)).to(dev))
+        for _ in range(DP_STEPS + 1)
+    ]
+    uneven = batches[-1][1].clone()
+    uneven[n // 2 + n // 8:] = -1
+    return batches[:DP_STEPS], (batches[-1][0], uneven)
+
+
+def _dp_state(dev, sync: bool, classes: int):
+    """resnet18 with the fused stem, SGD (see ``data_parallel``)."""
+    from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
+    from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+    from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+
+    bundle = create_model_bundle("resnet18", classes, seed=SEED, fused_stem=True)
+    model = prepare_for_training(bundle.model, dev)
+    set_batchnorm_sync(model, sync)
+    opt, schedule = make_optimizer(model, LR, optimizer="sgd")
+    return TrainState(model=model, optimizer=opt, schedule=schedule)
+
+
+def _bn1(state) -> dict:
+    bn = state.model.bn1
+    return {"running_mean": bn.running_mean.cpu().numpy().copy(),
+            "running_var": bn.running_var.cpu().numpy().copy()}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_rank(payload: dict) -> dict:
+    """One of ``DP_RANKS`` ranks on ``payload["device"]`` (the one card)
+    over gloo (``data_parallel``):
+    three auto-mode f32 steps on its rows of each batch, one step profiled
+    (where the step's card time and the collectives' time go), then one
+    spmd-mode step on the uneven batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+    from mpi_pytorch_tpu_torch.ops.losses import classification_loss
+    from mpi_pytorch_tpu_torch.parallel import distributed
+    from mpi_pytorch_tpu_torch.train.step import (
+        ingest_images,
+        make_spmd_train_step,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(payload["device"])
+    distributed.maybe_initialize_distributed(dev, backend_name="gloo")
+    rank, world = distributed.rank(), distributed.world_size()
+    shape = payload["shape"]
+    rows = slice(rank * shape["batch"] // world, (rank + 1) * shape["batch"] // world)
+    batches, uneven = _dp_batches(dev, shape)
+    out = {"rank": rank, "backend": distributed.backend(), "losses": [], "grad_norms": []}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        state = _dp_state(dev, sync=True, classes=shape["classes"])
+        step = make_train_step(torch.float32)
+        fs.argmax_counter.reset()
+        fs.backward_counter.reset()
+        for images, labels in batches:
+            m = step(state, images[rows], labels[rows])
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+        out["launches"] = {"stem_pool_argmax": fs.argmax_counter.count,
+                           "stem_pool_backward": fs.backward_counter.count}
+        out["bn1"] = _bn1(state)
+        images, labels = batches[0]
+        _sync(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, images[rows], labels[rows])
+            _sync(dev)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        copies = [e for e in device if "memcpy" in e.key.lower()]
+        # Each collective's range: its host time, and (the GPU-side copy of
+        # the range) the span of the card's timeline it covers.
+        ranges = [e for e in events if e.key.startswith("collectives.")]
+        out["profile"] = {
+            "step_wall_ms": wall_ms,
+            "card_busy_ms": sum(e.self_device_time_total for e in device
+                                if not e.key.startswith("collectives.")) / 1e3,
+            "memcpy_card_ms": sum(e.self_device_time_total for e in copies) / 1e3,
+            "collectives_host_ms": {e.key: e.cpu_time_total / 1e3 for e in ranges
+                                    if e.device_type == DeviceType.CPU},
+            "collectives_card_span_ms": {e.key: e.device_time_total / 1e3 for e in ranges
+                                         if e.device_type == DeviceType.CUDA},
+        }
+        # spmd mode on the uneven batch: local batchnorm, averaged grads.
+        spmd = _dp_state(dev, sync=False, classes=shape["classes"])
+        images, labels = uneven
+        # This rank's own masked mean, through the forward the step runs
+        # (with gradients on: the stem's training kernel, as in the step).
+        twin = copy.deepcopy(spmd.model)
+        logits = twin(ingest_images(images[rows], torch.float32).permute(0, 3, 1, 2))
+        out["spmd_local"] = (float(classification_loss(logits, labels[rows])),
+                             int((labels[rows] >= 0).sum()))
+        del twin, logits
+        m = make_spmd_train_step(torch.float32)(spmd, images[rows], labels[rows])
+        out["spmd_loss"] = float(m["loss"])
+        out["spmd_count"] = int(m["count"])
+        out["spmd_stats"] = [t.cpu().numpy() for mod in spmd.model.modules()
+                             if hasattr(mod, "running_var")
+                             for t in (mod.running_mean, mod.running_var)]
+    return out
+
+
+def data_parallel(dev, fused_run: dict) -> dict:
+    """Phase 6c: data parallelism through the real entry points and the
+    step.
+
+    (a) ``torchrun --standalone --nproc-per-node 1 -m
+    mpi_pytorch_tpu_torch.train`` — a world of one over NCCL — on the
+    fused run's configuration for one epoch, then ``-m
+    mpi_pytorch_tpu_torch.evaluate --predictions-file`` on its checkpoint
+    with the fused head. The kernels are not built again: the subprocess
+    loads the library this script built. Held: exit 0, the backend NCCL
+    in the log, K2 and K3 once a step and K1 once a validation batch (the
+    metrics records' launches), one checkpoint, the step-1 loss within
+    1e-3 of the one-process fused run's, then K1 and K4 once an eval batch
+    and the CSV's rows in manifest order; its img/s beside the one-process
+    run's first epoch.
+
+    (b) ``DP_RANKS`` ranks on this one card over gloo (NCCL refuses two
+    ranks on one card), each a process (``parallel.launch.run_world``):
+    three auto-mode f32 steps (TF32 off) on their rows of resident batches,
+    against this process taking the whole batches — losses and the step-1
+    grad norm rtol 1e-4, ``bn1``'s running statistics rtol 1e-5 plus atol
+    1e-6, K2 and K3 once a step on every rank. SGD, as the CPU tests: Adam
+    turns f32 summation order on near-zero gradients into ±lr steps. Then
+    one spmd-mode step on a batch whose halves hold 64 and 16 valid rows:
+    every rank's running statistics bitwise equal, and the reported loss
+    the count-weighted mean of the ranks' own masked means (rtol 1e-6).
+    Returns K2's and K3's launches in the phase."""
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.hardware import card_report
+    from mpi_pytorch_tpu_torch.ops import _build
+    from mpi_pytorch_tpu_torch.parallel.launch import run_world
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    out = {"card": card_report().splitlines()[0]}
+    libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = _dp_cli(tmp)
+        train_s, _ = _torchrun("mpi_pytorch_tpu_torch.train", argv, 900)
+        with open(os.path.join(tmp, "training.log")) as f:
+            log_text = f.read()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if f"world 1 (process group backend {backend})" not in log_text:
+            raise AssertionError(f"torchrun train: no {backend} world of one in the log")
+        records = _records(os.path.join(tmp, "metrics.jsonl"))
+        steps = [r for r in records if r["kind"] == "step"]
+        (epoch,) = [r for r in records if r["kind"] == "epoch"]
+        (val,) = [r for r in records if r["kind"] == "val"]
+        val_batches = -(-(TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH) // TRAIN_BATCH)
+        want = {"fused_stem.argmax_counter": len(steps), "fused_stem.backward_counter": len(steps)}
+        if len(steps) != TRAIN_STEPS_PER_EPOCH or epoch.get("launches") != want:
+            raise AssertionError(f"torchrun train: {len(steps)} steps, launches {epoch}")
+        if val.get("launches") != {"fused_stem.counter": val_batches}:
+            raise AssertionError(f"torchrun train validation: {val}")
+        saved = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
+        if saved != ["ckpt_00000.pt"]:
+            raise AssertionError(f"torchrun train: checkpoints {saved}")
+        gap = abs(steps[0]["loss"] / fused_run["step_losses"][0] - 1)
+        if gap > 1e-3:
+            raise AssertionError(f"torchrun step-1 loss {steps[0]['loss']} against the "
+                                 f"one-process run's {fused_run['step_losses'][0]}")
+        csv_path = os.path.join(tmp, "predictions.csv")
+        eval_s, _ = _torchrun("mpi_pytorch_tpu_torch.evaluate",
+                              argv + ["--fused-head-eval", "true", "--predictions-file", csv_path],
+                              600)
+        (ev,) = [r for r in _records(os.path.join(tmp, "metrics.jsonl")) if r["kind"] == "eval"]
+        test_m = load_manifests(_train_cfg(tmp))[1]
+        batches = -(-len(test_m) // TRAIN_BATCH)
+        if ev.get("launches") != {"fused_stem.counter": batches, "fused_head_ce.counter": batches}:
+            raise AssertionError(f"torchrun evaluate: {ev}")
+        with open(csv_path) as f:
+            header, *rows = f.read().splitlines()
+        if [r.split(",")[0] for r in rows] != list(test_m.filenames):
+            raise AssertionError(f"torchrun evaluate CSV: {len(rows)} rows, {header!r}")
+        if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != libs:
+            raise AssertionError("the torchrun runs built the kernel library again")
+        one_epoch0 = TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH / fused_run["epoch_times_s"][0]
+        out["torchrun_world1"] = {
+            "train_wall_s": train_s, "evaluate_wall_s": eval_s,
+            "img_per_s": epoch["images_per_sec"], "one_process_epoch0_img_per_s": one_epoch0,
+            "step1_loss": steps[0]["loss"], "step1_rel_gap": gap,
+            "launches": {"train": epoch["launches"], "val": val["launches"],
+                         "evaluate": ev["launches"]},
+            "accuracy": ev["accuracy"],
+        }
+    log({"dp_torchrun": out})
+
+    t0 = time.perf_counter()
+    shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
+    ranks = run_world("chip_smoke:dp_rank", DP_RANKS, {"device": str(dev), "shape": shape},
+                      timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    batches, _ = _dp_batches(dev, shape)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        state = _dp_state(dev, sync=True, classes=V)
+        step = make_train_step(torch.float32)
+        ref = [step(state, *b) for b in batches]
+    losses = [float(m["loss"]) for m in ref]
+    ref_bn1 = _bn1(state)
+    for r in ranks:
+        if r["backend"] != "gloo" or r["launches"] != {"stem_pool_argmax": DP_STEPS,
+                                                       "stem_pool_backward": DP_STEPS}:
+            raise AssertionError(f"rank {r['rank']}: {r['backend']}, launches {r['launches']}")
+        if not np.allclose(r["losses"], losses, rtol=1e-4, atol=0) or not np.isclose(
+                r["grad_norms"][0], float(ref[0]["grad_norm"]), rtol=1e-4, atol=0):
+            raise AssertionError(f"rank {r['rank']}: losses {r['losses']}, grad norm "
+                                 f"{r['grad_norms'][0]} against one process's {losses}, "
+                                 f"{float(ref[0]['grad_norm'])}")
+        for k, v in ref_bn1.items():
+            if not np.allclose(r["bn1"][k], v, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"rank {r['rank']}: bn1.{k} against one process: max gap "
+                                     f"{np.abs(r['bn1'][k] - v).max()}")
+    for a, b in zip(ranks[0]["spmd_stats"], ranks[1]["spmd_stats"]):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError("spmd step: the ranks' running statistics differ")
+    (l0, c0), (l1, c1) = ranks[0]["spmd_local"], ranks[1]["spmd_local"]
+    weighted = (l0 * c0 + l1 * c1) / (c0 + c1)
+    if (c0, c1) != (TRAIN_BATCH // DP_RANKS, TRAIN_BATCH // 8) or not all(
+            np.isclose(r["spmd_loss"], weighted, rtol=1e-6, atol=0) for r in ranks):
+        raise AssertionError(f"spmd step: losses {[r['spmd_loss'] for r in ranks]} against "
+                             f"the count-weighted mean {weighted} of {ranks[0]['spmd_local']}, "
+                             f"{ranks[1]['spmd_local']}")
+    prof = ranks[0]["profile"]
+    coll_ms = sum(prof["collectives_host_ms"].values())
+    log({"dp_allreduce_share": {
+        "card": out["card"], "ranks": DP_RANKS, "backend": "gloo", "dtype": "float32",
+        "rows_per_rank": TRAIN_BATCH // DP_RANKS, "classes": V, "image": IMG, **prof,
+        "collectives_share_of_step_wall": coll_ms / prof["step_wall_ms"],
+        "memcpy_share_of_card_busy": (prof["memcpy_card_ms"] / prof["card_busy_ms"]
+                                      if prof["card_busy_ms"] else None),
+    }})
+    log({"dp_gloo_two_ranks": {
+        "losses": ranks[0]["losses"], "one_process_losses": losses,
+        "grad_norm_step1": ranks[0]["grad_norms"][0],
+        "one_process_grad_norm_step1": float(ref[0]["grad_norm"]),
+        "bn1_max_abs_gap": {k: float(np.abs(ranks[0]["bn1"][k] - v).max())
+                            for k, v in ref_bn1.items()},
+        "spmd_loss": ranks[0]["spmd_loss"], "spmd_count_weighted_mean": weighted,
+        "ranks_wall_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
+    }})
+    del state, ref
+    return {"torchrun": out["torchrun_world1"]["launches"]["train"],
+            "gloo_rank": ranks[0]["launches"]}
 
 
 def train_vit(dev) -> dict:
@@ -2339,10 +2668,14 @@ def main() -> int:
     head_ce_bwd["launches"] = ce_launches["head_ce_backward"]
     serve_vit(dev)
     with tempfile.TemporaryDirectory() as run_dir:
-        train_launches = train_resnet18(dev, run_dir)
+        fused_run = train_resnet18(dev, run_dir)
         evaluate_resnet18(dev, run_dir)
-    stem_argmax["launches"] = train_launches["stem_pool_argmax"]
-    stem_backward["launches"] = train_launches["stem_pool_backward"]
+    stem_argmax["launches"] = fused_run["launches"]["stem_pool_argmax"]
+    stem_backward["launches"] = fused_run["launches"]["stem_pool_backward"]
+    dp_launches = data_parallel(dev, fused_run)
+    # K2's and K3's launches in the data-parallel phase: the second figure
+    # of their rows in PERF.md (the kernels line keeps the main path's).
+    log({"dp_launches": dp_launches})
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))

@@ -11,6 +11,11 @@ the resume path; the last ``keep`` checkpoints are kept, and
 deletes and ``evaluate --use-best`` loads; :func:`load_for_eval` reads a
 checkpoint's model weights alone. The converter to and from the JAX
 package's msgpack checkpoints and the topology sidecar are not ported yet.
+
+Under data parallelism every rank calls the writers at the same point:
+rank 0 alone writes the checkpoint, ``best.json`` and the retention
+(the JAX package's process-0 writes), and a barrier follows, so no rank
+reads a file before it is there. Every rank restores.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import re
 
 import torch
 
+from mpi_pytorch_tpu_torch.parallel import distributed
 from mpi_pytorch_tpu_torch.train.state import TrainState
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
@@ -75,21 +81,32 @@ def best_marker(ckpt_dir: str) -> dict | None:
 
 def write_best_marker(ckpt_dir: str, *, epoch: int, accuracy: float, ckpt_path: str) -> None:
     """Point ``best.json`` at ``ckpt_path`` atomically (the file name only,
-    so the directory can move)."""
-    path = os.path.join(ckpt_dir, _BEST)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump({"epoch": epoch, "accuracy": accuracy,
-                   "checkpoint": os.path.basename(ckpt_path)}, f)
-    os.replace(tmp, path)
+    so the directory can move); rank 0 writes, every rank waits for it."""
+    if distributed.rank() == 0:
+        path = os.path.join(ckpt_dir, _BEST)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"epoch": epoch, "accuracy": accuracy,
+                       "checkpoint": os.path.basename(ckpt_path)}, f)
+        os.replace(tmp, path)
+    distributed.barrier()
 
 
 def save_checkpoint(
     ckpt_dir: str, *, epoch: int, state: TrainState, loss: float, keep: int = 3
 ) -> str:
-    """Write epoch ``epoch``'s checkpoint atomically; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write epoch ``epoch``'s checkpoint atomically (rank 0; every rank
+    waits for it) and apply retention; returns its path on every rank."""
     path = _ckpt_path(ckpt_dir, epoch)
+    if distributed.rank() == 0:
+        _write(ckpt_dir, path, epoch, state, loss, keep)
+    distributed.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, path: str, epoch: int, state: TrainState, loss: float,
+           keep: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "epoch": epoch,
         "step": state.step,
@@ -102,7 +119,6 @@ def save_checkpoint(
     torch.save(payload, tmp)
     os.replace(tmp, path)
     _cleanup(ckpt_dir, keep)
-    return path
 
 
 def restore_checkpoint(path: str, state: TrainState) -> tuple[int, float]:

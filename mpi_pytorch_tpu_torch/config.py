@@ -2,10 +2,13 @@
 port reads, under the same field names and defaults, and ``parse_config``
 with the same strict ``--kebab-case`` flags.
 
-Only the fields the ported paths use are carried (serving, the single
-device trainer and evaluation); ``validate_config`` carries the matching
-checks. Fields are added here as later slices port the code that reads
-them.
+Only the fields the ported paths use are carried (serving, the
+data-parallel trainer and evaluation); ``validate_config`` carries the
+matching checks. Fields are added here as later slices port the code that
+reads them. The parallel knobs the JAX package has and the port does not
+run yet (axis names, a model axis, pods, pipeline stages, ZeRO, bucketed
+gradient sync, FSDP) are carried with their JAX names and defaults and
+refused when set to anything else.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -27,6 +30,59 @@ NOT_PORTED_MODELS = {
 }
 
 ATTN_IMPLS = ("full", "flash", "fused-small")
+
+# Where the JAX package's parallel knobs the port refuses are queued.
+_NOT_PORTED_DP = "not ported yet (ROADMAP A7)"
+
+
+@dataclass(eq=False)
+class MeshConfig:
+    """The parallel layout, with the JAX ``MeshConfig``'s fields and
+    defaults. The port runs the data axis alone: one rank per GPU, the
+    world ``torchrun`` starts; ``data_parallel`` (-1: every rank) must
+    match that world, and any other axis name or size is refused
+    (:meth:`validate`)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pipe_axis: str = "pipe"
+    pod_axis: str = "pod"
+    ici_axis: str = "ici"
+    # -1 means "all remaining devices" on that axis.
+    data_parallel: int = -1
+    model_parallel: int = 1
+    pipe_parallel: int = 1
+    pods: int = 1
+
+    def __eq__(self, other: object) -> bool:
+        """Equal to any layout with the same field names and values (the
+        JAX package's ``MeshConfig`` included)."""
+        if not dataclasses.is_dataclass(other):
+            return NotImplemented
+        names = {f.name for f in dataclasses.fields(self)}
+        return names == {f.name for f in dataclasses.fields(other)} and all(
+            getattr(self, n) == getattr(other, n) for n in names
+        )
+
+    __hash__ = None  # mutable, like the JAX dataclass
+
+    def validate(self) -> None:
+        if self.data_parallel == 0 or self.data_parallel < -1:
+            raise ValueError(
+                f"mesh data_parallel must be -1 (every rank) or >= 1, got {self.data_parallel}"
+            )
+        for f in dataclasses.fields(self):
+            if f.name != "data_parallel" and getattr(self, f.name) != f.default:
+                raise ValueError(f"mesh {f.name}={getattr(self, f.name)!r}: {_NOT_PORTED_DP}; "
+                                 f"the port runs the data axis alone, as {f.default!r}")
+
+    def check_world(self, world: int) -> None:
+        """Raise unless ``data_parallel`` fits a world of ``world`` ranks."""
+        if self.data_parallel not in (-1, world):
+            raise ValueError(
+                f"mesh data_parallel={self.data_parallel} but the world has {world} "
+                "rank(s): launch that many (torchrun --nproc-per-node), or leave it -1"
+            )
 
 
 @dataclass
@@ -95,6 +151,21 @@ class Config:
     prefetch_batches: int = 2
     drop_remainder: bool = True  # fixed batch shapes; see the trainer
 
+    # --- data parallelism (one rank per GPU, torchrun's world) ---
+    # Reference per-rank BN stays local unless this is set (spmd mode).
+    sync_batchnorm: bool = False
+    # spmd_mode: the reference's DP semantics — each rank's local batchnorm
+    # statistics (unless sync_batchnorm), gradients averaged over the ranks
+    # however many valid rows each held, running statistics averaged after
+    # the forward. Default (auto): batchnorm over the global batch and the
+    # loss as the count-weighted global mean (train/step.py).
+    spmd_mode: bool = False
+    # The JAX package's further DP levers, refused until ported (ROADMAP A7).
+    zero_optimizer: bool = False
+    zero_opt_state: bool = False
+    grad_sync_buckets: float = 0.0
+    fsdp: bool = False
+
     # --- validation: the reference validates on the TRAIN split ---
     val_on_train: bool = True
 
@@ -140,6 +211,8 @@ class Config:
     # Sample-batch size for int8 calibration (the head activation scale)
     # and the serve start-up parity stamp.
     quantize_calib: int = 64
+
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def validate_config(self) -> None:
         if self.model_name in NOT_PORTED_MODELS:
@@ -196,6 +269,7 @@ class Config:
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype}"
             )
+        self._validate_parallel()
         if self.input_dtype not in ("float32", "uint8"):
             raise ValueError(
                 f"input_dtype must be float32|uint8, got {self.input_dtype} "
@@ -279,6 +353,17 @@ class Config:
                     f"{post_conv(self.width)}x{post_conv(self.height)}"
                 )
 
+    def _validate_parallel(self) -> None:
+        """The mesh, then a refusal of each DP lever the port does not run
+        yet."""
+        self.mesh.validate()
+        for name in ("zero_optimizer", "zero_opt_state", "grad_sync_buckets", "fsdp"):
+            if getattr(self, name):
+                raise ValueError(f"{name}={getattr(self, name)}: {_NOT_PORTED_DP}")
+        if self.fused_stem and self.spmd_mode and self.sync_batchnorm:
+            raise ValueError("fused_stem does not support sync-BN in spmd_mode "
+                             "(sync_batchnorm), as the JAX resnet refuses it")
+
     @property
     def image_size(self) -> tuple[int, int]:
         """Resize target (H, W)."""
@@ -316,9 +401,13 @@ class Config:
         }[self.serve_precision]
 
 
-def _add_dataclass_args(parser: argparse.ArgumentParser, cls: type) -> None:
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls: type, prefix: str = "") -> None:
     for f in dataclasses.fields(cls):
-        name = f"--{f.name.replace('_', '-')}"
+        name = f"--{prefix}{f.name.replace('_', '-')}"
+        if dataclasses.is_dataclass(f.default_factory):
+            # A nested dataclass: --mesh.data-parallel and the like.
+            _add_dataclass_args(parser, f.default_factory, prefix=f"{f.name}.")
+            continue
         if f.type in (bool, "bool"):
             parser.add_argument(name, type=_str2bool, default=None, metavar="BOOL")
         elif f.type in (int, "int"):
@@ -342,7 +431,8 @@ def parse_config(argv: Sequence[str] | None = None, **overrides: Any) -> Config:
     overrides, as the JAX package's ``parse_config``. Flags parse STRICTLY:
     an unknown flag is an error, not silently dropped. ``--image-size N``
     (and ``MPT_IMAGE_SIZE``) sets width and height; the per-dimension form
-    wins for its dimension."""
+    wins for its dimension. The mesh fields parse as the JAX package's
+    (``--mesh.data-parallel``, ...)."""
     cfg = Config()
     casters = {bool: _str2bool, "bool": _str2bool, int: int, "int": int,
                float: float, "float": float, str: str, "str": str}
@@ -364,10 +454,11 @@ def parse_config(argv: Sequence[str] | None = None, **overrides: Any) -> Config:
     alias = ns.pop("image_size_alias", None)
     if alias is not None:
         cfg.width = cfg.height = alias
-    for key, val in ns.items():
-        if val is not None:
+    for key, val in [*((k, v) for k, v in ns.items() if v is not None), *overrides.items()]:
+        if "." in key:
+            scope, leaf = key.split(".", 1)
+            setattr(getattr(cfg, scope), leaf, val)
+        else:
             setattr(cfg, key, val)
-    for key, val in overrides.items():
-        setattr(cfg, key, val)
     cfg.validate_config()
     return cfg

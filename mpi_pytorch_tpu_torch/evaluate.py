@@ -9,7 +9,12 @@ or :func:`evaluate`, on the card (``MPT_PLATFORM=cpu`` for the CPU).
 pass over the test manifest: the metrics alone (the trainer's
 ``evaluate_manifest``), or with ``--predictions-file`` the metrics and the
 predictions CSV from the same forward (:func:`evaluate_with_predictions`).
-One process: the multi-host gather of the predictions is not ported yet.
+Under ``torchrun --nproc-per-node N`` each rank evaluates its
+``np.array_split`` shard of the test manifest in lock-step batches; the
+metrics are summed over the ranks and the predictions all-gathered, and
+rank 0 writes the one CSV in manifest order (the JAX ``evaluate``'s
+multi-host gather). ``--quantize-eval`` runs on every rank, as the JAX
+package runs it on every process.
 
 One predict step yields both the eval metrics and the per-image
 predictions from the same forward. Two paths:
@@ -49,6 +54,7 @@ from mpi_pytorch_tpu_torch import checkpoint as ckpt
 from mpi_pytorch_tpu_torch.config import Config, parse_config
 from mpi_pytorch_tpu_torch.data.manifest import Manifest, load_manifests
 from mpi_pytorch_tpu_torch.hardware import resolve_device
+from mpi_pytorch_tpu_torch.ops._build import launch_counts
 from mpi_pytorch_tpu_torch.models.registry import (
     init_weights,
     initialize_model,
@@ -65,8 +71,19 @@ from mpi_pytorch_tpu_torch.ops.quantize import (
     parity_probe,
     quantize_model,
 )
+from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.train.step import COMPUTE_DTYPES, ingest_images, metrics_from_logits
-from mpi_pytorch_tpu_torch.train.trainer import evaluate_manifest, make_loader, pad_batch, to_device
+from mpi_pytorch_tpu_torch.train.trainer import (
+    evaluate_manifest,
+    global_step_count,
+    host_batch,
+    launches_since,
+    make_eval_loader,
+    pad_batch,
+    synchronized_batches,
+    to_device,
+    validate_world,
+)
 from mpi_pytorch_tpu_torch.utils.logging import MetricsWriter, init_logger
 
 
@@ -242,10 +259,14 @@ def _load_weights(cfg: Config, logger, what: str) -> dict[str, torch.Tensor] | N
 
 def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSummary:
     """Evaluate the checkpoint on the test manifest (see the module
-    docstring) on ``device`` (default cuda); logs to ``eval_log_file``,
-    writes a ``{"kind": "eval"}`` record to ``metrics_file``."""
+    docstring) on ``device`` (default: this rank's card,
+    ``distributed.rank_device``), in the world the environment describes;
+    logs to ``eval_log_file``, writes a ``{"kind": "eval"}`` record to
+    ``metrics_file`` (rank 0)."""
     cfg.validate_config()
-    dev = resolve_device(device)
+    dev = distributed.rank_device(device)
+    distributed.maybe_initialize_distributed(dev)
+    validate_world(cfg)
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True
     logger = init_logger("MPT_EVAL", cfg.eval_log_file)
@@ -253,6 +274,7 @@ def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSumma
     model = build_inference(cfg, dev, _load_weights(cfg, logger, "evaluate"))
 
     t0 = time.perf_counter()
+    launches0 = launch_counts()
     if cfg.predictions_file:
         # One pass gives both the metrics and the predictions CSV.
         acc, mean_loss = evaluate_with_predictions(cfg, model, train_manifest, test_manifest,
@@ -273,7 +295,7 @@ def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSumma
     logger.info("Accuracy of the network: %.4f (%d images, %.2f s)", acc, n, wall)
     writer = MetricsWriter(cfg.metrics_file)
     writer.write({"kind": "eval", "accuracy": acc, "loss": mean_loss, "images": n,
-                  "time_s": wall})
+                  "time_s": wall, **launches_since(launches0)})
     writer.close()
     return EvalSummary(accuracy=acc, mean_loss=mean_loss, num_images=n, wall_s=wall,
                        images_per_sec=n / wall if wall > 0 else 0.0)
@@ -284,21 +306,30 @@ def evaluate_with_predictions(
 ) -> tuple[float, float]:
     """One pass over the test manifest → (accuracy, mean loss), and the
     predictions CSV ``file_name,predicted_label,predicted_category_id`` in
-    manifest order, written atomically to ``cfg.predictions_file``.
+    manifest order, written atomically to ``cfg.predictions_file`` by
+    rank 0.
 
-    The tail batch is padded to the batch size (label −1 rows count nowhere
-    and their predictions are dropped). With ``fused_head_eval`` the head is
-    the streaming kernel (``head_predict``, its operands cut once); a label
-    maps to its raw category id through both splits, −1 for one in
-    neither."""
+    Each rank walks its shard (``make_eval_loader``) in the same number of
+    batches, each padded to ``host_batch`` rows (label −1 rows count
+    nowhere and their predictions are dropped). The ranks' predictions,
+    padded to the largest shard, are all-gathered as one ``[P, max]``
+    int32 exchange, and the metrics summed. With ``fused_head_eval`` the
+    head is the streaming kernel (``head_predict``, its operands cut
+    once); a label maps to its raw category id through both splits, −1
+    for one in neither."""
     dev = next(model.parameters()).device
     compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     fused = cfg.fused_head_eval
     predict = make_predict_step(compute_dtype, fused_head=fused)
     head = head_weights(model, compute_dtype) if fused else None
+    n_proc = distributed.world_size()
+    rows = host_batch(cfg)
+    loader = make_eval_loader(cfg, test_manifest)
+    local_n = len(loader.manifest)
+    n_steps = global_step_count(len(test_manifest), rows, drop_remainder=False)
     losses, corrects, counts, preds = [], [], [], []
-    for images, labels in make_loader(cfg, test_manifest, train=False).epoch(0):
-        x, y = to_device(*pad_batch(images, labels, cfg.batch_size), dev)
+    for images, labels in synchronized_batches(loader, 0, n_steps):
+        x, y = to_device(*pad_batch(images, labels, rows), dev)
         m, p = predict(model, x, y, head) if fused else predict(model, x, y)
         losses.append(m["loss"])
         corrects.append(m["correct"])
@@ -306,23 +337,36 @@ def evaluate_with_predictions(
         preds.append(p)
     # One read-back for the whole pass; each batch's f32 loss sum is added
     # up in float64, as the per-batch host reads of the JAX ``evaluate`` do.
-    loss_sum = float(torch.stack(losses).cpu().double().sum()) if losses else 0.0
-    correct = int(torch.stack(corrects).sum()) if corrects else 0
-    count = int(torch.stack(counts).sum()) if counts else 0
-    labels_pred = torch.cat(preds).cpu().numpy() if preds else np.zeros(0, np.int32)
-    labels_pred = labels_pred[: len(test_manifest)]  # drop the tail's padding rows
+    sums = torch.stack([
+        torch.stack(losses).double().sum(), torch.stack(corrects).double().sum(),
+        torch.stack(counts).double().sum(),
+    ]) if losses else torch.zeros(3, dtype=torch.float64, device=dev)
+    sums = collectives.all_reduce(sums)
+    loss_sum, correct, count = float(sums[0]), int(sums[1]), int(sums[2])
+    local = torch.cat(preds)[:local_n] if preds else torch.zeros(0, dtype=torch.int32, device=dev)
+    if n_proc > 1:
+        # array_split sizes are the same on every rank: pad to the largest.
+        sizes = [len(part) for part in np.array_split(np.arange(len(test_manifest)), n_proc)]
+        buf = torch.full((max(sizes),), -1, dtype=torch.int32, device=dev)
+        buf[:local_n] = local
+        gathered = collectives.all_gather(buf[None]).cpu().numpy()
+        labels_pred = np.concatenate([gathered[r, : sizes[r]] for r in range(n_proc)])
+    else:
+        labels_pred = local.cpu().numpy()
     assert len(labels_pred) == len(test_manifest), (len(labels_pred), len(test_manifest))
 
-    label_to_cat: dict[int, int] = {}
-    for man in (train_manifest, test_manifest):
-        label_to_cat.update(zip(man.labels.tolist(), man.category_ids.tolist()))
-    tmp = cfg.predictions_file + ".tmp"
-    with open(tmp, "w") as f:
-        f.write("file_name,predicted_label,predicted_category_id\n")
-        for fname, p in zip(test_manifest.filenames, labels_pred.tolist()):
-            f.write(f"{fname},{p},{label_to_cat.get(p, -1)}\n")
-    os.replace(tmp, cfg.predictions_file)
-    logger.info("predictions written: %s (%d rows)", cfg.predictions_file, len(labels_pred))
+    if distributed.rank() == 0:
+        label_to_cat: dict[int, int] = {}
+        for man in (train_manifest, test_manifest):
+            label_to_cat.update(zip(man.labels.tolist(), man.category_ids.tolist()))
+        tmp = cfg.predictions_file + ".tmp"
+        with open(tmp, "w") as f:
+            f.write("file_name,predicted_label,predicted_category_id\n")
+            for fname, p in zip(test_manifest.filenames, labels_pred.tolist()):
+                f.write(f"{fname},{p},{label_to_cat.get(p, -1)}\n")
+        os.replace(tmp, cfg.predictions_file)
+        logger.info("predictions written: %s (%d rows)", cfg.predictions_file, len(labels_pred))
+    distributed.barrier()
     acc = correct / count if count else 0.0
     return acc, (loss_sum / count if count else float("nan"))
 
@@ -335,9 +379,12 @@ def quantize_eval_report(cfg: Config, device: str | torch.device | None = None) 
     top-1) under ``fused_head_eval``, else the plain predict step over the
     dequantized model (top ``min(serve_topk, num_classes)``) — giving top-1
     and top-5 agreement and the max logit drift of the plain int8 model.
-    Written as a ``{"kind": "quant_parity"}`` record and returned."""
+    Written as a ``{"kind": "quant_parity"}`` record (rank 0) and
+    returned. Every rank of a world runs the same report on its own
+    device, as every JAX process does."""
     cfg.validate_config()
-    dev = resolve_device(device)
+    dev = distributed.rank_device(device)
+    distributed.maybe_initialize_distributed(dev)
     logger = init_logger("MPT_EVAL", cfg.eval_log_file)
     f32_state = float_state_dict(cfg, _load_weights(cfg, logger, "quantize-eval"))
     model = build_inference(cfg, dev, f32_state)
@@ -373,10 +420,15 @@ def quantize_eval_report(cfg: Config, device: str | torch.device | None = None) 
 
 
 def main(argv=None):
+    """``python -m mpi_pytorch_tpu_torch.evaluate``: one process, or one
+    rank of a ``torchrun`` world, which it leaves at the end."""
     cfg = parse_config(argv)
-    if cfg.quantize_eval:
-        return quantize_eval_report(cfg)
-    return evaluate(cfg)
+    try:
+        if cfg.quantize_eval:
+            return quantize_eval_report(cfg)
+        return evaluate(cfg)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

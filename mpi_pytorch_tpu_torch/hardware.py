@@ -36,6 +36,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "device='cpu' (or set MPT_PLATFORM=cpu) to run the plain PyTorch "
             "versions on the CPU"
         )
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"device {dev} asked for, but this machine has {torch.cuda.device_count()} "
+            "card(s): launch one rank per card (torchrun --nproc-per-node)"
+        )
     return dev
 
 

@@ -9,6 +9,14 @@ each convolution and dense layer casts its weights to the input's
 (compute) dtype per call, as flax's ``dtype=`` does, so a bf16 model rounds
 where the JAX model rounds. Normalization parameters and running
 statistics stay f32.
+
+Under data parallelism a batchnorm can take its training statistics over
+the global batch (:func:`set_batchnorm_sync`): each rank sums its rows' y
+and y² per channel, and the sums and the row count are all-reduced with
+autograd attached (``parallel.collectives.sum_over_ranks``, the semantics
+of ``torch.distributed.nn.functional.all_reduce``), whose backward sums
+every rank's gradient of the statistics — right when each rank's loss is
+its own share of the global loss.
 """
 
 from __future__ import annotations
@@ -18,17 +26,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpi_pytorch_tpu_torch.ops.fused_stem import stem_affine_relu_pool
+from mpi_pytorch_tpu_torch.parallel import collectives
 
 # torch BatchNorm defaults (the JAX package's BN_EPS / BN_MOMENTUM = 1 − 0.1).
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
-def _channel_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _channel_stats(x: torch.Tensor, sync: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 batch mean and ``E[x²] − mean²`` per channel of an NCHW tensor,
     with autograd attached (the gradient through the statistics reaches
-    ``x``, as it does in JAX)."""
+    ``x``, as it does in JAX). With ``sync`` in a world of more than one
+    rank, over the global batch: the per-channel sums of x and x² and the
+    row count, all-reduced (SUM) in one autograd-aware collective."""
     xf = x.float()
+    if sync and collectives.num_processes() > 1:
+        c = xf.shape[1]
+        sums = torch.cat([
+            xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+            xf.new_full((1,), xf.numel() // c),
+        ])
+        sums = collectives.sum_over_ranks(sums)
+        mean = sums[:c] / sums[-1]
+        return mean, sums[c:2 * c] / sums[-1] - mean.square()
     mean = xf.mean(dim=(0, 2, 3))
     return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square()
 
@@ -49,10 +69,15 @@ class BatchNorm(nn.BatchNorm2d):
     ``(x − mean)·(rsqrt(var+ε)·γ) + β`` in f32, cast to the input's dtype;
     and the running statistics updated with momentum 0.1 and the BIASED
     batch variance (``nn.BatchNorm2d`` would use the unbiased one).
-    ``num_batches_tracked`` stays as torch made it: the momentum is fixed."""
+    ``num_batches_tracked`` stays as torch made it: the momentum is fixed.
+
+    ``sync_stats`` (:func:`set_batchnorm_sync`) takes the training
+    statistics over every rank's rows (flax ``BatchNorm(axis_name=...)``,
+    and the JAX auto mode's global batch)."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
+        self.sync_stats = False
 
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -65,7 +90,7 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean, var = _channel_stats(x)
+        mean, var = _channel_stats(x, self.sync_stats)
         var = var.clamp_min(0.0)
         self.update_running_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
@@ -76,6 +101,15 @@ class BatchNorm(nn.BatchNorm2d):
 def batch_norm(num_features: int, eps: float = BN_EPS) -> BatchNorm:
     """The port's batchnorm (see :class:`BatchNorm`)."""
     return BatchNorm(num_features, eps=eps)
+
+
+def set_batchnorm_sync(model: nn.Module, sync: bool) -> None:
+    """Every batchnorm of ``model`` (the fused stem's too) takes its
+    training statistics over the global batch (``sync``) or over this
+    rank's rows. One rank's statistics are the same either way."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_stats = sync
 
 
 class FusedStemBNReluPool(BatchNorm):
@@ -93,11 +127,14 @@ class FusedStemBNReluPool(BatchNorm):
     Training mirrors the JAX module: f32 batch mean and ``E[y²] − mean²``,
     NOT clipped (the fused module does not clip), the biased running
     update, and ``a``/``b`` folded with autograd attached, so the gradient
-    through the statistics reaches ``y`` beside the kernel's own ``dy``."""
+    through the statistics reaches ``y`` beside the kernel's own ``dy``.
+    With ``sync_stats`` the statistics are the global batch's, so the
+    kernels get ``a``/``b`` folded from them and the local ``da``/``db``
+    the backward kernel returns flow back through the all-reduce."""
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = _channel_stats(y)
+            mean, var = _channel_stats(y, self.sync_stats)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()

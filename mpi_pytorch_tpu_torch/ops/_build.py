@@ -115,11 +115,15 @@ build_log: str = ""
 
 class LaunchCounter:
     """A kernel wrapper's launch count: one per launch of its kernel, and
-    nowhere else — the evidence that a run went through the kernel."""
+    nowhere else — the evidence that a run went through the kernel. Each
+    is registered under ``name`` (``module.attribute``) for
+    :func:`launch_counts`."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str) -> None:
+        self.name = name
         self._n = 0
         self._lock = threading.Lock()
+        _COUNTERS[name] = self
 
     def add(self) -> None:
         with self._lock:
@@ -132,6 +136,16 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._n
+
+
+_COUNTERS: dict[str, LaunchCounter] = {}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel counter that has counted, by name → its count: what a
+    run launched, for the records an entry point writes (the trainer's
+    epoch and validation records, the evaluate pass's)."""
+    return {name: c.count for name, c in sorted(_COUNTERS.items()) if c.count}
 
 
 def _nvcc() -> str:

@@ -40,9 +40,9 @@ from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 # Launches of the forward kernel of each route (the plain version never
 # counts): the bf16 tensor-core kernel at D % 16 == 0 and zero-padded at
 # other D, and the f32 tensor-core kernel.
-tc_counter = _build.LaunchCounter()
-tc_pad_counter = _build.LaunchCounter()
-tc_f32_counter = _build.LaunchCounter()
+tc_counter = _build.LaunchCounter("flash_attention.tc_counter")
+tc_pad_counter = _build.LaunchCounter("flash_attention.tc_pad_counter")
+tc_f32_counter = _build.LaunchCounter("flash_attention.tc_f32_counter")
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128

@@ -54,12 +54,12 @@ from mpi_pytorch_tpu_torch.ops.ring_attention import check_qkv, full_attention
 # forward's tensor-core kernels (bf16 with D % 16 == 0; f32) and FFMA
 # kernel, the backward's tensor-core kernels (bf16 at D % 16 == 0, bf16
 # zero-padded at other D; f32).
-forward_tc_counter = _build.LaunchCounter()
-forward_tc_f32_counter = _build.LaunchCounter()
-forward_ffma_counter = _build.LaunchCounter()
-backward_tc_counter = _build.LaunchCounter()
-backward_tc_pad_counter = _build.LaunchCounter()
-backward_tc_f32_counter = _build.LaunchCounter()
+forward_tc_counter = _build.LaunchCounter("fused_attention_small.forward_tc_counter")
+forward_tc_f32_counter = _build.LaunchCounter("fused_attention_small.forward_tc_f32_counter")
+forward_ffma_counter = _build.LaunchCounter("fused_attention_small.forward_ffma_counter")
+backward_tc_counter = _build.LaunchCounter("fused_attention_small.backward_tc_counter")
+backward_tc_pad_counter = _build.LaunchCounter("fused_attention_small.backward_tc_pad_counter")
+backward_tc_f32_counter = _build.LaunchCounter("fused_attention_small.backward_tc_f32_counter")
 
 # The tiny-S envelope (the JAX module's): every per-head score matrix fits
 # one CTA's shared memory whole.

@@ -51,12 +51,12 @@ from mpi_pytorch_tpu_torch.ops import _build
 
 # Launches of head_predict's kernels (one per call on the card): the bf16
 # tensor-core kernel, and the f32 one.
-counter = _build.LaunchCounter()
-counter_f32 = _build.LaunchCounter()
+counter = _build.LaunchCounter("fused_head_ce.counter")
+counter_f32 = _build.LaunchCounter("fused_head_ce.counter_f32")
 # Launches of the training op's forward and backward kernels (one per call
 # of each on the card).
-ce_forward_counter = _build.LaunchCounter()
-ce_backward_counter = _build.LaunchCounter()
+ce_forward_counter = _build.LaunchCounter("fused_head_ce.ce_forward_counter")
+ce_backward_counter = _build.LaunchCounter("fused_head_ce.ce_backward_counter")
 
 # CTAs to aim for on each SM of an H100 (132 SMs) when choosing the number
 # of vocab splits, so that even batch 1 fills the card: one, for every

@@ -36,9 +36,9 @@ from mpi_pytorch_tpu_torch.ops import _build
 
 # Launches of each CUDA kernel (the plain versions never count): the eval
 # forward, the training forward with the window index, the backward.
-counter = _build.LaunchCounter()
-argmax_counter = _build.LaunchCounter()
-backward_counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("fused_stem.counter")
+argmax_counter = _build.LaunchCounter("fused_stem.argmax_counter")
+backward_counter = _build.LaunchCounter("fused_stem.backward_counter")
 
 
 def _check_shapes(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:

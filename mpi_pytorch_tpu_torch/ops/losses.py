@@ -13,12 +13,16 @@ import torch
 import torch.nn.functional as F
 
 
+def masked_ce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The CE summed over the rows with ``label >= 0``, from f32 logits."""
+    per_example = F.cross_entropy(logits.float(), labels.clamp(min=0).long(), reduction="none")
+    return torch.sum(per_example * (labels >= 0))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over the rows with ``label >= 0`` (≙ nn.CrossEntropyLoss),
     from f32 logits; 0 for a batch with no such row."""
-    valid = labels >= 0
-    per_example = F.cross_entropy(logits.float(), labels.clamp(min=0).long(), reduction="none")
-    return torch.sum(per_example * valid) / torch.clamp(valid.sum(), min=1)
+    return masked_ce_sum(logits, labels) / torch.clamp((labels >= 0).sum(), min=1)
 
 
 def classification_loss(outputs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

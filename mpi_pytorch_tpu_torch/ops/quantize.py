@@ -56,7 +56,7 @@ from mpi_pytorch_tpu_torch.train.step import ingest_images
 
 # Launches of the int8 head kernel (one per head_predict_int8 call on the
 # card).
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("quantize.counter")
 
 
 def _f32(x) -> float:

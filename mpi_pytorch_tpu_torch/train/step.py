@@ -1,13 +1,38 @@
-"""The train and eval steps of ``mpi_pytorch_tpu/train/step.py`` on one
-device: device-side image ingest, the train step (forward in train mode,
-masked CE, backward, global grad norm, optimizer update, optional skip of
-a non-finite step) and the eval step (f32 logits → masked metrics).
+"""The train and eval steps of ``mpi_pytorch_tpu/train/step.py``:
+device-side image ingest, the train step (forward in train mode, masked
+CE, backward, gradient sync, global grad norm, optimizer update, optional
+skip of a non-finite step) and the eval step (f32 logits → masked
+metrics).
 
 PyTorch runs eagerly, so there is no jit; a step is a plain function over
 the mutable :class:`~mpi_pytorch_tpu_torch.train.state.TrainState`. Images
 arrive NHWC (the loader's layout); the permute to NCHW is a view in
-channels_last memory. Gradient accumulation (``accum_steps > 1``) waits
-for the data-parallel slice.
+channels_last memory.
+
+Data parallelism (one rank per GPU, ``parallel/distributed.py``), in the
+JAX package's two modes; each rank passes its own rows of the global
+batch:
+
+- **auto** (default, JAX ``make_train_step`` on a data mesh): batchnorm
+  over the global batch (``models.common.set_batchnorm_sync``), the global
+  valid count all-reduced before the backward, each rank's loss its masked
+  CE sum over that count — its share of the global mean — and the
+  gradients summed over the ranks after the backward: the gradient of the
+  count-weighted global mean.
+- **spmd** (``--spmd-mode``, JAX ``make_spmd_train_step``): each rank's
+  loss is its local masked mean with its local batchnorm statistics
+  (global with ``sync_batchnorm``), the gradients averaged over the ranks
+  however many valid rows each held (``collectives.avg_grads``, the
+  reference's ``mpi_avg_grads``), and the running statistics averaged
+  after the forward.
+
+In both the reported loss is the count-weighted global mean, ``correct``
+and ``count`` are summed over the ranks, ``grad_norm`` is the synced
+gradients', and the skip verdict reads only synced values, so every rank
+takes the same branch. For one rank every collective is the identity and
+the step computes what the one-process step always computed, bit for bit
+(``tests/test_torch_dp_step.py``).
+Gradient accumulation (``accum_steps > 1``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +45,8 @@ from torch import nn
 
 from mpi_pytorch_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from mpi_pytorch_tpu_torch.models.common import BatchNorm
-from mpi_pytorch_tpu_torch.ops.losses import accuracy_count, classification_loss, valid_count
+from mpi_pytorch_tpu_torch.ops.losses import accuracy_count, masked_ce_sum, valid_count
+from mpi_pytorch_tpu_torch.parallel import collectives
 from mpi_pytorch_tpu_torch.train.state import TrainState
 
 # ``Config.compute_dtype`` → torch dtype.
@@ -76,12 +102,27 @@ def _running_stats(model: nn.Module) -> list[torch.Tensor]:
 
 
 def make_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
-    """``step(state, images, labels) -> metrics``: one optimizer update.
+    """The auto-mode step (see the module docstring and :func:`_make_step`)."""
+    return _make_step(compute_dtype, bad_step_skip, spmd=False)
 
-    ``metrics`` holds 0-d device tensors ``loss`` (the masked mean CE),
-    ``correct``, ``count`` and ``grad_norm``, plus ``skipped`` (0/1) with
-    ``bad_step_skip``. Nothing here waits for the device, except the skip
-    policy, which must read the verdict on the host.
+
+def make_spmd_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
+    """The spmd-mode step (see the module docstring and :func:`_make_step`)."""
+    return _make_step(compute_dtype, bad_step_skip, spmd=True)
+
+
+def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, spmd: bool) -> Callable:
+    """``step(state, images, labels) -> metrics``: one optimizer update on
+    this rank's rows (the whole batch for one process), in auto mode or,
+    with ``spmd``, in spmd mode. The model's batchnorms must already take
+    the mode's statistics (``set_batchnorm_sync``: on in auto mode,
+    ``sync_batchnorm`` in spmd mode).
+
+    ``metrics`` holds 0-d device tensors ``loss`` (the masked mean CE over
+    the global batch), ``correct``, ``count`` and ``grad_norm``, plus
+    ``skipped`` (0/1) with ``bad_step_skip``. Nothing here waits for the
+    device, except the skip policy, which must read the verdict on the
+    host, and the collectives of a world of more than one rank.
 
     ``bad_step_skip`` (``--bad-step-policy skip``): a step whose loss or
     grad norm is not finite changes nothing — the state is bit-identical to
@@ -98,12 +139,26 @@ def make_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> 
         saved = [t.clone() for t in _running_stats(model)] if bad_step_skip else None
         model.zero_grad(set_to_none=True)
         logits = model(ingest_images(images, compute_dtype).permute(0, 3, 1, 2))
-        loss = classification_loss(logits, labels)
+        count = valid_count(labels)
+        ce_sum = masked_ce_sum(logits, labels)
+        if spmd:
+            # The JAX step pmeans its new batch stats after the forward.
+            collectives.all_reduce_(_running_stats(model), "mean")
+        # The global CE sum, valid count and correct count, all-reduced
+        # before the backward.
+        f32 = ce_sum.dtype
+        sums = collectives.all_reduce(torch.stack([
+            ce_sum.detach(), count.to(f32), accuracy_count(logits.detach(), labels).to(f32)]))
+        global_count = sums[1].to(torch.int32)
+        # spmd: the local masked mean. auto: this rank's share of the
+        # global mean, its CE sum over the global valid count.
+        loss = ce_sum / torch.clamp(count if spmd else global_count, min=1)
         loss.backward()
+        (collectives.avg_grads if spmd else collectives.sum_grads)(model)
         metrics = {
-            "loss": loss.detach(),
-            "correct": accuracy_count(logits.detach(), labels),
-            "count": valid_count(labels),
+            "loss": sums[0] / torch.clamp(sums[1], min=1),
+            "correct": sums[2].to(torch.int64),
+            "count": global_count,
             "grad_norm": grad_norm(model),
         }
         if bad_step_skip:

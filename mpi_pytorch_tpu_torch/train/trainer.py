@@ -1,14 +1,24 @@
-"""Training driver on one device (``mpi_pytorch_tpu/train/trainer.py``).
+"""The trainer (``mpi_pytorch_tpu/train/trainer.py``), one process per
+GPU.
 
 Stage by stage, as the JAX trainer (and the reference ``main.py:49-189``):
-manifests (``load_manifests``) → ``DataLoader`` → model and optimizer
-(``create_model_bundle`` + ``make_optimizer``) → ``from_checkpoint`` resume
-→ the epoch loop of train steps → one checkpoint per epoch → validation
-(and, with ``track_best``, ``best.json`` naming the best epoch's checkpoint).
+manifests (``load_manifests``) → this rank's shard of the train manifest
+→ ``DataLoader`` → model and optimizer (``create_model_bundle`` +
+``make_optimizer``) → ``from_checkpoint`` resume → rank 0's parameters on
+every rank (``sync_params``) → the epoch loop of train steps → one
+checkpoint per epoch (rank 0 writes) → sharded validation (and, with
+``track_best``, ``best.json`` naming the best epoch's checkpoint).
 
-One process on one device: the data-parallel mesh, elastic resume,
-rollback, preemption, the device/host caches and the run telemetry of the
-JAX trainer are not ported yet.
+Data parallelism: under ``torchrun --nproc-per-node N`` each rank takes
+``np.array_split`` shard ``rank`` of the train manifest and
+``batch_size // N`` rows a step (``batch_size`` is the global batch, as in
+the JAX package); every rank runs the same number of steps
+(:func:`global_step_count`, :func:`synchronized_batches`), and the step
+syncs them (``train/step.py``: auto mode, or ``spmd_mode``). Logs and
+metrics files are rank 0's. One process is the world of one.
+
+Elastic resume, rollback, preemption, the device/host caches and the run
+telemetry of the JAX trainer are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,10 +33,17 @@ from mpi_pytorch_tpu_torch import checkpoint as ckpt
 from mpi_pytorch_tpu_torch.config import Config
 from mpi_pytorch_tpu_torch.data.manifest import Manifest, load_manifests
 from mpi_pytorch_tpu_torch.data.pipeline import DataLoader
-from mpi_pytorch_tpu_torch.hardware import resolve_device
+from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
 from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+from mpi_pytorch_tpu_torch.ops._build import launch_counts
+from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
-from mpi_pytorch_tpu_torch.train.step import COMPUTE_DTYPES, make_eval_step, make_train_step
+from mpi_pytorch_tpu_torch.train.step import (
+    COMPUTE_DTYPES,
+    make_eval_step,
+    make_spmd_train_step,
+    make_train_step,
+)
 from mpi_pytorch_tpu_torch.utils.logging import MetricsWriter, init_logger
 
 
@@ -71,11 +88,43 @@ def _cyclic_fill(images: np.ndarray, n: int) -> np.ndarray:
 
 
 def global_step_count(total_examples: int, host_batch: int, drop_remainder: bool) -> int:
-    """Steps per epoch over ``total_examples`` in batches of
-    ``host_batch`` (one process: the shard is the whole manifest)."""
+    """Steps EVERY rank runs per epoch over ``total_examples`` split into
+    ``np.array_split`` shards, one a rank, in batches of ``host_batch``: a
+    rank running one step more than its peers would hang the collective.
+    With ``drop_remainder`` the smallest shard's count (larger shards
+    truncate); without, the largest shard's (exhausted shards feed
+    all-padding batches)."""
+    procs = distributed.world_size()
     if drop_remainder:
-        return total_examples // host_batch
-    return -(-total_examples // host_batch)
+        return (total_examples // procs) // host_batch
+    largest = -(-total_examples // procs)
+    return -(-largest // host_batch)
+
+
+def synchronized_batches(loader: DataLoader, epoch: int, n_steps: int, start_step: int = 0):
+    """Exactly ``n_steps - start_step`` (images, labels) batches from
+    ``loader`` — steps ``start_step..n_steps-1`` of the epoch — padding with
+    filler batches once the rank's shard is exhausted and truncating any
+    surplus, so every rank runs the same number of steps.
+
+    Filler batches repeat the images of the last REAL batch with every
+    label −1: the loss masks them, but batchnorm statistics span whatever
+    images the step sees, so filler is real image content, not zeros."""
+    it = iter(loader.epoch(epoch, start_batch=start_step))
+    all_pad = np.full((loader.batch_size,), -1, np.int32)
+    last_images = None
+    try:
+        for _ in range(start_step, n_steps):
+            batch = next(it, None)
+            if batch is not None:
+                last_images = batch[0]
+                yield batch
+            else:
+                if last_images is None:  # an empty shard: no real rows exist
+                    last_images = np.zeros((0, *loader.image_size, 3), loader.image_dtype)
+                yield _cyclic_fill(last_images, loader.batch_size), all_pad
+    finally:
+        it.close()  # stops the producer thread on truncation
 
 
 def to_device(images: np.ndarray, labels: np.ndarray, device: torch.device):
@@ -87,12 +136,31 @@ def to_device(images: np.ndarray, labels: np.ndarray, device: torch.device):
     return img.to(device, non_blocking=True), lbl.to(device, non_blocking=True)
 
 
+def host_batch(cfg: Config) -> int:
+    """This rank's rows a step: the global ``batch_size`` over the world
+    (``validate_world`` checks that it divides)."""
+    return cfg.batch_size // distributed.world_size()
+
+
+def validate_world(cfg: Config) -> None:
+    """Raise unless the configuration fits the world: the global batch
+    divides by the rank count, and ``mesh.data_parallel`` is -1 or that
+    count."""
+    world = distributed.world_size()
+    if cfg.batch_size % world:
+        raise ValueError(
+            f"global batch {cfg.batch_size} not divisible by the world's {world} ranks"
+        )
+    cfg.mesh.check_world(world)
+
+
 def make_loader(cfg: Config, manifest: Manifest, *, train: bool) -> DataLoader:
     """The train loader (shuffled, ``drop_remainder`` as configured) or an
-    eval loader (in order, every row)."""
+    eval loader (in order, every row) over ``manifest`` — this rank's
+    shard — in batches of :func:`host_batch` rows."""
     return DataLoader(
         manifest,
-        batch_size=cfg.batch_size,
+        batch_size=host_batch(cfg),
         image_size=(cfg.height, cfg.width),
         shuffle=cfg.shuffle if train else False,
         seed=cfg.seed,
@@ -104,21 +172,35 @@ def make_loader(cfg: Config, manifest: Manifest, *, train: bool) -> DataLoader:
     )
 
 
+def make_eval_loader(cfg: Config, manifest: Manifest) -> DataLoader:
+    """The validation/evaluation loader over this rank's shard of
+    ``manifest``."""
+    shard = manifest.shard(distributed.world_size(), distributed.rank())
+    return make_loader(cfg, shard, train=False)
+
+
 def build_training(cfg: Config, device: torch.device):
     """(state, (train_manifest, test_manifest, train_loader)): the model
-    with seeded weights prepared for training on ``device``, its optimizer
-    and schedule over the run's total step count."""
+    with seeded weights prepared for training on ``device`` (its
+    batchnorms over the global batch in auto mode, or with
+    ``sync_batchnorm``), its optimizer and schedule over the run's total
+    step count, and the loader over this rank's shard of the train
+    manifest."""
     cfg.validate_config()
+    validate_world(cfg)
     train_manifest, test_manifest = load_manifests(cfg)
-    loader = make_loader(cfg, train_manifest, train=True)
+    # Per-rank shard ≙ the reference's rank-0 scatter (main.py:84-91).
+    shard = train_manifest.shard(distributed.world_size(), distributed.rank())
+    loader = make_loader(cfg, shard, train=True)
     bundle = create_model_bundle(
         cfg.model_name, cfg.num_classes, cfg.feature_extract,
         seed=cfg.seed, image_size=cfg.image_size, fused_stem=cfg.fused_stem,
         attn_impl=cfg.attn_impl, qkv_fused=cfg.qkv_fused,
     )
     model = prepare_for_training(bundle.model, device)
+    set_batchnorm_sync(model, not cfg.spmd_mode or cfg.sync_batchnorm)
     total_steps = (
-        global_step_count(len(train_manifest), cfg.batch_size, cfg.drop_remainder)
+        global_step_count(len(train_manifest), host_batch(cfg), cfg.drop_remainder)
         * cfg.num_epochs
     )
     optimizer, schedule = make_optimizer(
@@ -137,25 +219,33 @@ def build_training(cfg: Config, device: torch.device):
 def evaluate_manifest(
     cfg: Config, model: torch.nn.Module, manifest: Manifest, loader: DataLoader | None = None
 ) -> tuple[float, float]:
-    """Batched eval over ``manifest`` → (accuracy, mean loss). The tail
-    batch is padded to the batch size (label −1 rows count nowhere); the
+    """Batched eval over ``manifest`` → (accuracy, mean loss), sharded over
+    the ranks (≙ the reference's rank-0 validation loop, ``main.py:173-185``,
+    using every rank): each rank walks its shard (``loader``, from
+    :func:`make_eval_loader` to reuse one across epochs) in the same
+    number of batches, each padded to :func:`host_batch` rows (label −1
+    rows count nowhere), and the sums are all-reduced once at the end. The
     model runs in eval mode and returns to the mode it was in."""
     device = next(model.parameters()).device
     eval_step = make_eval_step(COMPUTE_DTYPES[cfg.compute_dtype])
-    loader = loader or make_loader(cfg, manifest, train=False)
+    loader = loader or make_eval_loader(cfg, manifest)
+    n_steps = global_step_count(len(manifest), host_batch(cfg), drop_remainder=False)
     correct = total = 0
     loss_sum = 0.0
     was_training = model.training
     model.eval()
     try:
-        for images, labels in loader.epoch(0):
-            images, labels = pad_batch(images, labels, cfg.batch_size)
+        for images, labels in synchronized_batches(loader, 0, n_steps):
+            images, labels = pad_batch(images, labels, host_batch(cfg))
             m = eval_step(model, *to_device(images, labels, device))
             correct += int(m["correct"])
             total += int(m["count"])
             loss_sum += float(m["loss"])
     finally:
         model.train(was_training)
+    sums = collectives.all_reduce(
+        torch.tensor([correct, total, loss_sum], dtype=torch.float64, device=device))
+    correct, total, loss_sum = int(sums[0]), int(sums[1]), float(sums[2])
     if total == 0:
         return 0.0, float("nan")
     return correct / total, loss_sum / total
@@ -163,10 +253,13 @@ def evaluate_manifest(
 
 def train(cfg: Config, device: str | torch.device | None = None) -> TrainSummary:
     """Train ``cfg.num_epochs`` epochs (from the latest checkpoint with
-    ``from_checkpoint``) on ``device`` (default cuda); see the module
-    docstring. On a card, cuDNN picks its algorithms by measuring
-    (``torch.backends.cudnn.benchmark``): every step has the same shapes."""
-    dev = resolve_device(device)
+    ``from_checkpoint``) on ``device`` (default: this rank's card,
+    ``distributed.rank_device``); see the module docstring. Joins the
+    world the environment describes first (torchrun's). On a card, cuDNN
+    picks its algorithms by measuring (``torch.backends.cudnn.benchmark``):
+    every step has the same shapes."""
+    dev = distributed.rank_device(device)
+    distributed.maybe_initialize_distributed(dev)
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True
     logger = init_logger("MPT", cfg.log_file)
@@ -179,10 +272,17 @@ def train(cfg: Config, device: str | torch.device | None = None) -> TrainSummary
 
 def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> TrainSummary:
     state, (train_manifest, test_manifest, loader) = build_training(cfg, dev)
+    world, rank = distributed.world_size(), distributed.rank()
     logger.info(
         "model %s | %d classes | batch %d | %d train images | %s on %s",
         cfg.model_name, cfg.num_classes, cfg.batch_size, len(train_manifest),
         cfg.compute_dtype, dev,
+    )
+    logger.info(
+        "data-parallel world %d (process group backend %s), rank %d: %d-row shard, "
+        "%d rows a step, %s mode", world, distributed.backend(), rank,
+        len(loader.manifest), loader.batch_size,
+        "spmd" if cfg.spmd_mode else "auto",
     )
     summary = TrainSummary()
     start_epoch = 0
@@ -194,6 +294,9 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             epoch, last_loss = ckpt.restore_checkpoint(path, state)
             start_epoch = epoch + 1
             logger.info("resumed from %s (epoch %d, loss %.4f)", path, start_epoch, last_loss)
+    # Rank 0's parameters and buffers on every rank, fresh or resumed
+    # (≙ the JAX trainer placing its state on the mesh).
+    collectives.sync_params(state.model)
 
     # A resumed run never demotes a stored best: best.json outlives the run
     # (no marker: any first accuracy wins).
@@ -204,12 +307,15 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             best_accuracy = marker["accuracy"]
 
     skip = cfg.bad_step_policy == "skip"
-    train_step = make_train_step(COMPUTE_DTYPES[cfg.compute_dtype], bad_step_skip=skip)
+    factory = make_spmd_train_step if cfg.spmd_mode else make_train_step
+    train_step = factory(COMPUTE_DTYPES[cfg.compute_dtype], bad_step_skip=skip)
+    n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder)
     val_loader = None
     total_images = 0
     total_time = 0.0
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.perf_counter()
+        launches0 = launch_counts()
         losses, counts = [], []
         skip_streak = 0
         # A step's metrics are read on the host one step late, so the
@@ -249,8 +355,8 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             if cfg.log_every_steps and (step_i + 1) % cfg.log_every_steps == 0:
                 logger.info("epoch %d step %d loss %.4f", epoch, step_i + 1, loss)
 
-        for step_i, (images, labels) in enumerate(loader.epoch(epoch)):
-            images, labels = pad_batch(images, labels, cfg.batch_size)
+        for step_i, (images, labels) in enumerate(synchronized_batches(loader, epoch, n_steps)):
+            images, labels = pad_batch(images, labels, loader.batch_size)
             m = train_step(state, *to_device(images, labels, dev))
             if pending is not None:
                 settle(*pending)
@@ -269,7 +375,7 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
         total_time += dt
         logger.info("Epoch: %d, Loss: %.6f, Time: %.2f s, %.1f img/s", epoch, epoch_loss, dt, ips)
         metrics.write({"kind": "epoch", "epoch": epoch, "loss": epoch_loss, "time_s": dt,
-                       "images_per_sec": ips})
+                       "images_per_sec": ips, **launches_since(launches0)})
         summary.epoch_times.append(dt)
         summary.epoch_losses.append(epoch_loss)
         summary.epochs_run += 1
@@ -287,11 +393,13 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             # val_on_train=False validates on the test split.
             val_manifest = train_manifest if cfg.val_on_train else test_manifest
             if val_loader is None:
-                val_loader = make_loader(cfg, val_manifest, train=False)
+                val_loader = make_eval_loader(cfg, val_manifest)
+            launches0 = launch_counts()
             acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader)
             summary.val_accuracy = acc
             logger.info("Accuracy of the network: %.4f (val_on_train=%s)", acc, cfg.val_on_train)
-            metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss})
+            metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss,
+                           **launches_since(launches0)})
             if cfg.track_best and acc > best_accuracy:
                 # The epoch's checkpoint was saved (synchronously) above,
                 # so the marker never names a file that is not there.
@@ -303,7 +411,20 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
     return summary
 
 
+def launches_since(before: dict[str, int]) -> dict:
+    """``{"launches": {counter: launches since before}}`` for a metrics
+    record, or nothing when no kernel launched (the CPU's plain versions)."""
+    moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+             if v != before.get(k, 0)}
+    return {"launches": moved} if moved else {}
+
+
 def main(argv=None) -> TrainSummary:
+    """``python -m mpi_pytorch_tpu_torch.train``: one process, or one rank
+    of a ``torchrun`` world, which it leaves at the end."""
     from mpi_pytorch_tpu_torch.config import parse_config
 
-    return train(parse_config(argv))
+    try:
+        return train(parse_config(argv))
+    finally:
+        distributed.shutdown()
