@@ -81,6 +81,18 @@ Phases (any failure raises and the script exits non-zero):
    with the plain stem's and plain head's on the same rows by the serving
    rule (``E2E_GAP``); then ``use_best`` loads the file ``best.json``
    names, and ``--quantize-eval`` with the fused head launches K7;
+6b2. the device-resident training set (``train_resnet18_cached``): the
+   fused run's configuration through ``trainer.train`` with
+   ``device_cache``, and with ``device_cache`` and ``scan_epoch``, in turns
+   (cached, scanned, scanned, cached): the cache holds the 2 560 train
+   rows in f32 (503.3 MB), K2 and K3 launch once a step and K1 once a
+   validation batch (validation from the cache), each run's step-1 loss
+   within 1e-3 of the streaming run's, the losses fall, epoch 0's first
+   three gathered batches and its last ``torch.equal`` to the loader's,
+   validation from the cache gives the streaming validation's accuracy on
+   the same weights; logged: the second epoch's img/s of the streaming
+   run and of each cached and scanned run, the cache's build seconds, a
+   cached step's enqueue time against its busy time;
 6c. data parallelism (``data_parallel``): ``torchrun --standalone
    --nproc-per-node 1 -m mpi_pytorch_tpu_torch.train`` — the real entry
    point as a world of one over NCCL — on the fused run's configuration
@@ -95,7 +107,11 @@ Phases (any failure raises and the script exits non-zero):
    grad norm rtol 1e-4, ``bn1``'s running statistics rtol 1e-5, K2 and
    K3 once a step on each rank), the share of a step the collectives
    take, and one spmd-mode step on an uneven batch (the ranks' running
-   statistics bitwise equal, the loss the count-weighted mean);
+   statistics bitwise equal, the loss the count-weighted mean); then each
+   rank's device cache (half the train rows, uint8 and f32) and three
+   cached auto steps: its gathered slices byte-identical to this
+   process's rows of the same batches, K2 and K3 once a step, the losses
+   rtol 1e-4 against one process (``_dp_cached_check``);
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
@@ -1952,6 +1968,147 @@ def evaluate_resnet18(dev, run_dir: str) -> None:
     }})
 
 
+CACHE_STEPS_HELD = (0, 1, 2, TRAIN_STEPS_PER_EPOCH - 1)  # epoch 0's first three, its tail
+CACHE_TURNS = ("cached", "scanned", "scanned", "cached")  # the two modes in turns
+
+
+def _cache_mb(rows: int, image: int, itemsize: int) -> str:
+    """The trainer's log figure for a cache of ``rows`` rows."""
+    return f"{rows * image * image * 3 * itemsize / 1e6:.1f}"
+
+
+def train_resnet18_cached(dev, fused_run: dict) -> dict:
+    """Phase 6b2: the device-resident training set at full width, through
+    ``trainer.train``: the fused run's configuration (resnet18, 64 500
+    classes, 128 px, bf16, Adam 4e-4, fused stem, the DEBUG sample's 2 560
+    train rows, two epochs, validation) with ``device_cache``, and with
+    ``device_cache`` and ``scan_epoch``, in turns (``CACHE_TURNS``),
+    beside the streaming fused run that :func:`train_resnet18` made.
+    Held, on every run: the cache holds 2 560 f32 rows,
+    503.3 MB (the trainer's log line); K2 and K3 launch once a step and K1
+    once a validation batch (the counters and the metrics records); each
+    run's step-1 loss within 1e-3 of the streaming run's; the losses
+    finite and falling; epoch 0's first three gathered batches and its
+    last (``CACHE_STEPS_HELD``) ``torch.equal`` to the streaming loader's;
+    validation from the cache gives the streaming validation's accuracy
+    on the same weights (the last checkpoint). Logged beside the card's
+    name and power limit: the second epoch's img/s of every run, the
+    seconds to build the cache, and a cached step's enqueue time against
+    its busy time. Returns K1's, K2's and K3's launches in the phase."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.hardware import card_report
+    from mpi_pytorch_tpu_torch.ops import fused_stem
+    from mpi_pytorch_tpu_torch.train import trainer
+    from mpi_pytorch_tpu_torch.train.step import _gather_batch, make_cached_train_step
+
+    t_phase = time.perf_counter()
+    counters = {"stem": fused_stem.counter, "stem_pool_argmax": fused_stem.argmax_counter,
+                "stem_pool_backward": fused_stem.backward_counter}
+    rows = TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH
+    want_log = (f"device cache: {rows} images, rows sharded over 1 rank(s) "
+                f"({_cache_mb(rows, IMG, 4)} MB/rank float32)")
+    real_build, built = trainer.build_device_cache, {}
+
+    def keep(*args, **kw):  # the run's own cache, held below
+        built["cache"] = real_build(*args, **kw)
+        return built["cache"]
+
+    runs, launches = {name: [] for name in CACHE_TURNS}, {k: 0 for k in counters}
+    trainer.build_device_cache = keep
+    try:
+        for name in CACHE_TURNS:
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = _train_cfg(tmp, fused_stem=True, device_cache=True,
+                                 scan_epoch=name == "scanned")
+                for c in counters.values():
+                    c.reset()
+                summary = trainer.train(cfg, device=dev)
+                counts = {k: c.count for k, c in counters.items()}
+                records = _records(cfg.metrics_file)
+                with open(cfg.log_file) as f:
+                    log_text = f.read()
+                weights = ckpt.load_for_eval(ckpt.latest_checkpoint(cfg.checkpoint_dir))[0]
+            losses = summary.step_losses
+            steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
+            if want_log not in log_text or tuple(built["cache"][0].shape) != (rows, IMG, IMG, 3):
+                raise AssertionError(f"{name}: the cache is not {want_log!r}")
+            if counts != {"stem": TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH,
+                          "stem_pool_argmax": steps, "stem_pool_backward": steps}:
+                raise AssertionError(f"{name}: launches {counts} over {steps} steps and "
+                                     f"{TRAIN_EPOCHS} validations of {TRAIN_STEPS_PER_EPOCH}")
+            per_epoch = {"fused_stem.argmax_counter": TRAIN_STEPS_PER_EPOCH,
+                         "fused_stem.backward_counter": TRAIN_STEPS_PER_EPOCH}
+            if [r.get("launches") for r in records if r["kind"] == "epoch"] != [per_epoch] * 2 or (
+                    [r.get("launches") for r in records if r["kind"] == "val"]
+                    != [{"fused_stem.counter": TRAIN_STEPS_PER_EPOCH}] * 2):
+                raise AssertionError(f"{name}: the records' launches {records}")
+            if len(losses) != steps or not np.all(np.isfinite(losses)) or not (
+                    losses[-1] < losses[0] and summary.epoch_losses[-1] < summary.epoch_losses[0]):
+                raise AssertionError(f"{name}: step losses {losses}, epochs {summary.epoch_losses}")
+            gap = abs(losses[0] / fused_run["step_losses"][0] - 1)
+            if gap > 1e-3:
+                raise AssertionError(f"{name}: step-1 loss {losses[0]} against the streaming "
+                                     f"run's {fused_run['step_losses'][0]}")
+            # Validation from the cache against the streaming validation on
+            # the same weights: the epoch's checkpoint precedes its
+            # validation.
+            state = _train_state(dev, fused=True)
+            state.model.load_state_dict(weights)
+            train_m = load_manifests(cfg)[0]
+            stream_acc, stream_loss = trainer.evaluate_manifest(cfg, state.model, train_m)
+            if stream_acc != summary.val_accuracy:
+                raise AssertionError(f"{name}: validation from the cache {summary.val_accuracy} "
+                                     f"against streaming {stream_acc}")
+            del state
+            for k in launches:
+                launches[k] += counts[k]
+            runs[name].append({
+                "step_losses": losses, "epoch_losses": summary.epoch_losses,
+                "epoch_times_s": summary.epoch_times, "step1_rel_gap": gap,
+                "epoch2_img_per_s": rows / summary.epoch_times[1],
+                "cache_build_s": summary.cache_build_s, "val_accuracy": summary.val_accuracy,
+                "val_loss": [r["loss"] for r in records if r["kind"] == "val"][-1],
+                "streaming_val_loss_same_weights": stream_loss, "launches": counts,
+            })
+            log({"train_cached": {"mode": name, **runs[name][-1]}})
+    finally:
+        trainer.build_device_cache = real_build
+
+    # The gathered batches against the streaming loader's, on the card.
+    dataset, labels = built.pop("cache")
+    cfg = _train_cfg("")
+    loader = trainer.make_loader(cfg, load_manifests(cfg)[0], train=True)
+    walk = trainer.epoch_indices(cfg, rows, 0, TRAIN_STEPS_PER_EPOCH, dev)
+    for step_i, (images, lbl) in enumerate(
+            trainer.synchronized_batches(loader, 0, TRAIN_STEPS_PER_EPOCH)):
+        if step_i in CACHE_STEPS_HELD:
+            got = _gather_batch(dataset, labels, walk[0][step_i], walk[1][step_i], torch.float32)
+            want = trainer.to_device(images, lbl, dev)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"cached batch {step_i} differs from the loader's")
+
+    # A cached step's enqueue time against its busy time (bf16, step 0's batch).
+    state = _train_state(dev, fused=True)
+    step = make_cached_train_step(torch.bfloat16)
+    timing, _ = _step_times(lambda: step(state, dataset, labels, walk[0][0], walk[1][0]))
+    del state, dataset, labels
+    streaming_ips = rows / fused_run["epoch_times_s"][1]
+    log({"train_cached_vs_streaming": {
+        "card": card_report().splitlines()[0], "rows": rows, "cache_mb": float(
+            _cache_mb(rows, IMG, 4)), "dtype": "float32",
+        "turns": list(CACHE_TURNS), "epoch2_img_per_s": {
+            "streaming": streaming_ips,
+            **{k: [r["epoch2_img_per_s"] for r in v] for k, v in runs.items()}},
+        "epoch1_img_per_s": {k: [rows / r["epoch_times_s"][0] for r in v]
+                             for k, v in runs.items()},
+        "cache_build_s": {k: [r["cache_build_s"] for r in v] for k, v in runs.items()},
+        "cached_step_bf16": timing, "batches_held": list(CACHE_STEPS_HELD),
+        "phase_s": time.perf_counter() - t_phase,
+    }})
+    return launches
+
+
 DP_RANKS = 2  # ranks sharing the one card in the gloo check
 DP_STEPS = 3
 
@@ -2039,8 +2196,9 @@ def dp_rank(payload: dict) -> dict:
     """One of ``DP_RANKS`` ranks on ``payload["device"]`` (the one card)
     over gloo (``data_parallel``):
     three auto-mode f32 steps on its rows of each batch, one step profiled
-    (where the step's card time and the collectives' time go), then one
-    spmd-mode step on the uneven batch."""
+    (where the step's card time and the collectives' time go), one
+    spmd-mode step on the uneven batch, then its half of the device cache
+    (:func:`_dp_cache_walk`) and three cached auto f32 steps from it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2049,6 +2207,7 @@ def dp_rank(payload: dict) -> dict:
     from mpi_pytorch_tpu_torch.parallel import distributed
     from mpi_pytorch_tpu_torch.train.step import (
         ingest_images,
+        make_cached_train_step,
         make_spmd_train_step,
         make_train_step,
     )
@@ -2113,7 +2272,95 @@ def dp_rank(payload: dict) -> dict:
         out["spmd_stats"] = [t.cpu().numpy() for mod in spmd.model.modules()
                              if hasattr(mod, "running_var")
                              for t in (mod.running_mean, mod.running_var)]
+        del spmd
+        # The device cache: this rank's half of the DEBUG sample's rows, in
+        # uint8 and f32; epoch 0's first DP_STEPS gathered slices (digests),
+        # then DP_STEPS cached auto steps from the f32 cache.
+        out["cache_digests"], (dataset, labels), walk = _dp_cache_walk(dev, 1)
+        cached = _dp_state(dev, sync=True, classes=shape["classes"])
+        step = make_cached_train_step(torch.float32)
+        fs.argmax_counter.reset()
+        fs.backward_counter.reset()
+        out["cached_losses"] = [float(step(cached, dataset, labels, i, v)["loss"])
+                                for i, v in zip(*walk)]
+        out["cached_launches"] = {"stem_pool_argmax": fs.argmax_counter.count,
+                                  "stem_pool_backward": fs.backward_counter.count}
+        out["cache_rows"] = int(dataset.shape[0])
     return out
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_cache_walk(dev, parts: int):
+    """This rank's device cache of the DEBUG sample's train rows in uint8
+    and in f32 (all of them in a world of one), and the digests of its
+    rows of epoch 0's first ``DP_STEPS`` gathered batches in each dtype
+    (f32 ingest), each batch cut into ``parts`` equal row ranges; returns
+    (digests [dtype][step][part], the f32 cache, the walk's [DP_STEPS, B]
+    index and mask tensors)."""
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.train import trainer
+    from mpi_pytorch_tpu_torch.train.step import _gather_batch
+
+    digests = {}
+    for dtype in ("uint8", "float32"):
+        cfg = _train_cfg("", input_dtype=dtype)
+        train_m = load_manifests(cfg)[0]
+        cache = trainer.build_device_cache(
+            cfg, train_m, trainer.make_loader(cfg, train_m, train=True), dev)
+        walk = trainer.epoch_indices(cfg, len(train_m), 0, DP_STEPS, dev)
+        digests[dtype] = []
+        for i, v in zip(*walk):
+            images, lbl = _gather_batch(*cache, i, v, torch.float32)
+            n = images.shape[0] // parts
+            digests[dtype].append([_digest(images[p * n:(p + 1) * n], lbl[p * n:(p + 1) * n])
+                                   for p in range(parts)])
+    return digests, cache, walk
+
+
+def _dp_cached_check(dev, ranks: list[dict], card: str) -> None:
+    """The gloo ranks' cached steps (``dp_rank``): each rank's gathered
+    slices, in uint8 and f32, byte-identical (digests) to its rows of this
+    process's gather of the whole batches; its cache holds half the rows;
+    K2 and K3 once a step; its losses rtol 1e-4 against this process's
+    cached steps on the whole batches."""
+    from mpi_pytorch_tpu_torch.train.step import make_cached_train_step
+
+    digests, (dataset, labels), walk = _dp_cache_walk(dev, DP_RANKS)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        state = _dp_state(dev, sync=True, classes=V)
+        cached_step = make_cached_train_step(torch.float32)
+        cached_losses = [float(cached_step(state, dataset, labels, i, v)["loss"])
+                         for i, v in zip(*walk)]
+    del state, dataset, labels
+    for r in ranks:
+        mine = {k: [d[r["rank"]] for d in v] for k, v in digests.items()}
+        if {k: [d[0] for d in v] for k, v in r["cache_digests"].items()} != mine:
+            raise AssertionError(f"rank {r['rank']}: its gathered slices are not this "
+                                 "process's rows of the same batches")
+        if r["cache_rows"] != TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH // DP_RANKS or (
+                r["cached_launches"] != {"stem_pool_argmax": DP_STEPS,
+                                         "stem_pool_backward": DP_STEPS}):
+            raise AssertionError(f"rank {r['rank']}: {r['cache_rows']} cache rows, "
+                                 f"launches {r['cached_launches']}")
+        if not np.allclose(r["cached_losses"], cached_losses, rtol=1e-4, atol=0):
+            raise AssertionError(f"rank {r['rank']}: cached losses {r['cached_losses']} "
+                                 f"against one process's {cached_losses}")
+    log({"dp_gloo_cached": {
+        "card": card, "rows_per_rank": ranks[0]["cache_rows"],
+        "losses": ranks[0]["cached_losses"], "one_process_losses": cached_losses,
+        "max_rel_gap": max(abs(a / b - 1) for r in ranks
+                           for a, b in zip(r["cached_losses"], cached_losses)),
+        "slices_byte_identical": ["uint8", "float32"],
+    }})
 
 
 def data_parallel(dev, fused_run: dict) -> dict:
@@ -2141,7 +2388,9 @@ def data_parallel(dev, fused_run: dict) -> dict:
     turns f32 summation order on near-zero gradients into ±lr steps. Then
     one spmd-mode step on a batch whose halves hold 64 and 16 valid rows:
     every rank's running statistics bitwise equal, and the reported loss
-    the count-weighted mean of the ranks' own masked means (rtol 1e-6).
+    the count-weighted mean of the ranks' own masked means (rtol 1e-6);
+    then three cached auto steps on each rank's half of the device cache
+    (:func:`_dp_cached_check`).
     Returns K2's and K3's launches in the phase."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
     from mpi_pytorch_tpu_torch.hardware import card_report
@@ -2240,6 +2489,7 @@ def data_parallel(dev, fused_run: dict) -> dict:
         raise AssertionError(f"spmd step: losses {[r['spmd_loss'] for r in ranks]} against "
                              f"the count-weighted mean {weighted} of {ranks[0]['spmd_local']}, "
                              f"{ranks[1]['spmd_local']}")
+    _dp_cached_check(dev, ranks, out["card"])
     prof = ranks[0]["profile"]
     coll_ms = sum(prof["collectives_host_ms"].values())
     log({"dp_allreduce_share": {
@@ -2260,7 +2510,7 @@ def data_parallel(dev, fused_run: dict) -> dict:
     }})
     del state, ref
     return {"torchrun": out["torchrun_world1"]["launches"]["train"],
-            "gloo_rank": ranks[0]["launches"]}
+            "gloo_rank": ranks[0]["launches"], "gloo_rank_cached": ranks[0]["cached_launches"]}
 
 
 def train_vit(dev) -> dict:
@@ -2530,6 +2780,33 @@ def vit_step_checks(dev) -> None:
     return launches
 
 
+def _step_times(step) -> tuple[dict, list]:
+    """The host's time to enqueue one ``step()`` against the time until the
+    card has run it (ms, five steps after three warm-ups), and the card's
+    busy time per step from ``torch.profiler`` (kernel time summed over
+    three steps); also the profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    out["step_host_enqueue_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    torch.cuda.synchronize()
+    out["step_enqueue_to_done_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out["step_device_busy_ms"] = sum(e.self_device_time_total for e in kernels) / 3e3
+    return out, kernels
+
+
 def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: int) -> None:
     """Where a training step's time goes, bf16, batch 128: the host loader
     alone (ms per batch into device memory: synthetic f32 rows from the row
@@ -2538,9 +2815,6 @@ def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: i
     it; and the card's busy time per step from ``torch.profiler`` (kernel
     time summed, three steps), with the kernels that take most of it and
     the port's own kernels by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
     from mpi_pytorch_tpu_torch.train import trainer
     from mpi_pytorch_tpu_torch.train.step import make_train_step
@@ -2558,21 +2832,8 @@ def train_time_breakdown(dev, label: str, cfg_kw: dict, state_kw: dict, image: i
     state = _train_state(dev, **state_kw)
     (images, labels), = _resident_batches(dev, 1, SEED + 5, image)
     step = make_train_step(torch.bfloat16)
-    for _ in range(3):
-        step(state, images, labels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        step(state, images, labels)
-    out["step_host_enqueue_ms"] = 1e3 * (time.perf_counter() - t0) / 5
-    torch.cuda.synchronize()
-    out["step_enqueue_to_done_ms"] = 1e3 * (time.perf_counter() - t0) / 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step(state, images, labels)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    out["step_device_busy_ms"] = sum(e.self_device_time_total for e in kernels) / 3e3
+    timing, kernels = _step_times(lambda: step(state, images, labels))
+    out.update(timing)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out["top_kernels_ms_per_step"] = [[e.key[:80], e.self_device_time_total / 3e3] for e in top]
     # The port's own kernels, each by name with its busy time per step:
@@ -2670,6 +2931,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as run_dir:
         fused_run = train_resnet18(dev, run_dir)
         evaluate_resnet18(dev, run_dir)
+    # K1's, K2's and K3's launches on the device-cache path (PERF.md's
+    # third figure of their rows; the kernels line keeps the main path's).
+    log({"cached_launches": train_resnet18_cached(dev, fused_run)})
     stem_argmax["launches"] = fused_run["launches"]["stem_pool_argmax"]
     stem_backward["launches"] = fused_run["launches"]["stem_pool_backward"]
     dp_launches = data_parallel(dev, fused_run)

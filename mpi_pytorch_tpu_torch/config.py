@@ -35,7 +35,7 @@ ATTN_IMPLS = ("full", "flash", "fused-small")
 _NOT_PORTED_DP = "not ported yet (ROADMAP A7)"
 
 
-@dataclass(eq=False)
+@dataclass
 class MeshConfig:
     """The parallel layout, with the JAX ``MeshConfig``'s fields and
     defaults. The port runs the data axis alone: one rank per GPU, the
@@ -53,18 +53,6 @@ class MeshConfig:
     model_parallel: int = 1
     pipe_parallel: int = 1
     pods: int = 1
-
-    def __eq__(self, other: object) -> bool:
-        """Equal to any layout with the same field names and values (the
-        JAX package's ``MeshConfig`` included)."""
-        if not dataclasses.is_dataclass(other):
-            return NotImplemented
-        names = {f.name for f in dataclasses.fields(self)}
-        return names == {f.name for f in dataclasses.fields(other)} and all(
-            getattr(self, n) == getattr(other, n) for n in names
-        )
-
-    __hash__ = None  # mutable, like the JAX dataclass
 
     def validate(self) -> None:
         if self.data_parallel == 0 or self.data_parallel < -1:
@@ -150,6 +138,15 @@ class Config:
     loader_workers: int = 8
     prefetch_batches: int = 2
     drop_remainder: bool = True  # fixed batch shapes; see the trainer
+    # Decode the training set once into device memory (this rank's rows)
+    # and have each step gather its batch by index on the device: no
+    # per-step decode or host→device copy of pixels (train/trainer.py
+    # build_device_cache, train/step.py make_cached_train_step).
+    device_cache: bool = False
+    # With device_cache: every step of an epoch from device-resident index
+    # batches, with no host read of a step's metrics until the epoch ends
+    # (train/step.py make_scanned_epoch).
+    scan_epoch: bool = False
 
     # --- data parallelism (one rank per GPU, torchrun's world) ---
     # Reference per-rank BN stays local unless this is set (spmd mode).
@@ -354,8 +351,10 @@ class Config:
                 )
 
     def _validate_parallel(self) -> None:
-        """The mesh, then a refusal of each DP lever the port does not run
-        yet."""
+        """The mesh, a refusal of each DP lever the port does not run yet,
+        and the JAX package's checks on the device cache and scan epoch.
+        (``host_cache``, which JAX also keeps exclusive of the device
+        cache, is not ported yet.)"""
         self.mesh.validate()
         for name in ("zero_optimizer", "zero_opt_state", "grad_sync_buckets", "fsdp"):
             if getattr(self, name):
@@ -363,6 +362,16 @@ class Config:
         if self.fused_stem and self.spmd_mode and self.sync_batchnorm:
             raise ValueError("fused_stem does not support sync-BN in spmd_mode "
                              "(sync_batchnorm), as the JAX resnet refuses it")
+        if self.device_cache and self.spmd_mode:
+            raise ValueError(
+                "device_cache uses the auto-partitioned gather step; it does "
+                "not compose with the reference-parity spmd_mode shard_map step"
+            )
+        if self.scan_epoch and not self.device_cache:
+            raise ValueError(
+                "scan_epoch runs the epoch as one compiled scan over the "
+                "device-resident dataset; it requires device_cache=True"
+            )
 
     @property
     def image_size(self) -> tuple[int, int]:

@@ -33,6 +33,12 @@ takes the same branch. For one rank every collective is the identity and
 the step computes what the one-process step always computed, bit for bit
 (``tests/test_torch_dp_step.py``).
 Gradient accumulation (``accum_steps > 1``) is not ported yet.
+
+The device cache (``--device-cache``, JAX ``make_cached_train_step``,
+``make_scanned_epoch``, ``make_cached_eval_step``): the training set lives
+in device memory (``trainer.build_device_cache``) and each step gathers
+its batch by index (:func:`_gather_batch`), then runs the auto step's
+body.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from torch import nn
 from mpi_pytorch_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from mpi_pytorch_tpu_torch.models.common import BatchNorm
 from mpi_pytorch_tpu_torch.ops.losses import accuracy_count, masked_ce_sum, valid_count
-from mpi_pytorch_tpu_torch.parallel import collectives
+from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.train.state import TrainState
 
 # ``Config.compute_dtype`` → torch dtype.
@@ -189,3 +195,95 @@ def make_eval_step(compute_dtype: torch.dtype) -> Callable:
         return metrics_from_logits(logits, labels)
 
     return eval_step
+
+
+def _gather_batch(dataset: torch.Tensor, labels_all: torch.Tensor, idx: torch.Tensor,
+                  valid: torch.Tensor, compute_dtype: torch.dtype):
+    """This rank's rows of one batch of the device cache, gathered by index
+    on the device: the one ingest of the cached train step, the scanned
+    epoch and the cached eval step (JAX ``_gather_batch`` with
+    ``_sharded_cache_take``), so none can drift from the others.
+
+    ``idx`` ([B] int32) and ``valid`` ([B] bool) name the GLOBAL batch, the
+    same on every rank. One rank holds every row: an index select. With N
+    ranks each holds a contiguous 1/N of the rows
+    (``trainer.build_device_cache``): each takes the rows it owns for the
+    whole batch, writes literal zeros where it owns none, and the sum over
+    the ranks is the batch — exact in uint8 and f32 alike, since each row
+    has one owner and every other term is a zero. The rank keeps its own
+    rank-major slice of B/N rows, as JAX's ``psum`` and the data-axis
+    shard give it. Labels are ``labels_all[idx]``, −1 where not ``valid``.
+
+    Returns (images [B/N, H, W, 3] ingested into ``compute_dtype``, labels
+    [B/N] int32)."""
+    world = collectives.num_processes()
+    idx = idx.long()
+    labels = torch.where(valid, labels_all[idx], -1)
+    if world == 1:
+        raw = dataset.index_select(0, idx)
+    else:
+        rank, per = distributed.rank(), dataset.shape[0]
+        local = idx - rank * per
+        owned = ((local >= 0) & (local < per)).view(-1, *(1,) * (dataset.dim() - 1))
+        rows = dataset.index_select(0, local.clamp(0, per - 1))
+        rows = collectives.all_reduce(torch.where(owned, rows, torch.zeros_like(rows)))
+        mine = slice(rank * idx.shape[0] // world, (rank + 1) * idx.shape[0] // world)
+        raw, labels = rows[mine], labels[mine]
+    return ingest_images(raw, compute_dtype), labels
+
+
+def make_cached_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
+    """``cached_step(state, dataset, labels_all, idx, valid) -> metrics``:
+    the auto-mode step — :func:`_make_step`'s body itself, so the two
+    cannot drift — on the batch :func:`_gather_batch` takes from the
+    device cache. The host sends a ``[B]`` index and mask a step, not
+    pixels. Auto mode only: ``validate_config`` refuses the cache in spmd
+    mode, as the JAX package does."""
+    step = _make_step(compute_dtype, bad_step_skip, spmd=False)
+
+    def cached_step(state: TrainState, dataset, labels_all, idx, valid):
+        return step(state, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype))
+
+    return cached_step
+
+
+def make_scanned_epoch(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
+    """``epoch_fn(state, dataset, labels_all, idx_all, valid_all) ->
+    metrics``: every step of an epoch from device-resident ``[n_steps, B]``
+    index and mask tensors (``--scan-epoch``, JAX ``make_scanned_epoch``).
+    ``metrics`` maps ``loss``, ``correct``, ``count`` and ``grad_norm``
+    (and ``skipped`` with ``bad_step_skip``) to ``[n_steps]`` tensors.
+
+    JAX runs the epoch as one ``lax.scan``: one dispatch an epoch.
+    PyTorch has no scan, so the steps are still launched from Python one
+    by one, each :func:`make_cached_train_step`'s step — the same
+    operations on the same batches, so the same bits. What carries over is
+    that nothing reads the device between steps: the host queues the whole
+    epoch and the caller reads its metrics once, at the end. Under
+    ``bad_step_skip`` each step still waits once, where it reads its
+    verdict on the host, as the per-step path does; that keeps the state
+    after every step the JAX step's. One dispatch an epoch (a CUDA graph)
+    is ROADMAP A12's."""
+    step = make_cached_train_step(compute_dtype, bad_step_skip)
+
+    def epoch_fn(state: TrainState, dataset, labels_all, idx_all, valid_all):
+        per_step = [step(state, dataset, labels_all, idx, valid)
+                    for idx, valid in zip(idx_all, valid_all)]
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    return epoch_fn
+
+
+def make_cached_eval_step(compute_dtype: torch.dtype) -> Callable:
+    """``cached_eval_step(model, dataset, labels_all, idx, valid) ->
+    {loss (sum), correct, count}``: :func:`make_eval_step`'s forward and
+    metrics on the batch :func:`_gather_batch` takes from the device cache
+    (JAX ``make_cached_eval_step``); this rank's rows only. The caller
+    puts the model in eval mode."""
+    eval_step = make_eval_step(compute_dtype)
+
+    @torch.no_grad()
+    def cached_eval_step(model: nn.Module, dataset, labels_all, idx, valid):
+        return eval_step(model, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype))
+
+    return cached_eval_step

@@ -17,7 +17,16 @@ the JAX package); every rank runs the same number of steps
 syncs them (``train/step.py``: auto mode, or ``spmd_mode``). Logs and
 metrics files are rank 0's. One process is the world of one.
 
-Elastic resume, rollback, preemption, the device/host caches and the run
+The device cache (``--device-cache``): the train split decoded once into
+device memory, each rank holding a contiguous 1/N of its rows
+(:func:`build_device_cache`), and each step gathering its batch by index
+(``train/step.py`` ``make_cached_train_step``) in the order of
+:func:`cached_index_batches`; with ``--scan-epoch`` the host reads no
+step's metrics until the epoch ends (``make_scanned_epoch``); with
+``val_on_train`` validation comes from the cache too
+(:func:`evaluate_cached`).
+
+Elastic resume, rollback, preemption, the host cache and the run
 telemetry of the JAX trainer are not ported yet.
 """
 
@@ -32,7 +41,7 @@ import torch
 from mpi_pytorch_tpu_torch import checkpoint as ckpt
 from mpi_pytorch_tpu_torch.config import Config
 from mpi_pytorch_tpu_torch.data.manifest import Manifest, load_manifests
-from mpi_pytorch_tpu_torch.data.pipeline import DataLoader
+from mpi_pytorch_tpu_torch.data.pipeline import DataLoader, epoch_order
 from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
 from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
 from mpi_pytorch_tpu_torch.ops._build import launch_counts
@@ -40,7 +49,10 @@ from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
 from mpi_pytorch_tpu_torch.train.step import (
     COMPUTE_DTYPES,
+    make_cached_eval_step,
+    make_cached_train_step,
     make_eval_step,
+    make_scanned_epoch,
     make_spmd_train_step,
     make_train_step,
 )
@@ -65,6 +77,7 @@ class TrainSummary:
     # Every step's loss in run order (skipped steps included, as NaN).
     step_losses: list = field(default_factory=list)
     best_accuracy: float | None = None  # track_best: best val acc this run
+    cache_build_s: float | None = None  # device_cache: seconds to build it
 
 
 def pad_batch(images: np.ndarray, labels: np.ndarray, target: int):
@@ -152,6 +165,76 @@ def validate_world(cfg: Config) -> None:
             f"global batch {cfg.batch_size} not divisible by the world's {world} ranks"
         )
     cfg.mesh.check_world(world)
+
+
+def cached_index_batches(
+    cfg: Config, n: int, batch: int, epoch: int, n_steps: int,
+    shuffle: bool | None = None, start_step: int = 0,
+):
+    """Steps ``start_step..n_steps-1`` of an epoch over the device cache,
+    as (idx [batch] int32, valid [batch] bool) — JAX
+    ``cached_index_batches``. The order is ``epoch_order(seed, epoch)``,
+    the loader's, so a cached run and a streaming one walk the rows alike;
+    a short tail is filled cyclically from its own rows (the
+    ``pad_batch`` policy) with ``valid=False``. ``shuffle=False`` is the
+    ordered walk of validation."""
+    order = epoch_order(cfg.seed, epoch, n, cfg.shuffle if shuffle is None else shuffle)
+    for step_i in range(start_step, n_steps):
+        idx = order[step_i * batch:(step_i + 1) * batch]
+        valid = np.ones(len(idx), bool)
+        pad = batch - len(idx)
+        if pad > 0:
+            fill = np.resize(idx, pad) if len(idx) else np.zeros(pad, order.dtype)
+            idx = np.concatenate([idx, fill])
+            valid = np.concatenate([valid, np.zeros(pad, bool)])
+        yield idx.astype(np.int32), valid
+
+
+def epoch_indices(cfg: Config, n: int, epoch: int, n_steps: int, device: torch.device,
+                  shuffle: bool | None = None):
+    """The epoch's :func:`cached_index_batches` over the global batch
+    (``cfg.batch_size``) as ``[n_steps, B]`` int32 and bool tensors on
+    ``device``: one copy an epoch."""
+    steps = list(cached_index_batches(cfg, n, cfg.batch_size, epoch, n_steps, shuffle))
+    idx = np.array([i for i, _ in steps], np.int32).reshape(-1, cfg.batch_size)
+    valid = np.array([v for _, v in steps], bool).reshape(-1, cfg.batch_size)
+    return torch.from_numpy(idx).to(device), torch.from_numpy(valid).to(device)
+
+
+def build_device_cache(cfg: Config, manifest: Manifest, loader: DataLoader,
+                       device: torch.device):
+    """(dataset, labels): the train split on ``device`` — JAX
+    ``build_device_cache``. ``manifest`` is the GLOBAL train manifest, so
+    global row i is cache row i on every rank. Its rows are split into
+    contiguous ranges, one a rank: the row count is padded up to a
+    multiple of the world size and rank r holds rows ``[r·P, (r+1)·P)``,
+    P = ⌈n / world⌉; padding rows (zeros) sit past the real count and are
+    never indexed. One rank holds every row. Each rank decodes its own
+    range once, in order (shuffle and drop_remainder off), in the
+    loader's dtype (normalized f32 or raw uint8), into one tensor on
+    ``device``. The labels stay real-length and are replicated: int32
+    [n] on every rank."""
+    world, rank = distributed.world_size(), distributed.rank()
+    n = len(manifest)
+    per = -(-n // world)
+    lo, hi = rank * per, min((rank + 1) * per, n)
+    local = np.zeros((per, *loader.image_size, 3), loader.image_dtype)
+    if hi > lo:
+        ordered = DataLoader(
+            manifest.select(np.arange(lo, hi)), batch_size=loader.batch_size,
+            image_size=loader.image_size, shuffle=False, drop_remainder=False,
+            synthetic=loader.synthetic, num_workers=loader.num_workers,
+            prefetch=loader.prefetch, image_dtype=str(loader.image_dtype),
+        )
+        row = 0
+        for images, _ in ordered.epoch(0):
+            local[row:row + len(images)] = images
+            row += len(images)
+        if row != hi - lo:
+            raise RuntimeError(f"device cache: decoded {row} rows of {hi - lo}")
+    dataset = torch.from_numpy(local).to(device)
+    labels = torch.from_numpy(manifest.labels.astype(np.int32)).to(device)
+    return dataset, labels
 
 
 def make_loader(cfg: Config, manifest: Manifest, *, train: bool) -> DataLoader:
@@ -251,6 +334,35 @@ def evaluate_manifest(
     return correct / total, loss_sum / total
 
 
+def evaluate_cached(cfg: Config, model: torch.nn.Module, dataset: torch.Tensor,
+                    labels: torch.Tensor) -> tuple[float, float]:
+    """(accuracy, mean loss) over the device cache — JAX
+    ``evaluate_cached``: :func:`evaluate_manifest`'s accounting, with no
+    decode and no host→device copy of pixels. The rows are walked in
+    order in global batches (``cfg.batch_size``, the tail filled and
+    masked), each rank evaluating its slice; ``correct``, ``count`` and
+    the loss are summed on the device in float64 (as the streaming path
+    sums on the host), all-reduced and read once at the end. The real row
+    count is the labels' (the cache's rows carry the world's padding)."""
+    device = dataset.device
+    eval_step = make_cached_eval_step(COMPUTE_DTYPES[cfg.compute_dtype])
+    n = int(labels.shape[0])
+    idx_all, valid_all = epoch_indices(cfg, n, 0, -(-n // cfg.batch_size), device, shuffle=False)
+    sums = torch.zeros(3, dtype=torch.float64, device=device)
+    was_training = model.training
+    model.eval()
+    try:
+        for idx, valid in zip(idx_all, valid_all):
+            m = eval_step(model, dataset, labels, idx, valid)
+            sums += torch.stack([m[k].double() for k in ("correct", "count", "loss")])
+    finally:
+        model.train(was_training)
+    correct, total, loss_sum = collectives.all_reduce(sums).tolist()
+    if total == 0:
+        return 0.0, float("nan")
+    return int(correct) / int(total), loss_sum / total
+
+
 def train(cfg: Config, device: str | torch.device | None = None) -> TrainSummary:
     """Train ``cfg.num_epochs`` epochs (from the latest checkpoint with
     ``from_checkpoint``) on ``device`` (default: this rank's card,
@@ -307,17 +419,37 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             best_accuracy = marker["accuracy"]
 
     skip = cfg.bad_step_policy == "skip"
-    factory = make_spmd_train_step if cfg.spmd_mode else make_train_step
-    train_step = factory(COMPUTE_DTYPES[cfg.compute_dtype], bad_step_skip=skip)
-    n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder)
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    if cfg.device_cache:
+        t_cache = time.perf_counter()
+        dataset, labels_all = build_device_cache(cfg, train_manifest, loader, dev)
+        summary.cache_build_s = time.perf_counter() - t_cache
+        logger.info(
+            "device cache: %d images, rows sharded over %d rank(s) (%.1f MB/rank %s), "
+            "built in %.2f s", len(train_manifest), world,
+            dataset.numel() * dataset.element_size() / 1e6, str(dataset.dtype).split(".")[-1],
+            summary.cache_build_s,
+        )
+        # The global walk's step count: cached batches are global rows.
+        n_cache = len(train_manifest)
+        n_steps = n_cache // cfg.batch_size if cfg.drop_remainder else -(-n_cache // cfg.batch_size)
+        train_step = make_cached_train_step(dtype, bad_step_skip=skip)
+        epoch_fn = make_scanned_epoch(dtype, bad_step_skip=skip) if cfg.scan_epoch else None
+    else:
+        factory = make_spmd_train_step if cfg.spmd_mode else make_train_step
+        train_step = factory(dtype, bad_step_skip=skip)
+        epoch_fn = None
+        n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder)
     val_loader = None
     total_images = 0
     total_time = 0.0
+    # Consecutive skipped steps, carried across epochs as the JAX
+    # trainer carries them.
+    skip_streak = 0
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.perf_counter()
         launches0 = launch_counts()
         losses, counts = [], []
-        skip_streak = 0
         # A step's metrics are read on the host one step late, so the
         # host queues step i+1 before waiting for step i.
         pending = None
@@ -355,14 +487,31 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             if cfg.log_every_steps and (step_i + 1) % cfg.log_every_steps == 0:
                 logger.info("epoch %d step %d loss %.4f", epoch, step_i + 1, loss)
 
-        for step_i, (images, labels) in enumerate(synchronized_batches(loader, epoch, n_steps)):
-            images, labels = pad_batch(images, labels, loader.batch_size)
-            m = train_step(state, *to_device(images, labels, dev))
+        if cfg.device_cache:
+            idx_all, valid_all = epoch_indices(cfg, n_cache, epoch, n_steps, dev)
+        if epoch_fn is not None:
+            # The scanned epoch: the whole epoch queued, its [n_steps]
+            # metrics read once, then checked and recorded step by step
+            # as the per-step path would have (JAX: trainer.py:1440-1500).
+            if n_steps:
+                arrays = epoch_fn(state, dataset, labels_all, idx_all, valid_all)
+                host = {k: v.tolist() for k, v in arrays.items()}
+                for step_i in range(n_steps):
+                    settle(step_i, {k: v[step_i] for k, v in host.items()})
+        else:
+            if cfg.device_cache:
+                step_args = ((dataset, labels_all, i, v) for i, v in zip(idx_all, valid_all))
+            else:
+                step_args = (
+                    to_device(*pad_batch(images, labels, loader.batch_size), dev)
+                    for images, labels in synchronized_batches(loader, epoch, n_steps))
+            for step_i, args in enumerate(step_args):
+                m = train_step(state, *args)
+                if pending is not None:
+                    settle(*pending)
+                pending = (step_i, m)
             if pending is not None:
                 settle(*pending)
-            pending = (step_i, m)
-        if pending is not None:
-            settle(*pending)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
@@ -392,10 +541,14 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             # The reference validates on the TRAIN split (main.py:104-112);
             # val_on_train=False validates on the test split.
             val_manifest = train_manifest if cfg.val_on_train else test_manifest
-            if val_loader is None:
-                val_loader = make_eval_loader(cfg, val_manifest)
             launches0 = launch_counts()
-            acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader)
+            if cfg.device_cache and cfg.val_on_train:
+                # The cached train set is the validation set.
+                acc, vloss = evaluate_cached(cfg, state.model, dataset, labels_all)
+            else:
+                if val_loader is None:
+                    val_loader = make_eval_loader(cfg, val_manifest)
+                acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader)
             summary.val_accuracy = acc
             logger.info("Accuracy of the network: %.4f (val_on_train=%s)", acc, cfg.val_on_train)
             metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss,

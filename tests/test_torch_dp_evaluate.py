@@ -35,11 +35,11 @@ from mpi_pytorch_tpu_torch.config import parse_config
 from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
 from mpi_pytorch_tpu_torch.parallel.launch import run_world
 from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+from test_torch_dp_step import RANK_ENV, rank_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(REPO, "tests")
 WORLD = 2
-RANK_ENV = {"MPT_PLATFORM": "cpu", "OMP_NUM_THREADS": "2"}
 
 
 def _argv(ckpt_dir: str, out: str, *extra: str) -> list[str]:
@@ -90,9 +90,10 @@ def test_two_rank_predictions_csv_is_the_one_process_csv(fused, checkpoint_dir, 
                     "--predictions-file", str(dp_out / "p.csv"))
     ranks = run_world("test_torch_dp_evaluate:evaluate_worker", WORLD, {"argv": dp_argv},
                       timeout_s=120, env=RANK_ENV, pythonpath=[HERE])
-    one = port_eval.evaluate(
-        parse_config(_argv(checkpoint_dir, str(one_out), *flags,
-                           "--predictions-file", str(one_out / "p.csv"))), device="cpu")
+    with rank_threads():
+        one = port_eval.evaluate(
+            parse_config(_argv(checkpoint_dir, str(one_out), *flags,
+                               "--predictions-file", str(one_out / "p.csv"))), device="cpu")
     got, want = (dp_out / "p.csv").read_bytes(), (one_out / "p.csv").read_bytes()
     assert got == want and len(got.splitlines()) == 1 + 7
     assert len({line.split(b",")[1] for line in got.splitlines()[1:]}) > 1
@@ -110,15 +111,18 @@ def test_two_rank_metrics_pass_and_quantize_eval(checkpoint_dir, tmp_path):
     ranks = run_world("test_torch_dp_evaluate:evaluate_worker", WORLD,
                       {"argv": _argv(checkpoint_dir, str(dp_out))},
                       timeout_s=120, env=RANK_ENV, pythonpath=[HERE])
-    one = port_eval.evaluate(parse_config(_argv(checkpoint_dir, str(one_out))), device="cpu")
+    with rank_threads():
+        one = port_eval.evaluate(parse_config(_argv(checkpoint_dir, str(one_out))),
+                                 device="cpu")
     assert [r["accuracy"] for r in ranks] == [one.accuracy] * WORLD
 
     quant = ["--quantize-eval", "true", "--quantize-calib", "8"]
     reports = run_world("test_torch_dp_evaluate:evaluate_worker", WORLD,
                         {"argv": _argv(checkpoint_dir, str(dp_out), *quant)},
                         timeout_s=120, env=RANK_ENV, pythonpath=[HERE])
-    want = port_eval.quantize_eval_report(
-        parse_config(_argv(checkpoint_dir, str(one_out), *quant)), device="cpu")
+    with rank_threads():
+        want = port_eval.quantize_eval_report(
+            parse_config(_argv(checkpoint_dir, str(one_out), *quant)), device="cpu")
     assert reports == [want] * WORLD
     kinds = [rec["kind"] for rec in _records(str(dp_out / "metrics.jsonl"))]
     assert kinds == ["eval", "quant_parity"]

@@ -45,6 +45,7 @@ parameter and statistic (the same reduced gradients; spmd's averaged
 statistics are one all-reduce's result).
 """
 
+import contextlib
 import functools
 import os
 
@@ -73,6 +74,20 @@ LR = 4e-4
 HERE = os.path.dirname(os.path.abspath(__file__))
 # Two threads a rank: the ranks and the suite's workers share the cores.
 RANK_ENV = {"MPT_PLATFORM": "cpu", "OMP_NUM_THREADS": "2"}
+
+
+@contextlib.contextmanager
+def rank_threads():
+    """This process at the ranks' thread count (``RANK_ENV``), the previous
+    count restored after: the CPU kernels split their sums by thread, so a
+    one-process twin held against the ranks must sum in their order,
+    whatever cores the machine has."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(int(RANK_ENV["OMP_NUM_THREADS"]))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _batches():
@@ -173,13 +188,15 @@ CASES = {
 
 
 def _port_one_process(fused: bool) -> list[dict]:
-    """The port's auto step in this process on the whole batches."""
+    """The port's auto step in this process on the whole batches, at the
+    ranks' thread count."""
     state = _port_state(fused)
     step = make_train_step(torch.float32)
     out = []
-    for images, labels in _batches():
-        step(state, torch.from_numpy(images), torch.from_numpy(labels))
-        out.append(_numpy_state(state.model))
+    with rank_threads():
+        for images, labels in _batches():
+            step(state, torch.from_numpy(images), torch.from_numpy(labels))
+            out.append(_numpy_state(state.model))
     return out
 
 
@@ -269,14 +286,10 @@ def test_a_world_of_one_is_bitwise_the_one_process_step():
         "test_torch_dp_step:port_step_worker", 1, {"mode": "auto", "fused": True, "sync_bn": False},
         timeout_s=120, env=RANK_ENV, pythonpath=[HERE],
     )
-    threads = torch.get_num_threads()
-    torch.set_num_threads(int(RANK_ENV["OMP_NUM_THREADS"]))
-    try:
+    with rank_threads():
         state = _port_state(True)
         for i, (images, labels) in enumerate(_batches()):
             m = _one_process_step(state, torch.from_numpy(images), torch.from_numpy(labels))
             assert {k: float(v) for k, v in m.items()} == one_rank["metrics"][i]
             for k, v in _numpy_state(state.model).items():
                 assert v.tobytes() == one_rank["states"][i][k].tobytes(), (i, k)
-    finally:
-        torch.set_num_threads(threads)

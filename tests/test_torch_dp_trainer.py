@@ -22,17 +22,20 @@ Held against the JAX package:
   (``tests/test_torch_train_step.py``'s tolerance), but for the JAX
   loss of the fourth step, rtol 5e-4: that loss is one row's, with no
   mean over rows to damp the f32 rounding three steps have carried, and
-  the one-process port already sits 1.3e-4 from JAX there (the two-rank
-  port 2e-5 from the one-process one). SGD, as ``tests/test_parallel.py``'s
-  equivalence tests: with Adam that step drifts by 3e-4 between any two
-  of the three, as m/√v turns f32 summation order on near-zero gradients
-  into ±lr steps.
+  the one-process port already sits 1.1e-4 from JAX there (the two-rank
+  port 2.0e-6 from the one-process one). The one-process steps run at
+  the ranks' thread count (``rank_threads``): the CPU convolutions'
+  backward splits its sums by thread, and at the 8 threads of an 8-core
+  host against the ranks' 2 the fourth losses drift 1.6e-4 apart. SGD,
+  as ``tests/test_parallel.py``'s equivalence tests: with Adam that step
+  drifts by 3e-4 between any two of the three, as m/√v turns f32
+  summation order on near-zero gradients into ±lr steps.
 
 And of the port itself: only rank 0 writes checkpoint files (each rank
 counts its writes) and the metrics file holds each record once; the
 sharded validation accuracy equals one process's evaluation of the saved
-checkpoint on the whole split, and its mean loss rtol 1e-6 (the sums of
-two shards against one).
+checkpoint on the whole split (at the ranks' thread count), and its mean
+loss rtol 1e-6 (the sums of two shards against one).
 """
 
 import dataclasses
@@ -49,11 +52,11 @@ from mpi_pytorch_tpu_torch.data.manifest import load_manifests
 from mpi_pytorch_tpu_torch.parallel import distributed
 from mpi_pytorch_tpu_torch.parallel.launch import run_world
 from mpi_pytorch_tpu_torch.train import trainer
+from test_torch_dp_step import RANK_ENV, rank_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(REPO, "tests")
 WORLD = 2
-RANK_ENV = {"MPT_PLATFORM": "cpu", "OMP_NUM_THREADS": "2"}
 SHAPES = ((25, 4, False), (25, 4, True), (100, 16, False), (96, 16, True), (7, 2, False))
 
 
@@ -183,7 +186,8 @@ def test_loss_trajectory_matches_jax_auto_step(run, monkeypatch):
         labels = np.concatenate([p[1] for p in padded])
         state, m = step(state, shard_batch((images, labels), mesh))
         want.append(float(m["loss"]))
-        m = one_step(one, torch.from_numpy(images), torch.from_numpy(labels))
+        with rank_threads():
+            m = one_step(one, torch.from_numpy(images), torch.from_numpy(labels))
         one_process.append(float(m["loss"]))
     got = ranks[0]["summary"]["step_losses"]
     np.testing.assert_allclose(got, one_process, rtol=1e-4)
@@ -213,7 +217,8 @@ def test_rank0_writes_and_validation_matches_one_process(run):
                                  .model, torch.device("cpu"))
     model.load_state_dict(ckpt.load_for_eval(ckpt.latest_checkpoint(cfg.checkpoint_dir))[0])
     train_m, _ = load_manifests(cfg)
-    acc, loss = trainer.evaluate_manifest(cfg, model, train_m)
+    with rank_threads():
+        acc, loss = trainer.evaluate_manifest(cfg, model, train_m)
     for r in ranks:
         assert r["summary"]["val_accuracy"] == acc
     np.testing.assert_allclose(records[-1]["loss"], loss, rtol=1e-6)

@@ -40,7 +40,11 @@ def test_config_fields_match_jax():
     jax_fields = {f.name: f for f in dataclasses.fields(jax_config.Config)}
     for f in dataclasses.fields(Config):
         assert f.name in jax_fields, f.name
-        assert getattr(Config(), f.name) == getattr(jax_config.Config(), f.name), f.name
+        got, want = getattr(Config(), f.name), getattr(jax_config.Config(), f.name)
+        if dataclasses.is_dataclass(got):  # the mesh: every field, by name
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, f.name
+    assert {"device_cache", "scan_epoch"} <= {f.name for f in dataclasses.fields(Config)}
 
 
 def test_parse_config_flags(monkeypatch):
