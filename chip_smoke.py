@@ -112,6 +112,20 @@ Phases (any failure raises and the script exits non-zero):
    cached auto steps: its gathered slices byte-identical to this
    process's rows of the same batches, K2 and K3 once a step, the losses
    rtol 1e-4 against one process (``_dp_cached_check``);
+6d. the spmd step's gradient-sync levers (``grad_sync_levers``): the
+   train CLI with ``--spmd-mode true --zero-opt-state true
+   --grad-sync-buckets 25`` under ``torchrun --nproc-per-node 1`` (a NCCL
+   world of one; K2 and K3 once a step; its checkpoint through the
+   evaluate CLI); two gloo ranks on the card, resnet18 at full width in
+   f32, SGD, three steps each of the baseline, ZeRO, 25 and 4 MiB buckets,
+   and ZeRO with buckets (losses, parameters and statistics rtol 1e-6
+   against the baseline; K2 and K3 once a step on each rank; each rank's
+   moment bytes the formula's; the plans and a timed step's share of the
+   bucket collectives before the backward's end); four gloo ranks as 2
+   pods × 2, the hierarchical sync alone and with ZeRO and buckets,
+   against the flat four-rank step (rtol 1e-5), the ledger's ici and dcn
+   bytes (the dcn payload half the flat step's), the card's memory before
+   the four ranks;
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
@@ -2513,6 +2527,292 @@ def data_parallel(dev, fused_run: dict) -> dict:
             "gloo_rank": ranks[0]["launches"], "gloo_rank_cached": ranks[0]["cached_launches"]}
 
 
+LEVER_STEPS = 3
+# Phase 6d's configurations: (pods, zero_opt_state, grad_sync_buckets MiB);
+# the first of each world is the reference the others are held against.
+LEVER_RUNS_2 = {"baseline": (1, False, 0.0), "zero": (1, True, 0.0),
+                "buckets_25": (1, False, 25.0), "buckets_4": (1, False, 4.0),
+                "zero_buckets_25": (1, True, 25.0)}
+LEVER_RUNS_4 = {"flat": (1, False, 0.0), "hier": (2, False, 0.0),
+                "hier_zero_buckets_25": (2, True, 25.0)}
+
+
+def _timed_share(state, step, images, labels, dev) -> dict:
+    """One more step with the bucket timeline beside the backward's end: a
+    CUDA event recorded where the first parameter's gradient lands (the
+    backward's last kernel, ``conv1``'s weight gradient), on the host's
+    clock through an event recorded on an idle card at a known time. The
+    share of the buckets' collective time (issue to first seen done) that
+    falls before it, and the buckets issued by then."""
+    end = torch.cuda.Event(enable_timing=True)
+    handle = state.model.conv1.weight.register_post_accumulate_grad_hook(
+        lambda _p: end.record())
+    _sync(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    step(state, images, labels)
+    _sync(dev)
+    handle.remove()
+    backward_end = t0 + start.elapsed_time(end) / 1e3
+    timeline = step.grad_sync.buckets.timeline
+    total = sum(b["done_at"] - b["issued_at"] for b in timeline)
+    before = sum(max(0.0, min(b["done_at"], backward_end) - b["issued_at"]) for b in timeline)
+    return {"share_before_backward_end": before / total if total else 0.0,
+            "buckets_issued_before_backward_end": sum(
+                b["issued_at"] < backward_end for b in timeline),
+            "buckets": len(timeline), "collectives_ms": 1e3 * total,
+            "step_ms": 1e3 * (time.perf_counter() - t0),
+            "backward_end_ms": 1e3 * (backward_end - t0)}
+
+
+def lever_rank(payload: dict) -> dict:
+    """One rank of phase 6d (gloo, on the one card; or ``payload["backend"]``
+    on the rank's own card with ``payload["device"] == "local"``): each
+    configuration of ``payload["runs"]`` (``LEVER_RUNS_2`` or
+    ``LEVER_RUNS_4``) from the same seeded resnet18 (fused stem, 64 500 classes, 128 px, f32, TF32 off,
+    SGD, spmd mode), ``LEVER_STEPS`` steps on this rank's rows of
+    ``_dp_batches``; each run's losses and grad norms, K2's and K3's
+    launches, its first step's ledger, its moment bytes against the
+    formula, its bucket plan, its parameters' and statistics' largest gap
+    to the first run's (``payload["rtol"]``, computed here: the tensors
+    stay on the card), and for bucketed runs one timed step
+    (:func:`_timed_share`)."""
+    from mpi_pytorch_tpu_torch.config import MeshConfig
+    from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
+    from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+    from mpi_pytorch_tpu_torch.parallel import collectives, distributed
+    from mpi_pytorch_tpu_torch.parallel.mesh import create_mesh, zero_shard_axis
+    from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer, moment_bytes
+    from mpi_pytorch_tpu_torch.train.step import (
+        bucket_overlap_frac,
+        grad_bucket_plan,
+        make_spmd_train_step,
+        synced_params,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # "local": this rank's own card (one a rank, NCCL); else the shared one.
+    dev = distributed.rank_device(None if payload["device"] == "local" else payload["device"])
+    distributed.maybe_initialize_distributed(dev, backend_name=payload.get("backend", "gloo"))
+    rank, world = distributed.rank(), distributed.world_size()
+    shape = payload["shape"]
+    rows = slice(rank * shape["batch"] // world, (rank + 1) * shape["batch"] // world)
+    batches, _ = _dp_batches(dev, shape)
+    # Every rank makes the same layouts in the same order (their groups).
+    meshes = {pods: create_mesh(MeshConfig(pods=pods))
+              for pods in sorted({pods for pods, _, _ in payload["runs"].values()})}
+    out = {"rank": rank, "runs": {}, "peak_mb": 0.0}
+    reference = None
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for name, (pods, zero, bucket_mb) in payload["runs"].items():
+            mesh = meshes[pods]
+            bundle = create_model_bundle("resnet18", shape["classes"], seed=SEED, fused_stem=True)
+            model = prepare_for_training(bundle.model, dev)
+            set_batchnorm_sync(model, False)
+            axis = zero_shard_axis(mesh)[0] if zero else None
+            opt, schedule = make_optimizer(model, LR, optimizer="sgd", zero_axis=axis)
+            state = TrainState(model=model, optimizer=opt, schedule=schedule)
+            step = make_spmd_train_step(torch.float32, zero_opt_state=zero,
+                                        grad_bucket_mb=bucket_mb, mesh=mesh)
+            fs.argmax_counter.reset()
+            fs.backward_counter.reset()
+            run = {"losses": [], "grad_norms": []}
+            for i, (images, labels) in enumerate(batches):
+                collectives.LEDGER.reset()
+                m = step(state, images[rows], labels[rows])
+                if i == 0:
+                    run["ledger"] = collectives.LEDGER.snapshot()
+                run["losses"].append(float(m["loss"]))
+                run["grad_norms"].append(float(m["grad_norm"]))
+            run["launches"] = {"stem_pool_argmax": fs.argmax_counter.count,
+                               "stem_pool_backward": fs.backward_counter.count}
+            run["moment_bytes"] = moment_bytes(opt)
+            params = synced_params(model)
+            n = axis.size if zero else 1
+            # SGD keeps one momentum a parameter: ⌈numel / P⌉ f32 each.
+            run["moment_bytes_formula"] = 4 * sum(-(-p.numel() // n) for p in params)
+            if bucket_mb:
+                plan = grad_bucket_plan(params, bucket_mb)
+                run["plan"] = {"buckets": len(plan),
+                               "overlap_frac": bucket_overlap_frac(params, plan)}
+            if zero:
+                run["route"] = {"reduce_scatter": "host-staged"
+                                if collectives.host_staged(params[0], axis) else "direct"}
+            tensors = {k: v.detach().clone() for k, v in model.state_dict().items()
+                       if v.is_floating_point()}
+            if reference is None:
+                reference = tensors
+            else:
+                gaps = {k: float(((v - reference[k]).abs()
+                                  - payload["rtol"] * reference[k].abs()).max())
+                        for k, v in tensors.items()}
+                run["worst_excess"] = max(gaps.items(), key=lambda kv: kv[1])
+                run["max_abs_gap"] = max(float((v - reference[k]).abs().max())
+                                         for k, v in tensors.items())
+            if bucket_mb:
+                run["timed"] = _timed_share(state, step, *(t[rows] for t in batches[0]), dev)
+            out["runs"][name] = run
+            out["peak_mb"] = max(out["peak_mb"], torch.cuda.max_memory_allocated(dev) / 1e6)
+            del state, opt, model, step, tensors
+            torch.cuda.empty_cache()
+    return out
+
+
+def _lever_torchrun(dev, card: str) -> dict:
+    """Phase 6d (a): ``torchrun --nproc-per-node 1 -m
+    mpi_pytorch_tpu_torch.train --spmd-mode true --zero-opt-state true
+    --grad-sync-buckets 25`` (a NCCL world of one) on the fused run's
+    configuration for one epoch, then ``-m mpi_pytorch_tpu_torch.evaluate``
+    on its checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = _dp_cli(tmp) + ["--spmd-mode", "true", "--zero-opt-state", "true",
+                               "--grad-sync-buckets", "25"]
+        train_s, _ = _torchrun("mpi_pytorch_tpu_torch.train", argv, 900)
+        with open(os.path.join(tmp, "training.log")) as f:
+            log_text = f.read()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        for want in (f"world 1 (process group backend {backend})", "spmd mode",
+                     "ZeRO opt-state sharding: moments partitioned 1/1", "grad-sync buckets:"):
+            if want not in log_text:
+                raise AssertionError(f"lever torchrun train: {want!r} not in the log")
+        records = _records(os.path.join(tmp, "metrics.jsonl"))
+        steps = [r for r in records if r["kind"] == "step"]
+        (epoch,) = [r for r in records if r["kind"] == "epoch"]
+        (sync,) = [r for r in records if r["kind"] == "grad_sync"]
+        want = {"fused_stem.argmax_counter": len(steps), "fused_stem.backward_counter": len(steps)}
+        if len(steps) != TRAIN_STEPS_PER_EPOCH or epoch.get("launches") != want:
+            raise AssertionError(f"lever torchrun train: {len(steps)} steps, {epoch}")
+        if not all(np.isfinite(r["loss"]) for r in steps):
+            raise AssertionError("lever torchrun train: a non-finite loss")
+        eval_s, _ = _torchrun("mpi_pytorch_tpu_torch.evaluate", argv, 600)
+        (ev,) = [r for r in _records(os.path.join(tmp, "metrics.jsonl")) if r["kind"] == "eval"]
+        if "fused_stem.counter" not in ev.get("launches", {}):
+            raise AssertionError(f"lever torchrun evaluate: {ev}")
+    return {"card": card, "train_wall_s": train_s, "evaluate_wall_s": eval_s,
+            "img_per_s": epoch["images_per_sec"], "step1_loss": steps[0]["loss"],
+            "launches": epoch["launches"], "grad_sync": sync, "accuracy": ev["accuracy"]}
+
+
+def _check_lever_world(ranks: list[dict], runs: dict, rtol: float, what: str) -> None:
+    """Every rank's runs against the first run: losses ``rtol``, parameters
+    and statistics within ``rtol`` (plus ``atol`` in ``_LEVER_ATOL``), K2
+    and K3 once a step, the moment bytes the formula's."""
+    first = next(iter(runs))
+    for r in ranks:
+        ref = r["runs"][first]
+        for name, run in r["runs"].items():
+            if run["launches"] != {"stem_pool_argmax": LEVER_STEPS,
+                                   "stem_pool_backward": LEVER_STEPS}:
+                raise AssertionError(f"{what} {name} rank {r['rank']}: {run['launches']}")
+            if run["moment_bytes"] != run["moment_bytes_formula"]:
+                raise AssertionError(f"{what} {name} rank {r['rank']}: moments "
+                                     f"{run['moment_bytes']} B, formula "
+                                     f"{run['moment_bytes_formula']} B")
+            if not np.allclose(run["losses"], ref["losses"], rtol=rtol, atol=0):
+                raise AssertionError(f"{what} {name} rank {r['rank']}: losses {run['losses']} "
+                                     f"against {first}'s {ref['losses']}")
+            if name != first and run["worst_excess"][1] > _LEVER_ATOL[what]:
+                raise AssertionError(f"{what} {name} rank {r['rank']}: {run['worst_excess']} "
+                                     f"beyond rtol {rtol} of {first}'s")
+
+
+# The parameters' absolute slack beyond rtol: none on two ranks (the same
+# two-term sums); on four, where the layouts sum four terms in other
+# orders, the atol the CPU test of the same comparison takes
+# (tests/test_torch_hierarchical.py): a weight near zero has no relative
+# room (conv1's sat 2.6e-7 apart after three steps).
+_LEVER_ATOL = {"two ranks": 0.0, "four ranks": 1e-6}
+
+
+def grad_sync_levers(dev) -> dict:
+    """Phase 6d: the spmd step's gradient-sync levers.
+
+    (a) :func:`_lever_torchrun`: the entry point with ZeRO and 25 MiB
+    buckets as a NCCL world of one, exit 0, K2 and K3 once a step, its
+    checkpoint through the evaluate CLI.
+
+    (b) Two gloo ranks on the card (``LEVER_RUNS_2``): the baseline, ZeRO,
+    buckets at 25 and 4 MiB, ZeRO with 25 MiB buckets, three SGD steps
+    each; losses, parameters and statistics rtol 1e-6 against the
+    baseline (the same two-term sums: 0 expected); K2 and K3 once a step
+    on each rank; each rank's moment bytes Σ ⌈numel/2⌉·4; the plans and
+    the timed share of the bucket collectives before the backward's end
+    (printed, not asserted).
+
+    (c) Four gloo ranks as 2 pods × 2 (``LEVER_RUNS_4``): the hierarchical
+    sync, and it with ZeRO and 25 MiB buckets, against the flat four-rank
+    step, rtol 1e-5 (the parameters plus atol 1e-6); each step's ledger
+    bytes, the dcn payload 1/ici of
+    the flat step's; the card's memory before the four ranks."""
+    from mpi_pytorch_tpu_torch.hardware import card_report
+    from mpi_pytorch_tpu_torch.parallel.launch import run_world
+
+    t_phase = time.perf_counter()
+    card = card_report().splitlines()[0]
+    torch.cuda.empty_cache()
+    out = {"torchrun": _lever_torchrun(dev, card)}
+    log({"lever_torchrun": out["torchrun"]})
+    shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
+    t0 = time.perf_counter()
+    two = run_world("chip_smoke:lever_rank", 2,
+                    {"device": str(dev), "shape": shape, "runs": LEVER_RUNS_2, "rtol": 1e-6},
+                    timeout_s=600)
+    _check_lever_world(two, LEVER_RUNS_2, 1e-6, "two ranks")
+    r0 = two[0]["runs"]
+    log({"lever_two_ranks": {
+        "card": card, "backend": "gloo", "rows_per_rank": TRAIN_BATCH // 2, "dtype": "float32",
+        "losses": {k: v["losses"] for k, v in r0.items()},
+        "max_abs_gap_to_baseline": {k: v.get("max_abs_gap") for k, v in r0.items()},
+        "moment_mb_per_rank": {k: v["moment_bytes"] / 1e6 for k, v in r0.items()},
+        "plan": {k: v["plan"] for k, v in r0.items() if "plan" in v},
+        "timed_step": {k: v["timed"] for k, v in r0.items() if "timed" in v},
+        "ledger_bytes": {k: v["ledger"]["ici"]["by_op"] for k, v in r0.items()},
+        "route": {k: v["route"] for k, v in r0.items() if "route" in v},
+        "peak_mb_per_rank": [r["peak_mb"] for r in two], "wall_s": time.perf_counter() - t0,
+    }})
+    free, total = torch.cuda.mem_get_info(dev)
+    log({"lever_four_ranks_memory": {
+        "card": card, "free_mb": free / 1e6, "total_mb": total / 1e6,
+        "two_rank_peak_mb_per_rank": max(r["peak_mb"] for r in two),
+        "budget": "4 ranks × (the two-rank peak: parameters, gradients, momentum, "
+                  "the gathered flats, activations of 64 rows — 32 here) + 4 contexts",
+    }})
+    t0 = time.perf_counter()
+    four = run_world("chip_smoke:lever_rank", 4,
+                     {"device": str(dev), "shape": shape, "runs": LEVER_RUNS_4, "rtol": 1e-5},
+                     timeout_s=600)
+    _check_lever_world(four, LEVER_RUNS_4, 1e-5, "four ranks")
+    r0 = four[0]["runs"]
+    flat_ar = r0["flat"]["ledger"]["ici"]["by_op"]["all_reduce"]
+    flat_payload = flat_ar / (2 * 3 / 4)
+    for name in ("hier", "hier_zero_buckets_25"):
+        dcn = r0[name]["ledger"]["dcn"]
+        # The pod all-reduce's ring factor over 2 pods is 1: its bytes are
+        # its payload, 1/ici of the flat step's.
+        if dcn["by_op"].keys() != {"all_reduce"} or dcn["bytes"] != flat_payload / 2:
+            raise AssertionError(f"four ranks {name}: dcn {dcn}, flat payload {flat_payload}")
+    log({"lever_four_ranks": {
+        "card": card, "backend": "gloo", "layout": "2 pods × 2 ici", "rows_per_rank":
+        TRAIN_BATCH // 4, "losses": {k: v["losses"] for k, v in r0.items()},
+        "max_abs_gap_to_flat": {k: v.get("max_abs_gap") for k, v in r0.items()},
+        "ledger": {k: {"ici": v["ledger"]["ici"]["bytes"], "dcn": v["ledger"]["dcn"]["bytes"],
+                       "by_op": {kind: v["ledger"][kind]["by_op"] for kind in ("ici", "dcn")}}
+                   for k, v in r0.items()},
+        "dcn_payload_over_flat_payload": r0["hier"]["ledger"]["dcn"]["bytes"] / flat_payload,
+        "moment_mb_per_rank": {k: v["moment_bytes"] / 1e6 for k, v in r0.items()},
+        "timed_step": {k: v["timed"] for k, v in r0.items() if "timed" in v},
+        "peak_mb_per_rank": [r["peak_mb"] for r in four], "wall_s": time.perf_counter() - t0,
+        "phase_s": time.perf_counter() - t_phase,
+    }})
+    launches = {"torchrun": out["torchrun"]["launches"],
+                "two_ranks": two[0]["runs"]["baseline"]["launches"],
+                "four_ranks": four[0]["runs"]["flat"]["launches"]}
+    return launches
+
+
 def train_vit(dev) -> dict:
     """vit_s16 at full width and depth through ``trainer.train``: the
     tiny-S configuration (K9: the tensor-core kernel in training, the FFMA
@@ -2940,6 +3240,8 @@ def main() -> int:
     # K2's and K3's launches in the data-parallel phase: the second figure
     # of their rows in PERF.md (the kernels line keeps the main path's).
     log({"dp_launches": dp_launches})
+    # K2's and K3's launches in phase 6d, a run at a time.
+    log({"lever_launches": grad_sync_levers(dev)})
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))

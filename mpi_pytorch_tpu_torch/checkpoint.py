@@ -16,6 +16,13 @@ Under data parallelism every rank calls the writers at the same point:
 rank 0 alone writes the checkpoint, ``best.json`` and the retention
 (the JAX package's process-0 writes), and a barrier follows, so no rank
 reads a file before it is there. Every rank restores.
+
+Gather-on-save (JAX ``trainer._saveable``): every rank takes the
+optimizer's ``state_dict`` before rank 0 writes, since a ZeRO-sharded
+optimizer's is a collective that gathers its moments into the unsharded
+layout (``train/state.ZeroOptimizer``). So a ZeRO run writes the file an
+unsharded run writes, and either file loads into either layout, at any
+world size.
 """
 
 from __future__ import annotations
@@ -98,21 +105,22 @@ def save_checkpoint(
     """Write epoch ``epoch``'s checkpoint atomically (rank 0; every rank
     waits for it) and apply retention; returns its path on every rank."""
     path = _ckpt_path(ckpt_dir, epoch)
+    optimizer = state.optimizer.state_dict()  # every rank: a ZeRO gather
     if distributed.rank() == 0:
-        _write(ckpt_dir, path, epoch, state, loss, keep)
+        _write(ckpt_dir, path, epoch, state, loss, keep, optimizer)
     distributed.barrier()
     return path
 
 
 def _write(ckpt_dir: str, path: str, epoch: int, state: TrainState, loss: float,
-           keep: int) -> None:
+           keep: int, optimizer: dict) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "epoch": epoch,
         "step": state.step,
         "loss": float(loss),
         "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": optimizer,
         "generator": None if state.generator is None else state.generator.get_state(),
     }
     tmp = path + ".tmp"

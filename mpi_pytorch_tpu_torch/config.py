@@ -6,9 +6,9 @@ Only the fields the ported paths use are carried (serving, the
 data-parallel trainer and evaluation); ``validate_config`` carries the
 matching checks. Fields are added here as later slices port the code that
 reads them. The parallel knobs the JAX package has and the port does not
-run yet (axis names, a model axis, pods, pipeline stages, ZeRO, bucketed
-gradient sync, FSDP) are carried with their JAX names and defaults and
-refused when set to anything else.
+run yet (axis names, a model axis, pipeline stages, the auto step's ZeRO,
+FSDP) are carried with their JAX names and defaults and refused when set
+to anything else.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ class MeshConfig:
     """The parallel layout, with the JAX ``MeshConfig``'s fields and
     defaults. The port runs the data axis alone: one rank per GPU, the
     world ``torchrun`` starts; ``data_parallel`` (-1: every rank) must
-    match that world, and any other axis name or size is refused
-    (:meth:`validate`)."""
+    match that world. ``pods > 1`` (``--mesh-pods``, spmd mode) factors
+    that axis into the nested (pod, ici) pair of ``parallel/mesh.py``.
+    Any other axis name or size is refused (:meth:`validate`)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -59,17 +60,31 @@ class MeshConfig:
             raise ValueError(
                 f"mesh data_parallel must be -1 (every rank) or >= 1, got {self.data_parallel}"
             )
+        if self.pods < 1:
+            raise ValueError(f"mesh pods must be >= 1, got {self.pods}")
+        if self.pods > 1 and self.pipe_parallel > 1:
+            raise ValueError(
+                "mesh pods (hierarchical data axis) does not compose with "
+                "pipe_parallel — the pipe axis claims the trailing reshape "
+                "position the nested layout needs"
+            )
         for f in dataclasses.fields(self):
-            if f.name != "data_parallel" and getattr(self, f.name) != f.default:
+            if f.name not in ("data_parallel", "pods") and getattr(self, f.name) != f.default:
                 raise ValueError(f"mesh {f.name}={getattr(self, f.name)!r}: {_NOT_PORTED_DP}; "
                                  f"the port runs the data axis alone, as {f.default!r}")
 
     def check_world(self, world: int) -> None:
-        """Raise unless ``data_parallel`` fits a world of ``world`` ranks."""
+        """Raise unless ``data_parallel`` fits a world of ``world`` ranks
+        and the data axis factors as ``pods`` × ici."""
         if self.data_parallel not in (-1, world):
             raise ValueError(
                 f"mesh data_parallel={self.data_parallel} but the world has {world} "
                 "rank(s): launch that many (torchrun --nproc-per-node), or leave it -1"
+            )
+        if world % self.pods:
+            raise ValueError(
+                f"data-parallel size {world} not divisible by pods={self.pods}; "
+                "the data axis factors as pods × ici"
             )
 
 
@@ -157,10 +172,15 @@ class Config:
     # the forward. Default (auto): batchnorm over the global batch and the
     # loss as the count-weighted global mean (train/step.py).
     spmd_mode: bool = False
-    # The JAX package's further DP levers, refused until ported (ROADMAP A7).
-    zero_optimizer: bool = False
+    # spmd mode's levers (train/step.py make_spmd_train_step): the
+    # optimizer's moments sharded over the data axis (each rank updates
+    # its 1/P slice of every parameter, then one all-gather), and the
+    # gradient sync as one collective per ~N-MiB bucket issued while the
+    # backward runs (0 disables).
     zero_opt_state: bool = False
     grad_sync_buckets: float = 0.0
+    # The auto step's ZeRO and FSDP, refused until ported (ROADMAP A7).
+    zero_optimizer: bool = False
     fsdp: bool = False
 
     # --- validation: the reference validates on the TRAIN split ---
@@ -352,13 +372,40 @@ class Config:
 
     def _validate_parallel(self) -> None:
         """The mesh, a refusal of each DP lever the port does not run yet,
-        and the JAX package's checks on the device cache and scan epoch.
+        the JAX package's checks on the spmd levers (in its words: they
+        name the JAX step's shard_map, whose counterpart here is
+        ``make_spmd_train_step``), the device cache and the scan epoch.
         (``host_cache``, which JAX also keeps exclusive of the device
         cache, is not ported yet.)"""
         self.mesh.validate()
-        for name in ("zero_optimizer", "zero_opt_state", "grad_sync_buckets", "fsdp"):
+        for name in ("zero_optimizer", "fsdp"):
             if getattr(self, name):
                 raise ValueError(f"{name}={getattr(self, name)}: {_NOT_PORTED_DP}")
+        if self.zero_opt_state and not self.spmd_mode:
+            raise ValueError(
+                "zero_opt_state shards the optimizer state inside the "
+                "spmd_mode shard_map step (explicit slice-update + params "
+                "allgather); for the auto-partitioned jit step use "
+                "zero_optimizer instead"
+            )
+        if self.grad_sync_buckets < 0:
+            raise ValueError(
+                f"grad_sync_buckets is a bucket size in MiB (0 disables), "
+                f"got {self.grad_sync_buckets}"
+            )
+        if self.grad_sync_buckets > 0 and not self.spmd_mode:
+            raise ValueError(
+                "grad_sync_buckets stages explicit per-bucket collectives "
+                "inside the spmd_mode shard_map step; the auto-partitioned "
+                "jit step has no explicit gradient collective to bucket "
+                "(XLA inserts and schedules its own)"
+            )
+        if self.mesh.pods > 1 and not self.spmd_mode:
+            raise ValueError(
+                "mesh pods > 1 (hierarchical ICI/DCN gradient sync) "
+                "requires spmd_mode: the two-phase collectives are "
+                "explicit shard_map collectives (train/step.py)"
+            )
         if self.fused_stem and self.spmd_mode and self.sync_batchnorm:
             raise ValueError("fused_stem does not support sync-BN in spmd_mode "
                              "(sync_batchnorm), as the JAX resnet refuses it")
@@ -441,7 +488,7 @@ def parse_config(argv: Sequence[str] | None = None, **overrides: Any) -> Config:
     an unknown flag is an error, not silently dropped. ``--image-size N``
     (and ``MPT_IMAGE_SIZE``) sets width and height; the per-dimension form
     wins for its dimension. The mesh fields parse as the JAX package's
-    (``--mesh.data-parallel``, ...)."""
+    (``--mesh.data-parallel``, ...; ``--mesh-pods N`` is ``--mesh.pods``)."""
     cfg = Config()
     casters = {bool: _str2bool, "bool": _str2bool, int: int, "int": int,
                float: float, "float": float, str: str, "str": str}
@@ -459,10 +506,15 @@ def parse_config(argv: Sequence[str] | None = None, **overrides: Any) -> Config:
     parser = argparse.ArgumentParser(description="mpi_pytorch_tpu_torch")
     _add_dataclass_args(parser, Config)
     parser.add_argument("--image-size", type=int, default=None, dest="image_size_alias")
+    # The nested-mesh pod count's spelling (equivalent to --mesh.pods).
+    parser.add_argument("--mesh-pods", type=int, default=None, dest="mesh_pods_alias")
     ns = vars(parser.parse_args(argv))
     alias = ns.pop("image_size_alias", None)
     if alias is not None:
         cfg.width = cfg.height = alias
+    pods_alias = ns.pop("mesh_pods_alias", None)
+    if pods_alias is not None:
+        cfg.mesh.pods = pods_alias
     for key, val in [*((k, v) for k, v in ns.items() if v is not None), *overrides.items()]:
         if "." in key:
             scope, leaf = key.split(".", 1)

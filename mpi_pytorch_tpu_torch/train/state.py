@@ -12,16 +12,31 @@ ported models draw no random numbers in training).
 ``schedule(t)``, set on the param groups before each update. Frozen
 parameters (``feature_extract``) are left out of the optimizer, so they
 get no update at all — ``optax.set_to_zero`` — and no weight decay.
+
+ZeRO optimizer-state sharding (``--zero-opt-state``, spmd mode; JAX
+``zero_shard_spec``, ``zero_shard_opt_state``, ``zero_unshard_opt_state``):
+:class:`ZeroOptimizer` is the same torch optimizer over this rank's owned
+``[chunk]`` slice of every trainable parameter, flattened and zero-padded
+to ``chunk·P``, so each rank holds 1/P of the moments. Adam, SGD and AdamW
+are elementwise, so updating the slices and all-gathering them gives the
+replicated update; the scalars (Adam's step count) stay replicated, as JAX
+keeps its count. Its ``state_dict`` gathers the moments back into the
+unsharded ``torch.optim`` layout (gather-on-save), and ``load_state_dict``
+takes that layout at any world size.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
+
+from mpi_pytorch_tpu_torch.parallel import collectives
+from mpi_pytorch_tpu_torch.parallel.mesh import Axis
 
 Schedule = Callable[[int], float]
 
@@ -91,9 +106,12 @@ def make_optimizer(
     warmup_steps: int = 0,
     total_steps: int | None = None,
     weight_decay: float = 0.0,
+    zero_axis: Axis | None = None,
 ) -> tuple[torch.optim.Optimizer, Schedule]:
     """(torch optimizer over the trainable parameters, schedule). Defaults
-    reproduce the reference: Adam(lr) at a constant rate.
+    reproduce the reference: Adam(lr) at a constant rate. With
+    ``zero_axis`` the optimizer is a :class:`ZeroOptimizer` sharded over
+    that axis.
 
     - ``adam``: β = (0.9, 0.999), ε = 1e-8, no weight decay;
     - ``sgd``: momentum 0.9 (optax's trace: ``t = g + 0.9·t``);
@@ -108,16 +126,134 @@ def make_optimizer(
     ]
     lr = schedule(0)
     if optimizer == "adam":
-        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        build = functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     elif optimizer == "sgd":
-        opt = torch.optim.SGD(params, lr=lr, momentum=0.9)
+        build = functools.partial(torch.optim.SGD, lr=lr, momentum=0.9)
     elif optimizer == "adamw":
-        opt = torch.optim.AdamW(
-            params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
-        )
+        build = functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=weight_decay)
     else:
         raise ValueError(f"optimizer must be adam|sgd|adamw, got {optimizer!r}")
-    return opt, schedule
+    if zero_axis is not None:
+        return ZeroOptimizer(params, build, zero_axis), schedule
+    return build(params), schedule
+
+
+def zero_shard_spec(shape: Sequence[int], n_shards: int) -> tuple[int, int] | None:
+    """The ZeRO partition rule for one optimizer-state tensor: ``(chunk,
+    padded)`` with ``chunk = ⌈size / P⌉`` and ``padded = chunk·P`` (the
+    flat length after zero padding), or None for a scalar (replicated)."""
+    if not tuple(shape):
+        return None
+    size = math.prod(shape)
+    chunk = -(-size // n_shards)
+    return chunk, chunk * n_shards
+
+
+def owned_slice(t: torch.Tensor, n_shards: int, index: int) -> torch.Tensor:
+    """Shard ``index``'s [chunk] of ``t`` flattened (logical order) and
+    zero-padded to ``chunk·n_shards``: row ``index`` of
+    ``collectives.stack_slices([t], n_shards)``."""
+    flat = t.reshape(-1)
+    chunk = collectives.zero_chunk(flat.numel(), n_shards)
+    part = flat[index * chunk:(index + 1) * chunk]
+    return torch.nn.functional.pad(part, (0, chunk - part.numel()))
+
+
+class ZeroOptimizer:
+    """A torch optimizer over this rank's owned slice of each of
+    ``params`` (the trainable parameters, in their order): ``build(slices)``
+    makes the inner optimizer (``torch.optim.Adam`` and the like) over
+    [chunk] tensors, one a parameter, in the flatten-pad layout over
+    ``axis`` (``zero_shard_spec``; shard index ``axis.index`` — the ici
+    position on a nested layout). It keeps 1/P of the moments.
+
+    :meth:`step` takes this rank's slices of the synced mean gradients,
+    loads the owned slices of the current parameters, runs the inner
+    update on the slices and all-gathers them back into the parameters
+    (over ``axis`` alone). ``param_groups`` are the inner optimizer's, so
+    the schedule sets the rate as on any optimizer.
+
+    :meth:`state_dict` and :meth:`load_state_dict` speak the unsharded
+    ``torch.optim`` layout: ``state_dict`` all-gathers each moment (a
+    collective: every rank of the axis calls it at the same point) and
+    returns the keys, parameter order and shapes an unsharded optimizer
+    over ``params`` would; ``load_state_dict`` takes that layout, from a run
+    at any world size, and keeps this rank's slices."""
+
+    def __init__(self, params: Sequence[torch.Tensor], build: Callable, axis: Axis):
+        self.params = list(params)
+        self.axis = axis
+        self.slices = [owned_slice(p.detach(), axis.size, axis.index) for p in self.params]
+        self.inner = build(self.slices)
+
+    @property
+    def param_groups(self) -> list[dict]:
+        return self.inner.param_groups
+
+    def step(self, grad_slices: Sequence[torch.Tensor]) -> None:
+        """One update from ``grad_slices`` (this rank's [chunk] slice of
+        each parameter's mean gradient, in ``params`` order)."""
+        with torch.no_grad():
+            for s, p, g in zip(self.slices, self.params, grad_slices):
+                s.copy_(owned_slice(p, self.axis.size, self.axis.index))
+                s.grad = g
+            self.inner.step()
+            for s in self.slices:
+                s.grad = None
+            for p, full in zip(self.params, collectives.all_gather_slices(self.slices, self.axis)):
+                p.copy_(full[:p.numel()].view(p.shape))
+
+    def state_dict(self) -> dict:
+        return zero_unshard_opt_state(self)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.inner.load_state_dict(zero_shard_opt_state(state_dict, self))
+
+
+def zero_unshard_opt_state(opt: ZeroOptimizer) -> dict:
+    """The inverse of the sharding (JAX ``zero_unshard_opt_state``): the
+    unsharded ``torch.optim`` ``state_dict`` of ``opt`` — the keys,
+    parameter order and shapes an unsharded optimizer over ``opt.params``
+    has — each moment all-gathered over ``opt.axis``, stripped of its
+    padding and moved to the host one at a time (the device holds one
+    gathered moment at once). A collective: every rank calls it."""
+    inner = opt.inner.state_dict()
+    state = {}
+    for i, st in inner["state"].items():
+        p = opt.params[i]
+        state[i] = {
+            k: (collectives.all_gather_slices([v], opt.axis)[0][:p.numel()].view(p.shape).cpu()
+                if torch.is_tensor(v) and v.dim() > 0 else v)
+            for k, v in st.items()
+        }
+    return {"state": state, "param_groups": inner["param_groups"]}
+
+
+def zero_shard_opt_state(state_dict: dict, opt: ZeroOptimizer) -> dict:
+    """An unsharded ``torch.optim`` ``state_dict`` (from a run at any world
+    size, sharded or not) as ``opt``'s inner state: each moment's owned
+    slice on this rank, the scalars as they are."""
+    state = {}
+    for i, st in state_dict["state"].items():
+        p = opt.params[int(i)]
+        state[i] = {}
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.dim() > 0:
+                if tuple(v.shape) != tuple(p.shape):
+                    raise ValueError(f"optimizer state {i}.{k}: shape {tuple(v.shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+                v = owned_slice(v.to(p.device), opt.axis.size, opt.axis.index)
+            state[i][k] = v
+    return {"state": state, "param_groups": state_dict["param_groups"]}
+
+
+def moment_bytes(optimizer) -> int:
+    """Bytes of an optimizer's moment tensors on this rank: its non-scalar
+    state (Adam's two moments, SGD's momentum), sharded or not."""
+    inner = optimizer.inner if isinstance(optimizer, ZeroOptimizer) else optimizer
+    return sum(v.numel() * v.element_size() for st in inner.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
 
 
 @dataclass

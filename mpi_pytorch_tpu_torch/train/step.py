@@ -24,7 +24,13 @@ batch:
   (global with ``sync_batchnorm``), the gradients averaged over the ranks
   however many valid rows each held (``collectives.avg_grads``, the
   reference's ``mpi_avg_grads``), and the running statistics averaged
-  after the forward.
+  after the forward. Its three levers, alone or composed, change how the
+  gradients are synced and applied, not what the step computes (see
+  :func:`make_spmd_train_step`): ``--zero-opt-state`` (the optimizer's
+  moments sharded, ``train/state.ZeroOptimizer``), ``--grad-sync-buckets``
+  (one collective per bucket, issued from the backward as the bucket's
+  last gradient lands) and ``--mesh-pods`` (the two-phase hierarchical
+  sync over the nested layout of ``parallel/mesh.py``).
 
 In both the reported loss is the count-weighted global mean, ``correct``
 and ``count`` are summed over the ranks, ``grad_norm`` is the synced
@@ -43,7 +49,7 @@ body.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +59,16 @@ from mpi_pytorch_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from mpi_pytorch_tpu_torch.models.common import BatchNorm
 from mpi_pytorch_tpu_torch.ops.losses import accuracy_count, masked_ce_sum, valid_count
 from mpi_pytorch_tpu_torch.parallel import collectives, distributed
-from mpi_pytorch_tpu_torch.train.state import TrainState
+from mpi_pytorch_tpu_torch.parallel.collectives import Chain
+from mpi_pytorch_tpu_torch.parallel.mesh import (
+    ICI_AXIS,
+    POD_AXIS,
+    Mesh,
+    create_mesh,
+    is_hierarchical,
+    zero_shard_axis,
+)
+from mpi_pytorch_tpu_torch.train.state import TrainState, ZeroOptimizer, owned_slice
 
 # ``Config.compute_dtype`` → torch dtype.
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -92,12 +107,15 @@ def metrics_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> dict[str,
 
 
 def grad_norm(model: nn.Module) -> torch.Tensor:
-    """The global L2 norm over every parameter's gradient, in f32
-    (``optax.global_norm``), frozen parameters included."""
+    """The global L2 norm over every parameter's gradient, as an f32
+    scalar (``optax.global_norm``), frozen parameters included. Each
+    gradient's norm accumulates in float64: the CPU's f32 norm sums a
+    tensor in order, 3.6e-5 off on a 2.4 M-element one."""
     grads = [p.grad.float() for p in model.parameters() if p.grad is not None]
     if not grads:
         return torch.zeros((), dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float64))
+    return torch.linalg.vector_norm(norms).float()
 
 
 def _running_stats(model: nn.Module) -> list[torch.Tensor]:
@@ -109,18 +127,313 @@ def _running_stats(model: nn.Module) -> list[torch.Tensor]:
 
 def make_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
     """The auto-mode step (see the module docstring and :func:`_make_step`)."""
-    return _make_step(compute_dtype, bad_step_skip, spmd=False)
+    return _make_step(compute_dtype, bad_step_skip, sync=None)
 
 
-def make_spmd_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
-    """The spmd-mode step (see the module docstring and :func:`_make_step`)."""
-    return _make_step(compute_dtype, bad_step_skip, spmd=True)
+def make_spmd_train_step(
+    compute_dtype: torch.dtype,
+    bad_step_skip: bool = False,
+    *,
+    zero_opt_state: bool = False,
+    grad_bucket_mb: float = 0.0,
+    mesh: Mesh | None = None,
+) -> Callable:
+    """The spmd-mode step (see the module docstring and :func:`_make_step`)
+    over ``mesh`` (``parallel.mesh.create_mesh``; by default the flat
+    layout over the world), with the JAX step's three levers, alone or
+    composed; all off, the step is the reference-parity baseline:
+
+    - ``zero_opt_state``: ``state.optimizer`` is a
+      ``train.state.ZeroOptimizer`` over the ZeRO axis
+      (``mesh.zero_shard_axis``). Each rank gets its slice of the mean
+      gradients, updates its slice of the parameters, and one all-gather
+      over that axis reassembles them.
+    - ``grad_bucket_mb > 0``: the post-backward sync becomes one
+      collective per ~N-MiB bucket (:func:`grad_bucket_plan`), each issued
+      as an ``async_op`` collective from a post-accumulate-grad hook the
+      moment the bucket's last gradient lands, so it runs while the
+      backward computes earlier layers; all are waited on before the norm
+      and the update (:class:`GradBuckets`).
+    - a nested ``mesh`` (``--mesh-pods``): every gradient collective is
+      two-phase — a reduce-scatter within the pod, an all-reduce of the
+      1/ici slice across the pods — and the running statistics go through
+      ``hier_pmean``.
+
+    The collective is JAX's choice in each composition (``_GradSync``).
+    The grad norm under ZeRO is the root of the slices' squared sums,
+    summed over the ZeRO axis only: on a nested layout the slices are
+    pod-replicated, and a sum over every rank would count each one
+    ``pods`` times."""
+    return _make_step(compute_dtype, bad_step_skip,
+                      sync=_GradSync(zero_opt_state, grad_bucket_mb, mesh))
 
 
-def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, spmd: bool) -> Callable:
+def grad_bucket_plan(params: Sequence[torch.Tensor], bucket_mb: float) -> list[list[int]]:
+    """``params``' indices in ~``bucket_mb``-MiB buckets, walking them in
+    REVERSE order (JAX ``grad_bucket_plan``): the backward produces the
+    later layers' gradients first, so the first bucket to fill is the
+    first whose collective can run under the rest of the backward. Pass
+    the parameters in ``named_parameters()`` order, the registration order
+    (the JAX tree's flatten order is alphabetical, the port's is not).
+    Tensors of different dtypes never share a bucket, and a tensor larger
+    than the cap gets a bucket of its own."""
+    cap = max(1, int(bucket_mb * (1 << 20)))
+    buckets: list[list[int]] = []
+    cur: list[int] = []
+    cur_bytes, cur_dtype = 0, None
+    for i in reversed(range(len(params))):
+        nbytes = params[i].numel() * params[i].element_size()
+        if cur and (cur_bytes + nbytes > cap or params[i].dtype != cur_dtype):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nbytes
+        cur_dtype = params[i].dtype
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def bucket_overlap_frac(params: Sequence[torch.Tensor], buckets: list[list[int]]) -> float:
+    """The plan's overlap opportunity (JAX ``bucket_overlap_frac``): the
+    share of sync bytes whose collective is issued BEFORE the final bucket,
+    which holds the earliest layers' gradients and so can never run under
+    the backward. An upper bound from the plan, not a measurement (one
+    bucket, the fused baseline: 0.0)."""
+
+    def nbytes(bucket):
+        return sum(params[i].numel() * params[i].element_size() for i in bucket)
+
+    total = sum(nbytes(b) for b in buckets)
+    if total == 0 or len(buckets) <= 1:
+        return 0.0
+    return round(1.0 - nbytes(buckets[-1]) / total, 4)
+
+
+def hier_dcn_overlap_frac(params: Sequence[torch.Tensor], buckets: list[list[int]]) -> float:
+    """The cross-pod share of :func:`bucket_overlap_frac` (JAX
+    ``hier_dcn_overlap_frac``): each bucket's cross-pod payload is its
+    bytes over ici, so the share is the same number, under the name of the
+    claim it backs — the cross-pod phase hides under the backward."""
+    return bucket_overlap_frac(params, buckets)
+
+
+def synced_params(model: nn.Module) -> list[torch.Tensor]:
+    """The parameters the spmd sync reduces, in ``named_parameters()``
+    order: every one that takes a gradient."""
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+class GradBuckets:
+    """The bucketed gradient sync of ``model``: post-accumulate-grad hooks
+    on every synced parameter count each bucket's landed gradients, and
+    when the last one lands the bucket's collective is issued
+    (``chain(grads) -> collectives.Chain``, ``async_op``). Issuing a bucket
+    first moves the bucket issued before it to its next phase when it has
+    one (the cross-pod all-reduce of the hierarchical sync), so that phase
+    too runs under the backward; every rank issues its collectives in the
+    same order, the hooks' order. Not ``DistributedDataParallel``: the plan
+    and the order are the JAX step's.
+
+    :meth:`arm` before the backward, :meth:`finish` after it: it issues
+    any bucket whose gradients never landed (zeros, as JAX's gradient of
+    an unused leaf), waits for every bucket in issue order and returns
+    each parameter's result. Outside those two the hooks do nothing.
+    ``timeline`` holds the last step's buckets in issue order: index,
+    bytes, whether a hook issued it, and when it was issued and done
+    (``time.perf_counter()``; done as first seen by a later hook or by the
+    wait, so a bucket seen done by a hook was done before the backward
+    ended)."""
+
+    def __init__(self, model: nn.Module, bucket_mb: float, chain: Callable):
+        self.model = model
+        self.params = synced_params(model)
+        self.plan = grad_bucket_plan(self.params, bucket_mb)
+        self._chain = chain
+        self._bucket_of = {i: b for b, bucket in enumerate(self.plan) for i in bucket}
+        self._armed = False
+        self.timeline: list[dict] = []
+        for i, p in enumerate(self.params):
+            p.register_post_accumulate_grad_hook(lambda _p, i=i: self._landed(i))
+
+    def arm(self) -> None:
+        self._missing = [len(b) for b in self.plan]
+        self._chains: dict[int, Chain] = {}
+        self._by_hook: dict[int, bool] = {}
+        self._armed = True
+
+    def _landed(self, i: int) -> None:
+        if not self._armed:
+            return
+        for chain in self._chains.values():  # the timeline's done_at
+            chain.poll()
+        b = self._bucket_of[i]
+        self._missing[b] -= 1
+        if self._missing[b] == 0:
+            self._issue(b, by_hook=True)
+
+    def _issue(self, b: int, by_hook: bool) -> None:
+        if self._chains:
+            last = next(reversed(self._chains.values()))
+            if last.issued == 1 and last.phases > 1:
+                last.advance()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in (self.params[i] for i in self.plan[b])]
+        with torch.profiler.record_function("collectives.grad_bucket"):
+            self._chains[b] = self._chain(grads)
+        self._by_hook[b] = by_hook
+
+    def finish(self) -> list:
+        for b in range(len(self.plan)):
+            if b not in self._chains:
+                self._issue(b, by_hook=False)
+        self._armed = False
+        out: list = [None] * len(self.params)
+        for b, chain in self._chains.items():
+            for i, r in zip(self.plan[b], chain.finish()):
+                out[i] = r
+        self.timeline = [
+            {"bucket": b, "bytes": sum(self.params[i].numel() * self.params[i].element_size()
+                                       for i in self.plan[b]),
+             "issued_at": c.issued_at, "done_at": c.done_at, "by_hook": self._by_hook[b]}
+            for b, c in self._chains.items()
+        ]
+        return out
+
+
+class _GradSync:
+    """spmd mode's sync of the running statistics and the gradients over a
+    mesh, with the levers, in JAX's choice of collective:
+
+    ============  =================================  ===================================
+    layout        without ZeRO                       with ZeRO (this rank's slices)
+    ============  =================================  ===================================
+    flat          one all-reduce (``avg_grads``);    one all-reduce, then the owned
+                  buckets: one all-reduce a bucket   slice; buckets: one reduce-scatter
+                                                     a bucket
+    nested        ``hier_pmean`` (three phases);     ``hier_reduce_scatter_mean`` (ici
+                  buckets: the same a bucket         reduce-scatter, pod all-reduce);
+                                                     buckets: the same a bucket
+    ============  =================================  ===================================
+
+    The mesh is made at the first step when none was given (the flat
+    layout over the world: no process group to create)."""
+
+    def __init__(self, zero: bool, bucket_mb: float, mesh: Mesh | None):
+        self.zero, self.bucket_mb, self._mesh = zero, bucket_mb, mesh
+        self.buckets: GradBuckets | None = None
+
+    @property
+    def mesh(self) -> Mesh:
+        if self._mesh is None:
+            self._mesh = create_mesh()
+        return self._mesh
+
+    def _hier_axes(self):
+        return self.mesh.axis(ICI_AXIS), self.mesh.axis(POD_AXIS)
+
+    def running_stats(self, model: nn.Module) -> None:
+        """The running statistics averaged over every rank (after the
+        forward, as the JAX step's ``pmean`` of its new batch stats)."""
+        stats = _running_stats(model)
+        if not is_hierarchical(self.mesh):
+            collectives.all_reduce_(stats, "mean")
+            return
+        with torch.no_grad():
+            for t, mean in zip(stats, collectives.hier_pmean(stats, *self._hier_axes())):
+                t.copy_(mean)
+
+    def _chain(self, grads: list[torch.Tensor]) -> Chain:
+        """One bucket's sync, its first collective issued."""
+        if is_hierarchical(self.mesh):
+            ici, pod = self._hier_axes()
+            if self.zero:
+                return Chain(collectives.hier_reduce_scatter_chain(grads, ici, pod), phases=2)
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            return Chain(_split_back(collectives.hier_psum_chain([flat], ici, pod, mean=True),
+                                     grads), phases=3)
+        axis = self.mesh.axes[0]
+        if self.zero:
+            return Chain(collectives.reduce_scatter_chain(grads, axis), phases=1)
+        return Chain(collectives.mean_chain(grads, axis), phases=1)
+
+    def arm(self, model: nn.Module) -> None:
+        """Before the backward: with buckets, the hooks listen."""
+        if self.bucket_mb <= 0:
+            return
+        if self.buckets is None:
+            self.buckets = GradBuckets(model, self.bucket_mb, self._chain)
+        elif self.buckets.model is not model:
+            raise ValueError("a bucketed step syncs the model of its first call: its hooks "
+                             "are on that model's parameters")
+        self.buckets.arm()
+
+    def gradients(self, model: nn.Module) -> tuple[list[torch.Tensor] | None, torch.Tensor]:
+        """After the backward: (this rank's [chunk] slice of each synced
+        parameter's mean gradient under ZeRO, else None with the means in
+        the ``.grad``s; the global grad norm)."""
+        params = synced_params(model)
+        hier = is_hierarchical(self.mesh)
+        if self.bucket_mb > 0:
+            out = self.buckets.finish()
+        elif not hier:
+            collectives.avg_grads(model)
+            out = None
+            if self.zero:
+                axis = self.mesh.axes[0]
+                out = [owned_slice(_grad(p), axis.size, axis.index) for p in params]
+        elif self.zero:
+            out = collectives.hier_reduce_scatter_mean([_grad(p) for p in params],
+                                                       *self._hier_axes())
+        else:
+            out = collectives.hier_pmean([_grad(p) for p in params], *self._hier_axes())
+        if not self.zero:
+            if out is not None:
+                with torch.no_grad():
+                    for p, mean in zip(params, out):
+                        if p.grad is None:
+                            p.grad = mean
+                        else:
+                            p.grad.copy_(mean)
+            return None, grad_norm(model)
+        # Each slice's norm as ``grad_norm`` takes each gradient's, their
+        # squares summed in float64 over the slices and the ZeRO axis.
+        norms = torch.stack(torch._foreach_norm([s.float() for s in out], 2,
+                                                dtype=torch.float64))
+        zero_axis, _ = zero_shard_axis(self.mesh)
+        sq = collectives.all_reduce(torch.sum(norms * norms), "sum", zero_axis)
+        return out, torch.sqrt(sq).float()
+
+    def update(self, state: TrainState, slices: list[torch.Tensor] | None) -> None:
+        """The optimizer's update: on the synced ``.grad``s, or under ZeRO
+        on the slices of the optimizer's parameters."""
+        if slices is None:
+            state.optimizer.step()
+            return
+        opt = state.optimizer
+        if not isinstance(opt, ZeroOptimizer):
+            raise TypeError("zero_opt_state needs the optimizer make_optimizer(..., "
+                            "zero_axis=...) builds (train.state.ZeroOptimizer)")
+        index = {id(p): i for i, p in enumerate(synced_params(state.model))}
+        opt.step([slices[index[id(p)]] for p in opt.params])
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def _split_back(gen, like: Sequence[torch.Tensor]):
+    """A chain over one concatenated vector, its result split back into
+    ``like``'s shapes."""
+    (flat,) = yield from gen
+    return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool,
+               sync: _GradSync | None) -> Callable:
     """``step(state, images, labels) -> metrics``: one optimizer update on
     this rank's rows (the whole batch for one process), in auto mode or,
-    with ``spmd``, in spmd mode. The model's batchnorms must already take
+    with ``sync``, in spmd mode. The model's batchnorms must already take
     the mode's statistics (``set_batchnorm_sync``: on in auto mode,
     ``sync_batchnorm`` in spmd mode).
 
@@ -134,10 +447,11 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, spmd: bool) -> C
     grad norm is not finite changes nothing — the state is bit-identical to
     before it, as the JAX step's whole-state select leaves it. The verdict
     is read before the update, so the parameters, the optimizer's moments
-    and the step counter are never touched; but the forward has already
-    moved the batchnorm running statistics (torch updates them in place
-    during the forward), so those are restored from a copy taken before
-    it."""
+    (whole or sliced) and the step counter are never touched; but the
+    forward has already moved the batchnorm running statistics (torch
+    updates them in place during the forward), so those are restored from
+    a copy taken before it."""
+    spmd = sync is not None
 
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         model = state.model
@@ -149,7 +463,7 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, spmd: bool) -> C
         ce_sum = masked_ce_sum(logits, labels)
         if spmd:
             # The JAX step pmeans its new batch stats after the forward.
-            collectives.all_reduce_(_running_stats(model), "mean")
+            sync.running_stats(model)
         # The global CE sum, valid count and correct count, all-reduced
         # before the backward.
         f32 = ce_sum.dtype
@@ -159,13 +473,19 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, spmd: bool) -> C
         # spmd: the local masked mean. auto: this rank's share of the
         # global mean, its CE sum over the global valid count.
         loss = ce_sum / torch.clamp(count if spmd else global_count, min=1)
+        if spmd:
+            sync.arm(model)
         loss.backward()
-        (collectives.avg_grads if spmd else collectives.sum_grads)(model)
+        if spmd:
+            slices, norm = sync.gradients(model)
+        else:
+            collectives.sum_grads(model)
+            slices, norm = None, grad_norm(model)
         metrics = {
             "loss": sums[0] / torch.clamp(sums[1], min=1),
             "correct": sums[2].to(torch.int64),
             "count": global_count,
-            "grad_norm": grad_norm(model),
+            "grad_norm": norm,
         }
         if bad_step_skip:
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"]))
@@ -177,10 +497,15 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, spmd: bool) -> C
                 model.zero_grad(set_to_none=True)
                 return metrics
         state.set_learning_rate()
-        state.optimizer.step()
+        if spmd:
+            sync.update(state, slices)
+        else:
+            state.optimizer.step()
         state.step += 1
         return metrics
 
+    # The bucket plan and the last step's bucket timeline (chip_smoke.py).
+    train_step.grad_sync = sync
     return train_step
 
 
@@ -239,7 +564,7 @@ def make_cached_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = Fal
     device cache. The host sends a ``[B]`` index and mask a step, not
     pixels. Auto mode only: ``validate_config`` refuses the cache in spmd
     mode, as the JAX package does."""
-    step = _make_step(compute_dtype, bad_step_skip, spmd=False)
+    step = make_train_step(compute_dtype, bad_step_skip)
 
     def cached_step(state: TrainState, dataset, labels_all, idx, valid):
         return step(state, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype))

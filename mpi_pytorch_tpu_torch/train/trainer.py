@@ -17,6 +17,14 @@ the JAX package); every rank runs the same number of steps
 syncs them (``train/step.py``: auto mode, or ``spmd_mode``). Logs and
 metrics files are rank 0's. One process is the world of one.
 
+spmd mode's levers (``--zero-opt-state``, ``--grad-sync-buckets``,
+``--mesh-pods``): the rank layout (``parallel.mesh.create_mesh``) is made
+before the model, the ZeRO optimizer shards over its ZeRO axis, and the
+step syncs over it (``make_spmd_train_step``). The log names the bucket
+plan at the start; after the run's first step, the ledger's bytes of that
+step (``collectives.LEDGER``, reset just before it) and each rank's moment
+MB go into the log and into one ``grad_sync`` metrics record.
+
 The device cache (``--device-cache``): the train split decoded once into
 device memory, each rank holding a contiguous 1/N of its rows
 (:func:`build_device_cache`), and each step gathering its batch by index
@@ -46,15 +54,25 @@ from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
 from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
 from mpi_pytorch_tpu_torch.ops._build import launch_counts
 from mpi_pytorch_tpu_torch.parallel import collectives, distributed
-from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+from mpi_pytorch_tpu_torch.parallel.mesh import (
+    Mesh,
+    create_mesh,
+    is_hierarchical,
+    pod_shape,
+    zero_shard_axis,
+)
+from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer, moment_bytes
 from mpi_pytorch_tpu_torch.train.step import (
     COMPUTE_DTYPES,
+    bucket_overlap_frac,
+    grad_bucket_plan,
     make_cached_eval_step,
     make_cached_train_step,
     make_eval_step,
     make_scanned_epoch,
     make_spmd_train_step,
     make_train_step,
+    synced_params,
 )
 from mpi_pytorch_tpu_torch.utils.logging import MetricsWriter, init_logger
 
@@ -262,15 +280,19 @@ def make_eval_loader(cfg: Config, manifest: Manifest) -> DataLoader:
     return make_loader(cfg, shard, train=False)
 
 
-def build_training(cfg: Config, device: torch.device):
+def build_training(cfg: Config, device: torch.device, mesh: Mesh | None = None):
     """(state, (train_manifest, test_manifest, train_loader)): the model
     with seeded weights prepared for training on ``device`` (its
     batchnorms over the global batch in auto mode, or with
     ``sync_batchnorm``), its optimizer and schedule over the run's total
-    step count, and the loader over this rank's shard of the train
-    manifest."""
+    step count (with ``zero_opt_state``, sharded over ``mesh``'s ZeRO
+    axis; the layout of ``cfg.mesh`` when no mesh is given), and the
+    loader over this rank's shard of the train manifest."""
     cfg.validate_config()
     validate_world(cfg)
+    zero_axis = None
+    if cfg.zero_opt_state:
+        zero_axis, _ = zero_shard_axis(mesh or create_mesh(cfg.mesh))
     train_manifest, test_manifest = load_manifests(cfg)
     # Per-rank shard ≙ the reference's rank-0 scatter (main.py:84-91).
     shard = train_manifest.shard(distributed.world_size(), distributed.rank())
@@ -290,7 +312,7 @@ def build_training(cfg: Config, device: torch.device):
         model, cfg.learning_rate, bundle.trainable_mask,
         optimizer=cfg.optimizer, lr_schedule=cfg.lr_schedule,
         warmup_steps=cfg.warmup_steps, total_steps=total_steps,
-        weight_decay=cfg.weight_decay,
+        weight_decay=cfg.weight_decay, zero_axis=zero_axis,
     )
     state = TrainState(
         model=model, optimizer=optimizer, schedule=schedule,
@@ -382,8 +404,62 @@ def train(cfg: Config, device: str | torch.device | None = None) -> TrainSummary
         metrics.close()
 
 
+def _log_bucket_plan(cfg: Config, state: TrainState, mesh: Mesh, logger) -> dict:
+    """The bucket plan's line (JAX ``trainer.py``'s words) and its numbers
+    for the ``grad_sync`` record."""
+    params = synced_params(state.model)
+    plan = grad_bucket_plan(params, cfg.grad_sync_buckets)
+    overlap = bucket_overlap_frac(params, plan)
+    logger.info(
+        "grad-sync buckets: %d × ~%.0f MiB (reverse-topo issue order), "
+        "%.0f%% of sync bytes overlap-eligible%s%s",
+        len(plan), cfg.grad_sync_buckets, 100.0 * overlap,
+        ", reduce-scatter (ZeRO slices)" if cfg.zero_opt_state else "",
+        ", two-phase ICI/DCN (per-bucket cross-pod stage overlapped)"
+        if is_hierarchical(mesh) else "",
+    )
+    return {"buckets": len(plan), "overlap_frac": overlap}
+
+
+def _log_grad_sync(cfg: Config, state: TrainState, mesh: Mesh, logger, metrics: MetricsWriter,
+                   plan: dict, epoch: int, step_i: int) -> None:
+    """After the run's first step: its ledger bytes (the ledger was reset
+    just before it), the ZeRO shards and this rank's moment MB, in the log
+    and in one ``grad_sync`` metrics record."""
+    traffic = collectives.LEDGER.snapshot()
+    record = {
+        "kind": "grad_sync", "epoch": epoch, "step": step_i,
+        "ici_bytes_per_step": traffic["ici"]["bytes"],
+        "dcn_bytes_per_step": traffic["dcn"]["bytes"],
+        "ici_by_op": traffic["ici"]["by_op"], "dcn_by_op": traffic["dcn"]["by_op"],
+        "moment_mb_per_rank": moment_bytes(state.optimizer) / 1e6, **plan,
+    }
+    hier = is_hierarchical(mesh)
+    if cfg.zero_opt_state:
+        axis, record["zero_shards"] = zero_shard_axis(mesh)
+        logger.info(
+            "ZeRO opt-state sharding: moments partitioned 1/%d over '%s'%s (%.1f MB/rank)",
+            axis.size, axis.name,
+            " (within-pod: the param all_gather never crosses the DCN)" if hier else "",
+            record["moment_mb_per_rank"],
+        )
+    if hier:
+        pods, ici = pod_shape(mesh)
+        logger.info(
+            "hierarchical sync (%d pod(s) × %d ici): %.2f MB/step ICI, %.3f MB/step DCN per "
+            "rank (cross-pod payload 1/%d of the gradient)",
+            pods, ici, traffic["ici"]["bytes"] / 1e6, traffic["dcn"]["bytes"] / 1e6, ici,
+        )
+    else:
+        logger.info("gradient sync: %.2f MB/step per rank (ledger)", traffic["ici"]["bytes"] / 1e6)
+    metrics.write(record)
+
+
 def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> TrainSummary:
-    state, (train_manifest, test_manifest, loader) = build_training(cfg, dev)
+    # The rank layout before the model: a nested one makes its process
+    # groups collectively, and the ZeRO optimizer shards over it.
+    mesh = create_mesh(cfg.mesh) if cfg.spmd_mode else None
+    state, (train_manifest, test_manifest, loader) = build_training(cfg, dev, mesh)
     world, rank = distributed.world_size(), distributed.rank()
     logger.info(
         "model %s | %d classes | batch %d | %d train images | %s on %s",
@@ -392,9 +468,10 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
     )
     logger.info(
         "data-parallel world %d (process group backend %s), rank %d: %d-row shard, "
-        "%d rows a step, %s mode", world, distributed.backend(), rank,
+        "%d rows a step, %s mode%s", world, distributed.backend(), rank,
         len(loader.manifest), loader.batch_size,
         "spmd" if cfg.spmd_mode else "auto",
+        f", {' × '.join(f'{a.name} {a.size}' for a in mesh.axes)}" if mesh else "",
     )
     summary = TrainSummary()
     start_epoch = 0
@@ -436,10 +513,18 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
         train_step = make_cached_train_step(dtype, bad_step_skip=skip)
         epoch_fn = make_scanned_epoch(dtype, bad_step_skip=skip) if cfg.scan_epoch else None
     else:
-        factory = make_spmd_train_step if cfg.spmd_mode else make_train_step
-        train_step = factory(dtype, bad_step_skip=skip)
+        if cfg.spmd_mode:
+            train_step = make_spmd_train_step(
+                dtype, bad_step_skip=skip, zero_opt_state=cfg.zero_opt_state,
+                grad_bucket_mb=cfg.grad_sync_buckets, mesh=mesh)
+        else:
+            train_step = make_train_step(dtype, bad_step_skip=skip)
         epoch_fn = None
         n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder)
+    plan = (_log_bucket_plan(cfg, state, mesh, logger)
+            if cfg.spmd_mode and cfg.grad_sync_buckets > 0 else {})
+    # The first step's collective traffic is read from the ledger (spmd).
+    ledger_pending = cfg.spmd_mode
     val_loader = None
     total_images = 0
     total_time = 0.0
@@ -506,7 +591,12 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
                     to_device(*pad_batch(images, labels, loader.batch_size), dev)
                     for images, labels in synchronized_batches(loader, epoch, n_steps))
             for step_i, args in enumerate(step_args):
+                if ledger_pending:
+                    collectives.LEDGER.reset()
                 m = train_step(state, *args)
+                if ledger_pending:
+                    ledger_pending = False
+                    _log_grad_sync(cfg, state, mesh, logger, metrics, plan, epoch, step_i)
                 if pending is not None:
                     settle(*pending)
                 pending = (step_i, m)

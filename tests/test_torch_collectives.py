@@ -12,11 +12,19 @@
 - The world itself: a plain process stays one process; a rendezvous that
   no peer joins raises (no quiet fallback to one process); a world that
   hangs is killed at its timeout and fails.
+- The spmd levers' collectives, in the same two-rank world and in one
+  four-rank world laid out as two pods of two (``parallel/mesh.py``),
+  against numpy sums: ``reduce_scatter_mean``, the slice all-gather and
+  the flatten-pad layout, the hierarchical ``hier_reduce_scatter_mean``,
+  ``hier_all_gather``, ``hier_psum`` and ``hier_pmean`` over leaves whose
+  sizes the axes do not divide, and the bytes each books in the ledger,
+  ici or dcn, by the ring cost model.
 - The data-parallel config fields: the names, defaults and flags of the
   JAX ``Config``'s (``--mesh.data-parallel`` …), and its refusals — every
-  combination the JAX ``validate_config`` refuses, the port refuses too,
+  combination the JAX ``validate_config`` refuses, the port refuses too
+  (the spmd levers in the JAX words, ``tests/test_torch_grad_sync.py``),
   and every lever the port does not run yet (axis names, a model axis,
-  pods, pipeline stages, ZeRO, bucketed sync, FSDP) is refused by name.
+  pipeline stages, the auto step's ZeRO, FSDP) is refused by name.
 """
 
 import dataclasses
@@ -32,6 +40,7 @@ from torch import nn
 from mpi_pytorch_tpu_torch.config import Config, MeshConfig, parse_config
 from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.parallel.launch import run_world
+from mpi_pytorch_tpu_torch.parallel.mesh import create_mesh, is_hierarchical
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORLD = 2
@@ -75,12 +84,66 @@ def collectives_worker(_) -> dict:
     leaf.requires_grad_(True)
     collectives.sum_over_ranks(leaf.square()).sum().backward()
     out["sum_over_ranks_grad"] = (leaf.detach().numpy(), leaf.grad.numpy())
+    out["levers"] = _lever_collectives(create_mesh(MeshConfig()))
     return out
 
 
-def test_collectives_against_numpy():
-    ranks = run_world("test_torch_collectives:collectives_worker", WORLD, None,
-                      timeout_s=120, env=RANK_ENV, pythonpath=[HERE])
+def _leaves(rank: int) -> list[torch.Tensor]:
+    """Three small-integer leaves whose sizes (3, 10, 7) no axis of 2 or 4
+    divides, distinct on each rank."""
+    return [torch.arange(n, dtype=torch.float32).reshape(shape) * (rank + 1) + rank
+            for n, shape in ((3, (3,)), (10, (2, 5)), (7, (7,)))]
+
+
+def _ledger_of(fn):
+    collectives.LEDGER.reset()
+    result = fn()
+    return result, collectives.LEDGER.snapshot()
+
+
+def _lever_collectives(mesh) -> dict:
+    """The levers' collectives on this rank, each with what it booked."""
+    rank = distributed.rank()
+    out = {}
+    if is_hierarchical(mesh):
+        ici, pod = mesh.axis("ici"), mesh.axis("pod")
+        for name, fn in {
+            "hier_reduce_scatter_mean": lambda: collectives.hier_reduce_scatter_mean(
+                _leaves(rank), ici, pod),
+            "hier_psum": lambda: collectives.hier_psum(_leaves(rank), ici, pod),
+            "hier_pmean": lambda: collectives.hier_pmean(_leaves(rank), ici, pod),
+            "hier_all_gather": lambda: collectives.hier_all_gather(
+                [t.reshape(-1)[:2] for t in _leaves(rank)], ici),
+        }.items():
+            result, ledger = _ledger_of(fn)
+            out[name] = ([t.numpy() for t in result], ledger)
+        return out
+    axis = mesh.axes[0]
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3) * (rank + 1) - rank
+    out["reduce_scatter_mean"] = _ledger_of(
+        lambda: collectives.reduce_scatter_mean(x, axis).numpy())
+    out["all_gather_slices"] = _ledger_of(lambda: [t.numpy() for t in collectives.all_gather_slices(
+        [t.reshape(-1)[:2] for t in _leaves(rank)], axis)])
+    out["stack_slices"] = [t.numpy() for t in
+                           collectives.stack_slices(_leaves(rank), axis.size)[0].unbind(0)]
+    out["reduce_scatter_chain"] = _ledger_of(lambda: [t.numpy() for t in collectives.run_chain(
+        collectives.reduce_scatter_chain(_leaves(rank), axis))])
+    out["mean_chain"] = _ledger_of(lambda: [t.numpy() for t in collectives.run_chain(
+        collectives.mean_chain(_leaves(rank), axis))])
+    lin = nn.Linear(3, 2)
+    lin.weight.grad, lin.bias.grad = torch.ones(2, 3), torch.ones(2)
+    out["avg_grads"] = _ledger_of(lambda: collectives.avg_grads(lin))[1]
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    return run_world("test_torch_collectives:collectives_worker", WORLD, None,
+                     timeout_s=120, env=RANK_ENV, pythonpath=[HERE])
+
+
+def test_collectives_against_numpy(two_ranks):
+    ranks = two_ranks
     xs = np.stack([_x(r).numpy() for r in range(WORLD)])
     for r, out in enumerate(ranks):
         assert out["num_processes"] == WORLD and out["unchanged"]
@@ -106,6 +169,105 @@ def test_collectives_against_numpy():
         # Each rank's backward adds every rank's upstream gradient: 2·x·P.
         leaf, grad = out["sum_over_ranks_grad"]
         np.testing.assert_array_equal(grad, 2 * leaf * WORLD)
+
+
+def _ring(op: str, p: int, nbytes: float) -> float:
+    return nbytes * (2.0 * (p - 1) / p if op == "all_reduce" else (p - 1) / p)
+
+
+def _padded(n: int, p: int) -> int:
+    return -(-n // p) * p
+
+
+def test_reduce_scatter_and_slice_gather_on_two_ranks(two_ranks):
+    """Each rank's block of the mean, the leaves' flatten-pad slices (row k
+    is shard k's, zero-padded), their all-gather, and the bytes booked:
+    the ring factor of each payload on the data axis (ici)."""
+    xs = [torch.arange(12, dtype=torch.float32).reshape(4, 3) * (r + 1) - r for r in range(WORLD)]
+    mean = (xs[0] + xs[1]).numpy() / WORLD
+    leaves = [_leaves(r) for r in range(WORLD)]
+    for r, out in enumerate(two_ranks):
+        got = out["levers"]
+        block, ledger = got["reduce_scatter_mean"]
+        np.testing.assert_array_equal(block, mean[2 * r:2 * r + 2])
+        assert ledger["ici"] == {"bytes": _ring("reduce_scatter", 2, 48), "ops": 1,
+                                 "by_op": {"reduce_scatter": 24}} and ledger["dcn"]["bytes"] == 0
+        gathered, ledger = got["all_gather_slices"]
+        for i, g in enumerate(gathered):
+            np.testing.assert_array_equal(
+                g, np.concatenate([leaves[q][i].reshape(-1)[:2].numpy() for q in range(WORLD)]))
+        assert ledger["ici"]["by_op"] == {"all_gather": _ring("all_gather", 2, 3 * 2 * 2 * 4)}
+        for k, row in enumerate(got["stack_slices"]):
+            want = np.concatenate([np.pad(t.reshape(-1).numpy(), (0, _padded(t.numel(), 2)
+                                                                   - t.numel()))
+                                   .reshape(2, -1)[k] for t in leaves[r]])
+            np.testing.assert_array_equal(row, want)
+        total = [sum(leaves[q][i] for q in range(WORLD)).numpy() / WORLD for i in range(3)]
+        slices, ledger = got["reduce_scatter_chain"]
+        for t, s in zip(total, slices):
+            flat = np.pad(t.reshape(-1), (0, _padded(t.size, 2) - t.size))
+            np.testing.assert_array_equal(s, flat.reshape(2, -1)[r])
+        padded = sum(_padded(t.size, 2) for t in total) * 4
+        assert ledger["ici"]["by_op"] == {"reduce_scatter": _ring("reduce_scatter", 2, padded)}
+        means, ledger = got["mean_chain"]
+        for t, m in zip(total, means):
+            np.testing.assert_array_equal(m, t)
+        assert ledger["ici"]["by_op"] == {"all_reduce": _ring("all_reduce", 2, 20 * 4)}
+        assert got["avg_grads"]["ici"]["by_op"] == {"all_reduce": _ring("all_reduce", 2, 8 * 4)}
+
+
+def hier_collectives_worker(_) -> dict:
+    distributed.maybe_initialize_distributed(torch.device("cpu"))
+    return {"rank": distributed.rank(),
+            "levers": _lever_collectives(create_mesh(MeshConfig(pods=2)))}
+
+
+@pytest.fixture(scope="module")
+def four_ranks():
+    return run_world("test_torch_collectives:hier_collectives_worker", 4, None,
+                     timeout_s=120, env=RANK_ENV, pythonpath=[HERE])
+
+
+def test_hierarchical_collectives_on_two_pods_of_two(four_ranks):
+    """Rank p·2 + i: ``hier_psum``/``hier_pmean`` give every rank each
+    leaf's sum/mean over all four in its shape; ``hier_reduce_scatter_mean``
+    gives slice i of the mean (flatten-pad over the 2 ici ranks), the same
+    on both pods; ``hier_all_gather`` gathers within the pod only."""
+    leaves = [_leaves(r) for r in range(4)]
+    total = [sum(leaves[q][i] for q in range(4)).numpy() for i in range(3)]
+    for out in four_ranks:
+        p, i = divmod(out["rank"], 2)
+        got = out["levers"]
+        for t, s in zip(total, got["hier_psum"][0]):
+            np.testing.assert_array_equal(s, t)
+        for t, s in zip(total, got["hier_pmean"][0]):
+            np.testing.assert_array_equal(s, t / 4)
+        for t, s in zip(total, got["hier_reduce_scatter_mean"][0]):
+            flat = np.pad(t.reshape(-1), (0, _padded(t.size, 2) - t.size)) / 4
+            np.testing.assert_array_equal(s, flat.reshape(2, -1)[i])
+        for k, g in enumerate(got["hier_all_gather"][0]):
+            np.testing.assert_array_equal(g, np.concatenate(
+                [leaves[2 * p + q][k].reshape(-1)[:2].numpy() for q in range(2)]))
+
+
+def test_hierarchical_collectives_book_ici_and_dcn(four_ranks):
+    """Phase 1 (ici reduce-scatter of the padded leaves) and phase 3 (ici
+    all-gather) book ici bytes, phase 2 (the pod all-reduce of the 1/ici
+    slice) dcn bytes, each by the ring factor of its axis of 2."""
+    padded = sum(_padded(n, 2) for n in (3, 10, 7)) * 4
+    rs = {"reduce_scatter": _ring("reduce_scatter", 2, padded)}
+    dcn = {"all_reduce": _ring("all_reduce", 2, padded / 2)}
+    for out in four_ranks:
+        got = out["levers"]
+        for name in ("hier_psum", "hier_pmean"):
+            ledger = got[name][1]
+            assert ledger["ici"]["by_op"] == {**rs, "all_gather": _ring("all_gather", 2, padded)}
+            assert ledger["dcn"]["by_op"] == dcn
+        ledger = got["hier_reduce_scatter_mean"][1]
+        assert ledger["ici"]["by_op"] == rs and ledger["dcn"]["by_op"] == dcn
+        ledger = got["hier_all_gather"][1]
+        assert ledger["ici"]["by_op"] == {"all_gather": _ring("all_gather", 2, 3 * 2 * 2 * 4)}
+        assert ledger["dcn"]["bytes"] == 0
 
 
 def test_one_process_is_the_identity(monkeypatch):
@@ -224,17 +386,17 @@ CASES = [
     ({"mesh.data_parallel": 0}, "must be -1"),
     ({"spmd_mode": True, "zero_optimizer": True}, NOT_PORTED),
     ({"zero_optimizer": True}, NOT_PORTED),
-    ({"zero_opt_state": True}, NOT_PORTED),
-    ({"spmd_mode": True, "zero_opt_state": True}, NOT_PORTED),
-    ({"grad_sync_buckets": -1.0}, NOT_PORTED),
-    ({"grad_sync_buckets": 25.0}, NOT_PORTED),
-    ({"spmd_mode": True, "grad_sync_buckets": 25.0}, NOT_PORTED),
+    ({"zero_opt_state": True}, "zero_opt_state shards"),
+    ({"spmd_mode": True, "zero_opt_state": True}, None),
+    ({"grad_sync_buckets": -1.0}, "grad_sync_buckets is a bucket size"),
+    ({"grad_sync_buckets": 25.0}, "grad_sync_buckets stages"),
+    ({"spmd_mode": True, "grad_sync_buckets": 25.0}, None),
     ({"fsdp": True}, NOT_PORTED),
     ({"spmd_mode": True, "fsdp": True}, NOT_PORTED),
     ({"mesh.model_parallel": 2}, NOT_PORTED),
     ({"spmd_mode": True, "mesh.model_parallel": 2}, NOT_PORTED),
-    ({"mesh.pods": 2}, NOT_PORTED),
-    ({"spmd_mode": True, "mesh.pods": 2}, NOT_PORTED),
+    ({"mesh.pods": 2}, "requires spmd_mode"),
+    ({"spmd_mode": True, "mesh.pods": 2}, None),
     ({"mesh.pipe_parallel": 2}, NOT_PORTED),
     ({"mesh.model_parallel": 0}, NOT_PORTED),
     ({"mesh.model_axis": "tp"}, NOT_PORTED),
