@@ -126,6 +126,22 @@ Phases (any failure raises and the script exits non-zero):
    against the flat four-rank step (rtol 1e-5), the ledger's ici and dcn
    bytes (the dcn payload half the flat step's), the card's memory before
    the four ranks;
+6e. the auto step's levers (``auto_levers``): the train CLI with
+   ``--zero-optimizer true --fsdp true --accum-steps 4`` under ``torchrun
+   --nproc-per-node 1`` (a NCCL world of one; K2 and K3 four times a
+   step; its checkpoint through the evaluate CLI with the fused head);
+   two gloo ranks on the card, resnet18 at full width in f32, SGD, three
+   steps each of the auto baseline, ZeRO-1, FSDP, 2 microbatches, FSDP
+   with 2 microbatches and the TP head as 1 × 2 (ZeRO-1 and FSDP rtol 1e-6
+   against the baseline; TP rtol 1e-5 against one process on the same
+   rows; accumulation against its one-process twin; K2 and K3 once a
+   microbatch on each rank; each rank's parameter and moment MB against
+   the prediction; the model group's replicas bit-identical); four gloo
+   ranks as 2 × 2 with FSDP and 2 microbatches against the 2 × 1 run
+   (rtol 1e-5), then ``evaluate`` on the 2 × 2 layout with the fused
+   head (K4 on the gathered head), its CSV against a world of one's by the
+   f32 serving rule (equal on every row not within ``E2E_GAP_F32`` of a
+   tie);
 7. the same for vit_s16 at full width and depth, two epochs each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
@@ -2813,6 +2829,471 @@ def grad_sync_levers(dev) -> dict:
     return launches
 
 
+AUTO_STEPS = 3
+# Phase 6e's runs: the (data, model) layout's model size, ZeRO-1, FSDP and
+# the microbatches a step. On two ranks every run but the TP one is 2 × 1.
+AUTO_RUNS_2 = {"baseline": (1, False, False, 1), "zero": (1, True, False, 1),
+               "fsdp": (1, False, True, 1), "accum2": (1, False, False, 2),
+               "fsdp_accum2": (1, False, True, 2), "tp_1x2": (2, False, False, 1)}
+AUTO_RUNS_4 = {"2x2_fsdp_accum2": (2, False, True, 2)}
+# Each rank's parameter and moment MB a run (SGD: one momentum a
+# parameter), from resnet18's 44 265 012 parameters at 64 500 classes —
+# the head 33 088 500, the trunk 11 176 512 — by the placement rule.
+_TRUNK_MB, _HEAD_MB = 11_176_512 * 4 / 1e6, 33_088_500 * 4 / 1e6
+AUTO_PREDICTED_MB = {
+    "baseline": (_TRUNK_MB + _HEAD_MB,) * 2, "zero": (_TRUNK_MB + _HEAD_MB, (_TRUNK_MB + _HEAD_MB) / 2),
+    "fsdp": ((_TRUNK_MB + _HEAD_MB) / 2,) * 2, "accum2": (_TRUNK_MB + _HEAD_MB,) * 2,
+    "fsdp_accum2": ((_TRUNK_MB + _HEAD_MB) / 2,) * 2, "tp_1x2": (_TRUNK_MB + _HEAD_MB / 2,) * 2,
+    "2x2_fsdp_accum2": (_TRUNK_MB / 2 + _HEAD_MB / 2,) * 2,
+}
+
+
+def _auto_state(dev, classes: int, mesh=None, zero: bool = False, fsdp: bool = False):
+    """resnet18 with the fused stem, SGD, for the auto step: batchnorm over
+    ``mesh``'s data axis, laid out on it with the levers (``place_model``;
+    none for one process)."""
+    from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
+    from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+    from mpi_pytorch_tpu_torch.parallel.mesh import data_axis
+    from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer, place_model
+
+    bundle = create_model_bundle("resnet18", classes, seed=SEED, fused_stem=True)
+    model = prepare_for_training(bundle.model, dev)
+    placed = mesh is not None and (zero or fsdp or mesh.model.size > 1)
+    set_batchnorm_sync(model, True, data_axis(mesh) if placed else None)
+    placement = place_model(model, mesh, fsdp=fsdp, zero=zero) if placed else None
+    opt, schedule = make_optimizer(model, LR, optimizer="sgd", placement=placement)
+    return TrainState(model=model, optimizer=opt, schedule=schedule, placement=placement)
+
+
+def _state_gap(got: dict, ref: dict, rtol: float) -> tuple[str, float, float]:
+    """(the worst tensor, its largest |got − ref| beyond rtol·|ref|, its
+    largest |got − ref|) of two unsharded state_dicts (floating tensors)."""
+    worst = ("", -float("inf"), 0.0)
+    for k, v in ref.items():
+        if not v.is_floating_point():
+            continue
+        diff = (got[k].to(v.device) - v).abs()
+        excess = float((diff - rtol * v.abs()).max())
+        if excess > worst[1]:
+            worst = (k, excess, float(diff.max()))
+    return worst
+
+
+def auto_rank(payload: dict) -> dict:
+    """One rank of phase 6e (gloo, on the one card): each configuration of
+    ``payload["runs"]`` (``AUTO_RUNS_2`` or ``AUTO_RUNS_4``) from the same
+    seeded resnet18 (fused stem, 64 500 classes, 128 px, f32, TF32 off,
+    SGD, auto mode), ``AUTO_STEPS`` steps on its data index's rows of
+    ``_dp_batches``; each run's losses and grad norms, K2's and K3's
+    launches, this rank's parameter and moment bytes, a digest of the
+    tensors the model axis replicates, and its largest gap to the run
+    ``payload["against"]`` names for it (rtol 1e-6: computed here, the
+    tensors stay on the card). Rank 0 saves the unsharded state of the
+    runs ``payload["save"]`` names under ``payload["tmp"]`` (a gather:
+    every rank takes part) and, with ``payload["checkpoint"]``, a
+    checkpoint of the last run, which ``payload["evaluate"]`` (argv) then
+    evaluates on the layout: its K1 and K4 launches are returned."""
+    import hashlib
+
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.config import MeshConfig, parse_config
+    from mpi_pytorch_tpu_torch.evaluate import evaluate
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+    from mpi_pytorch_tpu_torch.ops import fused_stem as fs
+    from mpi_pytorch_tpu_torch.parallel import distributed
+    from mpi_pytorch_tpu_torch.parallel.mesh import MODEL_AXIS, create_mesh, data_axis
+    from mpi_pytorch_tpu_torch.train.state import full_state_dict, placed_bytes
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(payload["device"])
+    distributed.maybe_initialize_distributed(dev, backend_name="gloo")
+    rank = distributed.rank()
+    shape = payload["shape"]
+    batches, _ = _dp_batches(dev, shape)
+    meshes = {mp: create_mesh(MeshConfig(model_parallel=mp))
+              for mp in sorted({run[0] for run in payload["runs"].values()})}
+    out = {"rank": rank, "runs": {}, "peak_mb": 0.0}
+    kept = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for name, (mp, zero, fsdp, accum) in payload["runs"].items():
+            mesh = meshes[mp]
+            data = data_axis(mesh)
+            state = _auto_state(dev, shape["classes"], mesh, zero=zero, fsdp=fsdp)
+            step = make_train_step(torch.float32, mesh=mesh, accum_steps=accum)
+            n = shape["batch"] // data.size
+            rows = slice(data.index * n, (data.index + 1) * n)
+            fs.argmax_counter.reset()
+            fs.backward_counter.reset()
+            run = {"losses": [], "grad_norms": [], "coords": (data.index, mesh.model.index)}
+            t0 = time.perf_counter()
+            for images, labels in batches:
+                m = step(state, images[rows], labels[rows])
+                run["losses"].append(float(m["loss"]))
+                run["grad_norms"].append(float(m["grad_norm"]))
+            _sync(dev)
+            run["wall_s"] = time.perf_counter() - t0
+            run["launches"] = {"stem_pool_argmax": fs.argmax_counter.count,
+                               "stem_pool_backward": fs.backward_counter.count}
+            param_b, moment_b = placed_bytes(state)
+            run["param_mb"], run["moment_mb"] = param_b / 1e6, moment_b / 1e6
+            h = hashlib.sha256()
+            held = (state.placement.held if state.placement is not None
+                    else dict(state.model.named_parameters()))
+            for k, t in [*held.items(), *state.model.named_buffers()]:
+                if state.placement is None or state.placement.specs.get(k) is None or \
+                        state.placement.specs[k].axis != MODEL_AXIS:
+                    h.update(k.encode())
+                    h.update(t.detach().cpu().numpy().tobytes())
+            run["replica_digest"] = h.hexdigest()
+            full = {k: v.to(dev) for k, v in
+                    full_state_dict(state.model, state.placement).items()}
+            ref = payload.get("against", {}).get(name)
+            if ref is not None:
+                run["gap"] = (ref, *_state_gap(full, kept[ref], 1e-6))
+            if name in payload.get("save", ()) and rank == 0:
+                torch.save({k: v.cpu() for k, v in full.items()},
+                           os.path.join(payload["tmp"], f"{name}.pt"))
+            if name in payload.get("against", {}).values():
+                kept[name] = full
+            del full
+            out["runs"][name] = run
+            if dev.type == "cuda":
+                out["peak_mb"] = max(out["peak_mb"],
+                                     torch.cuda.max_memory_allocated(dev) / 1e6)
+            if payload.get("checkpoint") and name == list(payload["runs"])[-1]:
+                ckpt.save_checkpoint(payload["checkpoint"], epoch=0, state=state,
+                                     loss=run["losses"][-1])
+            del state, step
+            torch.cuda.empty_cache()
+    if payload.get("evaluate"):
+        fs.counter.reset()
+        fh.counter_f32.reset()
+        t0 = time.perf_counter()
+        summary = evaluate(parse_config(payload["evaluate"]), dev)
+        out["evaluate"] = {"accuracy": summary.accuracy, "wall_s": time.perf_counter() - t0,
+                           "launches": {"stem_pool": fs.counter.count,
+                                        "head_predict_f32": fh.counter_f32.count}}
+    return out
+
+
+def _auto_torchrun(dev, card: str) -> dict:
+    """Phase 6e (a): ``torchrun --nproc-per-node 1 -m
+    mpi_pytorch_tpu_torch.train --zero-optimizer true --fsdp true
+    --accum-steps 4`` (a NCCL world of one) on the fused run's
+    configuration for one epoch, then ``-m mpi_pytorch_tpu_torch.evaluate
+    --fused-head-eval true --predictions-file`` on its checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = _dp_cli(tmp) + ["--zero-optimizer", "true", "--fsdp", "true",
+                               "--accum-steps", "4", "--validate", "false"]
+        train_s, _ = _torchrun("mpi_pytorch_tpu_torch.train", argv, 900)
+        with open(os.path.join(tmp, "training.log")) as f:
+            log_text = f.read()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        for want in (f"world 1 (process group backend {backend})", "4 microbatches a step",
+                     "placement: mesh data 1 × model 1"):
+            if want not in log_text:
+                raise AssertionError(f"auto levers torchrun train: {want!r} not in the log")
+        records = _records(os.path.join(tmp, "metrics.jsonl"))
+        steps = [r for r in records if r["kind"] == "step"]
+        (epoch,) = [r for r in records if r["kind"] == "epoch"]
+        (placement,) = [r for r in records if r["kind"] == "placement"]
+        want = {"fused_stem.argmax_counter": 4 * len(steps),
+                "fused_stem.backward_counter": 4 * len(steps)}
+        if len(steps) != TRAIN_STEPS_PER_EPOCH or epoch.get("launches") != want:
+            raise AssertionError(f"auto levers torchrun train: {len(steps)} steps, {epoch}")
+        if not all(np.isfinite(r["loss"]) for r in steps):
+            raise AssertionError("auto levers torchrun train: a non-finite loss")
+        csv_path = os.path.join(tmp, "predictions.csv")
+        eval_s, _ = _torchrun("mpi_pytorch_tpu_torch.evaluate",
+                              argv + ["--fused-head-eval", "true", "--predictions-file", csv_path],
+                              600)
+        (ev,) = [r for r in _records(os.path.join(tmp, "metrics.jsonl")) if r["kind"] == "eval"]
+        batches = -(-len(load_test_manifest(tmp)) // TRAIN_BATCH)
+        if ev.get("launches") != {"fused_stem.counter": batches, "fused_head_ce.counter": batches}:
+            raise AssertionError(f"auto levers torchrun evaluate: {ev}")
+    return {"card": card, "train_wall_s": train_s, "evaluate_wall_s": eval_s,
+            "img_per_s": epoch["images_per_sec"], "step1_loss": steps[0]["loss"],
+            "launches": epoch["launches"], "eval_launches": ev["launches"],
+            "placement": placement, "accuracy": ev["accuracy"]}
+
+
+def load_test_manifest(tmp: str):
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+
+    return load_manifests(_train_cfg(tmp))[1]
+
+
+def _microbatch_order(batch: int, ranks: int, accum: int) -> np.ndarray:
+    """The row order whose contiguous split into ``accum`` microbatches is
+    that of ``ranks`` data ranks each splitting its contiguous rows."""
+    rows = batch // ranks
+    per = rows // accum
+    return np.array([r * rows + j * per + i for j in range(accum) for r in range(ranks)
+                     for i in range(per)])
+
+
+def _one_process(dev, batches, accum: int = 1) -> tuple[list[float], list[float], dict]:
+    """The unplaced auto step in this process on whole batches: losses,
+    grad norms and the state after the last step (on the card)."""
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        state = _auto_state(dev, V)
+        step = make_train_step(torch.float32, accum_steps=accum)
+        ms = [step(state, images, labels) for images, labels in batches]
+        losses = [float(m["loss"]) for m in ms]
+        norms = [float(m["grad_norm"]) for m in ms]
+        full = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    del state, step
+    return losses, norms, full
+
+
+# The 2 × 2 run's absolute slack beyond rtol 1e-5 against 2 × 1, after
+# three steps: the TP head's split dfeats and vocab-parallel CE round apart
+# (~1e-7 relative) and the batchnorm backward amplifies it — 1.6e-6 on a
+# running mean when this phase ran on the CPU at 64 px; the tests' atol for sums
+# in another order (tests/test_torch_dp_step.py).
+AUTO_2X2_ATOL = 2e-6
+# The runs held to their reference at rtol 1e-6 (two-term sums: 0
+# expected); FSDP with microbatches reduce-scatters each microbatch's
+# gradient, a sum in another order, and its gap is printed.
+AUTO_EXACT = {"zero": "baseline", "fsdp": "baseline"}
+
+
+def _check_auto_ranks(ranks: list[dict], what: str) -> None:
+    """Every rank's runs: K2 and K3 once a microbatch, the tensors the model
+    axis replicates bit-identical on the ranks of each model group, the
+    parameter and moment MB the prediction's, ZeRO-1's and FSDP's losses,
+    parameters and statistics within rtol 1e-6 of the baseline's."""
+    groups: dict = {}
+    for r in ranks:
+        for name, run in r["runs"].items():
+            k = AUTO_STEPS * (AUTO_RUNS_2 | AUTO_RUNS_4)[name][3]
+            if run["launches"] != {"stem_pool_argmax": k, "stem_pool_backward": k}:
+                raise AssertionError(f"{what} {name} rank {r['rank']}: {run['launches']}")
+            want = AUTO_PREDICTED_MB[name]
+            if not np.allclose((run["param_mb"], run["moment_mb"]), want, rtol=1e-6, atol=0):
+                raise AssertionError(f"{what} {name} rank {r['rank']}: {run['param_mb']} MB "
+                                     f"parameters, {run['moment_mb']} MB moments, predicted {want}")
+            if name in AUTO_EXACT:
+                ref, tensor, excess, _ = run["gap"]
+                base = r["runs"][ref]["losses"]
+                if excess > 0 or not np.allclose(run["losses"], base, rtol=1e-6, atol=0):
+                    raise AssertionError(f"{what} {name} rank {r['rank']}: losses "
+                                         f"{run['losses']} against {ref}'s {base}; {tensor} "
+                                         f"beyond rtol 1e-6 by {excess}")
+            groups.setdefault((name, run["coords"][0]), set()).add(run["replica_digest"])
+    for key, digests in groups.items():
+        if len(digests) != 1:
+            raise AssertionError(f"{what} {key}: the model group's replicas differ")
+
+
+def _csv_agreement(tp_rows: list[str], one_rows: list[str], eval_argv: list[str],
+                   ckpt_dir: str, tmp: str, dev):
+    """The 2 × 2 evaluate's predicted labels against the world of one's,
+    by the f32 serving rule: equal on ≥ 99 % of the rows and on every row
+    whose top-2 gap through the plain f32 path (plain stem and head, the
+    same checkpoint) exceeds ``E2E_GAP_F32``·|max| — a row closer to a tie
+    may take either label, as the two runs' convolutions sum in their own
+    orders (cuDNN picks its algorithms by timing, process by process).
+    Returns (agree, clear, gap) a row."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.config import parse_config
+    from mpi_pytorch_tpu_torch.evaluate import build_inference
+    from mpi_pytorch_tpu_torch.train.step import ingest_images
+    from mpi_pytorch_tpu_torch.train.trainer import make_loader
+
+    cfg = parse_config(eval_argv + ["--fused-stem", "false", "--fused-head-eval", "false"])
+    model = build_inference(cfg, dev, ckpt.load_for_eval(ckpt.latest_checkpoint(ckpt_dir))[0])
+    test_m = load_test_manifest(tmp)
+    gaps = []
+    with torch.no_grad():
+        for images, _ in make_loader(cfg, test_m, train=False).epoch(0):
+            x = ingest_images(torch.from_numpy(images).to(dev), torch.float32)
+            v = torch.topk(model(x.permute(0, 3, 1, 2)).float(), 2, dim=-1).values.cpu().numpy()
+            gaps.append((v[:, 0] - v[:, 1]) / np.abs(v[:, 0]))
+    gap = np.concatenate(gaps)
+    tp = np.array([int(r.split(",")[1]) for r in tp_rows[1:]])
+    one = np.array([int(r.split(",")[1]) for r in one_rows[1:]])
+    agree, clear = tp == one, gap > E2E_GAP_F32
+    if not agree[clear].all() or agree.mean() < 0.99:
+        raise AssertionError(
+            f"2 × 2 evaluate CSV against the world of one's: {int(agree.sum())}/{len(one)} "
+            f"agree, {int(agree[clear].sum())}/{int(clear.sum())} on rows with a top-2 gap "
+            f"above {E2E_GAP_F32}·|max|")
+    del model
+    return agree, clear, gap
+
+
+def _check_eval_launches(ranks: list[dict], test_rows: int) -> None:
+    """K1 and K4 (its f32 route: the evaluate runs in f32) once a batch on
+    every rank of the 2 × 2 evaluate: batches of 64 rows over the larger
+    of the two data shards."""
+    want = -(-(-(-test_rows // 2)) // (TRAIN_BATCH // 2))
+    for r in ranks:
+        ev = r["evaluate"]["launches"]
+        if ev != {"stem_pool": want, "head_predict_f32": want}:
+            raise AssertionError(f"2 × 2 evaluate rank {r['rank']}: launches {ev}, "
+                                 f"{want} batches")
+
+
+def auto_levers(dev) -> dict:
+    """Phase 6e: the auto step's levers — the TP head
+    (``--mesh.model-parallel``), ZeRO-1, FSDP and accumulation.
+
+    (a) :func:`_auto_torchrun`: the entry point with ``--zero-optimizer
+    true --fsdp true --accum-steps 4`` as a NCCL world of one, exit 0, K2
+    and K3 four times a step, its checkpoint through the evaluate CLI with
+    the fused head (K1 and K4 once a batch).
+
+    (b) Two gloo ranks on the card (``AUTO_RUNS_2``, three SGD steps each,
+    f32, TF32 off): ZeRO-1 and FSDP against the baseline (parameters and
+    statistics rtol 1e-6, the losses equal: two-term sums, 0 expected);
+    the TP head as 1 × 2 against this process on the same rows (losses
+    and the step-1 grad norm rtol 1e-5, the state rtol 1e-5 plus atol
+    1e-6 — later grad norms are printed: from step 2 the gradient is
+    that sensitive to rounding that a relative 1e-7 change of every
+    weight moves ``conv1``'s by 0.56 % in the one-process step itself,
+    measured on the CPU at 64 px, 16 rows, 64 500 classes, more than TP
+    moves it there, 0.27 %); 2
+    microbatches against this process on the same microbatches (losses
+    and the step-1 grad norm rtol 1e-4, phase 6c's tolerance for sums in
+    another order; the state's gap printed); K2 and K3 once a microbatch
+    on each rank; each rank's parameter and moment MB against the
+    prediction; the model group's replicas bit-identical.
+
+    (c) Four gloo ranks as 2 × 2 with FSDP and 2 microbatches against the
+    two-rank 2 × 1 run with the same levers (losses rtol 1e-5, the state
+    rtol 1e-5 plus ``AUTO_2X2_ATOL``); its checkpoint evaluated on the 2 × 2
+    layout (``evaluate.evaluate``, what ``python -m
+    mpi_pytorch_tpu_torch.evaluate --mesh.model-parallel 2`` runs, on four
+    ranks sharing the card over gloo: NCCL takes one card a rank) with the
+    fused head, in f32 (K1 and K4's f32 route once a batch on every rank):
+    its CSV against a world of one's over the same checkpoint at the same
+    rows a batch, by the f32 serving rule (:func:`_csv_agreement`: three
+    SGD steps from a random init leave many rows near a tie); the card's
+    free memory before the four ranks."""
+    from mpi_pytorch_tpu_torch.config import parse_config
+    from mpi_pytorch_tpu_torch.evaluate import evaluate
+    from mpi_pytorch_tpu_torch.hardware import card_report
+    from mpi_pytorch_tpu_torch.parallel.launch import run_world
+
+    t_phase = time.perf_counter()
+    card = card_report().splitlines()[0]
+    torch.cuda.empty_cache()
+    out = {"torchrun": _auto_torchrun(dev, card)}
+    log({"auto_torchrun": out["torchrun"]})
+    shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
+    batches, _ = _dp_batches(dev, shape)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        two = run_world("chip_smoke:auto_rank", 2, {
+            "device": str(dev), "shape": shape, "runs": AUTO_RUNS_2, "tmp": tmp,
+            "against": {**AUTO_EXACT, "fsdp_accum2": "accum2"},
+            "save": ("accum2", "fsdp_accum2", "tp_1x2")}, timeout_s=600)
+        two_s = time.perf_counter() - t0
+        _check_auto_ranks(two, "two ranks")
+        r0 = two[0]["runs"]
+        losses, norms, full = _one_process(dev, batches)
+        tp = torch.load(os.path.join(tmp, "tp_1x2.pt"), map_location=dev, weights_only=True)
+        tp_gap = _state_gap(tp, full, 1e-5)
+        if (not np.allclose(r0["tp_1x2"]["losses"], losses, rtol=1e-5, atol=0)
+                or not np.isclose(r0["tp_1x2"]["grad_norms"][0], norms[0], rtol=1e-5, atol=0)
+                or tp_gap[1] > 1e-6):
+            raise AssertionError(f"TP 1 × 2: losses {r0['tp_1x2']['losses']}, grad norms "
+                                 f"{r0['tp_1x2']['grad_norms']} against one process's {losses}, "
+                                 f"{norms}; state {tp_gap}")
+        order = torch.from_numpy(_microbatch_order(TRAIN_BATCH, 2, 2)).to(dev)
+        twin = [(images[order], labels[order]) for images, labels in batches]
+        a_losses, a_norms, a_full = _one_process(dev, twin, accum=2)
+        accum = torch.load(os.path.join(tmp, "accum2.pt"), map_location=dev, weights_only=True)
+        accum_gap = _state_gap(accum, a_full, 1e-5)
+        if (not np.allclose(r0["accum2"]["losses"], a_losses, rtol=1e-4, atol=0)
+                or not np.isclose(r0["accum2"]["grad_norms"][0], a_norms[0], rtol=1e-4, atol=0)):
+            raise AssertionError(f"accumulation: losses {r0['accum2']['losses']} against the "
+                                 f"one-process twin's {a_losses}")
+        del tp, full, accum, a_full
+        log({"auto_two_ranks": {
+            "card": card, "backend": "gloo", "dtype": "float32", "optimizer": "sgd",
+            "losses": {k: v["losses"] for k, v in r0.items()},
+            "one_process_losses": losses, "accum2_twin_losses": a_losses,
+            "grad_norms": {k: v["grad_norms"] for k, v in r0.items()},
+            "one_process_grad_norms": norms, "accum2_twin_grad_norms": a_norms,
+            "gaps_to_reference": {k: v["gap"] for k, v in r0.items() if "gap" in v},
+            "tp_1x2_state_gap_to_one_process": tp_gap,
+            "accum2_state_gap_to_twin": accum_gap,
+            "mb_per_rank": {k: {"parameters": v["param_mb"], "moments": v["moment_mb"],
+                                "predicted": AUTO_PREDICTED_MB[k]} for k, v in r0.items()},
+            "run_wall_s": {k: v["wall_s"] for k, v in r0.items()},
+            "peak_mb_per_rank": [r["peak_mb"] for r in two], "wall_s": two_s,
+        }})
+        free, total = torch.cuda.mem_get_info(dev)
+        log({"auto_four_ranks_memory": {
+            "card": card, "free_mb": free / 1e6, "total_mb": total / 1e6,
+            "two_rank_peak_mb_per_rank": max(r["peak_mb"] for r in two)}})
+        ckpt_dir = os.path.join(tmp, "ckpt_2x2")
+        eval_argv = _dp_cli(tmp) + [
+            "--checkpoint-dir", ckpt_dir, "--compute-dtype", "float32", "--fused-head-eval",
+            "true", "--metrics-file", ""]
+        t0 = time.perf_counter()
+        four = run_world("chip_smoke:auto_rank", 4, {
+            "device": str(dev), "shape": shape, "runs": AUTO_RUNS_4, "tmp": tmp,
+            "save": ("2x2_fsdp_accum2",), "checkpoint": ckpt_dir,
+            "evaluate": eval_argv + ["--mesh.model-parallel", "2", "--predictions-file",
+                                     os.path.join(tmp, "tp.csv")]}, timeout_s=600)
+        four_s = time.perf_counter() - t0
+        _check_auto_ranks(four, "four ranks")
+        f0 = four[0]["runs"]["2x2_fsdp_accum2"]
+        ref = torch.load(os.path.join(tmp, "fsdp_accum2.pt"), map_location=dev, weights_only=True)
+        got = torch.load(os.path.join(tmp, "2x2_fsdp_accum2.pt"), map_location=dev,
+                         weights_only=True)
+        gap_2x2 = _state_gap(got, ref, 1e-5)
+        if (not np.allclose(f0["losses"], r0["fsdp_accum2"]["losses"], rtol=1e-5, atol=0)
+                or gap_2x2[1] > AUTO_2X2_ATOL):
+            raise AssertionError(f"2 × 2: losses {f0['losses']} against 2 × 1's "
+                                 f"{r0['fsdp_accum2']['losses']}; state {gap_2x2}")
+        del ref, got
+        test_rows = len(load_test_manifest(tmp))
+        _check_eval_launches(four, test_rows)
+        t0 = time.perf_counter()
+        one = evaluate(parse_config(eval_argv + ["--batch-size", str(TRAIN_BATCH // 2),
+                                                 "--predictions-file",
+                                                 os.path.join(tmp, "one.csv")]), dev)
+        one_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "tp.csv")) as f, open(os.path.join(tmp, "one.csv")) as g:
+            tp_rows, one_rows = f.read().splitlines(), g.read().splitlines()
+        if len(tp_rows) != test_rows + 1 or [r.split(",")[0] for r in tp_rows] != [
+                r.split(",")[0] for r in one_rows]:
+            raise AssertionError(f"2 × 2 evaluate CSV: {len(tp_rows)} rows against the world "
+                                 f"of one's {len(one_rows)}")
+        agree, clear, gap = _csv_agreement(tp_rows, one_rows, eval_argv, ckpt_dir, tmp, dev)
+        log({"auto_four_ranks": {
+            "card": card, "backend": "gloo", "layout": "data 2 × model 2", "fsdp": True,
+            "accum_steps": 2, "losses": f0["losses"],
+            "two_rank_2x1_losses": r0["fsdp_accum2"]["losses"],
+            "state_gap_to_2x1": gap_2x2,
+            "mb_per_rank": {"parameters": f0["param_mb"], "moments": f0["moment_mb"],
+                            "predicted": AUTO_PREDICTED_MB["2x2_fsdp_accum2"]},
+            "evaluate": {"rows": test_rows, "accuracy": four[0]["evaluate"]["accuracy"],
+                         "one_process_accuracy": one.accuracy,
+                         "csv_rows_differing": int((~agree).sum()),
+                         "clear_rows": int(clear.sum()),
+                         "largest_differing_gap": float(gap[~agree].max())
+                         if not agree.all() else None,
+                         "launches_rank0": four[0]["evaluate"]["launches"],
+                         "wall_s": four[0]["evaluate"]["wall_s"], "one_process_wall_s": one_s},
+            "peak_mb_per_rank": [r["peak_mb"] for r in four], "wall_s": four_s,
+            "phase_s": time.perf_counter() - t_phase,
+        }})
+    return {"torchrun": out["torchrun"]["launches"],
+            "two_ranks": {k: v["launches"] for k, v in r0.items()},
+            "four_ranks": f0["launches"]}
+
+
 def train_vit(dev) -> dict:
     """vit_s16 at full width and depth through ``trainer.train``: the
     tiny-S configuration (K9: the tensor-core kernel in training, the FFMA
@@ -3242,6 +3723,8 @@ def main() -> int:
     log({"dp_launches": dp_launches})
     # K2's and K3's launches in phase 6d, a run at a time.
     log({"lever_launches": grad_sync_levers(dev)})
+    # K2's and K3's launches in phase 6e, a run at a time.
+    log({"auto_lever_launches": auto_levers(dev)})
     vit_launches = train_vit(dev)
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))

@@ -17,12 +17,18 @@ rank 0 alone writes the checkpoint, ``best.json`` and the retention
 (the JAX package's process-0 writes), and a barrier follows, so no rank
 reads a file before it is there. Every rank restores.
 
-Gather-on-save (JAX ``trainer._saveable``): every rank takes the
-optimizer's ``state_dict`` before rank 0 writes, since a ZeRO-sharded
-optimizer's is a collective that gathers its moments into the unsharded
-layout (``train/state.ZeroOptimizer``). So a ZeRO run writes the file an
-unsharded run writes, and either file loads into either layout, at any
-world size.
+Gather-on-save (JAX ``trainer._saveable``, ``checkpoint._gather_to_host``):
+every rank takes the model's and the optimizer's state before rank 0
+writes, since for a sharded run each is a collective. The auto step's
+placed model (``train/state.place_model``) gathers the TP head's blocks
+over the model axis and the FSDP parameters over the data axis
+(``train/state.full_state_dict``), and a sharded optimizer
+(``train/state.ZeroOptimizer``: ZeRO-1 and spmd ZeRO moments, and the
+moments that follow FSDP and TP blocks) its moments; each large tensor is
+gathered and moved to the host alone, so a rank's card holds one
+gathered tensor at a time. So a sharded run writes the file an unsharded
+run writes, and any file loads into any layout and lever set, at any
+world size (``train/state.load_full_state_dict``).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import re
 import torch
 
 from mpi_pytorch_tpu_torch.parallel import distributed
-from mpi_pytorch_tpu_torch.train.state import TrainState
+from mpi_pytorch_tpu_torch.train.state import TrainState, full_state_dict, load_full_state_dict
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
 _BEST = "best.json"
@@ -105,21 +111,23 @@ def save_checkpoint(
     """Write epoch ``epoch``'s checkpoint atomically (rank 0; every rank
     waits for it) and apply retention; returns its path on every rank."""
     path = _ckpt_path(ckpt_dir, epoch)
-    optimizer = state.optimizer.state_dict()  # every rank: a ZeRO gather
+    # Every rank: the gathers of a sharded model and optimizer.
+    model = full_state_dict(state.model, state.placement)
+    optimizer = state.optimizer.state_dict()
     if distributed.rank() == 0:
-        _write(ckpt_dir, path, epoch, state, loss, keep, optimizer)
+        _write(ckpt_dir, path, epoch, state, loss, keep, model, optimizer)
     distributed.barrier()
     return path
 
 
 def _write(ckpt_dir: str, path: str, epoch: int, state: TrainState, loss: float,
-           keep: int, optimizer: dict) -> None:
+           keep: int, model: dict, optimizer: dict) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "epoch": epoch,
         "step": state.step,
         "loss": float(loss),
-        "model": state.model.state_dict(),
+        "model": model,
         "optimizer": optimizer,
         "generator": None if state.generator is None else state.generator.get_state(),
     }
@@ -131,10 +139,11 @@ def _write(ckpt_dir: str, path: str, epoch: int, state: TrainState, loss: float,
 
 def restore_checkpoint(path: str, state: TrainState) -> tuple[int, float]:
     """Load ``path`` into ``state`` (model, optimizer, step, generator) in
-    place, onto the model's device; returns ``(epoch, loss)``."""
+    place, onto the model's device, each rank keeping its blocks of a
+    placed state; returns ``(epoch, loss)``."""
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
+    load_full_state_dict(state.model, state.placement, payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     if state.generator is not None and payload["generator"] is not None:

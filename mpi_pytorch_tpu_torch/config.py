@@ -6,9 +6,8 @@ Only the fields the ported paths use are carried (serving, the
 data-parallel trainer and evaluation); ``validate_config`` carries the
 matching checks. Fields are added here as later slices port the code that
 reads them. The parallel knobs the JAX package has and the port does not
-run yet (axis names, a model axis, pipeline stages, the auto step's ZeRO,
-FSDP) are carried with their JAX names and defaults and refused when set
-to anything else.
+run yet (axis names, pipeline stages) are carried with their JAX names and
+defaults and refused when set to anything else.
 """
 
 from __future__ import annotations
@@ -38,11 +37,13 @@ _NOT_PORTED_DP = "not ported yet (ROADMAP A7)"
 @dataclass
 class MeshConfig:
     """The parallel layout, with the JAX ``MeshConfig``'s fields and
-    defaults. The port runs the data axis alone: one rank per GPU, the
-    world ``torchrun`` starts; ``data_parallel`` (-1: every rank) must
-    match that world. ``pods > 1`` (``--mesh-pods``, spmd mode) factors
-    that axis into the nested (pod, ici) pair of ``parallel/mesh.py``.
-    Any other axis name or size is refused (:meth:`validate`)."""
+    defaults, over the world ``torchrun`` starts (one rank per GPU): a
+    data axis of ``data_parallel`` ranks (-1: every rank the model axis
+    leaves) and a model axis of ``model_parallel`` ranks
+    (``--mesh.model-parallel``, the vocab-sharded head of the auto step;
+    ``parallel/mesh.py``). ``pods > 1`` (``--mesh-pods``, spmd mode)
+    factors the data axis into the nested (pod, ici) pair. Any other axis
+    name or size is refused (:meth:`validate`)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -56,6 +57,8 @@ class MeshConfig:
     pods: int = 1
 
     def validate(self) -> None:
+        if self.model_parallel < 1:
+            raise ValueError(f"model_parallel must be >= 1, got {self.model_parallel}")
         if self.data_parallel == 0 or self.data_parallel < -1:
             raise ValueError(
                 f"mesh data_parallel must be -1 (every rank) or >= 1, got {self.data_parallel}"
@@ -69,21 +72,35 @@ class MeshConfig:
                 "position the nested layout needs"
             )
         for f in dataclasses.fields(self):
-            if f.name not in ("data_parallel", "pods") and getattr(self, f.name) != f.default:
+            if (f.name not in ("data_parallel", "model_parallel", "pods")
+                    and getattr(self, f.name) != f.default):
                 raise ValueError(f"mesh {f.name}={getattr(self, f.name)!r}: {_NOT_PORTED_DP}; "
-                                 f"the port runs the data axis alone, as {f.default!r}")
+                                 f"the port runs the data and model axes, as {f.default!r}")
+
+    def data_size(self, world: int) -> int:
+        """The data axis's rank count in a world of ``world`` ranks."""
+        return self.data_parallel if self.data_parallel > 0 else world // self.model_parallel
 
     def check_world(self, world: int) -> None:
-        """Raise unless ``data_parallel`` fits a world of ``world`` ranks
-        and the data axis factors as ``pods`` × ici."""
-        if self.data_parallel not in (-1, world):
+        """Raise unless the layout fits a world of ``world`` ranks (the JAX
+        ``create_mesh``'s checks, in its words: the model axis divides the
+        world, data × model is the world, the data axis factors as
+        ``pods`` × ici)."""
+        mp, pp = self.model_parallel, self.pipe_parallel
+        if world % (mp * pp):
             raise ValueError(
-                f"mesh data_parallel={self.data_parallel} but the world has {world} "
+                f"{world} devices not divisible by model_parallel={mp} x pipe_parallel={pp}"
+            )
+        dp = self.data_size(world)
+        if dp * mp * pp != world:
+            raise ValueError(
+                f"data_parallel×model_parallel×pipe_parallel = {dp}×{mp}×{pp} != {world} "
+                f"devices: mesh data_parallel={self.data_parallel} but the world has {world} "
                 "rank(s): launch that many (torchrun --nproc-per-node), or leave it -1"
             )
-        if world % self.pods:
+        if dp % self.pods:
             raise ValueError(
-                f"data-parallel size {world} not divisible by pods={self.pods}; "
+                f"data-parallel size {dp} not divisible by pods={self.pods}; "
                 "the data axis factors as pods × ici"
             )
 
@@ -179,9 +196,17 @@ class Config:
     # backward runs (0 disables).
     zero_opt_state: bool = False
     grad_sync_buckets: float = 0.0
-    # The auto step's ZeRO and FSDP, refused until ported (ROADMAP A7).
+    # The auto step's levers (train/step.py make_train_step, train/state.py
+    # place_model): the optimizer's moments of every replicated parameter
+    # sharded over the data axis (ZeRO-1), and the parameters themselves
+    # held sharded over it at rest, gathered at use (FSDP, ZeRO-3).
     zero_optimizer: bool = False
     fsdp: bool = False
+    # Gradient accumulation: each rank splits its rows into this many
+    # microbatches, accumulates count-weighted gradients and applies ONE
+    # optimizer update (batchnorm statistics update per microbatch).
+    # Streaming auto mode only.
+    accum_steps: int = 1
 
     # --- validation: the reference validates on the TRAIN split ---
     val_on_train: bool = True
@@ -371,16 +396,19 @@ class Config:
                 )
 
     def _validate_parallel(self) -> None:
-        """The mesh, a refusal of each DP lever the port does not run yet,
-        the JAX package's checks on the spmd levers (in its words: they
-        name the JAX step's shard_map, whose counterpart here is
+        """The mesh, and the JAX package's checks on the levers of both
+        steps (in its words: they name the JAX steps' jit and shard_map,
+        whose counterparts here are ``make_train_step`` and
         ``make_spmd_train_step``), the device cache and the scan epoch.
         (``host_cache``, which JAX also keeps exclusive of the device
         cache, is not ported yet.)"""
         self.mesh.validate()
-        for name in ("zero_optimizer", "fsdp"):
-            if getattr(self, name):
-                raise ValueError(f"{name}={getattr(self, name)}: {_NOT_PORTED_DP}")
+        if self.zero_optimizer and self.spmd_mode:
+            raise ValueError(
+                "zero_optimizer shards Adam moments via the auto-partitioned "
+                "jit step; the spmd_mode shard_map step replicates its state "
+                "specs, so the two do not compose"
+            )
         if self.zero_opt_state and not self.spmd_mode:
             raise ValueError(
                 "zero_opt_state shards the optimizer state inside the "
@@ -399,6 +427,30 @@ class Config:
                 "inside the spmd_mode shard_map step; the auto-partitioned "
                 "jit step has no explicit gradient collective to bucket "
                 "(XLA inserts and schedules its own)"
+            )
+        if self.fsdp and self.spmd_mode:
+            raise ValueError(
+                "fsdp shards params via the auto-partitioned jit step; the "
+                "spmd_mode shard_map step replicates its state specs, so the "
+                "two do not compose"
+            )
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {self.accum_steps}")
+        if self.accum_steps > 1 and (self.spmd_mode or self.device_cache):
+            raise ValueError(
+                "accum_steps > 1 is implemented for the streaming auto-"
+                "partitioned step only (not spmd_mode / device_cache)"
+            )
+        if self.accum_steps > 1 and self.batch_size % self.accum_steps != 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by "
+                f"accum_steps {self.accum_steps}"
+            )
+        if self.spmd_mode and self.mesh.model_parallel > 1:
+            raise ValueError(
+                "spmd_mode is pure data-parallel (reference-parity shard_map step); "
+                "its replicated in/out specs would silently gather the TP-sharded "
+                "head. Use the default auto mode for mesh.model_parallel > 1."
             )
         if self.mesh.pods > 1 and not self.spmd_mode:
             raise ValueError(

@@ -13,8 +13,13 @@ Under ``torchrun --nproc-per-node N`` each rank evaluates its
 ``np.array_split`` shard of the test manifest in lock-step batches; the
 metrics are summed over the ranks and the predictions all-gathered, and
 rank 0 writes the one CSV in manifest order (the JAX ``evaluate``'s
-multi-host gather). ``--quantize-eval`` runs on every rank, as the JAX
-package runs it on every process.
+multi-host gather). Under ``--mesh.model-parallel`` the shards, the sums
+and the gather run over the data axis (the ranks of a model group
+evaluate the same rows), and every rank holds the whole head, as JAX's
+``head_predict`` gathers a TP-sharded one: the checkpoint is the unsharded
+file, so K4 and the plain predict step run on the whole W.
+``--quantize-eval`` runs on every rank, as the JAX package runs it on
+every process.
 
 One predict step yields both the eval metrics and the per-image
 predictions from the same forward. Two paths:
@@ -72,6 +77,7 @@ from mpi_pytorch_tpu_torch.ops.quantize import (
     quantize_model,
 )
 from mpi_pytorch_tpu_torch.parallel import collectives, distributed
+from mpi_pytorch_tpu_torch.parallel.mesh import Axis, create_mesh, data_axis
 from mpi_pytorch_tpu_torch.train.step import COMPUTE_DTYPES, ingest_images, metrics_from_logits
 from mpi_pytorch_tpu_torch.train.trainer import (
     evaluate_manifest,
@@ -267,6 +273,7 @@ def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSumma
     dev = distributed.rank_device(device)
     distributed.maybe_initialize_distributed(dev)
     validate_world(cfg)
+    data = data_axis(create_mesh(cfg.mesh))
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True
     logger = init_logger("MPT_EVAL", cfg.eval_log_file)
@@ -278,7 +285,7 @@ def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSumma
     if cfg.predictions_file:
         # One pass gives both the metrics and the predictions CSV.
         acc, mean_loss = evaluate_with_predictions(cfg, model, train_manifest, test_manifest,
-                                                   logger)
+                                                   logger, data)
     else:
         if cfg.fused_head_eval:
             # A flag that does nothing on this pass must not look as if it did.
@@ -287,7 +294,7 @@ def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSumma
                 "evaluation runs the shared eval step; the fused head belongs to the "
                 "predictions pass (add --predictions-file)"
             )
-        acc, mean_loss = evaluate_manifest(cfg, model, test_manifest)
+        acc, mean_loss = evaluate_manifest(cfg, model, test_manifest, data=data)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -302,18 +309,20 @@ def evaluate(cfg: Config, device: str | torch.device | None = None) -> EvalSumma
 
 
 def evaluate_with_predictions(
-    cfg: Config, model: nn.Module, train_manifest: Manifest, test_manifest: Manifest, logger
+    cfg: Config, model: nn.Module, train_manifest: Manifest, test_manifest: Manifest, logger,
+    data: Axis | None = None,
 ) -> tuple[float, float]:
     """One pass over the test manifest → (accuracy, mean loss), and the
     predictions CSV ``file_name,predicted_label,predicted_category_id`` in
     manifest order, written atomically to ``cfg.predictions_file`` by
     rank 0.
 
-    Each rank walks its shard (``make_eval_loader``) in the same number of
-    batches, each padded to ``host_batch`` rows (label −1 rows count
-    nowhere and their predictions are dropped). The ranks' predictions,
-    padded to the largest shard, are all-gathered as one ``[P, max]``
-    int32 exchange, and the metrics summed. With ``fused_head_eval`` the
+    Each rank walks its data index's shard (``make_eval_loader``) in the
+    same number of batches, each padded to ``host_batch`` rows (label −1
+    rows count nowhere and their predictions are dropped). The shards'
+    predictions, padded to the largest shard, are all-gathered over the
+    data axis ``data`` (the world by default) as one ``[P, max]`` int32
+    exchange, and the metrics summed over it. With ``fused_head_eval`` the
     head is the streaming kernel (``head_predict``, its operands cut
     once); a label maps to its raw category id through both splits, −1
     for one in neither."""
@@ -322,11 +331,12 @@ def evaluate_with_predictions(
     fused = cfg.fused_head_eval
     predict = make_predict_step(compute_dtype, fused_head=fused)
     head = head_weights(model, compute_dtype) if fused else None
-    n_proc = distributed.world_size()
+    data = data or collectives.world_axis()
+    n_proc = data.size
     rows = host_batch(cfg)
     loader = make_eval_loader(cfg, test_manifest)
     local_n = len(loader.manifest)
-    n_steps = global_step_count(len(test_manifest), rows, drop_remainder=False)
+    n_steps = global_step_count(len(test_manifest), rows, drop_remainder=False, shards=n_proc)
     losses, corrects, counts, preds = [], [], [], []
     for images, labels in synchronized_batches(loader, 0, n_steps):
         x, y = to_device(*pad_batch(images, labels, rows), dev)
@@ -341,7 +351,7 @@ def evaluate_with_predictions(
         torch.stack(losses).double().sum(), torch.stack(corrects).double().sum(),
         torch.stack(counts).double().sum(),
     ]) if losses else torch.zeros(3, dtype=torch.float64, device=dev)
-    sums = collectives.all_reduce(sums)
+    sums = collectives.all_reduce(sums, "sum", data)
     loss_sum, correct, count = float(sums[0]), int(sums[1]), int(sums[2])
     local = torch.cat(preds)[:local_n] if preds else torch.zeros(0, dtype=torch.int32, device=dev)
     if n_proc > 1:
@@ -349,7 +359,7 @@ def evaluate_with_predictions(
         sizes = [len(part) for part in np.array_split(np.arange(len(test_manifest)), n_proc)]
         buf = torch.full((max(sizes),), -1, dtype=torch.int32, device=dev)
         buf[:local_n] = local
-        gathered = collectives.all_gather(buf[None]).cpu().numpy()
+        gathered = collectives.all_gather(buf[None], data).cpu().numpy()
         labels_pred = np.concatenate([gathered[r, : sizes[r]] for r in range(n_proc)])
     else:
         labels_pred = local.cpu().numpy()

@@ -16,7 +16,15 @@ and y² per channel, and the sums and the row count are all-reduced with
 autograd attached (``parallel.collectives.sum_over_ranks``, the semantics
 of ``torch.distributed.nn.functional.all_reduce``), whose backward sums
 every rank's gradient of the statistics — right when each rank's loss is
-its own share of the global loss.
+its own share of the global loss. Under a model axis the sums run over the
+data axis only (the ranks of a model group hold the same rows).
+
+The auto step's levers (``train/state.place_model``): the head ``fc`` of
+every ported model becomes a :class:`VocabParallelDense` — a block of the
+classes' rows on each rank of the model axis — and under FSDP a
+parameter becomes its shard at rest, gathered at each use through the
+parametrization :class:`GatheredShard` (the fused stem's autograd
+Function and the batchnorms then see whole tensors).
 """
 
 from __future__ import annotations
@@ -27,26 +35,30 @@ from torch import nn
 
 from mpi_pytorch_tpu_torch.ops.fused_stem import stem_affine_relu_pool
 from mpi_pytorch_tpu_torch.parallel import collectives
+from mpi_pytorch_tpu_torch.parallel.mesh import Axis
 
 # torch BatchNorm defaults (the JAX package's BN_EPS / BN_MOMENTUM = 1 − 0.1).
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
-def _channel_stats(x: torch.Tensor, sync: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def _channel_stats(x: torch.Tensor, sync: bool = False,
+                   axis: Axis | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 batch mean and ``E[x²] − mean²`` per channel of an NCHW tensor,
     with autograd attached (the gradient through the statistics reaches
-    ``x``, as it does in JAX). With ``sync`` in a world of more than one
-    rank, over the global batch: the per-channel sums of x and x² and the
-    row count, all-reduced (SUM) in one autograd-aware collective."""
+    ``x``, as it does in JAX). With ``sync`` over an axis of more than one
+    rank (``axis``; the world by default), over the global batch: the
+    per-channel sums of x and x² and the row count, all-reduced (SUM) in
+    one autograd-aware collective."""
     xf = x.float()
-    if sync and collectives.num_processes() > 1:
+    size = collectives.num_processes() if axis is None else axis.size
+    if sync and size > 1:
         c = xf.shape[1]
         sums = torch.cat([
             xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
             xf.new_full((1,), xf.numel() // c),
         ])
-        sums = collectives.sum_over_ranks(sums)
+        sums = collectives.sum_over_ranks(sums, axis)
         mean = sums[:c] / sums[-1]
         return mean, sums[c:2 * c] / sums[-1] - mean.square()
     mean = xf.mean(dim=(0, 2, 3))
@@ -72,12 +84,14 @@ class BatchNorm(nn.BatchNorm2d):
     ``num_batches_tracked`` stays as torch made it: the momentum is fixed.
 
     ``sync_stats`` (:func:`set_batchnorm_sync`) takes the training
-    statistics over every rank's rows (flax ``BatchNorm(axis_name=...)``,
-    and the JAX auto mode's global batch)."""
+    statistics over every rank's rows of ``sync_axis`` (the world when
+    None; flax ``BatchNorm(axis_name=...)``, and the JAX auto mode's
+    global batch)."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
         self.sync_stats = False
+        self.sync_axis: Axis | None = None
 
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -90,7 +104,7 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean, var = _channel_stats(x, self.sync_stats)
+        mean, var = _channel_stats(x, self.sync_stats, self.sync_axis)
         var = var.clamp_min(0.0)
         self.update_running_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
@@ -103,13 +117,14 @@ def batch_norm(num_features: int, eps: float = BN_EPS) -> BatchNorm:
     return BatchNorm(num_features, eps=eps)
 
 
-def set_batchnorm_sync(model: nn.Module, sync: bool) -> None:
+def set_batchnorm_sync(model: nn.Module, sync: bool, axis: Axis | None = None) -> None:
     """Every batchnorm of ``model`` (the fused stem's too) takes its
-    training statistics over the global batch (``sync``) or over this
+    training statistics over the global batch (``sync``: the rows of every
+    rank of ``axis``, the data axis; the world when None) or over this
     rank's rows. One rank's statistics are the same either way."""
     for m in model.modules():
         if isinstance(m, BatchNorm):
-            m.sync_stats = sync
+            m.sync_stats, m.sync_axis = sync, axis
 
 
 class FusedStemBNReluPool(BatchNorm):
@@ -134,7 +149,7 @@ class FusedStemBNReluPool(BatchNorm):
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = _channel_stats(y, self.sync_stats)
+            mean, var = _channel_stats(y, self.sync_stats, self.sync_axis)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
@@ -171,6 +186,64 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class VocabParallelDense(Dense):
+    """The head over a model axis (JAX's head kernel sharded on its class
+    dimension over ``model``): this rank's rows ``start … start + V/mp``
+    of the ``[V, D]`` weight and of the bias, ``start = index·V/mp``. The
+    forward reads the features through ``collectives.copy_to_model`` (the
+    backward sums ``dfeats`` over the axis) and returns this rank's block
+    of the logits, [B, V/mp]; the loss and the argmax over the blocks are
+    ``ops.losses.vocab_parallel_ce_sum`` and ``vocab_parallel_argmax``.
+    The state names stay ``weight`` and ``bias``."""
+
+    def __init__(self, in_features: int, num_classes: int, axis: Axis):
+        if num_classes % axis.size:
+            raise ValueError(f"{num_classes} classes not divisible by the model axis's "
+                             f"{axis.size} ranks")
+        rows = num_classes // axis.size
+        super().__init__(in_features, rows)
+        self.num_classes, self.axis, self.vocab_start = num_classes, axis, axis.index * rows
+
+    @classmethod
+    def from_dense(cls, dense: nn.Linear, axis: Axis) -> "VocabParallelDense":
+        """This rank's block of ``dense`` (on its device, in its dtype)."""
+        w = dense.weight.detach()
+        head = cls(w.shape[1], w.shape[0], axis).to(device=w.device, dtype=w.dtype)
+        rows = slice(head.vocab_start, head.vocab_start + head.out_features)
+        with torch.no_grad():
+            head.weight.copy_(w[rows])
+            head.bias.copy_(dense.bias.detach()[rows])
+        head.weight.requires_grad_(dense.weight.requires_grad)
+        head.bias.requires_grad_(dense.bias.requires_grad)
+        return head
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(collectives.copy_to_model(x, self.axis))
+
+
+class GatheredShard(nn.Module):
+    """The FSDP parametrization of one parameter
+    (``torch.nn.utils.parametrize``): the module holds this rank's block
+    along ``dim`` over ``axis`` (the data axis) at rest — the parameter
+    the optimizer steps — and each read of the parameter is the whole
+    tensor, gathered with autograd attached
+    (``collectives.gather_shards``: the backward reduce-scatters the
+    gradient into the shard's). The gathered tensor lives only as long as
+    the graph that read it."""
+
+    def __init__(self, axis: Axis, dim: int):
+        super().__init__()
+        self.axis, self.dim = axis, dim
+
+    def forward(self, shard: torch.Tensor) -> torch.Tensor:
+        return collectives.gather_shards(shard, self.axis, self.dim)
+
+    def right_inverse(self, whole: torch.Tensor) -> torch.Tensor:
+        """The whole tensor's block of this rank (what the module keeps)."""
+        k = whole.shape[self.dim] // self.axis.size
+        return whole.detach().narrow(self.dim, self.axis.index * k, k).clone()
 
 
 # flax's LayerNorm epsilon (torch's default is 1e-5).

@@ -31,6 +31,11 @@ A resnet quantized by the JAX package (``ops/quantize.py``
 the port's quantized model (``ops.quantize.quantize_model``) through
 :func:`from_flax_quantized`: int8 kernels transposed as above into ``q``,
 per-output-channel scales as they are.
+
+Across layouts of the auto step's levers (``train/state.place_model``): a
+full state_dict → one rank's blocks on a (data, model) mesh and a lever
+set (:func:`shard_state_dict`, by ``parallel.mesh.param_specs``), and
+every rank's back → the full one (:func:`unshard_state_dict`).
 """
 
 from __future__ import annotations
@@ -249,3 +254,44 @@ def from_flax_quantized(
             if keep_head_int8:
                 sd[f"{tprefix}.act_scale"] = _t(packed["act_scale"])
     return sd
+
+
+def block_of(t: torch.Tensor, n: int, index: int, dim: int) -> torch.Tensor:
+    """Block ``index`` of ``n`` equal blocks of ``t`` along ``dim`` (a
+    view)."""
+    k = t.shape[dim] // n
+    return t.narrow(dim, index * k, k)
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor], specs: Mapping[str, Any],
+                     coords: Mapping[str, tuple[int, int]]) -> dict[str, torch.Tensor]:
+    """One rank's tensors of a full ``state_dict`` under ``specs``
+    (``parallel.mesh.param_specs``: a ``ShardSpec`` per parameter):
+    ``coords`` maps each axis name (``"data"``, ``"model"``) to ``(size,
+    this rank's index)``. A split parameter becomes its block (a copy),
+    everything else stays whole; the keys are the full ones."""
+    out = {}
+    for key, t in state_dict.items():
+        spec = specs.get(key)
+        if spec is not None and spec.sharded:
+            size, index = coords[spec.axis]
+            t = block_of(t, size, index, spec.dim).clone()
+        out[key] = t
+    return out
+
+
+def unshard_state_dict(ranks: Mapping[tuple[int, int], Mapping[str, torch.Tensor]],
+                       specs: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_state_dict`: ``ranks`` maps each rank's
+    ``(data index, model index)`` to its tensors; a split parameter is its
+    blocks joined in axis order (from the ranks at index 0 of the other
+    axis), the rest rank (0, 0)'s."""
+    first = ranks[(0, 0)]
+    out = {}
+    for key, t in first.items():
+        spec = specs.get(key)
+        if spec is not None and spec.sharded:
+            along = sorted(c for c in ranks if (c[1] if spec.axis == "data" else c[0]) == 0)
+            t = torch.cat([ranks[c][key] for c in along], dim=spec.dim)
+        out[key] = t
+    return out

@@ -16,9 +16,19 @@ two halves of the ZeRO-sharded update, and the two-phase hierarchical
 collectives of the nested (pod, ici) layout (``parallel/mesh.py``) —
 ``hier_reduce_scatter_mean``, ``hier_all_gather``, ``hier_psum``,
 ``hier_pmean`` — which reduce within the pod first, across the pods with
-only the 1/ici-sized partial, and gather back within the pod. A function
-that takes an ``axis`` (a ``mesh.Axis``) reduces over that axis's process
-group; without one, over the world.
+only the 1/ici-sized partial, and gather back within the pod. Every
+reduction takes an ``axis`` (a ``mesh.Axis``) and reduces over that axis's
+process group; without one, over the world — right for a flat data axis
+alone, and wrong under a model axis, whose ranks hold the same rows: the
+auto step, the synced batchnorm and the data sharding pass the data axis.
+
+The auto step's levers (``train/step.py``, ``train/state.py``): the
+vocab-parallel head's pieces over the model axis — :func:`copy_to_model`
+(Megatron's copy to the model-parallel region: the identity, whose
+backward sums ``dfeats`` over the model axis) beside the cross-entropy's
+all-reduces (``ops/losses.py``) — and the FSDP gather,
+:func:`gather_shards`: an all-gather over the data axis whose backward
+reduce-scatters (SUM) the gradient into the shard's.
 
 Every gradient and statistics collective books its per-rank bytes in the
 per-axis :data:`LEDGER` as it is issued (ring cost model), ``dcn`` when
@@ -160,57 +170,65 @@ def all_reduce(x: torch.Tensor, op: str = "sum", axis: Axis | None = None) -> to
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """The all-reduce (SUM) with autograd: its backward sums every rank's
-    gradient of the result, since each rank's result feeds its own share
-    of a loss that is the sum over ranks."""
+    """The all-reduce (SUM) over an axis with autograd: its backward sums
+    every rank's gradient of the result, since each rank's result feeds
+    its own share of a loss that is the sum over the axis's ranks."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         with record_function("collectives.sum_over_ranks_backward"):
             grad = grad.contiguous().clone()
-            dist.all_reduce(grad)
-        return grad
+            dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks with autograd attached (the semantics of
+def _axis(axis: Axis | None) -> Axis:
+    return world_axis() if axis is None else axis
+
+
+def sum_over_ranks(x: torch.Tensor, axis: Axis | None = None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis`` (the world by default) with
+    autograd attached (the semantics of
     ``torch.distributed.nn.functional.all_reduce``): the gradient reaching
     ``x`` is the sum of every rank's gradient of the result. The identity
-    for one process."""
-    if num_processes() == 1:
+    for one rank."""
+    axis = _axis(axis)
+    if axis.size == 1:
         return x
     with record_function("collectives.sum_over_ranks"):
-        return _SumOverRanks.apply(x)
+        return _SumOverRanks.apply(x, axis.group)
 
 
 def all_reduce_(
-    tensors: Sequence[torch.Tensor], op: str = "sum", name: str = "collectives.all_reduce"
+    tensors: Sequence[torch.Tensor], op: str = "sum", name: str = "collectives.all_reduce",
+    axis: Axis | None = None,
 ) -> None:
-    """Reduce each of ``tensors`` over the world's ranks in place, through
-    ONE all-reduce of their concatenation per dtype (``sum`` or ``mean``),
-    booked in the ledger on the data axis; the profiler range is
-    ``name``."""
-    if num_processes() == 1 or not tensors:
+    """Reduce each of ``tensors`` over the ranks of ``axis`` (the world by
+    default) in place, through ONE all-reduce of their concatenation per
+    dtype (``sum`` or ``mean``), booked in the ledger on that axis; the
+    profiler range is ``name``."""
+    axis = _axis(axis)
+    if axis.size == 1 or not tensors:
         return
     if op not in ("sum", "mean"):
         raise ValueError(f"op must be sum|mean, got {op!r}")
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    axis = world_axis()
     with record_function(name):
         for group in by_dtype.values():
             flat = _flat(group)
             _account("all_reduce", axis, _nbytes(flat))
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=axis.group)
             if op == "mean":
-                flat /= num_processes()
+                flat /= axis.size
             _unflat_into(flat, group)
 
 
@@ -218,42 +236,52 @@ def _grads(params: Iterable[torch.Tensor]) -> list[torch.Tensor]:
     return [p.grad for p in params if p.grad is not None]
 
 
-def sum_grads(model: nn.Module) -> None:
-    """Every gradient of ``model`` summed over the ranks, in place (one
-    all-reduce): the gradient of a global loss that each rank holds its
-    share of (the auto-mode step)."""
-    all_reduce_(_grads(model.parameters()), "sum", "collectives.sum_grads")
+def sum_grads(model: nn.Module, axis: Axis | None = None) -> None:
+    """Every gradient of ``model`` summed over the ranks of ``axis`` (the
+    world by default), in place (one all-reduce): the gradient of a global
+    loss that each rank holds its share of (the auto-mode step)."""
+    all_reduce_(_grads(model.parameters()), "sum", "collectives.sum_grads", axis)
 
 
-def avg_grads(model: nn.Module) -> None:
-    """Every gradient of ``model`` averaged over the ranks, in place — the
-    whole ``mpi_avg_grads`` stack (``mpi_tools.py:30-37``) as one coalesced
-    all-reduce, divided by the world size however many valid rows each
-    rank held (the spmd-mode step)."""
-    all_reduce_(_grads(model.parameters()), "mean", "collectives.avg_grads")
+def avg_grads(model: nn.Module, axis: Axis | None = None) -> None:
+    """Every gradient of ``model`` averaged over the ranks of ``axis`` (the
+    world by default), in place — the whole ``mpi_avg_grads`` stack
+    (``mpi_tools.py:30-37``) as one coalesced all-reduce, divided by the
+    axis size however many valid rows each rank held (the spmd-mode
+    step)."""
+    all_reduce_(_grads(model.parameters()), "mean", "collectives.avg_grads", axis)
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """``[n, ...]`` on each rank → the concatenated ``[P·n, ...]`` on every
-    rank, rank order (≙ MPI Allgather on device data). Every rank's ``x``
-    has the same shape."""
-    n = num_processes()
-    if n == 1:
+def all_gather(x: torch.Tensor, axis: Axis | None = None) -> torch.Tensor:
+    """``[n, ...]`` on each rank of ``axis`` (the world by default) → the
+    concatenated ``[P·n, ...]`` on every one, in axis order (≙ MPI
+    Allgather on device data). Every rank's ``x`` has the same shape."""
+    axis = _axis(axis)
+    if axis.size == 1:
         return x
     with record_function("collectives.all_gather"):
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous())
+        parts = [torch.empty_like(x) for _ in range(axis.size)]
+        dist.all_gather(parts, x.contiguous(), group=axis.group)
     return torch.cat(parts)
 
 
-def broadcast_from(tensors: Sequence[torch.Tensor], root: int = 0) -> None:
-    """Root's values into ``tensors`` on every rank, in place (≙
+def _global_rank(axis: Axis, index: int) -> int:
+    """The world rank at position ``index`` of ``axis``."""
+    return index if axis.group is None else dist.get_global_rank(axis.group, index)
+
+
+def broadcast_from(tensors: Sequence[torch.Tensor], root: int = 0,
+                   axis: Axis | None = None) -> None:
+    """The values of the rank at position ``root`` of ``axis`` (the world
+    by default) into ``tensors`` on every rank of it, in place (≙
     ``mpi_broadcast``, ``mpi_tools.py:40-44``)."""
-    if num_processes() == 1:
+    axis = _axis(axis)
+    if axis.size == 1:
         return
+    src = _global_rank(axis, root)
     with record_function("collectives.broadcast"):
         for t in tensors:
-            dist.broadcast(t.data, src=root)
+            dist.broadcast(t.data, src=src, group=axis.group)
 
 
 @torch.no_grad()
@@ -546,3 +574,115 @@ def hier_pmean(tensors: Sequence[torch.Tensor], ici: Axis, pod: Axis) -> list[to
     """:func:`hier_psum` with the global mean: the hierarchical twin of
     ``avg_grads``."""
     return hier_psum(tensors, ici, pod, mean=True)
+
+
+# ---------------------------------------------------------------------------
+# The auto step's levers: the vocab-parallel head's region copy over the
+# model axis, and the FSDP gather over the data axis.
+# ---------------------------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the model axis
+    (Megatron's "copy to the model-parallel region")."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, axis: Axis) -> torch.Tensor:
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        axis = ctx.axis
+        with record_function("collectives.copy_to_model_backward"):
+            grad = grad.contiguous().clone()
+            _account("all_reduce", axis, _nbytes(grad))
+            dist.all_reduce(grad, group=axis.group)
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` into the model-parallel region over ``axis``: every rank of it
+    holds the same ``x`` (the features a vocab shard of the head reads),
+    and the gradient reaching ``x`` is the sum of the ranks' partial
+    gradients (each from its own vocab shard). The identity for one
+    rank."""
+    if axis.size == 1:
+        return x
+    return _CopyToModel.apply(x, axis)
+
+
+def _lead_order(like: torch.Tensor, dim: int) -> tuple[int, ...]:
+    """The dimension order, ``dim`` first, in which a block of ``like``
+    along ``dim`` is sent: the shard's own memory order for a
+    channels-last 4-D tensor sharded on dim 0 (so the gathered whole keeps
+    it), else ``dim`` moved first."""
+    if dim == 0 and like.dim() == 4 and like.is_contiguous(memory_format=torch.channels_last):
+        return (0, 2, 3, 1)
+    order = list(range(like.dim()))
+    order.insert(0, order.pop(dim))
+    return tuple(order)
+
+
+def _unlead(t: torch.Tensor, order: tuple[int, ...]) -> torch.Tensor:
+    """``t`` (laid out in ``order``) back in the logical order; dense, in
+    the memory order it was led in for a channels-last shard, contiguous
+    otherwise."""
+    back = t.permute(tuple(order.index(i) for i in range(len(order))))
+    return back if order == (0, 2, 3, 1) else back.contiguous()
+
+
+def gather_blocks(blocks: Sequence[torch.Tensor], dims: Sequence[int],
+                  axis: Axis) -> list[torch.Tensor]:
+    """Every rank's equal block of each tensor along its dimension in
+    ``dims`` over ``axis`` → each whole tensor on every rank, block ``i``
+    from the rank at position ``i``: ONE all-gather of the blocks'
+    concatenation (:func:`all_gather_slices`, booked on ``axis``; no
+    autograd). A channels-last 4-D block split on dim 0 gathers into a
+    channels-last whole."""
+    if axis.size == 1:
+        return list(blocks)
+    orders = [_lead_order(b, d) for b, d in zip(blocks, dims)]
+    led = [b.permute(o) for b, o in zip(blocks, orders)]
+    fulls = all_gather_slices([t.contiguous().reshape(-1) for t in led], axis)
+    return [_unlead(f.view(axis.size * t.shape[0], *t.shape[1:]), o)
+            for f, t, o in zip(fulls, led, orders)]
+
+
+def gather_dim(shard: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """:func:`gather_blocks` of one tensor."""
+    return gather_blocks([shard], [dim], axis)[0]
+
+
+class _GatherShards(torch.autograd.Function):
+    """FSDP's gather: :func:`gather_dim` forward, and a reduce-scatter
+    (SUM) of the whole gradient back into the shard's."""
+
+    @staticmethod
+    def forward(ctx, shard: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+        ctx.axis, ctx.order = axis, _lead_order(shard, dim)
+        with record_function("collectives.fsdp_gather"):
+            return gather_dim(shard, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        axis, order = ctx.axis, ctx.order
+        led = grad.permute(order).contiguous()
+        stacked = led.reshape(axis.size, -1)
+        _account("reduce_scatter", axis, _nbytes(stacked))
+        with record_function("collectives.fsdp_reduce_scatter"):
+            part = start_reduce_scatter(stacked, axis).wait()
+        block = (led.shape[0] // axis.size, *led.shape[1:])
+        return _unlead(part.view(block), order), None, None
+
+
+def gather_shards(shard: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The whole parameter from this rank's FSDP shard (``dim`` split over
+    ``axis``, the data axis), with autograd attached: the gradient reaching
+    the shard is the whole gradient summed over the axis's ranks, this
+    rank's block (each rank's loss is its share of the global mean, so the
+    sum is the auto step's gradient). The gathered tensor lives as long as
+    the graph that reads it. The identity for one rank."""
+    if axis.size == 1:
+        return shard
+    return _GatherShards.apply(shard, axis, dim)

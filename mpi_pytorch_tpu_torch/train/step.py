@@ -13,12 +13,17 @@ Data parallelism (one rank per GPU, ``parallel/distributed.py``), in the
 JAX package's two modes; each rank passes its own rows of the global
 batch:
 
-- **auto** (default, JAX ``make_train_step`` on a data mesh): batchnorm
-  over the global batch (``models.common.set_batchnorm_sync``), the global
-  valid count all-reduced before the backward, each rank's loss its masked
-  CE sum over that count — its share of the global mean — and the
-  gradients summed over the ranks after the backward: the gradient of the
-  count-weighted global mean.
+- **auto** (default, JAX ``make_train_step`` on a (data, model) mesh):
+  batchnorm over the global batch (``models.common.set_batchnorm_sync``,
+  over the data axis), the global valid count all-reduced over the data
+  axis before the backward, each rank's loss its masked CE sum over that
+  count — its share of the global mean — and the gradients summed over
+  the data axis after the backward: the gradient of the count-weighted
+  global mean. Its levers (see :func:`make_train_step`) change where the
+  state lives, not what the step computes: the vocab-sharded head
+  (``--mesh.model-parallel``), ZeRO-1 moments (``--zero-optimizer``),
+  FSDP parameters (``--fsdp``), laid out by ``train/state.place_model``,
+  and gradient accumulation (``--accum-steps``).
 - **spmd** (``--spmd-mode``, JAX ``make_spmd_train_step``): each rank's
   loss is its local masked mean with its local batchnorm statistics
   (global with ``sync_batchnorm``), the gradients averaged over the ranks
@@ -38,7 +43,6 @@ gradients', and the skip verdict reads only synced values, so every rank
 takes the same branch. For one rank every collective is the identity and
 the step computes what the one-process step always computed, bit for bit
 (``tests/test_torch_dp_step.py``).
-Gradient accumulation (``accum_steps > 1``) is not ported yet.
 
 The device cache (``--device-cache``, JAX ``make_cached_train_step``,
 ``make_scanned_epoch``, ``make_cached_eval_step``): the training set lives
@@ -56,19 +60,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpi_pytorch_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-from mpi_pytorch_tpu_torch.models.common import BatchNorm
-from mpi_pytorch_tpu_torch.ops.losses import accuracy_count, masked_ce_sum, valid_count
-from mpi_pytorch_tpu_torch.parallel import collectives, distributed
+from mpi_pytorch_tpu_torch.models.common import BatchNorm, VocabParallelDense
+from mpi_pytorch_tpu_torch.ops.losses import (
+    accuracy_count,
+    masked_ce_sum,
+    valid_count,
+    vocab_parallel_accuracy_count,
+    vocab_parallel_ce_sum,
+)
+from mpi_pytorch_tpu_torch.parallel import collectives
 from mpi_pytorch_tpu_torch.parallel.collectives import Chain
 from mpi_pytorch_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     ICI_AXIS,
+    MODEL_AXIS,
     POD_AXIS,
+    Axis,
     Mesh,
     create_mesh,
+    data_axis,
     is_hierarchical,
     zero_shard_axis,
 )
-from mpi_pytorch_tpu_torch.train.state import TrainState, ZeroOptimizer, owned_slice
+from mpi_pytorch_tpu_torch.train.state import Placement, TrainState, ZeroOptimizer, owned_slice
 
 # ``Config.compute_dtype`` → torch dtype.
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,6 +120,30 @@ def metrics_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> dict[str,
     }
 
 
+def head_terms(model: nn.Module, logits: torch.Tensor,
+               labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(masked CE sum with autograd, correct count) of ``model``'s logits:
+    over the vocab shards of a
+    :class:`~mpi_pytorch_tpu_torch.models.common.VocabParallelDense` head
+    (each rank of the model axis holds a block of the classes), else of
+    the whole logits."""
+    fc = getattr(model, "fc", None)
+    if isinstance(fc, VocabParallelDense):
+        return (vocab_parallel_ce_sum(logits, labels, fc.vocab_start, fc.axis),
+                vocab_parallel_accuracy_count(logits.detach(), labels, fc.vocab_start, fc.axis))
+    return masked_ce_sum(logits, labels), accuracy_count(logits.detach(), labels)
+
+
+def model_metrics(model: nn.Module, logits: torch.Tensor,
+                  labels: torch.Tensor) -> dict[str, torch.Tensor]:
+    """:func:`metrics_from_logits` of ``model``'s f32 logits, over the
+    vocab shards of a vocab-parallel head."""
+    if not isinstance(getattr(model, "fc", None), VocabParallelDense):
+        return metrics_from_logits(logits, labels)
+    loss, correct = head_terms(model, logits, labels)
+    return {"loss": loss, "correct": correct, "count": valid_count(labels)}
+
+
 def grad_norm(model: nn.Module) -> torch.Tensor:
     """The global L2 norm over every parameter's gradient, as an f32
     scalar (``optax.global_norm``), frozen parameters included. Each
@@ -125,9 +163,77 @@ def _running_stats(model: nn.Module) -> list[torch.Tensor]:
     ]
 
 
-def make_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
-    """The auto-mode step (see the module docstring and :func:`_make_step`)."""
-    return _make_step(compute_dtype, bad_step_skip, sync=None)
+def _sq_sum(tensors: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Σ ‖t‖² in float64, each tensor's norm as :func:`grad_norm` takes it."""
+    if not tensors:
+        return torch.zeros((), dtype=torch.float64, device=device)
+    norms = torch.stack(torch._foreach_norm([t.float() for t in tensors], 2,
+                                            dtype=torch.float64))
+    return torch.sum(norms * norms)
+
+
+def placed_grad_norm(placement: Placement, data: Axis) -> torch.Tensor:
+    """:func:`grad_norm` of a placed model's synced gradients — the norm of
+    the unsharded gradient (``optax.global_norm``): the blocks' squared
+    sums summed over their axis (data-split over ``data``, the head's
+    over the model axis), the replicated gradients counted once, in
+    float64."""
+    held = placement.held
+    device = next(iter(held.values())).device
+
+    def grads(axis_name):
+        return [held[n].grad for n in placement.by_axis(axis_name) if held[n].grad is not None]
+
+    sq = (_sq_sum(grads(None), device)
+          + collectives.all_reduce(_sq_sum(grads(DATA_AXIS), device), "sum", data)
+          + collectives.all_reduce(_sq_sum(grads(MODEL_AXIS), device), "sum",
+                                   placement.mesh.model))
+    return torch.sqrt(sq).float()
+
+
+def _auto_sync(state: TrainState, data: Axis, model_axis: Axis) -> torch.Tensor:
+    """The auto step's gradient sync; returns the global grad norm. Every
+    gradient not already summed is summed over the data axis (an FSDP
+    block's was, by its gather's reduce-scatter). Under a model axis the
+    ranks of a model group compute the trunk on the same rows, each its
+    own replica: its synced gradients and the running statistics come
+    from the group's first rank (a broadcast), so the replicas stay
+    bit-identical whatever the card's convolution algorithms sum in."""
+    model, placement = state.model, state.placement
+    if placement is None:
+        collectives.sum_grads(model, data)
+        return grad_norm(model)
+    held = placement.held
+    names = [n for n in placement.names if held[n].grad is not None]
+    collectives.all_reduce_([held[n].grad for n in names if placement.specs[n].axis != DATA_AXIS],
+                            "sum", "collectives.sum_grads", data)
+    if model_axis.size > 1:
+        collectives.broadcast_from(
+            [held[n].grad for n in names if placement.specs[n].axis != MODEL_AXIS]
+            + _running_stats(model), axis=model_axis)
+    return placed_grad_norm(placement, data) if placement.sharded else grad_norm(model)
+
+
+def make_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False, *,
+                    mesh: Mesh | None = None, accum_steps: int = 1) -> Callable:
+    """The auto-mode step (see the module docstring and :func:`_make_step`)
+    over ``mesh`` (``parallel.mesh.create_mesh``; by default the flat data
+    axis over the world): its sums run over the data axis, never the
+    world, so the ranks of a model group (which hold the same rows) count
+    once. The state may be placed (``train/state.place_model``: the TP
+    head, ZeRO-1, FSDP) on this mesh; each lever alone or composed leaves
+    the step's function as it was.
+
+    ``accum_steps > 1`` (JAX ``accum_train_step``): each rank splits its
+    rows into k contiguous microbatches (JAX's device-local split, so
+    microbatch j holds the same rows), runs each forward and backward in
+    turn — batchnorm statistics updated per microbatch over the data axis
+    — with each microbatch's loss its CE sum over the global valid count
+    of the whole batch, so the accumulated gradient is the count-weighted
+    one; then one sync, one norm (the accumulated gradient's) and one
+    optimizer update. The loss is the count-weighted mean."""
+    return _make_step(compute_dtype, bad_step_skip, sync=None, mesh=mesh,
+                      accum_steps=accum_steps)
 
 
 def make_spmd_train_step(
@@ -429,8 +535,8 @@ def _split_back(gen, like: Sequence[torch.Tensor]):
     return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in like]), like)]
 
 
-def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool,
-               sync: _GradSync | None) -> Callable:
+def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, sync: _GradSync | None,
+               mesh: Mesh | None = None, accum_steps: int = 1) -> Callable:
     """``step(state, images, labels) -> metrics``: one optimizer update on
     this rank's rows (the whole batch for one process), in auto mode or,
     with ``sync``, in spmd mode. The model's batchnorms must already take
@@ -453,34 +559,63 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool,
     a copy taken before it."""
     spmd = sync is not None
 
+    def axes() -> tuple[Axis, Axis]:
+        if mesh is None:  # the world is the data axis (spmd: any layout)
+            return collectives.world_axis(), Axis(MODEL_AXIS, 1, 0)
+        return data_axis(mesh), mesh.model
+
+    def forward(model, images):
+        return model(ingest_images(images, compute_dtype).permute(0, 3, 1, 2))
+
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         model = state.model
         model.train()
+        data, model_axis = axes()
         saved = [t.clone() for t in _running_stats(model)] if bad_step_skip else None
         model.zero_grad(set_to_none=True)
-        logits = model(ingest_images(images, compute_dtype).permute(0, 3, 1, 2))
         count = valid_count(labels)
-        ce_sum = masked_ce_sum(logits, labels)
-        if spmd:
-            # The JAX step pmeans its new batch stats after the forward.
-            sync.running_stats(model)
-        # The global CE sum, valid count and correct count, all-reduced
-        # before the backward.
-        f32 = ce_sum.dtype
-        sums = collectives.all_reduce(torch.stack([
-            ce_sum.detach(), count.to(f32), accuracy_count(logits.detach(), labels).to(f32)]))
-        global_count = sums[1].to(torch.int32)
-        # spmd: the local masked mean. auto: this rank's share of the
-        # global mean, its CE sum over the global valid count.
-        loss = ce_sum / torch.clamp(count if spmd else global_count, min=1)
-        if spmd:
-            sync.arm(model)
-        loss.backward()
+        f32 = torch.float32
+        if accum_steps == 1:
+            logits = forward(model, images)
+            ce_sum, correct = head_terms(model, logits, labels)
+            if spmd:
+                # The JAX step pmeans its new batch stats after the forward.
+                sync.running_stats(model)
+            # The global CE sum, valid count and correct count, all-reduced
+            # before the backward.
+            sums = collectives.all_reduce(torch.stack([
+                ce_sum.detach(), count.to(f32), correct.to(f32)]), "sum", data)
+            global_count = sums[1].to(torch.int32)
+            # spmd: the local masked mean. auto: this rank's share of the
+            # global mean, its CE sum over the global valid count.
+            loss = ce_sum / torch.clamp(count if spmd else global_count, min=1)
+            if spmd:
+                sync.arm(model)
+            loss.backward()
+        else:
+            rows = labels.shape[0]
+            if rows % accum_steps:
+                raise ValueError(
+                    f"batch {rows * data.size} not divisible by data size {data.size} "
+                    f"x accum_steps {accum_steps}"
+                )
+            mb = rows // accum_steps
+            n = collectives.all_reduce(count.to(f32), "sum", data)
+            global_count = n.to(torch.int32)
+            ce_total = correct_total = 0
+            for j in range(accum_steps):
+                part = slice(j * mb, (j + 1) * mb)
+                ce_sum, correct = head_terms(model, forward(model, images[part]), labels[part])
+                (ce_sum / torch.clamp(global_count, min=1)).backward()
+                ce_total = ce_total + ce_sum.detach()
+                correct_total = correct_total + correct
+            ce_correct = collectives.all_reduce(
+                torch.stack([ce_total, correct_total.to(f32)]), "sum", data)
+            sums = torch.stack([ce_correct[0], n, ce_correct[1]])
         if spmd:
             slices, norm = sync.gradients(model)
         else:
-            collectives.sum_grads(model)
-            slices, norm = None, grad_norm(model)
+            slices, norm = None, _auto_sync(state, data, model_axis)
         metrics = {
             "loss": sums[0] / torch.clamp(sums[1], min=1),
             "correct": sums[2].to(torch.int64),
@@ -511,68 +646,78 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool,
 
 def make_eval_step(compute_dtype: torch.dtype) -> Callable:
     """``eval_step(model, images, labels) -> {loss (sum), correct, count}``:
-    the eval-mode forward, logits recast to f32, masked metrics. The
-    caller puts the model in eval mode."""
+    the eval-mode forward, logits recast to f32, masked metrics (over the
+    vocab shards of a vocab-parallel head). The caller puts the model in
+    eval mode."""
 
     @torch.no_grad()
     def eval_step(model: nn.Module, images: torch.Tensor, labels: torch.Tensor):
         logits = model(ingest_images(images, compute_dtype).permute(0, 3, 1, 2)).float()
-        return metrics_from_logits(logits, labels)
+        return model_metrics(model, logits, labels)
 
     return eval_step
 
 
 def _gather_batch(dataset: torch.Tensor, labels_all: torch.Tensor, idx: torch.Tensor,
-                  valid: torch.Tensor, compute_dtype: torch.dtype):
+                  valid: torch.Tensor, compute_dtype: torch.dtype, data: Axis | None = None):
     """This rank's rows of one batch of the device cache, gathered by index
     on the device: the one ingest of the cached train step, the scanned
     epoch and the cached eval step (JAX ``_gather_batch`` with
     ``_sharded_cache_take``), so none can drift from the others.
 
     ``idx`` ([B] int32) and ``valid`` ([B] bool) name the GLOBAL batch, the
-    same on every rank. One rank holds every row: an index select. With N
-    ranks each holds a contiguous 1/N of the rows
+    same on every rank. The cache's rows are sharded over the data axis
+    ``data`` (the world by default; the ranks of a model group hold the
+    same rows). One data rank holds every row: an index select. With N
+    each holds a contiguous 1/N of the rows
     (``trainer.build_device_cache``): each takes the rows it owns for the
     whole batch, writes literal zeros where it owns none, and the sum over
-    the ranks is the batch — exact in uint8 and f32 alike, since each row
-    has one owner and every other term is a zero. The rank keeps its own
-    rank-major slice of B/N rows, as JAX's ``psum`` and the data-axis
-    shard give it. Labels are ``labels_all[idx]``, −1 where not ``valid``.
+    the data axis is the batch — exact in uint8 and f32 alike, since each
+    row has one owner and every other term is a zero. The rank keeps the
+    slice of B/N rows at its data index, as JAX's ``psum`` and the
+    data-axis shard give it. Labels are ``labels_all[idx]``, −1 where not
+    ``valid``.
 
     Returns (images [B/N, H, W, 3] ingested into ``compute_dtype``, labels
     [B/N] int32)."""
-    world = collectives.num_processes()
+    data = data or collectives.world_axis()
     idx = idx.long()
     labels = torch.where(valid, labels_all[idx], -1)
-    if world == 1:
+    if data.size == 1:
         raw = dataset.index_select(0, idx)
     else:
-        rank, per = distributed.rank(), dataset.shape[0]
-        local = idx - rank * per
+        n, d, per = data.size, data.index, dataset.shape[0]
+        local = idx - d * per
         owned = ((local >= 0) & (local < per)).view(-1, *(1,) * (dataset.dim() - 1))
         rows = dataset.index_select(0, local.clamp(0, per - 1))
-        rows = collectives.all_reduce(torch.where(owned, rows, torch.zeros_like(rows)))
-        mine = slice(rank * idx.shape[0] // world, (rank + 1) * idx.shape[0] // world)
+        rows = collectives.all_reduce(torch.where(owned, rows, torch.zeros_like(rows)),
+                                      "sum", data)
+        mine = slice(d * idx.shape[0] // n, (d + 1) * idx.shape[0] // n)
         raw, labels = rows[mine], labels[mine]
     return ingest_images(raw, compute_dtype), labels
 
 
-def make_cached_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
+def make_cached_train_step(compute_dtype: torch.dtype, bad_step_skip: bool = False, *,
+                           mesh: Mesh | None = None) -> Callable:
     """``cached_step(state, dataset, labels_all, idx, valid) -> metrics``:
-    the auto-mode step — :func:`_make_step`'s body itself, so the two
-    cannot drift — on the batch :func:`_gather_batch` takes from the
-    device cache. The host sends a ``[B]`` index and mask a step, not
-    pixels. Auto mode only: ``validate_config`` refuses the cache in spmd
-    mode, as the JAX package does."""
-    step = make_train_step(compute_dtype, bad_step_skip)
+    the auto-mode step over ``mesh`` — :func:`_make_step`'s body itself,
+    so the two cannot drift, with the levers of a placed state — on the
+    batch :func:`_gather_batch` takes from the device cache (its rows
+    sharded over the data axis). The host sends a ``[B]`` index and mask a
+    step, not pixels. Auto mode only: ``validate_config`` refuses the
+    cache in spmd mode and with ``accum_steps``, as the JAX package
+    does."""
+    step = make_train_step(compute_dtype, bad_step_skip, mesh=mesh)
 
     def cached_step(state: TrainState, dataset, labels_all, idx, valid):
-        return step(state, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype))
+        data = data_axis(mesh) if mesh is not None else None
+        return step(state, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype, data))
 
     return cached_step
 
 
-def make_scanned_epoch(compute_dtype: torch.dtype, bad_step_skip: bool = False) -> Callable:
+def make_scanned_epoch(compute_dtype: torch.dtype, bad_step_skip: bool = False, *,
+                       mesh: Mesh | None = None) -> Callable:
     """``epoch_fn(state, dataset, labels_all, idx_all, valid_all) ->
     metrics``: every step of an epoch from device-resident ``[n_steps, B]``
     index and mask tensors (``--scan-epoch``, JAX ``make_scanned_epoch``).
@@ -589,7 +734,7 @@ def make_scanned_epoch(compute_dtype: torch.dtype, bad_step_skip: bool = False) 
     verdict on the host, as the per-step path does; that keeps the state
     after every step the JAX step's. One dispatch an epoch (a CUDA graph)
     is ROADMAP A12's."""
-    step = make_cached_train_step(compute_dtype, bad_step_skip)
+    step = make_cached_train_step(compute_dtype, bad_step_skip, mesh=mesh)
 
     def epoch_fn(state: TrainState, dataset, labels_all, idx_all, valid_all):
         per_step = [step(state, dataset, labels_all, idx, valid)
@@ -599,16 +744,17 @@ def make_scanned_epoch(compute_dtype: torch.dtype, bad_step_skip: bool = False) 
     return epoch_fn
 
 
-def make_cached_eval_step(compute_dtype: torch.dtype) -> Callable:
+def make_cached_eval_step(compute_dtype: torch.dtype, data: Axis | None = None) -> Callable:
     """``cached_eval_step(model, dataset, labels_all, idx, valid) ->
     {loss (sum), correct, count}``: :func:`make_eval_step`'s forward and
     metrics on the batch :func:`_gather_batch` takes from the device cache
-    (JAX ``make_cached_eval_step``); this rank's rows only. The caller
-    puts the model in eval mode."""
+    (JAX ``make_cached_eval_step``), sharded over ``data``; this rank's
+    rows only. The caller puts the model in eval mode."""
     eval_step = make_eval_step(compute_dtype)
 
     @torch.no_grad()
     def cached_eval_step(model: nn.Module, dataset, labels_all, idx, valid):
-        return eval_step(model, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype))
+        return eval_step(model, *_gather_batch(dataset, labels_all, idx, valid, compute_dtype,
+                                               data))
 
     return cached_eval_step

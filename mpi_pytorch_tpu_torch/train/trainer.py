@@ -17,13 +17,28 @@ the JAX package); every rank runs the same number of steps
 syncs them (``train/step.py``: auto mode, or ``spmd_mode``). Logs and
 metrics files are rank 0's. One process is the world of one.
 
+The rank layout (``parallel.mesh.create_mesh``) is made before the
+model. Under ``--mesh.model-parallel`` it is (data, model): each rank
+loads the rows of its data index — ``np.array_split`` shard ``d`` of
+``dp`` and ``batch_size // dp`` rows a step — so the ranks of a model
+group load the same rows, and validation is sharded over the data axis
+the same way.
+
 spmd mode's levers (``--zero-opt-state``, ``--grad-sync-buckets``,
-``--mesh-pods``): the rank layout (``parallel.mesh.create_mesh``) is made
-before the model, the ZeRO optimizer shards over its ZeRO axis, and the
-step syncs over it (``make_spmd_train_step``). The log names the bucket
-plan at the start; after the run's first step, the ledger's bytes of that
-step (``collectives.LEDGER``, reset just before it) and each rank's moment
-MB go into the log and into one ``grad_sync`` metrics record.
+``--mesh-pods``): the ZeRO optimizer shards over the mesh's ZeRO axis,
+and the step syncs over it (``make_spmd_train_step``). The log names the
+bucket plan at the start; after the run's first step, the ledger's bytes
+of that step (``collectives.LEDGER``, reset just before it) and each
+rank's moment MB go into the log and into one ``grad_sync`` metrics
+record.
+
+The auto step's levers (``--mesh.model-parallel``, ``--zero-optimizer``,
+``--fsdp``, ``--accum-steps``): the model is laid out on the mesh
+(``train/state.place_model``) before its optimizer is made, and the step
+runs over the mesh's data axis with ``accum_steps`` microbatches
+(``make_train_step``). After the run's first step the log and one
+``placement`` metrics record give the mesh shape, the ZeRO and FSDP
+shard counts and this rank's parameter and moment MB.
 
 The device cache (``--device-cache``): the train split decoded once into
 device memory, each rank holding a contiguous 1/N of its rows
@@ -55,13 +70,23 @@ from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_f
 from mpi_pytorch_tpu_torch.ops._build import launch_counts
 from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.parallel.mesh import (
+    Axis,
     Mesh,
     create_mesh,
+    data_axis,
+    data_coords,
     is_hierarchical,
     pod_shape,
     zero_shard_axis,
 )
-from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer, moment_bytes
+from mpi_pytorch_tpu_torch.train.state import (
+    TrainState,
+    make_optimizer,
+    moment_bytes,
+    place_model,
+    placed_bytes,
+    sync_state,
+)
 from mpi_pytorch_tpu_torch.train.step import (
     COMPUTE_DTYPES,
     bucket_overlap_frac,
@@ -118,14 +143,15 @@ def _cyclic_fill(images: np.ndarray, n: int) -> np.ndarray:
     return images[np.resize(np.arange(images.shape[0]), n)]
 
 
-def global_step_count(total_examples: int, host_batch: int, drop_remainder: bool) -> int:
+def global_step_count(total_examples: int, host_batch: int, drop_remainder: bool,
+                      shards: int | None = None) -> int:
     """Steps EVERY rank runs per epoch over ``total_examples`` split into
-    ``np.array_split`` shards, one a rank, in batches of ``host_batch``: a
-    rank running one step more than its peers would hang the collective.
-    With ``drop_remainder`` the smallest shard's count (larger shards
-    truncate); without, the largest shard's (exhausted shards feed
-    all-padding batches)."""
-    procs = distributed.world_size()
+    ``shards`` ``np.array_split`` shards (one a data index; the world size
+    by default) in batches of ``host_batch``: a rank running one step more
+    than its peers would hang the collective. With ``drop_remainder`` the
+    smallest shard's count (larger shards truncate); without, the largest
+    shard's (exhausted shards feed all-padding batches)."""
+    procs = shards or distributed.world_size()
     if drop_remainder:
         return (total_examples // procs) // host_batch
     largest = -(-total_examples // procs)
@@ -168,21 +194,29 @@ def to_device(images: np.ndarray, labels: np.ndarray, device: torch.device):
 
 
 def host_batch(cfg: Config) -> int:
-    """This rank's rows a step: the global ``batch_size`` over the world
-    (``validate_world`` checks that it divides)."""
-    return cfg.batch_size // distributed.world_size()
+    """This rank's rows a step: the global ``batch_size`` over the data
+    axis (``validate_world`` checks that it divides)."""
+    return cfg.batch_size // data_coords(cfg.mesh.model_parallel)[0]
 
 
 def validate_world(cfg: Config) -> None:
-    """Raise unless the configuration fits the world: the global batch
-    divides by the rank count, and ``mesh.data_parallel`` is -1 or that
-    count."""
+    """Raise unless the configuration fits the world (the JAX trainer's
+    checks): the layout fits the rank count (``MeshConfig.check_world``),
+    the global batch divides by the data axis, and with ``accum_steps``
+    so does each microbatch."""
     world = distributed.world_size()
-    if cfg.batch_size % world:
-        raise ValueError(
-            f"global batch {cfg.batch_size} not divisible by the world's {world} ranks"
-        )
     cfg.mesh.check_world(world)
+    dp = cfg.mesh.data_size(world)
+    if cfg.batch_size % dp:
+        raise ValueError(
+            f"global batch {cfg.batch_size} not divisible by data-parallel size {dp}; "
+            "sharding the batch over the 'data' axis requires even division"
+        )
+    if cfg.accum_steps > 1 and (cfg.batch_size // cfg.accum_steps) % dp:
+        raise ValueError(
+            f"microbatch {cfg.batch_size}/{cfg.accum_steps} not divisible by "
+            f"data-parallel size {dp}"
+        )
 
 
 def cached_index_batches(
@@ -224,18 +258,19 @@ def build_device_cache(cfg: Config, manifest: Manifest, loader: DataLoader,
     """(dataset, labels): the train split on ``device`` — JAX
     ``build_device_cache``. ``manifest`` is the GLOBAL train manifest, so
     global row i is cache row i on every rank. Its rows are split into
-    contiguous ranges, one a rank: the row count is padded up to a
-    multiple of the world size and rank r holds rows ``[r·P, (r+1)·P)``,
-    P = ⌈n / world⌉; padding rows (zeros) sit past the real count and are
-    never indexed. One rank holds every row. Each rank decodes its own
-    range once, in order (shuffle and drop_remainder off), in the
-    loader's dtype (normalized f32 or raw uint8), into one tensor on
-    ``device``. The labels stay real-length and are replicated: int32
-    [n] on every rank."""
-    world, rank = distributed.world_size(), distributed.rank()
+    contiguous ranges, one a data index (the ranks of a model group hold
+    the same range): the row count is padded up to a multiple of the data
+    size and data index d holds rows ``[d·P, (d+1)·P)``, P = ⌈n / dp⌉;
+    padding rows (zeros) sit past the real count and are never indexed.
+    One rank holds every row. Each rank decodes its own range once, in
+    order (shuffle and drop_remainder off), in the loader's dtype
+    (normalized f32 or raw uint8), into one tensor on ``device``. The
+    labels stay real-length and are replicated: int32 [n] on every
+    rank."""
+    parts, index = data_coords(cfg.mesh.model_parallel)
     n = len(manifest)
-    per = -(-n // world)
-    lo, hi = rank * per, min((rank + 1) * per, n)
+    per = -(-n // parts)
+    lo, hi = index * per, min((index + 1) * per, n)
     local = np.zeros((per, *loader.image_size, 3), loader.image_dtype)
     if hi > lo:
         ordered = DataLoader(
@@ -275,27 +310,35 @@ def make_loader(cfg: Config, manifest: Manifest, *, train: bool) -> DataLoader:
 
 def make_eval_loader(cfg: Config, manifest: Manifest) -> DataLoader:
     """The validation/evaluation loader over this rank's shard of
-    ``manifest``."""
-    shard = manifest.shard(distributed.world_size(), distributed.rank())
+    ``manifest`` (its data index's)."""
+    shard = manifest.shard(*data_coords(cfg.mesh.model_parallel))
     return make_loader(cfg, shard, train=False)
+
+
+def auto_levers(cfg: Config) -> bool:
+    """Whether the auto step's state is laid out on the mesh
+    (``train/state.place_model``): a model axis, ZeRO-1 or FSDP."""
+    return not cfg.spmd_mode and (cfg.mesh.model_parallel > 1 or cfg.zero_optimizer
+                                  or cfg.fsdp)
 
 
 def build_training(cfg: Config, device: torch.device, mesh: Mesh | None = None):
     """(state, (train_manifest, test_manifest, train_loader)): the model
     with seeded weights prepared for training on ``device`` (its
-    batchnorms over the global batch in auto mode, or with
-    ``sync_batchnorm``), its optimizer and schedule over the run's total
-    step count (with ``zero_opt_state``, sharded over ``mesh``'s ZeRO
-    axis; the layout of ``cfg.mesh`` when no mesh is given), and the
-    loader over this rank's shard of the train manifest."""
+    batchnorms over the global batch — over ``mesh``'s data axis — in auto
+    mode, or with ``sync_batchnorm``), laid out on ``mesh`` with the auto
+    step's levers (``place_model``), its optimizer and schedule over the
+    run's total step count (with ``zero_opt_state``, sharded over
+    ``mesh``'s ZeRO axis), and the loader over this rank's shard of the
+    train manifest (its data index's). ``mesh`` defaults to the layout of
+    ``cfg.mesh``."""
     cfg.validate_config()
     validate_world(cfg)
-    zero_axis = None
-    if cfg.zero_opt_state:
-        zero_axis, _ = zero_shard_axis(mesh or create_mesh(cfg.mesh))
+    mesh = mesh or create_mesh(cfg.mesh)
+    zero_axis = zero_shard_axis(mesh)[0] if cfg.zero_opt_state else None
     train_manifest, test_manifest = load_manifests(cfg)
-    # Per-rank shard ≙ the reference's rank-0 scatter (main.py:84-91).
-    shard = train_manifest.shard(distributed.world_size(), distributed.rank())
+    # Per-data-index shard ≙ the reference's rank-0 scatter (main.py:84-91).
+    shard = train_manifest.shard(*data_coords(cfg.mesh.model_parallel))
     loader = make_loader(cfg, shard, train=True)
     bundle = create_model_bundle(
         cfg.model_name, cfg.num_classes, cfg.feature_extract,
@@ -303,38 +346,45 @@ def build_training(cfg: Config, device: torch.device, mesh: Mesh | None = None):
         attn_impl=cfg.attn_impl, qkv_fused=cfg.qkv_fused,
     )
     model = prepare_for_training(bundle.model, device)
-    set_batchnorm_sync(model, not cfg.spmd_mode or cfg.sync_batchnorm)
+    set_batchnorm_sync(model, not cfg.spmd_mode or cfg.sync_batchnorm,
+                       data_axis(mesh) if mesh.model.size > 1 else None)
+    placement = (place_model(model, mesh, fsdp=cfg.fsdp, zero=cfg.zero_optimizer)
+                 if auto_levers(cfg) else None)
     total_steps = (
-        global_step_count(len(train_manifest), host_batch(cfg), cfg.drop_remainder)
+        global_step_count(len(train_manifest), host_batch(cfg), cfg.drop_remainder,
+                          data_coords(cfg.mesh.model_parallel)[0])
         * cfg.num_epochs
     )
     optimizer, schedule = make_optimizer(
         model, cfg.learning_rate, bundle.trainable_mask,
         optimizer=cfg.optimizer, lr_schedule=cfg.lr_schedule,
         warmup_steps=cfg.warmup_steps, total_steps=total_steps,
-        weight_decay=cfg.weight_decay, zero_axis=zero_axis,
+        weight_decay=cfg.weight_decay, zero_axis=zero_axis, placement=placement,
     )
     state = TrainState(
         model=model, optimizer=optimizer, schedule=schedule,
-        generator=torch.Generator().manual_seed(cfg.seed + 1),
+        generator=torch.Generator().manual_seed(cfg.seed + 1), placement=placement,
     )
     return state, (train_manifest, test_manifest, loader)
 
 
 def evaluate_manifest(
-    cfg: Config, model: torch.nn.Module, manifest: Manifest, loader: DataLoader | None = None
+    cfg: Config, model: torch.nn.Module, manifest: Manifest, loader: DataLoader | None = None,
+    data: Axis | None = None,
 ) -> tuple[float, float]:
     """Batched eval over ``manifest`` → (accuracy, mean loss), sharded over
-    the ranks (≙ the reference's rank-0 validation loop, ``main.py:173-185``,
-    using every rank): each rank walks its shard (``loader``, from
-    :func:`make_eval_loader` to reuse one across epochs) in the same
-    number of batches, each padded to :func:`host_batch` rows (label −1
-    rows count nowhere), and the sums are all-reduced once at the end. The
-    model runs in eval mode and returns to the mode it was in."""
+    the data axis ``data`` (the world by default; ≙ the reference's rank-0
+    validation loop, ``main.py:173-185``, using every rank): each rank
+    walks its data index's shard (``loader``, from :func:`make_eval_loader`
+    to reuse one across epochs) in the same number of batches, each padded
+    to :func:`host_batch` rows (label −1 rows count nowhere), and the sums
+    are all-reduced over the data axis once at the end. The model runs in
+    eval mode and returns to the mode it was in."""
     device = next(model.parameters()).device
     eval_step = make_eval_step(COMPUTE_DTYPES[cfg.compute_dtype])
     loader = loader or make_eval_loader(cfg, manifest)
-    n_steps = global_step_count(len(manifest), host_batch(cfg), drop_remainder=False)
+    n_steps = global_step_count(len(manifest), host_batch(cfg), drop_remainder=False,
+                                shards=data_coords(cfg.mesh.model_parallel)[0])
     correct = total = 0
     loss_sum = 0.0
     was_training = model.training
@@ -349,7 +399,7 @@ def evaluate_manifest(
     finally:
         model.train(was_training)
     sums = collectives.all_reduce(
-        torch.tensor([correct, total, loss_sum], dtype=torch.float64, device=device))
+        torch.tensor([correct, total, loss_sum], dtype=torch.float64, device=device), "sum", data)
     correct, total, loss_sum = int(sums[0]), int(sums[1]), float(sums[2])
     if total == 0:
         return 0.0, float("nan")
@@ -357,7 +407,7 @@ def evaluate_manifest(
 
 
 def evaluate_cached(cfg: Config, model: torch.nn.Module, dataset: torch.Tensor,
-                    labels: torch.Tensor) -> tuple[float, float]:
+                    labels: torch.Tensor, data: Axis | None = None) -> tuple[float, float]:
     """(accuracy, mean loss) over the device cache — JAX
     ``evaluate_cached``: :func:`evaluate_manifest`'s accounting, with no
     decode and no host→device copy of pixels. The rows are walked in
@@ -365,9 +415,10 @@ def evaluate_cached(cfg: Config, model: torch.nn.Module, dataset: torch.Tensor,
     masked), each rank evaluating its slice; ``correct``, ``count`` and
     the loss are summed on the device in float64 (as the streaming path
     sums on the host), all-reduced and read once at the end. The real row
-    count is the labels' (the cache's rows carry the world's padding)."""
+    count is the labels' (the cache's rows carry the data axis's padding). The rows
+    and the sums go over the data axis ``data`` (the world by default)."""
     device = dataset.device
-    eval_step = make_cached_eval_step(COMPUTE_DTYPES[cfg.compute_dtype])
+    eval_step = make_cached_eval_step(COMPUTE_DTYPES[cfg.compute_dtype], data)
     n = int(labels.shape[0])
     idx_all, valid_all = epoch_indices(cfg, n, 0, -(-n // cfg.batch_size), device, shuffle=False)
     sums = torch.zeros(3, dtype=torch.float64, device=device)
@@ -379,7 +430,7 @@ def evaluate_cached(cfg: Config, model: torch.nn.Module, dataset: torch.Tensor,
             sums += torch.stack([m[k].double() for k in ("correct", "count", "loss")])
     finally:
         model.train(was_training)
-    correct, total, loss_sum = collectives.all_reduce(sums).tolist()
+    correct, total, loss_sum = collectives.all_reduce(sums, "sum", data).tolist()
     if total == 0:
         return 0.0, float("nan")
     return int(correct) / int(total), loss_sum / total
@@ -455,23 +506,53 @@ def _log_grad_sync(cfg: Config, state: TrainState, mesh: Mesh, logger, metrics: 
     metrics.write(record)
 
 
+def _log_placement(cfg: Config, state: TrainState, mesh: Mesh, logger,
+                   metrics: MetricsWriter, epoch: int, step_i: int) -> None:
+    """After the run's first step (the moments exist): the mesh shape, the
+    ZeRO and FSDP shard counts and this rank's parameter and moment MB, in
+    the log and in one ``placement`` metrics record."""
+    param_b, moment_b = placed_bytes(state)
+    dp = data_axis(mesh).size
+    record = {
+        "kind": "placement", "epoch": epoch, "step": step_i,
+        "mesh": {"data": dp, "model": mesh.model.size},
+        "zero_shards": dp if cfg.zero_optimizer else 1, "fsdp_shards": dp if cfg.fsdp else 1,
+        "accum_steps": cfg.accum_steps,
+        "param_mb_per_rank": param_b / 1e6, "moment_mb_per_rank": moment_b / 1e6,
+    }
+    logger.info(
+        "placement: mesh data %d × model %d%s%s%s; %.2f MB parameters, %.2f MB moments a rank",
+        dp, mesh.model.size,
+        ", TP head (classes split 1/%d over 'model')" % mesh.model.size
+        if mesh.model.size > 1 else "",
+        f", ZeRO-1 moments 1/{dp} over 'data'" if cfg.zero_optimizer else "",
+        f", FSDP parameters 1/{dp} over 'data'" if cfg.fsdp else "",
+        record["param_mb_per_rank"], record["moment_mb_per_rank"],
+    )
+    metrics.write(record)
+
+
 def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> TrainSummary:
-    # The rank layout before the model: a nested one makes its process
-    # groups collectively, and the ZeRO optimizer shards over it.
-    mesh = create_mesh(cfg.mesh) if cfg.spmd_mode else None
+    # The rank layout before the model: a nested or (data, model) one
+    # makes its process groups collectively, and the levers shard over it.
+    mesh = create_mesh(cfg.mesh)
     state, (train_manifest, test_manifest, loader) = build_training(cfg, dev, mesh)
     world, rank = distributed.world_size(), distributed.rank()
+    data = data_axis(mesh)
     logger.info(
         "model %s | %d classes | batch %d | %d train images | %s on %s",
         cfg.model_name, cfg.num_classes, cfg.batch_size, len(train_manifest),
         cfg.compute_dtype, dev,
     )
+    layout = [*mesh.axes, mesh.model] if mesh.model.size > 1 else mesh.axes
     logger.info(
         "data-parallel world %d (process group backend %s), rank %d: %d-row shard, "
-        "%d rows a step, %s mode%s", world, distributed.backend(), rank,
+        "%d rows a step, %s mode%s%s", world, distributed.backend(), rank,
         len(loader.manifest), loader.batch_size,
         "spmd" if cfg.spmd_mode else "auto",
-        f", {' × '.join(f'{a.name} {a.size}' for a in mesh.axes)}" if mesh else "",
+        f", {' × '.join(f'{a.name} {a.size}' for a in layout)}"
+        if cfg.spmd_mode or mesh.model.size > 1 else "",
+        f", {cfg.accum_steps} microbatches a step" if cfg.accum_steps > 1 else "",
     )
     summary = TrainSummary()
     start_epoch = 0
@@ -485,7 +566,7 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             logger.info("resumed from %s (epoch %d, loss %.4f)", path, start_epoch, last_loss)
     # Rank 0's parameters and buffers on every rank, fresh or resumed
     # (≙ the JAX trainer placing its state on the mesh).
-    collectives.sync_params(state.model)
+    sync_state(state)
 
     # A resumed run never demotes a stored best: best.json outlives the run
     # (no marker: any first accuracy wins).
@@ -503,28 +584,33 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
         summary.cache_build_s = time.perf_counter() - t_cache
         logger.info(
             "device cache: %d images, rows sharded over %d rank(s) (%.1f MB/rank %s), "
-            "built in %.2f s", len(train_manifest), world,
+            "built in %.2f s", len(train_manifest), data.size,
             dataset.numel() * dataset.element_size() / 1e6, str(dataset.dtype).split(".")[-1],
             summary.cache_build_s,
         )
         # The global walk's step count: cached batches are global rows.
         n_cache = len(train_manifest)
         n_steps = n_cache // cfg.batch_size if cfg.drop_remainder else -(-n_cache // cfg.batch_size)
-        train_step = make_cached_train_step(dtype, bad_step_skip=skip)
-        epoch_fn = make_scanned_epoch(dtype, bad_step_skip=skip) if cfg.scan_epoch else None
+        train_step = make_cached_train_step(dtype, bad_step_skip=skip, mesh=mesh)
+        epoch_fn = (make_scanned_epoch(dtype, bad_step_skip=skip, mesh=mesh)
+                    if cfg.scan_epoch else None)
     else:
         if cfg.spmd_mode:
             train_step = make_spmd_train_step(
                 dtype, bad_step_skip=skip, zero_opt_state=cfg.zero_opt_state,
                 grad_bucket_mb=cfg.grad_sync_buckets, mesh=mesh)
         else:
-            train_step = make_train_step(dtype, bad_step_skip=skip)
+            train_step = make_train_step(dtype, bad_step_skip=skip, mesh=mesh,
+                                         accum_steps=cfg.accum_steps)
         epoch_fn = None
-        n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder)
+        n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder,
+                                    data.size)
     plan = (_log_bucket_plan(cfg, state, mesh, logger)
             if cfg.spmd_mode and cfg.grad_sync_buckets > 0 else {})
-    # The first step's collective traffic is read from the ledger (spmd).
+    # The first step's collective traffic is read from the ledger (spmd);
+    # the placement is logged after it (the auto levers).
     ledger_pending = cfg.spmd_mode
+    placement_pending = auto_levers(cfg)
     val_loader = None
     total_images = 0
     total_time = 0.0
@@ -580,6 +666,9 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             # as the per-step path would have (JAX: trainer.py:1440-1500).
             if n_steps:
                 arrays = epoch_fn(state, dataset, labels_all, idx_all, valid_all)
+                if placement_pending:
+                    placement_pending = False
+                    _log_placement(cfg, state, mesh, logger, metrics, epoch, 0)
                 host = {k: v.tolist() for k, v in arrays.items()}
                 for step_i in range(n_steps):
                     settle(step_i, {k: v[step_i] for k, v in host.items()})
@@ -597,6 +686,9 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
                 if ledger_pending:
                     ledger_pending = False
                     _log_grad_sync(cfg, state, mesh, logger, metrics, plan, epoch, step_i)
+                if placement_pending:
+                    placement_pending = False
+                    _log_placement(cfg, state, mesh, logger, metrics, epoch, step_i)
                 if pending is not None:
                     settle(*pending)
                 pending = (step_i, m)
@@ -634,11 +726,11 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
             launches0 = launch_counts()
             if cfg.device_cache and cfg.val_on_train:
                 # The cached train set is the validation set.
-                acc, vloss = evaluate_cached(cfg, state.model, dataset, labels_all)
+                acc, vloss = evaluate_cached(cfg, state.model, dataset, labels_all, data)
             else:
                 if val_loader is None:
                     val_loader = make_eval_loader(cfg, val_manifest)
-                acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader)
+                acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader, data)
             summary.val_accuracy = acc
             logger.info("Accuracy of the network: %.4f (val_on_train=%s)", acc, cfg.val_on_train)
             metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss,

@@ -19,12 +19,19 @@
   ``hier_all_gather``, ``hier_psum`` and ``hier_pmean`` over leaves whose
   sizes the axes do not divide, and the bytes each books in the ledger,
   ici or dcn, by the ring cost model.
+- In the same four-rank world laid out as (data 2, model 2)
+  (``MeshConfig(model_parallel=2)``): every reduction over its axis — the
+  data axis sums the ranks of one model index, the model axis those of
+  one data index — and the auto levers' autograd pieces against numpy
+  sums: ``copy_to_model``'s backward, and the FSDP gather
+  ``gather_shards`` (rows, a channels-last convolution and columns) with
+  its reduce-scatter backward and its ledger bytes.
 - The data-parallel config fields: the names, defaults and flags of the
   JAX ``Config``'s (``--mesh.data-parallel`` …), and its refusals — every
   combination the JAX ``validate_config`` refuses, the port refuses too
-  (the spmd levers in the JAX words, ``tests/test_torch_grad_sync.py``),
-  and every lever the port does not run yet (axis names, a model axis,
-  pipeline stages, the auto step's ZeRO, FSDP) is refused by name.
+  (the levers in the JAX words, ``tests/test_torch_grad_sync.py`` and
+  ``tests/test_torch_accum.py``), and every knob the port does not run
+  yet (axis names, pipeline stages) is refused by name.
 """
 
 import dataclasses
@@ -219,7 +226,74 @@ def test_reduce_scatter_and_slice_gather_on_two_ranks(two_ranks):
 def hier_collectives_worker(_) -> dict:
     distributed.maybe_initialize_distributed(torch.device("cpu"))
     return {"rank": distributed.rank(),
-            "levers": _lever_collectives(create_mesh(MeshConfig(pods=2)))}
+            "levers": _lever_collectives(create_mesh(MeshConfig(pods=2))),
+            "axes": _axis_collectives(create_mesh(MeshConfig(model_parallel=2)))}
+
+
+def _weights() -> dict[str, torch.Tensor]:
+    """Whole small-integer tensors the FSDP gather splits: along dim 0, a
+    channels-last 4-D one along dim 0, and along dim 1."""
+    return {
+        "rows": torch.arange(12, dtype=torch.float32).reshape(4, 3),
+        "conv": (torch.arange(72, dtype=torch.float32).reshape(4, 2, 3, 3) - 30).contiguous(
+            memory_format=torch.channels_last),
+        "cols": torch.arange(12, dtype=torch.float32).reshape(3, 4) * 2 - 5,
+    }
+
+
+WEIGHT_DIMS = {"rows": 0, "conv": 0, "cols": 1}
+
+
+def _coeff(name: str, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s upstream gradient for the gathered ``name``."""
+    w = _weights()[name]
+    return torch.arange(w.numel(), dtype=torch.float32).reshape(w.shape) % 5 + rank
+
+
+def _axis_collectives(mesh) -> dict:
+    """The axis-aware reductions and the auto levers' autograd pair on the
+    (data, model) layout: rank ``d·2 + m``."""
+    rank = distributed.rank()
+    data, model = mesh.axes[0], mesh.model
+    x = _x(rank)
+    out = {"coords": (data.index, model.index),
+           "data_sum": collectives.all_reduce(x, "sum", data).numpy(),
+           "model_sum": collectives.all_reduce(x, "sum", model).numpy(),
+           "model_max": collectives.all_reduce(x, "max", model).numpy(),
+           "data_gather": collectives.all_gather(x, data).numpy(),
+           "model_gather": collectives.all_gather(x, model).numpy()}
+    leaf = (torch.tensor([1.0, 2.0]) * (rank + 1)).requires_grad_(True)
+    collectives.sum_over_ranks(leaf.square(), data).sum().backward()
+    out["sum_over_data_grad"] = (leaf.detach().numpy(), leaf.grad.numpy())
+    mixed = [x.clone(), torch.tensor([rank + 1], dtype=torch.int64)]
+    collectives.all_reduce_(mixed, "sum", axis=model)
+    out["coalesced_model"] = [t.numpy() for t in mixed]
+    lin = nn.Linear(3, 2)
+    lin.weight.grad, lin.bias.grad = x.clone(), torch.full((2,), float(rank + 1))
+    collectives.sum_grads(lin, data)
+    out["sum_grads_data"] = lin.weight.grad.numpy().copy()
+    lin.weight.grad, lin.bias.grad = x.clone(), torch.full((2,), float(rank + 1))
+    collectives.avg_grads(lin, model)
+    out["avg_grads_model"] = lin.bias.grad.numpy().copy()
+    b = [x.clone()]
+    collectives.broadcast_from(b, root=1, axis=data)
+    out["broadcast_data"] = b[0].numpy()
+    feats = torch.ones(2, 3, requires_grad=True)
+    (collectives.copy_to_model(feats, model) * (model.index + 1)).sum().backward()
+    out["copy_to_model_grad"] = feats.grad.numpy()
+    out["gather"] = {}
+    for name, whole in _weights().items():
+        dim = WEIGHT_DIMS[name]
+        k = whole.shape[dim] // data.size
+        shard = whole.narrow(dim, data.index * k, k).clone().requires_grad_(True)
+        collectives.LEDGER.reset()
+        gathered = collectives.gather_shards(shard, data, dim)
+        (gathered * _coeff(name, rank)).sum().backward()
+        out["gather"][name] = {
+            "whole": gathered.detach().numpy(), "grad": shard.grad.numpy(),
+            "channels_last": gathered.is_contiguous(memory_format=torch.channels_last),
+            "ledger": collectives.LEDGER.snapshot()["ici"]["by_op"]}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -268,6 +342,57 @@ def test_hierarchical_collectives_book_ici_and_dcn(four_ranks):
         ledger = got["hier_all_gather"][1]
         assert ledger["ici"]["by_op"] == {"all_gather": _ring("all_gather", 2, 3 * 2 * 2 * 4)}
         assert ledger["dcn"]["bytes"] == 0
+
+
+def test_axis_aware_reductions_on_a_two_by_two_layout(four_ranks):
+    """Rank d·2 + m of ``MeshConfig(model_parallel=2)``: a reduction over
+    the data axis sums the ranks of one model index, one over the model
+    axis those of one data index — never the world; the autograd sum's
+    backward sums over its axis only; the broadcast takes the data axis's
+    rank 1."""
+    xs = {r: _x(r).numpy() for r in range(4)}
+    for out in four_ranks:
+        r = out["rank"]
+        d, m = divmod(r, 2)
+        got = out["axes"]
+        assert got["coords"] == (d, m)
+        np.testing.assert_array_equal(got["data_sum"], xs[m] + xs[2 + m])
+        np.testing.assert_array_equal(got["model_sum"], xs[2 * d] + xs[2 * d + 1])
+        np.testing.assert_array_equal(got["model_max"], np.maximum(xs[2 * d], xs[2 * d + 1]))
+        np.testing.assert_array_equal(got["data_gather"], np.concatenate([xs[m], xs[2 + m]]))
+        np.testing.assert_array_equal(got["model_gather"],
+                                      np.concatenate([xs[2 * d], xs[2 * d + 1]]))
+        leaf, grad = got["sum_over_data_grad"]
+        np.testing.assert_array_equal(grad, 2 * leaf * 2)
+        np.testing.assert_array_equal(got["coalesced_model"][0], xs[2 * d] + xs[2 * d + 1])
+        np.testing.assert_array_equal(got["coalesced_model"][1], [4 * d + 3])
+        np.testing.assert_array_equal(got["sum_grads_data"], xs[m] + xs[2 + m])
+        np.testing.assert_array_equal(got["avg_grads_model"], [2 * d + 1.5] * 2)
+        np.testing.assert_array_equal(got["broadcast_data"], xs[2 + m])
+        np.testing.assert_array_equal(got["copy_to_model_grad"], np.full((2, 3), 3.0))
+
+
+@pytest.mark.parametrize("name", list(WEIGHT_DIMS))
+def test_fsdp_gather_and_its_reduce_scatter(four_ranks, name):
+    """``gather_shards`` over the data axis: every rank holds the whole
+    tensor (a channels-last block gathers channels-last); the backward
+    gives each rank its block of the sum of the data axis's upstream
+    gradients (the model axis's other rank is not in it); the ledger books
+    one all-gather and one reduce-scatter of the whole tensor over 2."""
+    whole = _weights()[name]
+    dim = WEIGHT_DIMS[name]
+    for out in four_ranks:
+        d, m = divmod(out["rank"], 2)
+        got = out["axes"]["gather"][name]
+        np.testing.assert_array_equal(got["whole"], whole.numpy())
+        assert got["channels_last"] == (name == "conv")
+        total = (_coeff(name, m) + _coeff(name, 2 + m)).numpy()
+        k = whole.shape[dim] // 2
+        np.testing.assert_array_equal(got["grad"], np.take(total, range(d * k, (d + 1) * k),
+                                                           axis=dim))
+        nbytes = whole.numel() * 4
+        assert got["ledger"] == {"all_gather": _ring("all_gather", 2, nbytes),
+                                 "reduce_scatter": _ring("reduce_scatter", 2, nbytes)}
 
 
 def test_one_process_is_the_identity(monkeypatch):
@@ -377,6 +502,15 @@ def test_mesh_fields_and_flags_match_jax(monkeypatch):
 
 
 NOT_PORTED = "not ported yet (ROADMAP A7)"
+
+
+def _ported(overrides: dict, port_error: str | None):
+    """A case whose knob was refused as not ported when this table was
+    written and is ported now: its id is kept, its expectation is JAX's
+    (accepted, or refused in JAX's words)."""
+    return pytest.param(overrides, port_error, id=f"{overrides}-{NOT_PORTED}")
+
+
 CASES = [
     ({}, None),
     ({"spmd_mode": True}, None),
@@ -384,21 +518,21 @@ CASES = [
     ({"spmd_mode": True, "sync_batchnorm": True}, None),
     ({"mesh.data_parallel": 2}, None),
     ({"mesh.data_parallel": 0}, "must be -1"),
-    ({"spmd_mode": True, "zero_optimizer": True}, NOT_PORTED),
-    ({"zero_optimizer": True}, NOT_PORTED),
+    _ported({"spmd_mode": True, "zero_optimizer": True}, "zero_optimizer shards Adam moments"),
+    _ported({"zero_optimizer": True}, None),
     ({"zero_opt_state": True}, "zero_opt_state shards"),
     ({"spmd_mode": True, "zero_opt_state": True}, None),
     ({"grad_sync_buckets": -1.0}, "grad_sync_buckets is a bucket size"),
     ({"grad_sync_buckets": 25.0}, "grad_sync_buckets stages"),
     ({"spmd_mode": True, "grad_sync_buckets": 25.0}, None),
-    ({"fsdp": True}, NOT_PORTED),
-    ({"spmd_mode": True, "fsdp": True}, NOT_PORTED),
-    ({"mesh.model_parallel": 2}, NOT_PORTED),
-    ({"spmd_mode": True, "mesh.model_parallel": 2}, NOT_PORTED),
+    _ported({"fsdp": True}, None),
+    _ported({"spmd_mode": True, "fsdp": True}, "fsdp shards params via"),
+    _ported({"mesh.model_parallel": 2}, None),
+    _ported({"spmd_mode": True, "mesh.model_parallel": 2}, "spmd_mode is pure data-parallel"),
     ({"mesh.pods": 2}, "requires spmd_mode"),
     ({"spmd_mode": True, "mesh.pods": 2}, None),
     ({"mesh.pipe_parallel": 2}, NOT_PORTED),
-    ({"mesh.model_parallel": 0}, NOT_PORTED),
+    _ported({"mesh.model_parallel": 0}, "model_parallel must be >= 1"),
     ({"mesh.model_axis": "tp"}, NOT_PORTED),
     ({"mesh.data_axis": "batch"}, NOT_PORTED),
 ]

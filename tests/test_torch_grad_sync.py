@@ -655,12 +655,21 @@ def test_lever_refusals_are_jax_words(overrides):
 
 
 def test_levers_compose_and_the_rest_stay_refused():
+    """The spmd levers compose; the auto step's levers are refused with
+    spmd mode in the JAX ``validate_config``'s words, and the pipe axis
+    is still not ported."""
+    from mpi_pytorch_tpu import config as jc
+
     Config(spmd_mode=True, zero_opt_state=True, grad_sync_buckets=25.0,
            mesh=MeshConfig(pods=2)).validate_config()
-    for overrides in ({"zero_optimizer": True}, {"fsdp": True}, {"mesh.model_parallel": 2},
-                      {"mesh.pipe_parallel": 2}):
-        with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP A7\)"):
+    for overrides in ({"zero_optimizer": True}, {"fsdp": True}, {"mesh.model_parallel": 2}):
+        with pytest.raises(ValueError) as jax_error:
+            _apply(jc.Config(spmd_mode=True), overrides).validate_config()
+        with pytest.raises(ValueError) as port_error:
             _apply(Config(spmd_mode=True), overrides).validate_config()
+        assert str(port_error.value) == str(jax_error.value)
+    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP A7\)"):
+        _apply(Config(spmd_mode=True), {"mesh.pipe_parallel": 2}).validate_config()
 
 
 def test_mesh_pods_alias_and_world_divisibility(monkeypatch):

@@ -173,8 +173,8 @@ def test_train_aborts_on_a_non_finite_step(tmp_path, monkeypatch):
     cfg = _cfg(tmp_path, validate=False)
     real = trainer.make_train_step
 
-    def poisoned(dtype, bad_step_skip=False):
-        step = real(dtype, bad_step_skip)
+    def poisoned(dtype, bad_step_skip=False, **kw):
+        step = real(dtype, bad_step_skip, **kw)
 
         def run(state, images, labels):
             m = step(state, images, labels)
