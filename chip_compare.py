@@ -169,7 +169,7 @@ def _k4(lib, feats, w, bias, labels, geometry) -> tuple[torch.Tensor, torch.Tens
     from mpi_pytorch_tpu_torch.ops import _build
 
     bsz = feats.shape[0]
-    n_split, per_split = geometry
+    n_split, per_split, _, rows = geometry
     dev = feats.device
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
@@ -178,7 +178,7 @@ def _k4(lib, feats, w, bias, labels, geometry) -> tuple[torch.Tensor, torch.Tens
     rc = lib.mpt_head_predict_f32(feats.data_ptr(), w.data_ptr(), bias.data_ptr(), labels.data_ptr(),
                                   loss.data_ptr(), pred.data_ptr(), part_mlp.data_ptr(),
                                   part_arg.data_ptr(), bsz, feats.shape[1], w.shape[0], n_split,
-                                  per_split, _build.stream(dev))
+                                  per_split, rows, _build.stream(dev))
     _build.check(rc, "mpt_head_predict_f32")
     return loss, pred
 
@@ -197,7 +197,7 @@ def compare_k4(parent, dev, gen) -> None:
         labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
         labels[::7] = -1
         labels = labels.to(dev)
-        geo = fh.tc_geometry(bsz, D, V, 4, sms, "chip_compare")
+        geo = fh.tc_geometry(bsz, D, V, 4, sms)
         runs = {"parent": (parent, geo), "this": (this, geo)}
         ref_loss, ref_pred = fh.head_predict_reference(feats, w, bias, labels)
         top2 = torch.topk(fh._logits(feats, w, bias), 2, dim=-1).values

@@ -142,7 +142,7 @@ Phases (any failure raises and the script exits non-zero):
    head (K4 on the gathered head), its CSV against a world of one's by the
    f32 serving rule (equal on every row not within ``E2E_GAP_F32`` of a
    tie);
-7. the same for vit_s16 at full width and depth, two epochs each:
+7. the same for vit_s16 at full width and depth, one epoch each:
    ``--attn-impl fused-small`` at 128 px (K9's tensor-core kernel in every
    block's forward, K10's in every block's backward) and ``flash`` at 224 px
    (K8's tensor-core kernel), each with its launches counted exactly (K9's
@@ -159,6 +159,22 @@ Phases (any failure raises and the script exits non-zero):
 9. where a training step's time goes, for resnet18 and both vit_s16
    configurations: the host loader alone, the host's enqueue time against
    the card's, and a ``torch.profiler`` breakdown of the card's busy time.
+
+10. the rest of the CNN zoo (``zoo``): the predict heads at the zoo's
+   widths — K4 bf16 at D = 1024, 1280, 2048, 4096, K4 f32 and K7 at
+   4096, each at B = 64 and 512 — against their plain versions (the
+   route against the library's, the streamed route's own counter, two
+   calls bitwise equal, timed beside the cuBLAS GEMM), exact ties at
+   D = 4096; two bf16 training steps of each of the seven zoo CNNs at full
+   width (64 500 classes, 128 px, inception_v3 299 px; dropout on; finite
+   losses; densenet121's K2 and K3 once a step; inception's loss CE +
+   0.4·CE(aux) from the step's own outputs); densenet121 through ``python
+   -m mpi_pytorch_tpu_torch.train --fused-stem true`` and ``.evaluate
+   --fused-head-eval true`` (K2/K3 once a step, K1 in validation and
+   evaluation, K4 once a batch; the CSV by the serving rule against the
+   plain path's); vgg11_bn's fused evaluate on the streamed route (the
+   same rule) and its ``--quantize-eval`` (K7 streamed); squeezenet1_0's
+   fallback (no K4 launch, the warning, the plain path's CSV exactly).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
@@ -186,7 +202,7 @@ import torch
 V, D = 64500, 512  # the headline head: 64 500 classes over 512 features
 STEM_SHAPE = (512, 64, 64, 64)  # conv1 output at bucket 512, 128 px, NHWC
 STEM_TRAIN_SHAPE = (128, 64, 64, 64)  # conv1 output at the training batch, NHWC
-FLOOD, SINGLES = 1000, 16
+FLOOD, SINGLES = 512, 16  # 1 000 before phase 10 needed the time
 # A served answer must equal the plain path's wherever the plain top-2 gap
 # exceeds this share of |max|: a little above one bf16 rounding step
 # (2^-7 = 7.8e-3 relative), the resolution the activations carry.
@@ -215,9 +231,9 @@ FLASH_LONG_SHAPE = (4, 1024, 6, 64)
 # attn_impl → image size of each vit_s16 training configuration.
 VIT_RUNS = {"fused-small": 128, "flash": 224}
 VIT_BLOCKS = 12
-# Two epochs, as for resnet18: the first pays the synthetic rows' making,
-# so the second gives the steady img/s.
-VIT_EPOCHS = 2
+# One epoch (two before phase 10 needed the time): every check
+# holds on it; its img/s includes the synthetic rows' making.
+VIT_EPOCHS = 1
 VIT_FLOOD = 256
 # Step-1 gradient gap (relative L2) allowed between the attention kernels
 # and their plain versions inside the f32 vit train step: ten times the
@@ -274,7 +290,9 @@ def device_ms(fn, iters: int) -> float:
     the profiler has returned a fifth of K10's and two thirds of SDPA's) is
     taken again, up to three times; if every trace lost some, the fullest
     one gives each kernel's mean time, counted max(1, round(seen / iters))
-    times a call."""
+    times a call. If no trace holds a kernel at all (on the H100 the
+    profiler has returned three empty traces in a row), the CUDA events'
+    time of the calls (:func:`time_ms`) stands in, and is logged as such."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -293,6 +311,10 @@ def device_ms(fn, iters: int) -> float:
         log({"device_ms_retake": {"attempt": attempt, "counts": {e.key[:60]: e.count for e in kernels}}})
         if fullest is None or sum(e.count for e in kernels) > sum(e.count for e in fullest):
             fullest = kernels
+    if not any(e.count for e in fullest):
+        ms = time_ms(fn, iters)
+        log({"device_ms_from_events": ms})
+        return ms
     busy_us = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
                   for e in fullest if e.count)
     return busy_us / 1e3
@@ -776,28 +798,28 @@ def check_head_ties(dev, gen) -> None:
             _check_ties(dev, gen, bsz, dtype)
 
 
-def _check_ties(dev, gen, bsz: int, dtype) -> None:
-    """One batch and head (bf16, f32 or int8) of :func:`check_head_ties`."""
+def _check_ties(dev, gen, bsz: int, dtype, d: int = D) -> None:
+    """One batch and head (bf16, f32 or int8) of :func:`check_head_ties`,
+    at head width ``d``."""
     from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
     from mpi_pytorch_tpu_torch.ops import quantize as qz
 
     elem = torch.finfo(dtype).bits // 8 if dtype.is_floating_point else 1
-    _, tiles_per_split = fh.tc_geometry(bsz, D, V, elem, fh._num_sms(dev.index),
-                                        "check_head_ties")
+    _, tiles_per_split, route, _ = fh.tc_geometry(bsz, d, V, elem, fh._num_sms(dev.index))
     last = (V - 1) // 128 * 128  # the ragged last tile's first column
     split_end = tiles_per_split * 128
     pairs = [(127, 128), (256, 258), (384, 392), (130, 386), (520, 600), (1000, 9000),
              (last + 3, V - 2)]
     if all(split_end not in pair for pair in pairs):
         pairs.append((split_end - 1, split_end))
-    w = 0.05 * torch.randn(V, D, generator=gen)
+    w = 0.05 * torch.randn(V, d, generator=gen)
     bias = 0.1 * torch.randn(V, generator=gen)
-    signs = torch.where(torch.rand(len(pairs), D, generator=gen) < 0.5, -1.0, 1.0)
+    signs = torch.where(torch.rand(len(pairs), d, generator=gen) < 0.5, -1.0, 1.0)
     for p, (a, b) in enumerate(pairs):
         w[a] = w[b] = 0.1 * signs[p]
         bias[b] = bias[a]
     which = torch.arange(bsz) % len(pairs)
-    feats = signs[which] * torch.rand(bsz, D, generator=gen)
+    feats = signs[which] * torch.rand(bsz, d, generator=gen)
     labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
     labels[::7] = -1
     first = torch.tensor([pairs[p][0] for p in which.tolist()], dtype=torch.int32)
@@ -817,7 +839,7 @@ def _check_ties(dev, gen, bsz: int, dtype) -> None:
         name = "head_predict_int8"
     _, pred = call()
     torch.cuda.synchronize()
-    what = f"{name} ties B={bsz}"
+    what = f"{name} ties B={bsz} D={d} ({route})"
     if not torch.equal(ref, first):
         raise AssertionError(f"{what}: the plain argmax misses the pairs' first columns")
     if not torch.equal(pred, ref):
@@ -825,7 +847,7 @@ def _check_ties(dev, gen, bsz: int, dtype) -> None:
         raise AssertionError(f"{what}: rows {bad} picked {pred[bad].tolist()}, "
                              f"want {ref[bad].tolist()}")
     _bitwise_twice(call, what)
-    log({"head_tie_check": {"name": name, "batch": bsz, "pairs": pairs,
+    log({"head_tie_check": {"name": name, "batch": bsz, "d": d, "route": route, "pairs": pairs,
                             "tiles_per_split": tiles_per_split, "rows_equal": bsz}})
 
 
@@ -2384,7 +2406,7 @@ def _dp_cached_check(dev, ranks: list[dict], card: str) -> None:
         if not np.allclose(r["cached_losses"], cached_losses, rtol=1e-4, atol=0):
             raise AssertionError(f"rank {r['rank']}: cached losses {r['cached_losses']} "
                                  f"against one process's {cached_losses}")
-    log({"dp_gloo_cached": {
+    log({"dp_gloo_cached": {"timing": BESIDE,
         "card": card, "rows_per_rank": ranks[0]["cache_rows"],
         "losses": ranks[0]["cached_losses"], "one_process_losses": cached_losses,
         "max_rel_gap": max(abs(a / b - 1) for r in ranks
@@ -2432,56 +2454,61 @@ def data_parallel(dev, fused_run: dict) -> dict:
     torch.cuda.empty_cache()  # the subprocesses share the card
     out = {"card": card_report().splitlines()[0]}
     libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = _dp_cli(tmp)
-        train_s, _ = _torchrun("mpi_pytorch_tpu_torch.train", argv, 900)
-        with open(os.path.join(tmp, "training.log")) as f:
-            log_text = f.read()
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        if f"world 1 (process group backend {backend})" not in log_text:
-            raise AssertionError(f"torchrun train: no {backend} world of one in the log")
-        records = _records(os.path.join(tmp, "metrics.jsonl"))
-        steps = [r for r in records if r["kind"] == "step"]
-        (epoch,) = [r for r in records if r["kind"] == "epoch"]
-        (val,) = [r for r in records if r["kind"] == "val"]
-        val_batches = -(-(TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH) // TRAIN_BATCH)
-        want = {"fused_stem.argmax_counter": len(steps), "fused_stem.backward_counter": len(steps)}
-        if len(steps) != TRAIN_STEPS_PER_EPOCH or epoch.get("launches") != want:
-            raise AssertionError(f"torchrun train: {len(steps)} steps, launches {epoch}")
-        if val.get("launches") != {"fused_stem.counter": val_batches}:
-            raise AssertionError(f"torchrun train validation: {val}")
-        saved = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
-        if saved != ["ckpt_00000.pt"]:
-            raise AssertionError(f"torchrun train: checkpoints {saved}")
-        gap = abs(steps[0]["loss"] / fused_run["step_losses"][0] - 1)
-        if gap > 1e-3:
-            raise AssertionError(f"torchrun step-1 loss {steps[0]['loss']} against the "
-                                 f"one-process run's {fused_run['step_losses'][0]}")
-        csv_path = os.path.join(tmp, "predictions.csv")
-        eval_s, _ = _torchrun("mpi_pytorch_tpu_torch.evaluate",
-                              argv + ["--fused-head-eval", "true", "--predictions-file", csv_path],
-                              600)
-        (ev,) = [r for r in _records(os.path.join(tmp, "metrics.jsonl")) if r["kind"] == "eval"]
-        test_m = load_manifests(_train_cfg(tmp))[1]
-        batches = -(-len(test_m) // TRAIN_BATCH)
-        if ev.get("launches") != {"fused_stem.counter": batches, "fused_head_ce.counter": batches}:
-            raise AssertionError(f"torchrun evaluate: {ev}")
-        with open(csv_path) as f:
-            header, *rows = f.read().splitlines()
-        if [r.split(",")[0] for r in rows] != list(test_m.filenames):
-            raise AssertionError(f"torchrun evaluate CSV: {len(rows)} rows, {header!r}")
-        if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != libs:
-            raise AssertionError("the torchrun runs built the kernel library again")
-        one_epoch0 = TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH / fused_run["epoch_times_s"][0]
-        out["torchrun_world1"] = {
-            "train_wall_s": train_s, "evaluate_wall_s": eval_s,
-            "img_per_s": epoch["images_per_sec"], "one_process_epoch0_img_per_s": one_epoch0,
-            "step1_loss": steps[0]["loss"], "step1_rel_gap": gap,
-            "launches": {"train": epoch["launches"], "val": val["launches"],
-                         "evaluate": ev["launches"]},
-            "accuracy": ev["accuracy"],
-        }
-    log({"dp_torchrun": out})
+
+    def world_of_one() -> dict:
+        """(a), run beside (b) in a thread (phase 10 needed the time);
+        (b)'s walls and shares are read with it running."""
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = _dp_cli(tmp)
+            train_s, _ = _torchrun("mpi_pytorch_tpu_torch.train", argv, 900)
+            with open(os.path.join(tmp, "training.log")) as f:
+                log_text = f.read()
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            if f"world 1 (process group backend {backend})" not in log_text:
+                raise AssertionError(f"torchrun train: no {backend} world of one in the log")
+            records = _records(os.path.join(tmp, "metrics.jsonl"))
+            steps = [r for r in records if r["kind"] == "step"]
+            (epoch,) = [r for r in records if r["kind"] == "epoch"]
+            (val,) = [r for r in records if r["kind"] == "val"]
+            val_batches = -(-(TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH) // TRAIN_BATCH)
+            want = {"fused_stem.argmax_counter": len(steps), "fused_stem.backward_counter": len(steps)}
+            if len(steps) != TRAIN_STEPS_PER_EPOCH or epoch.get("launches") != want:
+                raise AssertionError(f"torchrun train: {len(steps)} steps, launches {epoch}")
+            if val.get("launches") != {"fused_stem.counter": val_batches}:
+                raise AssertionError(f"torchrun train validation: {val}")
+            saved = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
+            if saved != ["ckpt_00000.pt"]:
+                raise AssertionError(f"torchrun train: checkpoints {saved}")
+            gap = abs(steps[0]["loss"] / fused_run["step_losses"][0] - 1)
+            if gap > 1e-3:
+                raise AssertionError(f"torchrun step-1 loss {steps[0]['loss']} against the "
+                                     f"one-process run's {fused_run['step_losses'][0]}")
+            csv_path = os.path.join(tmp, "predictions.csv")
+            eval_s, _ = _torchrun("mpi_pytorch_tpu_torch.evaluate",
+                                  argv + ["--fused-head-eval", "true", "--predictions-file", csv_path],
+                                  600)
+            (ev,) = [r for r in _records(os.path.join(tmp, "metrics.jsonl")) if r["kind"] == "eval"]
+            test_m = load_manifests(_train_cfg(tmp))[1]
+            batches = -(-len(test_m) // TRAIN_BATCH)
+            if ev.get("launches") != {"fused_stem.counter": batches, "fused_head_ce.counter": batches}:
+                raise AssertionError(f"torchrun evaluate: {ev}")
+            with open(csv_path) as f:
+                header, *rows = f.read().splitlines()
+            if [r.split(",")[0] for r in rows] != list(test_m.filenames):
+                raise AssertionError(f"torchrun evaluate CSV: {len(rows)} rows, {header!r}")
+            if sorted(p.name for p in _build.BUILD_DIR.glob("*.so")) != libs:
+                raise AssertionError("the torchrun runs built the kernel library again")
+            one_epoch0 = TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH / fused_run["epoch_times_s"][0]
+            return {
+                "train_wall_s": train_s, "evaluate_wall_s": eval_s,
+                "img_per_s": epoch["images_per_sec"], "one_process_epoch0_img_per_s": one_epoch0,
+                "step1_loss": steps[0]["loss"], "step1_rel_gap": gap,
+                "launches": {"train": epoch["launches"], "val": val["launches"],
+                             "evaluate": ev["launches"]},
+                "accuracy": ev["accuracy"],
+            }
+
+    cli = _Beside(world_of_one)
 
     t0 = time.perf_counter()
     shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
@@ -2520,16 +2547,18 @@ def data_parallel(dev, fused_run: dict) -> dict:
                              f"the count-weighted mean {weighted} of {ranks[0]['spmd_local']}, "
                              f"{ranks[1]['spmd_local']}")
     _dp_cached_check(dev, ranks, out["card"])
+    out["torchrun_world1"] = cli.result()
+    log({"dp_torchrun": {"timing": BESIDE, **out}})
     prof = ranks[0]["profile"]
     coll_ms = sum(prof["collectives_host_ms"].values())
-    log({"dp_allreduce_share": {
+    log({"dp_allreduce_share": {"timing": BESIDE,
         "card": out["card"], "ranks": DP_RANKS, "backend": "gloo", "dtype": "float32",
         "rows_per_rank": TRAIN_BATCH // DP_RANKS, "classes": V, "image": IMG, **prof,
         "collectives_share_of_step_wall": coll_ms / prof["step_wall_ms"],
         "memcpy_share_of_card_busy": (prof["memcpy_card_ms"] / prof["card_busy_ms"]
                                       if prof["card_busy_ms"] else None),
     }})
-    log({"dp_gloo_two_ranks": {
+    log({"dp_gloo_two_ranks": {"timing": BESIDE,
         "losses": ranks[0]["losses"], "one_process_losses": losses,
         "grad_norm_step1": ranks[0]["grad_norms"][0],
         "one_process_grad_norm_step1": float(ref[0]["grad_norm"]),
@@ -2677,6 +2706,37 @@ def lever_rank(payload: dict) -> dict:
     return out
 
 
+# Beside each timed record of phases 6c, 6d and 6e: their entry point's
+# world of one runs in a thread beside their gloo ranks, so the walls,
+# shares and img/s of both are read with another training process on the
+# card, and do not compare with runs that took the two one after the
+# other.
+BESIDE = "read with the phase's other training process on the card"
+
+
+class _Beside(threading.Thread):
+    """``fn(*args)`` in a thread, so that an entry point's run (a
+    subprocess) goes on beside the phase's gloo ranks: :meth:`result`
+    joins it and returns its value or raises its exception."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self._fn, self._args, self._out, self._err = fn, args, None, None
+        self.start()
+
+    def run(self) -> None:
+        try:
+            self._out = self._fn(*self._args)
+        except BaseException as e:  # noqa: BLE001 — re-raised by result()
+            self._err = e
+
+    def result(self):
+        self.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
 def _lever_torchrun(dev, card: str) -> dict:
     """Phase 6d (a): ``torchrun --nproc-per-node 1 -m
     mpi_pytorch_tpu_torch.train --spmd-mode true --zero-opt-state true
@@ -2769,8 +2829,10 @@ def grad_sync_levers(dev) -> dict:
     t_phase = time.perf_counter()
     card = card_report().splitlines()[0]
     torch.cuda.empty_cache()
-    out = {"torchrun": _lever_torchrun(dev, card)}
-    log({"lever_torchrun": out["torchrun"]})
+    # The entry point's world of one runs beside the gloo ranks (phase 10
+    # needed the time); the ranks' walls are read with it running.
+    cli = _Beside(_lever_torchrun, dev, card)
+    out = {}
     shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
     t0 = time.perf_counter()
     two = run_world("chip_smoke:lever_rank", 2,
@@ -2778,7 +2840,7 @@ def grad_sync_levers(dev) -> dict:
                     timeout_s=600)
     _check_lever_world(two, LEVER_RUNS_2, 1e-6, "two ranks")
     r0 = two[0]["runs"]
-    log({"lever_two_ranks": {
+    log({"lever_two_ranks": {"timing": BESIDE,
         "card": card, "backend": "gloo", "rows_per_rank": TRAIN_BATCH // 2, "dtype": "float32",
         "losses": {k: v["losses"] for k, v in r0.items()},
         "max_abs_gap_to_baseline": {k: v.get("max_abs_gap") for k, v in r0.items()},
@@ -2810,7 +2872,7 @@ def grad_sync_levers(dev) -> dict:
         # its payload, 1/ici of the flat step's.
         if dcn["by_op"].keys() != {"all_reduce"} or dcn["bytes"] != flat_payload / 2:
             raise AssertionError(f"four ranks {name}: dcn {dcn}, flat payload {flat_payload}")
-    log({"lever_four_ranks": {
+    log({"lever_four_ranks": {"timing": BESIDE,
         "card": card, "backend": "gloo", "layout": "2 pods × 2 ici", "rows_per_rank":
         TRAIN_BATCH // 4, "losses": {k: v["losses"] for k, v in r0.items()},
         "max_abs_gap_to_flat": {k: v.get("max_abs_gap") for k, v in r0.items()},
@@ -2823,6 +2885,8 @@ def grad_sync_levers(dev) -> dict:
         "peak_mb_per_rank": [r["peak_mb"] for r in four], "wall_s": time.perf_counter() - t0,
         "phase_s": time.perf_counter() - t_phase,
     }})
+    out["torchrun"] = cli.result()
+    log({"lever_torchrun": {"timing": BESIDE, **out["torchrun"]}})
     launches = {"torchrun": out["torchrun"]["launches"],
                 "two_ranks": two[0]["runs"]["baseline"]["launches"],
                 "four_ranks": four[0]["runs"]["flat"]["launches"]}
@@ -3185,8 +3249,8 @@ def auto_levers(dev) -> dict:
     t_phase = time.perf_counter()
     card = card_report().splitlines()[0]
     torch.cuda.empty_cache()
-    out = {"torchrun": _auto_torchrun(dev, card)}
-    log({"auto_torchrun": out["torchrun"]})
+    cli = _Beside(_auto_torchrun, dev, card)  # beside the gloo ranks, as in phase 6d
+    out = {}
     shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
     batches, _ = _dp_batches(dev, shape)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3217,7 +3281,7 @@ def auto_levers(dev) -> dict:
             raise AssertionError(f"accumulation: losses {r0['accum2']['losses']} against the "
                                  f"one-process twin's {a_losses}")
         del tp, full, accum, a_full
-        log({"auto_two_ranks": {
+        log({"auto_two_ranks": {"timing": BESIDE,
             "card": card, "backend": "gloo", "dtype": "float32", "optimizer": "sgd",
             "losses": {k: v["losses"] for k, v in r0.items()},
             "one_process_losses": losses, "accum2_twin_losses": a_losses,
@@ -3271,7 +3335,7 @@ def auto_levers(dev) -> dict:
             raise AssertionError(f"2 × 2 evaluate CSV: {len(tp_rows)} rows against the world "
                                  f"of one's {len(one_rows)}")
         agree, clear, gap = _csv_agreement(tp_rows, one_rows, eval_argv, ckpt_dir, tmp, dev)
-        log({"auto_four_ranks": {
+        log({"auto_four_ranks": {"timing": BESIDE,
             "card": card, "backend": "gloo", "layout": "data 2 × model 2", "fsdp": True,
             "accum_steps": 2, "losses": f0["losses"],
             "two_rank_2x1_losses": r0["fsdp_accum2"]["losses"],
@@ -3289,6 +3353,8 @@ def auto_levers(dev) -> dict:
             "peak_mb_per_rank": [r["peak_mb"] for r in four], "wall_s": four_s,
             "phase_s": time.perf_counter() - t_phase,
         }})
+    out["torchrun"] = cli.result()
+    log({"auto_torchrun": {"timing": BESIDE, **out["torchrun"]}})
     return {"torchrun": out["torchrun"]["launches"],
             "two_ranks": {k: v["launches"] for k, v in r0.items()},
             "four_ranks": f0["launches"]}
@@ -3353,7 +3419,8 @@ def train_vit(dev) -> dict:
                           "img_per_s_last_epoch": (steps // VIT_EPOCHS) * TRAIN_BATCH / summary.epoch_times[-1],
                           "img_per_s": summary.images_per_sec,
                           "val_accuracy": summary.val_accuracy, "launches": counts}
-            log({"train_vit": {"attn_impl": impl, "image": image, **runs[impl]}})
+            log({"train_vit": {"attn_impl": impl, "image": image, "epochs": VIT_EPOCHS,
+                               **runs[impl]}})
         want = dict.fromkeys(counters, 0)
         if attn_impl == "flash":
             want["flash_forward_tc"] = VIT_BLOCKS * (steps + val_batches)
@@ -3651,6 +3718,538 @@ def predict_step_times(cfg, fused_model, plain_cfg, plain_model, dev) -> None:
     log({"predict_step_ms": out})
 
 
+# ---------------------------------------------------------------- zoo ---
+# The seven CNNs of the zoo slice at full width: 64 500 classes, bf16, seed
+# 0, 128 px (inception_v3 299 px) — model → batch of its two training steps.
+ZOO_BATCH = {"alexnet": 32, "vgg11_bn": 32, "squeezenet1_0": 32, "densenet121": 32,
+             "inception_v3": 16, "mobilenet_v2": 32, "efficientnet_b0": 32}
+# The tensor-core heads at the zoo's head widths: dtype → D (densenet 1024,
+# mobilenet/efficientnet 1280, inception 2048, alexnet/vgg 4096), each at
+# these batches.
+WIDE_HEADS = {torch.bfloat16: (1024, 1280, 2048, 4096), torch.int8: (4096,),
+              torch.float32: (4096,)}
+WIDE_BATCHES = (64, 512)
+ZOO_SAMPLE = 1000  # DEBUG sample of the short runs: 800 train rows, 200 test rows
+# The short runs: (batch, DEBUG sample rows, epochs, Adam rate). vgg11_bn
+# and squeezenet1_0 take batch 32 on 800 train rows for two epochs at 4e-4.
+# densenet121 trains longer, until its test rows sit clear of near-ties:
+# its fused evaluate runs in another process than the plain path, with
+# other convolution algorithms, and their bf16 features round apart by up
+# to ~3e-3·|max| in the logits. On the short run that left rows tied that
+# close: 198/200 rows agreed, the two others at top-2 gaps 2.7e-4 and
+# 3.1e-3 (on an NVIDIA H100 80GB HBM3, 700.00 W), at the edge of the 99 %
+# the rule asks.
+ZOO_RUNS = {"densenet121": (TRAIN_BATCH, TRAIN_ROWS, 4, 3e-3)}
+ZOO_RUN = (32, ZOO_SAMPLE, 2, LR)
+
+
+def _wide_head_case(dev, gen, dtype, bsz: int, d: int, w, bias) -> dict:
+    """One (dtype, B, D) of :func:`check_wide_heads`: the kernel on
+    ``tc_route``'s route against its plain version (HEAD_CHECKS' rule for
+    bf16 and f32; int8: every prediction equal, loss rtol 1e-5), padding
+    rows 0, two calls bitwise equal, the route's counter, and the times:
+    busy ms in turns with the plain version, the bound, the cuBLAS GEMM of
+    the same product."""
+    from mpi_pytorch_tpu_torch.hardware import (
+        H100_PEAK_BF16_FLOPS, H100_PEAK_INT8_OPS, H100_PEAK_TF32_FLOPS, bound_ms)
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+
+    elem = 1 if dtype == torch.int8 else torch.finfo(dtype).bits // 8
+    route = fh.tc_route(bsz, d, elem)
+    feats = torch.randn(bsz, d, generator=gen).abs().to(dev, torch.bfloat16)
+    labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
+    labels[::7] = -1
+    labels = labels.to(dev)
+    what = f"{dtype} head B={bsz} D={d} ({route[0]})"
+    if dtype == torch.int8:
+        w_q, w_scale = w
+        act = float(feats.float().abs().max()) / 127.0
+        scale_v = qz.combined_scale(w_scale, act)
+        kernel = lambda: qz.head_predict_int8(feats, w_q, bias, labels, None, act, scale_v)  # noqa: E731
+        plain = lambda: qz.head_predict_int8_reference(feats, w_q, bias, labels, None, act, scale_v)  # noqa: E731
+        counters = (qz.counter, qz.counter_wide)
+        name, source, line = "head_predict_int8", "head_predict_tc.cu", "quantize.py:286"
+        w_pad = torch.zeros((-(-V // 8) * 8, d), dtype=torch.int8, device=dev)
+        w_pad[:V] = w_q
+        feats_q = qz.quantize_activations(feats, act)
+        library = lambda: torch._int_mm(feats_q, w_pad.t())  # noqa: E731
+        moved = 2 * bsz * d + V * d + 8 * V + 12 * bsz
+        ops, peak = 2 * bsz * d * V, H100_PEAK_INT8_OPS
+    else:
+        feats = feats.to(dtype)
+        kernel = lambda: fh.head_predict(feats, w, bias, labels)  # noqa: E731
+        plain = lambda: fh.head_predict_reference(feats, w, bias, labels)  # noqa: E731
+        counters = ((fh.counter, fh.counter_wide) if dtype == torch.bfloat16
+                    else (fh.counter_f32, fh.counter_f32))
+        name = "head_predict" if dtype == torch.bfloat16 else "head_predict_f32"
+        source, line = "head_predict_tc.cu", "fused_head_ce.py:313"
+        library = lambda: torch.nn.functional.linear(feats, w, bias.to(dtype))  # noqa: E731
+        size = torch.finfo(dtype).bits // 8
+        moved = size * bsz * d + size * V * d + 4 * V + 12 * bsz
+        products = 1 if dtype == torch.bfloat16 else 3
+        ops = products * 2 * bsz * d * V
+        peak = H100_PEAK_BF16_FLOPS if dtype == torch.bfloat16 else H100_PEAK_TF32_FLOPS
+    counter = counters[1] if route[0] == "streamed" else counters[0]
+    before = counter.count
+    loss, pred = kernel()
+    torch.cuda.synchronize()
+    if counter.count != before + 1:
+        raise AssertionError(f"{what}: its route's counter did not count the launch")
+    ref_loss, ref_pred = plain()
+    agree = pred == ref_pred
+    if dtype == torch.int8:
+        if not bool(agree.all()):
+            raise AssertionError(f"{what}: argmax differs on {int((~agree).sum())} rows")
+        rtol = 1e-5
+    else:
+        _, rtol, gap, min_agree, *_ = HEAD_CHECKS[dtype]
+        if dtype == torch.float32:
+            # HEAD_CHECKS' f32 rtol is D = 512's: each k-step's f32 sum of a
+            # wgmma rounds toward zero, so the kernel's error grows with the
+            # k-steps (D / 16); the float64 gaps are logged beside it.
+            rtol *= d / D
+        top2 = torch.topk(fh._logits(feats, w, bias), 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > gap * top2[:, 0].abs()
+        if not bool(agree[clear].all()) or float(agree.float().mean()) < min_agree:
+            raise AssertionError(f"{what}: argmax agrees on {float(agree.float().mean())}, "
+                                 f"{int(agree[clear].sum())}/{int(clear.sum())} clear rows")
+    if not torch.allclose(loss, ref_loss, rtol=rtol, atol=0):
+        raise AssertionError(f"{what}: loss off by {float((loss - ref_loss).abs().max())}")
+    if not bool((loss[labels < 0] == 0).all()):
+        raise AssertionError(f"{what}: padding rows carry loss")
+    _bitwise_twice(kernel, what)
+    bound, by = bound_ms(moved, (ops, peak))
+    try:
+        library_ms = time_ms(library, 20)
+    except RuntimeError:
+        library_ms = None
+    row = {
+        "name": f"{name}_wide" if route[0] == "streamed" else name, "route": "cuda",
+        "source": "mpi_pytorch_tpu_torch/csrc/" + source, "replaces": "mpi_pytorch_tpu/ops/" + line,
+        "head_route": route[0], "rows_a_cta": route[1], "batch": bsz, "d": d,
+        "max_abs_err": float((loss - ref_loss).abs().max()),
+        "argmax_agree": float(agree.float().mean()), "bitwise_repeatable": True,
+        **_in_turns(kernel, plain, 20, 5), "bound_ms": bound, "bound_by": by,
+        "library_ms": library_ms,
+    }
+    if dtype == torch.float32:
+        row["f64_gaps"] = _head_f64_gaps(feats, w, bias, labels, loss, ref_loss)
+    log({"wide_head_check": row})
+    return row
+
+
+def check_wide_heads(dev, gen) -> dict:
+    """K4 (bf16 at D = 1024, 1280, 2048, 4096; f32 at 4096) and K7 (int8 at
+    4096) at B = 64 and 512 — the zoo's head widths, D ≥ 2048 (bf16) and
+    4096 (int8) on the streamed route — each held as
+    :func:`_wide_head_case` holds it, then exact ties at D = 4096 on every
+    head (``_check_ties``). Returns the B = 512, D = 4096 rows of the bf16
+    and the int8 head."""
+    rows = {}
+    # W drawn on the card (from a seed of ``gen``): 264 M normals a width.
+    dgen = torch.Generator(device=dev).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    for dtype, ds in WIDE_HEADS.items():
+        for d in ds:
+            w = 0.05 * torch.randn(V, d, generator=dgen, device=dev)
+            bias = 0.1 * torch.randn(V, generator=dgen, device=dev)
+            w = _int8_head(dev, w) if dtype == torch.int8 else w.to(dtype)
+            for bsz in WIDE_BATCHES:
+                rows[dtype, d, bsz] = _wide_head_case(dev, gen, dtype, bsz, d, w, bias)
+            del w
+            torch.cuda.empty_cache()
+    for bsz in WIDE_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            _check_ties(dev, gen, bsz, dtype, d=4096)
+    return {"bf16": rows[torch.bfloat16, 4096, 512], "int8": rows[torch.int8, 4096, 512]}
+
+
+# The widths where both routes of the bf16 and int8 heads fit: each route's
+# busy time at B = 64 and 512 (check_head_routes).
+ROUTE_WIDTHS = {torch.bfloat16: (512, 1024, 1280), torch.int8: (512, 1024, 1280, 2048)}
+
+
+def check_head_routes(dev, gen) -> list:
+    """K4 bf16 and K7 on the resident and the streamed route wherever both
+    fit (``ROUTE_WIDTHS``, B = 64 and 512): the same predictions (each
+    logit is summed in the same order on both), the same loss bits where
+    both take the same rows a CTA (and so the same vocab splits), else
+    loss rtol 1e-5 (the splits' merge order differs); and each route's
+    busy ms, taken in turns (resident, streamed, streamed, resident),
+    beside the route ``tc_route`` picks. Returns the logged rows."""
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+    from mpi_pytorch_tpu_torch.ops import quantize as qz
+
+    dgen = torch.Generator(device=dev).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    out = []
+    for dtype, ds in ROUTE_WIDTHS.items():
+        elem = 1 if dtype == torch.int8 else 2
+        for d in ds:
+            w = 0.05 * torch.randn(V, d, generator=dgen, device=dev)
+            bias = 0.1 * torch.randn(V, generator=dgen, device=dev)
+            if dtype == torch.int8:
+                w_q, w_scale = _int8_head(dev, w)
+            else:
+                w = w.to(dtype)
+            for bsz in WIDE_BATCHES:
+                feats = torch.randn(bsz, d, generator=dgen, device=dev).abs().to(torch.bfloat16)
+                labels = torch.randint(0, V, (bsz,), generator=gen, dtype=torch.int32)
+                labels[::7] = -1
+                labels = labels.to(dev)
+                if dtype == torch.int8:
+                    act = float(feats.float().abs().max()) / 127.0
+                    scale_v = qz.combined_scale(w_scale, act)
+                    call = {r: (lambda r=r: qz.head_predict_int8(
+                        feats, w_q, bias, labels, None, act, scale_v, route=r))
+                        for r in fh.ROUTE_CODE}
+                else:
+                    call = {r: (lambda r=r: fh.head_predict(feats, w, bias, labels, route=r))
+                            for r in fh.ROUTE_CODE}
+                what = f"{dtype} head B={bsz} D={d}"
+                (la, pa), (lb, pb) = call["resident"](), call["streamed"]()
+                rows = {r: fh.tc_route(bsz, d, elem, r)[1] for r in call}
+                same_plan = rows["resident"] == rows["streamed"]
+                if not torch.equal(pa, pb) or not (
+                        torch.equal(la, lb) if same_plan
+                        else torch.allclose(la, lb, rtol=1e-5, atol=0)):
+                    raise AssertionError(f"{what}: the two routes differ")
+                times = {r: [] for r in call}
+                for r in ("resident", "streamed", "streamed", "resident"):
+                    times[r].append(device_ms(call[r], 20))
+                row = {"dtype": str(dtype).split(".")[1], "batch": bsz, "d": d,
+                       "picked": fh.tc_route(bsz, d, elem),
+                       "rows_a_cta": rows, "same_bits": bool(torch.equal(la, lb)),
+                       **{f"{r}_ms": sum(t) / len(t) for r, t in times.items()},
+                       **{f"{r}_ms_turns": t for r, t in times.items()}}
+                log({"head_route_times": row})
+                out.append(row)
+            del w
+            torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_model_steps(dev, name: str) -> dict:
+    """Two bf16 training steps of ``name`` at full width through
+    ``train/step.make_train_step`` on a resident batch, dropout and
+    stochastic depth drawing from the state's generator on the card:
+    parameters, the two losses (finite), each step's ms and the card's
+    peak memory. densenet121 runs the fused stem (K2 and K3 once a step);
+    inception_v3's reported loss equals CE + 0.4·CE(aux) recomputed from
+    the step's own outputs."""
+    from mpi_pytorch_tpu_torch.models.common import has_randomness, set_batchnorm_sync
+    from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+    from mpi_pytorch_tpu_torch.ops import fused_stem
+    from mpi_pytorch_tpu_torch.ops.losses import classification_loss
+    from mpi_pytorch_tpu_torch.train.state import TrainState, make_optimizer
+    from mpi_pytorch_tpu_torch.train.step import make_train_step
+
+    image, batch = (299 if name == "inception_v3" else IMG), ZOO_BATCH[name]
+    # No cuDNN algorithm search here: it cost 4–34 s on each model's first
+    # step (an NVIDIA H100 80GB HBM3, 700.00 W), and two steps cannot repay
+    # it.
+    benchmark, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    fused = name == "densenet121"
+    bundle = create_model_bundle(name, V, seed=SEED, image_size=image, fused_stem=fused)
+    params = sum(p.numel() for p in bundle.model.parameters())
+    model = prepare_for_training(bundle.model, dev)
+    set_batchnorm_sync(model, True)
+    opt, schedule = make_optimizer(model, LR, bundle.trainable_mask)
+    state = TrainState(model=model, optimizer=opt, schedule=schedule,
+                       generator=torch.Generator(device=dev), rng_seed=SEED + 1)
+    step = make_train_step(torch.bfloat16)
+    rng = np.random.default_rng(SEED + 19)
+    images = torch.from_numpy(rng.integers(0, 256, (batch, image, image, 3), dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, V, (batch,), dtype=np.int32)).to(dev)
+    outputs = []
+    hook = model.register_forward_hook(lambda m, i, o: outputs.append(o))
+    fused_stem.argmax_counter.reset()
+    fused_stem.backward_counter.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = step(state, images, labels)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    hook.remove()
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"zoo {name}: losses {losses}")
+    if not has_randomness(model) and name not in ("densenet121",):
+        raise AssertionError(f"zoo {name}: no dropout or stochastic depth to draw")
+    launches = {"stem_pool_argmax": fused_stem.argmax_counter.count,
+                "stem_pool_backward": fused_stem.backward_counter.count}
+    if launches != ({"stem_pool_argmax": 2, "stem_pool_backward": 2} if fused
+                    else {"stem_pool_argmax": 0, "stem_pool_backward": 0}):
+        raise AssertionError(f"zoo {name}: stem launches {launches}")
+    out = {"model": name, "params": params, "batch": batch, "image": image, "losses": losses,
+           "step_ms": step_ms, "max_memory_allocated_mb": peak_mb, "launches": launches}
+    if name == "inception_v3":
+        logits, aux = outputs[0]
+        recomputed = float(classification_loss((logits.float(), aux.float()), labels))
+        plain_ce = float(classification_loss(logits.float(), labels))
+        if abs(recomputed / losses[0] - 1) > 1e-6 or not recomputed > plain_ce:
+            raise AssertionError(f"inception step loss {losses[0]} against CE + 0.4·CE(aux) "
+                                 f"{recomputed} (CE alone {plain_ce})")
+        out["loss_ce_plus_aux"] = recomputed
+    log({"zoo_train": out})
+    del model, state, opt, bundle, outputs
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = benchmark
+    return out
+
+
+def _zoo_argv(tmp: str, name: str) -> list[str]:
+    """The short run's flags: ``name`` at full width, its ``ZOO_RUNS``
+    schedule (else ``ZOO_RUN``'s), validation, one checkpoint kept."""
+    batch, rows, epochs, lr = ZOO_RUNS.get(name, ZOO_RUN)
+    return [
+        "--model-name", name, "--num-classes", str(V), "--image-size", str(IMG),
+        "--batch-size", str(batch), "--compute-dtype", "bfloat16",
+        "--learning-rate", str(lr), "--synthetic-data", "true", "--debug", "true",
+        "--debug-sample-size", str(rows),
+        "--test-csv", str(REPO / "data" / "test_sample.csv"), "--num-epochs", str(epochs),
+        "--validate", "true", "--checkpoint-dir", os.path.join(tmp, "checkpoints"),
+        "--keep-checkpoints", "1", "--log-file", os.path.join(tmp, "training.log"),
+        "--eval-log-file", os.path.join(tmp, "evaluation.log"),
+        "--metrics-file", os.path.join(tmp, "metrics.jsonl"), "--log-every-steps", "5",
+        "--seed", str(SEED),
+    ]
+
+
+def _cli_start(module: str, argv: list[str]) -> tuple[subprocess.Popen, float]:
+    """``python -m module argv`` started from the checkout's root (the entry
+    point a user runs): (the process, its start time)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)}
+    return (subprocess.Popen([sys.executable, "-m", module, *argv], cwd=REPO, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def _cli_wait(started: tuple[subprocess.Popen, float], timeout: int) -> float:
+    """Wait for a :func:`_cli_start` process; raises unless it exits 0 (it
+    is killed past ``timeout``). Returns its wall seconds."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(proc.args[1:4])} exited {proc.returncode}:\n"
+                             f"{out[-4000:]}\n{err[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _cli(module: str, argv: list[str], timeout: int) -> float:
+    """:func:`_cli_start`, then :func:`_cli_wait`."""
+    return _cli_wait(_cli_start(module, argv), timeout)
+
+
+def _csv_labels(path: str) -> np.ndarray:
+    with open(path) as f:
+        return np.array([int(r.split(",")[1]) for r in f.read().splitlines()[1:]])
+
+
+def _zoo_plain_path(dev, argv: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    """(the first-index argmax, the top-2 gap / |max|) of every test row
+    through the plain path on the run's checkpoint, in this process: the
+    plain stem, ``model.features`` in bf16, then f32 logits over the head's
+    bf16 W — the fused head's own arithmetic (bf16 products, f32 sums), so
+    that rows differ only where the two processes' convolutions round the
+    features apart, not where bf16 logits would round the top two
+    together."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.config import parse_config
+    from mpi_pytorch_tpu_torch.data.manifest import load_manifests
+    from mpi_pytorch_tpu_torch.evaluate import build_inference, head_weights
+    from mpi_pytorch_tpu_torch.train.step import ingest_images
+    from mpi_pytorch_tpu_torch.train.trainer import make_loader
+
+    cfg = parse_config(argv)
+    state_dict = ckpt.load_for_eval(ckpt.latest_checkpoint(cfg.checkpoint_dir))[0]
+    model = build_inference(dataclasses.replace(cfg, fused_stem=False), dev, state_dict)
+    w, b = head_weights(model, torch.bfloat16)
+    wt = w.float().t()
+    preds, gaps = [], []
+    with torch.no_grad():
+        for images, _ in make_loader(cfg, load_manifests(cfg)[1], train=False).epoch(0):
+            x = ingest_images(torch.from_numpy(images).to(dev), torch.bfloat16)
+            logits = model.features(x.permute(0, 3, 1, 2)).float() @ wt + b
+            preds.append(logits.argmax(-1).cpu().numpy())
+            v = torch.topk(logits, 2, dim=-1).values.cpu().numpy()
+            gaps.append((v[:, 0] - v[:, 1]) / np.abs(v[:, 0]))
+    del model, wt
+    torch.cuda.empty_cache()
+    return np.concatenate(preds), np.concatenate(gaps)
+
+
+def _zoo_densenet_train(tmp: str):
+    """Start densenet121's ``python -m mpi_pytorch_tpu_torch.train
+    --fused-stem true`` (see :func:`_zoo_densenet_clis`); the phase runs
+    other work while it trains."""
+    return _cli_start("mpi_pytorch_tpu_torch.train",
+                      _zoo_argv(tmp, "densenet121") + ["--fused-stem", "true"])
+
+
+def _zoo_densenet_clis(dev, tmp: str, train) -> dict:
+    """densenet121 end to end through the entry points: ``python -m
+    mpi_pytorch_tpu_torch.train --fused-stem true`` (started by
+    :func:`_zoo_densenet_train`: K2 and K3 once a step, K1 once a
+    validation batch, one checkpoint), then ``python -m
+    mpi_pytorch_tpu_torch.evaluate --fused-head-eval true
+    --predictions-file`` (K1 and K4 once a batch); the CSV's labels agree
+    with the plain path's on the same checkpoint (``_zoo_plain_path``) by
+    the serving rule (``_agreement``)."""
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce as fh
+
+    argv = _zoo_argv(tmp, "densenet121") + ["--fused-stem", "true"]
+    train_s = _cli_wait(train, 600)
+    records = _records(os.path.join(tmp, "metrics.jsonl"))
+    steps = [r for r in records if r["kind"] == "step"]
+    epochs = [r for r in records if r["kind"] == "epoch"]
+    vals = [r for r in records if r["kind"] == "val"]
+    batch, _, n_epochs, _ = ZOO_RUNS["densenet121"]
+    per_epoch = len(steps) // n_epochs
+    want = {"fused_stem.argmax_counter": per_epoch, "fused_stem.backward_counter": per_epoch}
+    if not steps or len(epochs) != n_epochs or any(e.get("launches") != want for e in epochs):
+        raise AssertionError(f"densenet121 train CLI: {len(steps)} steps, epochs {epochs}")
+    if len(vals) != n_epochs or any(set(v.get("launches", {})) != {"fused_stem.counter"}
+                                    for v in vals):
+        raise AssertionError(f"densenet121 validation: {vals}")
+    if sorted(os.listdir(os.path.join(tmp, "checkpoints"))) != [f"ckpt_{n_epochs - 1:05d}.pt"]:
+        raise AssertionError("densenet121 train CLI: no checkpoint")
+    epoch, val = epochs[-1], vals[-1]
+    fused_csv = os.path.join(tmp, "fused.csv")
+    eval_s = _cli("mpi_pytorch_tpu_torch.evaluate",
+                  argv + ["--fused-head-eval", "true", "--predictions-file", fused_csv], 600)
+    (ev,) = [r for r in _records(os.path.join(tmp, "metrics.jsonl")) if r["kind"] == "eval"]
+    n = len(_csv_labels(fused_csv))
+    batches = -(-n // batch)
+    head = {"resident": "fused_head_ce.counter", "streamed": "fused_head_ce.counter_wide"}[
+        fh.tc_route(batch, 1024, 2)[0]]
+    if ev.get("launches") != {"fused_stem.counter": batches, head: batches}:
+        raise AssertionError(f"densenet121 evaluate CLI: {ev}, {batches} batches")
+    plain, gap = _zoo_plain_path(dev, argv)
+    agree, clear, frac = _agreement(_csv_labels(fused_csv), plain, gap, "densenet121 evaluate CLI")
+    return {"train_wall_s": train_s, "evaluate_wall_s": eval_s, "steps": len(steps),
+            "step1_loss": steps[0]["loss"], "launches": {"train": epoch["launches"],
+            "val": val["launches"], "evaluate": ev["launches"]}, "test_rows": n,
+            "agree": frac, "clear_rows": int(clear.sum()),
+            "rows_within": {g: int((gap <= float(g)).sum()) for g in ("1e-3", "1e-4")},
+            "differing_rows_gaps": gap[~agree].tolist()}
+
+
+def _zoo_short_run(dev, tmp: str, name: str):
+    """``trainer.train`` (what the train CLI runs) on ``name``'s short run;
+    returns its config (the run's checkpoint in ``tmp``)."""
+    from mpi_pytorch_tpu_torch.config import parse_config
+    from mpi_pytorch_tpu_torch.train.trainer import train
+
+    cfg = parse_config(_zoo_argv(tmp, name))
+    summary = train(cfg, device=dev)
+    if not np.isfinite(summary.final_loss):
+        raise AssertionError(f"{name} short run: loss {summary.final_loss}")
+    torch.cuda.empty_cache()
+    return cfg
+
+
+def _zoo_vgg_eval(dev, tmp: str) -> dict:
+    """vgg11_bn's evaluate with ``--fused-head-eval`` on a short run's
+    checkpoint: K4 launches on its streamed route (D = 4096) once a batch,
+    its labels agree with the plain path's by the serving rule; then
+    ``--quantize-eval`` with the fused head launches K7 on its streamed
+    route once."""
+    from mpi_pytorch_tpu_torch.evaluate import evaluate, quantize_eval_report
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce, quantize
+
+    cfg = _zoo_short_run(dev, tmp, "vgg11_bn")
+    fused_csv = os.path.join(tmp, "fused.csv")
+    counters = (fused_head_ce.counter, fused_head_ce.counter_wide, quantize.counter,
+                quantize.counter_wide)
+    for c in counters:
+        c.reset()
+    evaluate(dataclasses.replace(cfg, fused_head_eval=True, predictions_file=fused_csv), device=dev)
+    batches = -(-len(_csv_labels(fused_csv)) // ZOO_BATCH["vgg11_bn"])
+    if [c.count for c in counters] != [0, batches, 0, 0]:
+        raise AssertionError(f"vgg11_bn fused evaluate: launches {[c.count for c in counters]}, "
+                             f"want the wide route's {batches}")
+    wide = fused_head_ce.counter_wide.count
+    plain, gap = _zoo_plain_path(dev, _zoo_argv(tmp, "vgg11_bn"))
+    agree, clear, frac = _agreement(_csv_labels(fused_csv), plain, gap, "vgg11_bn fused evaluate")
+    report = quantize_eval_report(dataclasses.replace(
+        cfg, quantize_eval=True, fused_head_eval=True, serve_topk=1), device=dev)
+    if quantize.counter_wide.count != 1 or quantize.counter.count != 0:
+        raise AssertionError(f"vgg11_bn quantize-eval: K7 launches {quantize.counter.count}, "
+                             f"wide {quantize.counter_wide.count}")
+    torch.cuda.empty_cache()
+    return {"wide_launches": wide,
+            "int8_wide_launches": quantize.counter_wide.count, "agree": frac,
+            "clear_rows": int(clear.sum()), "quant_parity": report}
+
+
+def _zoo_squeezenet_eval(dev, tmp: str) -> dict:
+    """squeezenet1_0's evaluate with ``--fused-head-eval``: its head is a
+    convolution, so K4 launches 0 times, the fallback warning is in the
+    evaluation log, and the predictions equal the plain path's (one
+    process: the same convolution algorithms)."""
+    from mpi_pytorch_tpu_torch.evaluate import evaluate
+    from mpi_pytorch_tpu_torch.ops import fused_head_ce
+
+    cfg = _zoo_short_run(dev, tmp, "squeezenet1_0")
+    fused_csv, plain_csv = os.path.join(tmp, "fused.csv"), os.path.join(tmp, "plain.csv")
+    evaluate(dataclasses.replace(cfg, predictions_file=plain_csv), device=dev)
+    for c in (fused_head_ce.counter, fused_head_ce.counter_wide):
+        c.reset()
+    evaluate(dataclasses.replace(cfg, fused_head_eval=True, predictions_file=fused_csv), device=dev)
+    if fused_head_ce.counter.count or fused_head_ce.counter_wide.count:
+        raise AssertionError("squeezenet1_0 fused evaluate launched the head kernel")
+    with open(cfg.eval_log_file) as f:
+        if "falling back to the plain predict step" not in f.read():
+            raise AssertionError("squeezenet1_0 fused evaluate: no fallback warning")
+    fused, plain = _csv_labels(fused_csv), _csv_labels(plain_csv)
+    if not np.array_equal(fused, plain):
+        raise AssertionError(f"squeezenet1_0: {int((fused != plain).sum())} rows differ")
+    return {"rows": len(fused), "k4_launches": 0, "warning": True}
+
+
+def zoo(dev, gen) -> dict:
+    """Phase 10, the rest of the CNN zoo: the wide heads (K4, K7), each of
+    the seven models' two training steps at full width, densenet121
+    through the CLIs, vgg11_bn's and squeezenet1_0's evaluate. Returns the
+    kernels line's rows for the wide heads, with their launches on the
+    phase's main path (vgg11_bn's fused evaluate, and its quantize-eval)."""
+    from mpi_pytorch_tpu_torch.hardware import card_report
+
+    t0 = time.perf_counter()
+    print(card_report().splitlines()[0], flush=True)
+    rows = check_wide_heads(dev, gen)
+    check_head_routes(dev, gen)
+    heads_s = time.perf_counter() - t0
+    models = {name: _zoo_model_steps(dev, name) for name in ZOO_BATCH}
+    with tempfile.TemporaryDirectory() as dense_tmp:
+        # densenet121's train CLI runs beside vgg11_bn's and squeezenet1_0's
+        # short runs (a process of its own on the card; nothing timed then).
+        train = _zoo_densenet_train(dense_tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            vgg = _zoo_vgg_eval(dev, tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            squeeze = _zoo_squeezenet_eval(dev, tmp)
+        densenet = _zoo_densenet_clis(dev, dense_tmp, train)
+    rows["bf16"]["launches"] = vgg["wide_launches"]
+    rows["int8"]["launches"] = vgg["int8_wide_launches"]
+    log({"zoo": {"card": card_report().splitlines()[0], "wide_heads_s": heads_s,
+                 "models": {k: {f: v[f] for f in ("params", "losses", "step_ms",
+                                                  "max_memory_allocated_mb")}
+                            for k, v in models.items()},
+                 "densenet121_clis": densenet, "vgg11_bn_evaluate": vgg,
+                 "squeezenet1_0_evaluate": squeeze, "phase_s": time.perf_counter() - t0}})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3733,6 +4332,7 @@ def main() -> int:
     for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_pad, flash,
                 flash_f32, flash_pad):
         row["launches"] = vit_launches[row["name"]]
+    wide = zoo(dev, gen)
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
         train_time_breakdown(
@@ -3742,9 +4342,9 @@ def main() -> int:
         )
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = (stem, stem_argmax, stem_backward, head, head_f32, head_ce_fwd, head_ce_bwd, head_int8,
-            flash, flash_f32, flash_pad, attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd,
-            attn_bwd_f32, attn_bwd_pad)
+    rows = (stem, stem_argmax, stem_backward, head, wide["bf16"], head_f32, head_ce_fwd, head_ce_bwd,
+            head_int8, wide["int8"], flash, flash_f32, flash_pad, attn_fwd, attn_fwd_f32,
+            attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_pad)
     print(smi, flush=True)
     for row in rows:
         row["ms"] = row["device_ms"]

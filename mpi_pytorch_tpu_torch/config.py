@@ -21,7 +21,20 @@ from typing import Any, Sequence
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-SUPPORTED_MODELS = ("resnet18", "resnet34", "vit_s16", "vit_b16")
+# The JAX package's SUPPORTED_MODELS less the one the port refuses.
+SUPPORTED_MODELS = (
+    "resnet18",
+    "resnet34",
+    "alexnet",
+    "vgg11_bn",
+    "squeezenet1_0",
+    "densenet121",
+    "inception_v3",
+    "mobilenet_v2",
+    "efficientnet_b0",
+    "vit_s16",
+    "vit_b16",
+)
 
 # Models of the JAX package that this port refuses, and why.
 NOT_PORTED_MODELS = {
@@ -32,6 +45,11 @@ ATTN_IMPLS = ("full", "flash", "fused-small")
 
 # Where the JAX package's parallel knobs the port refuses are queued.
 _NOT_PORTED_DP = "not ported yet (ROADMAP A7)"
+
+# Models whose heads the vocab-sharded head (--mesh.model-parallel) does
+# not split in the port: squeezenet1_0's is a convolution, inception_v3
+# has a second, auxiliary dense head (JAX shards both over 'model').
+TP_HEAD_NOT_PORTED = ("squeezenet1_0", "inception_v3")
 
 
 @dataclass
@@ -374,6 +392,16 @@ class Config:
                 f"{self.model_name} cuts 16×16 patches: image {self.width}x"
                 f"{self.height} is not a multiple of 16"
             )
+        if self.model_name == "inception_v3" and (self.width, self.height) not in (
+            (128, 128),  # the untouched default: image_size upgrades it to 299
+            (299, 299),
+        ):
+            raise ValueError(
+                f"inception_v3 requires 299x299 inputs (aux-logits pooling); "
+                f"an explicit --width/--height/--image-size of "
+                f"{self.width}x{self.height} would be silently overridden — "
+                "drop the flag or pass 299"
+            )
         if self.fused_stem:
             from mpi_pytorch_tpu_torch.models.registry import FUSED_STEM_MODELS
 
@@ -452,6 +480,13 @@ class Config:
                 "its replicated in/out specs would silently gather the TP-sharded "
                 "head. Use the default auto mode for mesh.model_parallel > 1."
             )
+        if self.mesh.model_parallel > 1 and self.model_name in TP_HEAD_NOT_PORTED:
+            raise ValueError(
+                f"mesh.model_parallel={self.mesh.model_parallel} with "
+                f"{self.model_name}: the vocab-sharded head of its "
+                f"{'1×1 conv head' if self.model_name == 'squeezenet1_0' else 'auxiliary head'} "
+                "is not ported yet (ROADMAP A9)"
+            )
         if self.mesh.pods > 1 and not self.spmd_mode:
             raise ValueError(
                 "mesh pods > 1 (hierarchical ICI/DCN gradient sync) "
@@ -474,7 +509,11 @@ class Config:
 
     @property
     def image_size(self) -> tuple[int, int]:
-        """Resize target (H, W)."""
+        """Resize target (H, W): ``(height, width)``, except inception_v3,
+        which runs at 299×299 whatever the (default) size, as in the JAX
+        package."""
+        if self.model_name == "inception_v3":
+            return (299, 299)
         return (self.height, self.width)
 
     def parsed_serve_buckets(self) -> tuple[int, ...]:
@@ -573,5 +612,20 @@ def parse_config(argv: Sequence[str] | None = None, **overrides: Any) -> Config:
             setattr(getattr(cfg, scope), leaf, val)
         else:
             setattr(cfg, key, val)
+    # An explicit size for inception_v3 other than 299 — 128 too, which the
+    # image_size property would otherwise silently upgrade — is refused, as
+    # the JAX parse_config refuses it.
+    dims_explicit = (
+        alias is not None
+        or ns.get("width") is not None
+        or ns.get("height") is not None
+        or any(k in os.environ for k in ("MPT_IMAGE_SIZE", "MPT_WIDTH", "MPT_HEIGHT"))
+    )
+    if cfg.model_name == "inception_v3" and dims_explicit and (cfg.width, cfg.height) != (299, 299):
+        raise ValueError(
+            f"inception_v3 requires 299x299 inputs (aux-logits pooling); the "
+            f"requested {cfg.width}x{cfg.height} would be silently "
+            "overridden — drop the size flags or pass 299"
+        )
     cfg.validate_config()
     return cfg

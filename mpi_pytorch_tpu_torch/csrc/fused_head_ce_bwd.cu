@@ -492,6 +492,11 @@ extern "C" int mpt_head_ce_bwd(const void* feats, const void* w, const void* bia
                                void* stream) {
   if (B < 1 || V < 1 || D < 16 || D % 16 != 0 || n_ctas < 1 || n_split < 1 || tiles_per_split < 1)
     return cudaErrorInvalidValue;
+  // This entry runs on autograd's device thread and reports its launches
+  // with cudaGetLastError: take off a non-sticky error an earlier call on
+  // that thread left, so that it is not reported as this launch's (a sticky
+  // one stays and fails the launches below).
+  (void)cudaGetLastError();
   const int NB = chunk_rows(B, D);
   if (NB == 0) return cudaErrorInvalidValue;
   const int n_tiles = (V + kTileV - 1) / kTileV, Vp = n_tiles * kTileV;

@@ -70,415 +70,26 @@
 //    the max: a zero-filled W row never wins. At the end of the split the
 //    four lanes of a quad merge their states with a (value, column) shuffle
 //    — equal values: the smaller column wins — and lane 0 writes the row.
+//  - The streamed route (kStream), for a D too wide for the resident feats
+//    tile to leave kMinStages W stages (bf16 D >= 2048, int8 D >= 4096: the
+//    zoo's inception, alexnet and vgg heads; the JAX kernel takes the whole
+//    D): each ring stage carries the CTA's feats chunk (64·C rows × the same
+//    128 bytes of K) beside the W chunk, loaded by the same producer lane on
+//    the same mbarrier, so no feats tile stays resident and the whole D
+//    accumulates in registers a W tile at a time. feats is re-read from L2
+//    once per W tile (4 MB at B = 512, D = 4096 bf16). The products, their
+//    k-step order and the fold are the resident route's: the same bits.
 // Determinism: fixed-order sums (k-steps ascending; a thread's columns
 // ascending; fixed shuffle trees; a lane's splits ascending), no atomics:
 // two calls on the same inputs give the same bits.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "attention_tc.cuh"  // split3, the six pairs
-#include "head_common.cuh"
-#include "hopper.cuh"
+//
+// The bf16/int8 kernel and its launchers are in head_predict_tc.cuh; the
+// streamed route's instantiations compile in head_predict_wide.cu.
+#include "head_predict_tc.cuh"
 
 namespace {
 
 using namespace mpt_hopper;
-
-constexpr int kBN = 128;                   // vocab rows of W a tile: the wgmma N
-constexpr int kChunk = 128;                // bytes of K a stage: one swizzle atom
-constexpr int kStageBytes = kBN * kChunk;  // 16 KB of W a stage
-constexpr int kMinStages = 3;              // one being read, one awaited, one loading
-constexpr int kMaxStages = 8;
-constexpr int kSmemLimit = 232448;         // 227 KB: the most a block may take
-constexpr int kColBytes = 2 * kBN * 4;     // a warpgroup's tile bias and scale
-// Alignment slack, barriers, two column buffers.
-constexpr int kSmemFixed = 1024 + 8 * (2 * kMaxStages + 1) + 8 + 2 * kColBytes;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The operand types: the product of a k-step (32 bytes of K) and the logit
-// of an accumulator.
-struct Bf16 {
-  static constexpr int kBytes = 2;
-  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  using Acc = float;
-  // d[64 × 128] (+)= A[64 × 16] · B[16 × 128], both K-major in shared memory.
-  __device__ __forceinline__ static void mma(float* d, uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : MPT_WG_F8(d, 0), MPT_WG_F8(d, 8), MPT_WG_F8(d, 16), MPT_WG_F8(d, 24),
-          MPT_WG_F8(d, 32), MPT_WG_F8(d, 40), MPT_WG_F8(d, 48), MPT_WG_F8(d, 56)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  __device__ __forceinline__ static float logit(float acc, float, float bias) {
-    return acc + bias;
-  }
-};
-
-struct Int8 {
-  static constexpr int kBytes = 1;
-  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // the bits
-  using Acc = uint32_t;  // s32 sums
-  // d[64 × 128] (+)= A[64 × 32] · B[32 × 128], s8 × s8 → s32, both K-major
-  // in shared memory (8-bit types have no transpose).
-  __device__ __forceinline__ static void mma(uint32_t* d, uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p;\n}\n"
-        : MPT_WG_R8(d, 0), MPT_WG_R8(d, 8), MPT_WG_R8(d, 16), MPT_WG_R8(d, 24),
-          MPT_WG_R8(d, 32), MPT_WG_R8(d, 40), MPT_WG_R8(d, 48), MPT_WG_R8(d, 56)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  // float(acc) rounds the exact sum to nearest as the plain version's
-  // acc.float() does (exact while |acc| ≤ D·127² < 2²⁴); then two
-  // roundings, never contracted into one FMA.
-  __device__ __forceinline__ static float logit(uint32_t acc, float scale, float bias) {
-    return __fadd_rn(__fmul_rn(__int2float_rn(static_cast<int>(acc)), scale), bias);
-  }
-};
-
-// K chunks of 128 bytes a row of D elements.
-__host__ __device__ constexpr int chunks(int D, int bytes) { return (D * bytes + kChunk - 1) / kChunk; }
-
-// W stages that fit beside a feats tile of 64·C rows × nk chunks (0 when
-// fewer than kMinStages do).
-constexpr int ring_stages(int C, int nk) {
-  const int left = (kSmemLimit - kSmemFixed - nk * 64 * C * kChunk) / kStageBytes;
-  return left < kMinStages ? 0 : (left > kMaxStages ? kMaxStages : left);
-}
-
-constexpr int smem_bytes(int C, int nk, int stages) {
-  return 1024 + nk * 64 * C * kChunk + stages * kStageBytes + 8 * (2 * stages + 1) + 8 +
-         C * kColBytes;
-}
-
-// Consumer warpgroups for a batch: two above 64 rows where their feats
-// tile fits, else one; 0 when not even one fits (D too large).
-int consumer_groups(int B, int D, int bytes) {
-  const int nk = chunks(D, bytes);
-  if (B > 64 && ring_stages(2, nk) > 0) return 2;
-  return ring_stages(1, nk) > 0 ? 1 : 0;
-}
-
-// One row pair's online state of a thread over its own columns.
-struct RowState {
-  float m[2], l[2], pick[2];
-  int arg[2];
-};
-
-// (m, l, arg, pick) merged with another state: the larger max wins, equal
-// maxima go to the smaller column; l rescaled to the merged max.
-__device__ __forceinline__ void merge_state(float& m, float& l, int& arg, float& pick, float om,
-                                            float ol, int oa, float op) {
-  const float mn = fmaxf(m, om);
-  if (mn != -INFINITY) {
-    const float mL = mn * kLog2e;
-    l = l * exp2f(fmaf(m, kLog2e, -mL)) + ol * exp2f(fmaf(om, kLog2e, -mL));
-  }
-  if (om > m || (om == m && oa < arg)) arg = oa;
-  m = mn;
-  pick += op;
-}
-
-// Fold one tile's accumulators (this thread's rows 16w+g, 16w+g+8 at
-// columns n0 + 8j + 2t + e) into the thread's online state: the max and
-// (kArg) its first column, then the sum of exp relative to the new max and
-// the label's logit. `cols` holds the tile's bias (and, int8, scale) in
-// shared memory. kRagged: V's last tile, its columns past v_end masked to
-// −inf before the max. !kArg (the training forward, K5, which keeps no
-// argmax): the max alone, no column compared or carried.
-template <typename Tr, bool kRagged, bool kArg>
-__device__ __forceinline__ void fold_tile(const typename Tr::Acc* acc, RowState& st, int n0,
-                                          int v_end, const int (&lab)[2], const float* cols,
-                                          int t) {
-  const int c0 = n0 + 2 * t;
-  auto logit = [&](int j, int i, int e) {
-    const float2 bb = *reinterpret_cast<const float2*>(cols + 8 * j + 2 * t);
-    float2 sv = make_float2(0.f, 0.f);
-    if constexpr (Tr::kBytes == 1) sv = *reinterpret_cast<const float2*>(cols + kBN + 8 * j + 2 * t);
-    const float x = Tr::logit(acc[4 * j + 2 * i + e], e ? sv.y : sv.x, e ? bb.y : bb.x);
-    return kRagged && c0 + 8 * j + e >= v_end ? -INFINITY : x;
-  };
-  float mx[2] = {-INFINITY, -INFINITY};
-  int ax[2] = {0, 0};
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float x = logit(j, i, e);
-        if constexpr (kArg) {
-          const bool up = x > mx[i];  // strict: the first column keeps a tie
-          mx[i] = up ? x : mx[i];
-          ax[i] = up ? c0 + 8 * j + e : ax[i];
-        } else {
-          mx[i] = fmaxf(mx[i], x);
-        }
-      }
-  float mL[2], sum[2] = {0.f, 0.f}, pick[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if constexpr (kArg) st.arg[i] = mx[i] > st.m[i] ? ax[i] : st.arg[i];  // strict: an earlier tile keeps a tie
-    const float mn = fmaxf(st.m[i], mx[i]);
-    // mn = −inf: every column of this thread masked so far; l stays 0.
-    mL[i] = mn == -INFINITY ? 0.f : mn * kLog2e;
-    st.l[i] *= exp2f(fmaf(st.m[i], kLog2e, -mL[i]));
-    st.m[i] = mn;
-  }
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float x = logit(j, i, e);
-        sum[i] += exp2f(fmaf(x, kLog2e, -mL[i]));
-        pick[i] = c0 + 8 * j + e == lab[i] ? x : pick[i];  // the label's lane and column
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    st.l[i] += sum[i];
-    st.pick[i] += pick[i];
-  }
-}
-
-// The CTA's shared memory: the feats tile, the W ring, the barriers, and
-// each consumer warpgroup's column buffer (a tile's bias, then scale).
-struct Layout {
-  uint32_t feats, ring, full, empty, feats_bar, cols;
-};
-
-// A consumer's place in the ring: the next chunk's stage and phase, the
-// next stage to release, and the chunks read and released so far.
-struct Ring {
-  int stage, rel;
-  uint32_t phase;
-  int issued, released;
-};
-
-// What a consumer thread carries from tile to tile: the fold's state and
-// the tile's bias (and scale) at column n0 + (its index in the
-// warpgroup), loaded while the tile's products run.
-struct Consumer {
-  RowState st;
-  int lab[2];
-  float bias_col, scale_col = 0.f;
-  float* cols;  // this warpgroup's column buffer
-};
-
-// The products of K chunk kc of the current tile into `acc`, once its W
-// stage has landed (not committed).
-template <typename Tr, int C>
-__device__ __forceinline__ void issue_chunk(typename Tr::Acc* acc, const Layout& L, Ring& rg,
-                                            int kc, uint32_t sa, int stages) {
-  mbar_wait(L.full + 8 * rg.stage, rg.phase);
-  const uint32_t sb = L.ring + rg.stage * kStageBytes;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    Tr::mma(acc, kmajor_desc<64 * C>(sa, 4 * kc + ks), kmajor_desc<kBN>(sb, ks), (kc | ks) != 0);
-  ++rg.issued;
-  if (++rg.stage == stages) {
-    rg.stage = 0;
-    rg.phase ^= 1;
-  }
-}
-
-// After a commit and wgmma_wait<1>: every chunk but the `pending` of the
-// newest group has been read, so their stages go back to the producer
-// (one arrival per warp).
-__device__ __forceinline__ void release(const Layout& L, Ring& rg, int pending, int stages) {
-  const int lane = threadIdx.x & 31;
-  while (rg.released < rg.issued - pending) {
-    if (lane == 0) mbar_arrive(L.empty + 8 * rg.rel);
-    if (++rg.rel == stages) rg.rel = 0;
-    ++rg.released;
-  }
-}
-
-// Load the bias (and scale) of tile n0's column for this thread, 0 past v_end.
-template <typename Tr>
-__device__ __forceinline__ void load_columns(Consumer& cs, int n0, int v_end,
-                                             const float* __restrict__ bias,
-                                             const float* __restrict__ scale_v) {
-  const int c = n0 + (threadIdx.x & (kWarpgroup - 1));
-  cs.bias_col = c < v_end ? __ldg(bias + c) : 0.f;
-  if constexpr (Tr::kBytes == 1) cs.scale_col = c < v_end ? __ldg(scale_v + c) : 0.f;
-}
-
-// The fold of tile n0 (whose columns this thread loaded as its products
-// started): its columns into the warpgroup's buffer (once the previous
-// fold has read it), then the fold.
-template <typename Tr, bool kArg>
-__device__ __forceinline__ void fold(const typename Tr::Acc* acc, Consumer& cs, int n0, int v_end) {
-  const int i = threadIdx.x & (kWarpgroup - 1), wg = threadIdx.x / kWarpgroup;
-  named_barrier_sync(1 + wg, kWarpgroup);
-  cs.cols[i] = cs.bias_col;
-  if constexpr (Tr::kBytes == 1) cs.cols[kBN + i] = cs.scale_col;
-  named_barrier_sync(1 + wg, kWarpgroup);
-  if (n0 + kBN > v_end)  // V's last tile: CTA-uniform
-    fold_tile<Tr, true, kArg>(acc, cs.st, n0, v_end, cs.lab, cs.cols, threadIdx.x & 3);
-  else
-    fold_tile<Tr, false, kArg>(acc, cs.st, n0, v_end, cs.lab, cs.cols, threadIdx.x & 3);
-}
-
-// One vocab tile n0: its products into `acc`, K chunk by chunk through the
-// ring (one wgmma group in flight while the next chunk's stage is awaited),
-// then the fold. The tile's bias and scale are loaded as its products start
-// and read by its fold. The fold waits for every product: ptxas serializes
-// all wgmma of a kernel whose products run while other instructions read
-// an accumulator — a second accumulator set, folded while the next tile's
-// products run, measured no faster on an H100 than this order, with 64
-// registers more.
-template <typename Tr, int C, bool kArg>
-__device__ __forceinline__ void tile_step(typename Tr::Acc* acc, int n0, const Layout& L, Ring& rg,
-                                          int nk, int stages, uint32_t sa, Consumer& cs, int v_end,
-                                          const float* __restrict__ bias,
-                                          const float* __restrict__ scale_v) {
-  load_columns<Tr>(cs, n0, v_end, bias, scale_v);
-  for (int kc = 0; kc < nk; ++kc) {
-    wgmma_fence();
-    issue_chunk<Tr, C>(acc, L, rg, kc, sa, stages);
-    wgmma_commit();
-    wgmma_wait<1>();
-    release(L, rg, 1, stages);
-  }
-  wgmma_wait<0>();
-  release(L, rg, 0, stages);
-  fence_regs<64>(acc);
-  fold<Tr, kArg>(acc, cs, n0, v_end);
-}
-
-// Registers a thread after setmaxnreg: the producer warpgroup gives most
-// of its own to the consumers (128 · (2 · 232 + 40) ≤ 65 536 beside two;
-// beside one, the consumer may take all 256 a thread can address). The
-// .sync.aligned instruction also tells ptxas that each consumer warpgroup
-// runs converged from here on.
-constexpr int kProducerRegs = 40;
-
-// kArg: keep the first column attaining the max (K4, K7); the training
-// forward K5 keeps none, and part_arg is then not written.
-template <typename Tr, int C, bool kArg>
-__global__ void __launch_bounds__((C + 1) * kWarpgroup, 1)
-head_predict_tc_kernel(const __grid_constant__ CUtensorMap feats_map,  // [B, D]
-                       const __grid_constant__ CUtensorMap w_map,      // [V, D]
-                       const float* __restrict__ bias,                 // [V]
-                       const float* __restrict__ scale_v,              // [V] (int8 only)
-                       const int* __restrict__ labels,                 // [B]
-                       float* __restrict__ part_mlp,  // [3, n_split, B]: m, l, picked
-                       int* __restrict__ part_arg,    // [n_split, B] (kArg)
-                       int B, int V, int tiles_per_split, int nk, int stages) {
-  constexpr int R = 64 * C;                      // feats rows a CTA
-  constexpr int kElems = kChunk / Tr::kBytes;    // K elements a chunk
-  extern __shared__ __align__(1024) unsigned char smem[];
-  Layout L;
-  L.feats = (smem_addr(smem) + 1023) & ~1023u;  // nk atoms of R rows
-  L.ring = L.feats + nk * R * kChunk;           // `stages` W tiles
-  L.full = L.ring + stages * kStageBytes;       // full[stages], empty[stages], feats
-  L.empty = L.full + 8 * stages;
-  L.feats_bar = L.empty + 8 * stages;
-  L.cols = L.feats_bar + 16;                    // C column buffers of kColBytes
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * R, split = blockIdx.y, n_split = gridDim.y;
-  const int v_begin = split * tiles_per_split * kBN;
-  const int v_end = min(V, v_begin + tiles_per_split * kBN);
-  const int n_tiles = (v_end - v_begin + kBN - 1) / kBN;
-
-  if (tid == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(L.full + 8 * s, 1);
-      mbar_init(L.empty + 8 * s, 4 * C);  // one arrival a consumer warp
-    }
-    mbar_init(L.feats_bar, 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * C) {  // the producer warpgroup: one lane issues every copy
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
-    if (warp == 4 * C && lane == 0) {
-      mbar_expect_tx(L.feats_bar, nk * R * kChunk);
-      for (int kc = 0; kc < nk; ++kc)
-        tma_load_2d(L.feats + kc * R * kChunk, &feats_map, kc * kElems, row0, L.feats_bar);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = 0; t < n_tiles; ++t)
-        for (int kc = 0; kc < nk; ++kc) {
-          mbar_wait(L.empty + 8 * stage, phase ^ 1);  // the first round passes at once
-          mbar_expect_tx(L.full + 8 * stage, kStageBytes);
-          tma_load_2d(L.ring + stage * kStageBytes, &w_map, kc * kElems, v_begin + t * kBN,
-                      L.full + 8 * stage);
-          if (++stage == stages) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-    }
-    return;
-  }
-
-  // Consumer warpgroup wg: rows row0 + 64·wg .. +63 of the tile.
-  constexpr int kConsumerRegs = C == 2 ? 232 : 256;
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
-  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
-  const int first = row0 + 64 * wg + 16 * (warp & 3);  // this warp's first row
-  Consumer cs;
-  cs.cols = reinterpret_cast<float*>(smem + (L.cols - smem_addr(smem)) + wg * kColBytes);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = first + g + 8 * i;
-    cs.lab[i] = r < B ? labels[r] : -1;
-    cs.st.m[i] = -INFINITY;
-    cs.st.l[i] = 0.f;
-    cs.st.pick[i] = 0.f;
-    cs.st.arg[i] = 0;
-  }
-  const uint32_t sa = L.feats + 64 * wg * kChunk;  // this warpgroup's rows of every atom
-  typename Tr::Acc acc[64];
-  Ring rg{0, 0, 0u, 0, 0};
-  mbar_wait(L.feats_bar, 0);
-  for (int tile = 0; tile < n_tiles; ++tile)
-    tile_step<Tr, C, kArg>(acc, v_begin + tile * kBN, L, rg, nk, stages, sa, cs, v_end, bias,
-                           scale_v);
-
-  // The quad's four states, merged (merge_state; !kArg: no column shuffled).
-  RowState& st = cs.st;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1)
-      merge_state(st.m[i], st.l[i], st.arg[i], st.pick[i],
-                  __shfl_xor_sync(0xffffffffu, st.m[i], off),
-                  __shfl_xor_sync(0xffffffffu, st.l[i], off),
-                  kArg ? __shfl_xor_sync(0xffffffffu, st.arg[i], off) : 0,
-                  __shfl_xor_sync(0xffffffffu, st.pick[i], off));
-  if (t == 0) {
-    const size_t plane = static_cast<size_t>(n_split) * B;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = first + g + 8 * i;
-      if (r >= B) continue;
-      const size_t o = static_cast<size_t>(split) * B + r;
-      part_mlp[o] = st.m[i];
-      part_mlp[plane + o] = st.l[i];
-      part_mlp[2 * plane + o] = st.pick[i];
-      if constexpr (kArg) part_arg[o] = st.arg[i];
-    }
-  }
-}
 
 // ------------------------------------------------------ K4's f32 route ---
 // f32 feats and W. Each f32 product is six exact bf16 products: feats and W
@@ -516,13 +127,6 @@ constexpr int f32_stages(int N, int D) {
 
 constexpr int f32_smem_bytes(int N, int D, int stages) {
   return 1024 + f32_terms_bytes(N, D) + stages * (kStageBytes + 16) + 4 * N;
-}
-
-// Batch rows a CTA of the f32 head takes: 64 above B = 8 where they fit
-// (D <= 512), else 8; 0 when not even 8 fit.
-int f32_rows(int B, int D) {
-  if (B > 8 && f32_stages(64, D) > 0) return 64;
-  return f32_stages(8, D) > 0 ? 8 : 0;
 }
 
 // d[64 × N] (+)= A[64 × 16] · B[16 × N]: A (bf16 pairs) in registers, B
@@ -798,43 +402,36 @@ __global__ void quantize_rows_kernel(const T* __restrict__ x, signed char* __res
 }
 
 // ------------------------------------------------------------ host side ---
-template <typename Tr, int C, bool kArg>
-cudaError_t launch_c(const CUtensorMap& fm, const CUtensorMap& wm, const float* bias,
-                     const float* scale_v, const int* labels, float* part_mlp, int* part_arg,
-                     int B, int V, int n_split, int tiles_per_split, int nk, cudaStream_t s) {
-  const int stages = ring_stages(C, nk), bytes = smem_bytes(C, nk, stages);
-  cudaError_t err = cudaFuncSetAttribute(head_predict_tc_kernel<Tr, C, kArg>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + 64 * C - 1) / (64 * C), n_split);
-  head_predict_tc_kernel<Tr, C, kArg><<<grid, (C + 1) * kWarpgroup, bytes, s>>>(
-      fm, wm, bias, scale_v, labels, part_mlp, part_arg, B, V, tiles_per_split, nk, stages);
-  return cudaGetLastError();
-}
-
 // The partial kernel over feats [B, D] and W [V, D] of Tr's type; kArg as
-// for head_predict_tc_kernel.
+// for head_predict_tc_kernel. The wrapper plans the route (0 the resident
+// feats tile, 1 the streamed one) and the rows a CTA (64 or 128: one or two
+// consumer warpgroups); the resident route is refused where its feats tile
+// leaves fewer than kMinStages W stages.
 template <typename Tr, bool kArg = true>
 cudaError_t launch_partial(const void* feats, const void* w, const float* bias,
                            const float* scale_v, const int* labels, float* part_mlp,
                            int* part_arg, int B, int D, int V, int n_split, int tiles_per_split,
-                           cudaStream_t s) {
-  const int C = consumer_groups(B, D, Tr::kBytes);
-  if (C == 0) return cudaErrorInvalidValue;
+                           int route, int rows, cudaStream_t s) {
+  const int C = rows / 64;
+  const int nk = chunks(D, Tr::kBytes);
+  if ((rows != 64 && rows != 128) || (route != 0 && route != 1) ||
+      (route == 0 && ring_stages(C, nk) == 0))
+    return cudaErrorInvalidValue;
   CUtensorMap fm, wm;
   if (!encode_rows(&fm, Tr::kMap, feats, B, D, Tr::kBytes, 64 * C,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B) ||
       !encode_rows(&wm, Tr::kMap, w, V, D, Tr::kBytes, kBN, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
     return cudaErrorNotSupported;
-  const int nk = chunks(D, Tr::kBytes);
-  return C == 2 ? launch_c<Tr, 2, kArg>(fm, wm, bias, scale_v, labels, part_mlp, part_arg, B,
-                                        V, n_split, tiles_per_split, nk, s)
-                : launch_c<Tr, 1, kArg>(fm, wm, bias, scale_v, labels, part_mlp, part_arg, B,
-                                        V, n_split, tiles_per_split, nk, s);
+  if (route == 1)
+    return mpt_head::launch_streamed(Tr::kBytes == 1 ? 2 : (kArg ? 0 : 1), C, fm, wm, bias,
+                                     scale_v, labels, part_mlp, part_arg, B, V, n_split,
+                                     tiles_per_split, nk, s);
+  return launch_route<Tr, kArg, false>(C, fm, wm, bias, scale_v, labels, part_mlp, part_arg, B,
+                                       V, n_split, tiles_per_split, nk, s);
 }
 
 // K4's f32 partial kernel over f32 feats [B, D] and W [V, D]: N batch rows
-// a CTA (f32_rows), W streamed in stages of 128 vocab rows × 32 columns.
+// a CTA (8 or 64, the wrapper's plan), W streamed in stages of 128 vocab rows × 32 columns.
 template <int N>
 cudaError_t launch_f32(const float* feats, const float* w, const float* bias, const int* labels,
                        float* part_mlp, int* part_arg, int B, int D, int V, int n_split,
@@ -859,11 +456,11 @@ cudaError_t launch_f32(const float* feats, const float* w, const float* bias, co
 // aligned), bias f32 [V], labels i32 [B] -> loss f32 [B], pred i32 [B].
 // Scratch: part_mlp f32 [3, n_split, B], part_arg i32 [n_split, B]; the
 // split geometry (tiles of mpt_head_tc_tile_vocab() rows) must cover V with
-// no empty split.
+// no empty split; route and rows a CTA as launch_partial takes them.
 extern "C" int mpt_head_predict_bf16(const void* feats, const void* w, const void* bias,
                                      const void* labels, void* loss, void* pred, void* part_mlp,
                                      void* part_arg, int B, int D, int V, int n_split,
-                                     int tiles_per_split, void* stream) {
+                                     int tiles_per_split, int route, int rows, void* stream) {
   cudaError_t err = check_geometry(B, D, V, n_split, tiles_per_split, kBN);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -871,7 +468,7 @@ extern "C" int mpt_head_predict_bf16(const void* feats, const void* w, const voi
   float* mlp = static_cast<float*>(part_mlp);
   int* arg = static_cast<int*>(part_arg);
   err = launch_partial<Bf16>(feats, w, static_cast<const float*>(bias), nullptr, lab, mlp, arg, B,
-                             D, V, n_split, tiles_per_split, s);
+                             D, V, n_split, tiles_per_split, route, rows, s);
   if (err != cudaSuccess) return err;
   return launch_merge(mlp, arg, lab, static_cast<float*>(loss), static_cast<int*>(pred), nullptr,
                       nullptr, B, n_split, s);
@@ -881,19 +478,19 @@ extern "C" int mpt_head_predict_bf16(const void* feats, const void* w, const voi
 // [V, D], D % 16 == 0, 16-byte aligned), bias f32 [V], labels i32 [B] ->
 // loss, m, l f32 [B]: K4's bf16 partial kernel without its argmax, then the
 // merge, which keeps each row's global max m and sum l for the backward.
-// Scratch part_mlp f32 [3, n_split, B]; the split geometry as for
-// mpt_head_predict_bf16.
+// Scratch part_mlp f32 [3, n_split, B]; the split geometry, route and rows
+// as for mpt_head_predict_bf16.
 extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bias,
                                const void* labels, void* loss, void* m, void* l, void* part_mlp,
                                int B, int D, int V, int n_split, int tiles_per_split,
-                               void* stream) {
+                               int route, int rows, void* stream) {
   cudaError_t err = check_geometry(B, D, V, n_split, tiles_per_split, kBN);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lab = static_cast<const int*>(labels);
   float* mlp = static_cast<float*>(part_mlp);
   err = launch_partial<Bf16, false>(feats, w, static_cast<const float*>(bias), nullptr, lab, mlp,
-                                    nullptr, B, D, V, n_split, tiles_per_split, s);
+                                    nullptr, B, D, V, n_split, tiles_per_split, route, rows, s);
   if (err != cudaSuccess) return err;
   return launch_merge(mlp, nullptr, lab, static_cast<float*>(loss), nullptr,
                       static_cast<float*>(m), static_cast<float*>(l), B, n_split, s);
@@ -901,16 +498,16 @@ extern "C" int mpt_head_ce_fwd(const void* feats, const void* w, const void* bia
 
 // K4's f32 route: feats f32 [B, D], w f32 [V, D] (D % 16 == 0, 16-byte
 // aligned), bias f32 [V], labels i32 [B] -> loss f32 [B], pred i32 [B].
-// Scratch and split geometry as for mpt_head_predict_bf16, the row tile
-// mpt_head_tc_tile_rows(B, D, 4).
+// Scratch and split geometry as for mpt_head_predict_bf16; N batch rows a
+// CTA, 8 or 64, where their feats terms leave two W stages (the wrapper
+// plans 64 above B = 8 where they fit, D <= 512, else 8).
 extern "C" int mpt_head_predict_f32(const void* feats, const void* w, const void* bias,
                                     const void* labels, void* loss, void* pred, void* part_mlp,
                                     void* part_arg, int B, int D, int V, int n_split,
-                                    int tiles_per_split, void* stream) {
+                                    int tiles_per_split, int N, void* stream) {
   cudaError_t err = check_geometry(B, D, V, n_split, tiles_per_split, kBN);
   if (err != cudaSuccess) return err;
-  const int N = f32_rows(B, D);
-  if (N == 0) return cudaErrorInvalidValue;
+  if ((N != 8 && N != 64) || f32_stages(N, D) == 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* f = static_cast<const float*>(feats);
   const auto* wf = static_cast<const float*>(w);
@@ -928,13 +525,14 @@ extern "C" int mpt_head_predict_f32(const void* feats, const void* w, const void
 // K7: feats (dtype 0 = f32, 1 = bf16) [B, D] are quantized into the scratch
 // feats_q int8 [B, D], then the int8 partial kernel and the merge run. w
 // int8 [V, D]; scale_v, bias f32 [V]; labels i32 [B]; loss f32 [B]; pred
-// i32 [B]; part_mlp, part_arg and the geometry as for
+// i32 [B]; part_mlp, part_arg, the geometry, route and rows as for
 // mpt_head_predict_bf16. Every pointer 16-byte aligned.
 extern "C" int mpt_head_predict_int8(const void* feats, void* feats_q, const void* w,
                                      const void* scale_v, const void* bias, const void* labels,
                                      void* loss, void* pred, void* part_mlp, void* part_arg,
                                      int B, int D, int V, int n_split, int tiles_per_split,
-                                     float act_scale, int dtype, void* stream) {
+                                     int route, int rows, float act_scale, int dtype,
+                                     void* stream) {
   cudaError_t err = check_geometry(B, D, V, n_split, tiles_per_split, kBN);
   if (err != cudaSuccess) return err;
   if (!(act_scale > 0.f)) return cudaErrorInvalidValue;
@@ -956,17 +554,12 @@ extern "C" int mpt_head_predict_int8(const void* feats, void* feats_q, const voi
   int* arg = static_cast<int*>(part_arg);
   err = launch_partial<Int8>(q, w, static_cast<const float*>(bias),
                              static_cast<const float*>(scale_v), lab, mlp, arg, B, D, V, n_split,
-                             tiles_per_split, s);
+                             tiles_per_split, route, rows, s);
   if (err != cudaSuccess) return err;
   return launch_merge(mlp, arg, lab, static_cast<float*>(loss), static_cast<int*>(pred), nullptr,
                       nullptr, B, n_split, s);
 }
 
-// The tensor-core heads' tile geometry the wrappers plan splits with: rows
-// a CTA for (B, D, element bytes) — bf16 and int8 64 or 128, f32 (4) 8 or
-// 64; 0 when D is too wide for a resident feats tile — and vocab rows a
-// tile.
-extern "C" int mpt_head_tc_tile_rows(int B, int D, int elem_bytes) {
-  return elem_bytes == 4 ? f32_rows(B, D) : 64 * consumer_groups(B, D, elem_bytes);
-}
+// Vocab rows a tile of the tensor-core heads, which the wrappers plan their
+// splits with.
 extern "C" int mpt_head_tc_tile_vocab() { return kBN; }

@@ -28,9 +28,12 @@ predictions from the same forward. Two paths:
   or the top-k class indices, best first, equal logits in index order as
   ``jax.lax.top_k`` gives them (``ops.losses.topk_indices``);
 - fused (``--fused-head-eval``): the model runs up to the pooled [B, D]
-  features (``model.features``; every model's head is ``model.fc``), and
+  features (``model.features``; the dense head is ``model.fc``), and
   ``ops.fused_head_ce.head_predict`` streams the head's weights
-  computing per-row loss and argmax without the [B, V] logits.
+  computing per-row loss and argmax without the [B, V] logits. A model
+  whose head is not a dense layer (squeezenet1_0's 1×1 convolution) takes
+  the plain path with a warning (:func:`fused_head_applies`), as the JAX
+  predict step falls back when its head never matches.
   It streams argmax only, so ``topk > 1`` with the fused head raises.
   With ``int8_head`` (a model quantized by ``ops.quantize.quantize_model``
   with the head kept int8) the head is ``ops.quantize.head_predict_int8``.
@@ -70,6 +73,7 @@ from mpi_pytorch_tpu_torch.ops.losses import topk_indices
 from mpi_pytorch_tpu_torch.ops.quantize import (
     calibrate_head_act_scale,
     calibration_batch,
+    head_module,
     head_predict_int8,
     int8_head_operands,
     max_logit_drift,
@@ -154,6 +158,24 @@ def build_int8_inference(
     model = quantize_model(_f32_model(cfg, f32_state), keep_head_int8=keep_head_int8,
                            act_scale=act_scale)
     return prepare_for_inference(model, dev, COMPUTE_DTYPES[cfg.compute_dtype])
+
+
+def fused_head_applies(cfg: Config, model: nn.Module, logger=None) -> bool:
+    """Whether ``--fused-head-eval`` runs the fused head on ``model``: the
+    flag is set and the model's last layer is a dense head. A set flag on a
+    model without one (squeezenet1_0) warns once a call that the plain
+    predict step runs instead."""
+    if not cfg.fused_head_eval:
+        return False
+    if head_module(model) is not None:
+        return True
+    if logger is not None:
+        logger.warning(
+            "--fused-head-eval requested but falling back to the plain predict step: "
+            "%s's head is a 1×1 convolution, not a dense layer (metrics are identical, "
+            "but the [B, num_classes] logits are materialized)", cfg.model_name,
+        )
+    return False
 
 
 def head_weights(model: nn.Module, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -328,7 +350,7 @@ def evaluate_with_predictions(
     for one in neither."""
     dev = next(model.parameters()).device
     compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
-    fused = cfg.fused_head_eval
+    fused = fused_head_applies(cfg, model, logger)
     predict = make_predict_step(compute_dtype, fused_head=fused)
     head = head_weights(model, compute_dtype) if fused else None
     data = data or collectives.world_axis()
@@ -401,7 +423,7 @@ def quantize_eval_report(cfg: Config, device: str | torch.device | None = None) 
     compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     # The serve executables' gate and calibration batch, so the report
     # measures the contract the server runs.
-    fused = bool(cfg.fused_head_eval)
+    fused = fused_head_applies(cfg, model, logger)
     images = calibration_batch(cfg)
     act_scale = calibrate_head_act_scale(model, images, compute_dtype)
     q_plain = build_int8_inference(cfg, f32_state, dev, keep_head_int8=False, act_scale=act_scale)

@@ -19,6 +19,14 @@ every rank's gradient of the statistics — right when each rank's loss is
 its own share of the global loss. Under a model axis the sums run over the
 data axis only (the ranks of a model group hold the same rows).
 
+The zoo's pieces (``mpi_pytorch_tpu/models/common.py`` and the model
+files): flax's ``'SAME'`` convolution (:class:`SameConv2d`), its
+``'VALID'`` max and count-padding average pools, the adaptive average
+pool's window rule, ``relu6`` and SiLU, and the train-mode randomness —
+:class:`Dropout` and :class:`StochasticDepth`, whose masks come from an
+explicit per-rank ``torch.Generator`` (:func:`set_rng`). Depthwise
+convolutions are ``Conv2d(..., groups=C)``, weight ``[C, 1, kh, kw]``.
+
 The auto step's levers (``train/state.place_model``): the head ``fc`` of
 every ported model becomes a :class:`VocabParallelDense` — a block of the
 classes' rows on each rank of the model axis — and under FSDP a
@@ -49,8 +57,10 @@ def _channel_stats(x: torch.Tensor, sync: bool = False,
     ``x``, as it does in JAX). With ``sync`` over an axis of more than one
     rank (``axis``; the world by default), over the global batch: the
     per-channel sums of x and x² and the row count, all-reduced (SUM) in
-    one autograd-aware collective."""
-    xf = x.float()
+    one autograd-aware collective. (f32 for bf16 and f32 inputs; a float64
+    input keeps float64, as flax promotes the statistics' dtype to at
+    least f32.)"""
+    xf = x.to(_stats_dtype(x))
     size = collectives.num_processes() if axis is None else axis.size
     if sync and size > 1:
         c = xf.shape[1]
@@ -63,6 +73,10 @@ def _channel_stats(x: torch.Tensor, sync: bool = False,
         return mean, sums[c:2 * c] / sums[-1] - mean.square()
     mean = xf.mean(dim=(0, 2, 3))
     return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square()
+
+
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def _per_channel(t: torch.Tensor) -> torch.Tensor:
@@ -107,8 +121,9 @@ class BatchNorm(nn.BatchNorm2d):
         mean, var = _channel_stats(x, self.sync_stats, self.sync_axis)
         var = var.clamp_min(0.0)
         self.update_running_stats(mean, var)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (x.float() - _per_channel(mean)) * _per_channel(mul) + _per_channel(self.bias.float())
+        dt = _stats_dtype(x)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        y = (x.to(dt) - _per_channel(mean)) * _per_channel(mul) + _per_channel(self.bias.to(dt))
         return y.to(x.dtype)
 
 
@@ -168,14 +183,156 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class SameConv2d(Conv2d):
+    """flax ``Conv``'s default ``'SAME'`` padding: ``ceil(n / stride)``
+    outputs a spatial dim, the padding ``max((out − 1)·stride + k − n, 0)``
+    split ``total // 2`` before and the rest after — uneven for an odd
+    total, which no ``nn.Conv2d`` padding expresses (squeezenet's 7×7/s2
+    stem pads 2 before and 3 after at even sizes)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = True):
+        super().__init__(cin, cout, kernel, stride=stride, padding=0, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(same_padding(x, self.kernel_size, self.stride))
+
+
+def same_padding(x: torch.Tensor, kernel: tuple[int, int], stride: tuple[int, int]) -> torch.Tensor:
+    """``x`` zero-padded as flax's ``'SAME'`` pads it for ``kernel`` and
+    ``stride`` (see :class:`SameConv2d`)."""
+    pads = []
+    for n, k, s in zip(reversed(x.shape[2:]), reversed(kernel), reversed(stride)):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
-    """Max pool with −inf padding (torch's, and flax's reduce_window)."""
+    """Max pool with −inf padding (torch's, and flax's reduce_window).
+    Without padding it is flax's ``'VALID'``: the output size rounds down
+    (torch's ``ceil_mode=False``), where torchvision's squeezenet rounds
+    up."""
     return F.max_pool2d(x, kernel_size=window, stride=stride, padding=padding)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """flax ``nn.avg_pool``: the window's sum over the window's size, the
+    zero padding counted (flax's ``count_include_pad=True`` default, as
+    inception's 3×3/s1/p1 branch pools have it); no padding is
+    ``'VALID'``."""
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """The JAX package's ``adaptive_avg_pool`` (torch's
+    ``AdaptiveAvgPool2d`` rule): output cell (i, j) averages rows
+    ``[floor(i·H/th), ceil((i+1)·H/th))`` and the same over the columns.
+    Equal windows are one pool; any other shape — also an upsampling, as
+    alexnet's 3×3 map at 128 px going to 6×6 — averages the rows' slices,
+    then the columns', as the JAX function does."""
+    th, tw = out_hw
+    h, w = x.shape[2], x.shape[3]
+    if (h, w) == (th, tw):
+        return x
+    if h % th == 0 and w % tw == 0:
+        return F.avg_pool2d(x, (h // th, w // tw))
+    x = torch.cat([x[:, :, (i * h) // th: -(-((i + 1) * h) // th)].mean(dim=2, keepdim=True)
+                   for i in range(th)], dim=2)
+    return torch.cat([x[:, :, :, (j * w) // tw: -(-((j + 1) * w) // tw)].mean(dim=3, keepdim=True)
+                      for j in range(tw)], dim=3)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] → [B, C] mean over the spatial dims."""
     return x.mean(dim=(2, 3))
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``min(relu(x), 6)`` (the JAX mobilenet's ``relu6``)."""
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x·sigmoid(x)`` (flax ``nn.silu``)."""
+    return x * torch.sigmoid(x)
+
+
+def _keep_mask(shape, like: torch.Tensor, keep: float, generator: torch.Generator | None,
+               what: str) -> torch.Tensor:
+    """A boolean mask of ``shape``, each entry True with probability
+    ``keep``, drawn from ``generator`` on ``like``'s device in its memory
+    format."""
+    if generator is None:
+        raise RuntimeError(
+            f"{what} in train mode draws its masks from an explicit generator: "
+            "set one with models.common.set_rng(model, generator)"
+        )
+    if tuple(shape) == tuple(like.shape):
+        u = torch.empty_like(like, dtype=torch.float32)
+    else:
+        u = torch.empty(shape, dtype=torch.float32, device=like.device)
+    return u.uniform_(0.0, 1.0, generator=generator) < keep
+
+
+def _scaled_select(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """``where(mask, x / keep, 0)`` in ``x``'s dtype, the division correct
+    to the last bit (a tensor divisor: CUDA turns a division by a Python
+    scalar into a multiply by its reciprocal)."""
+    scaled = torch.div(x, torch.full((), keep, dtype=x.dtype, device=x.device))
+    return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode each entry is kept with
+    probability ``1 − p`` and scaled by ``1/(1 − p)``, else zeroed; the
+    identity in eval mode or at ``p = 0``. The masks come from
+    ``self.generator``, a ``torch.Generator`` on the activations' device
+    that the train step sets (:func:`set_rng`): one stream a data shard,
+    as the JAX step draws one a shard."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        return _scaled_select(x, _keep_mask(x.shape, x, keep, self.generator, "Dropout"), keep)
+
+
+class StochasticDepth(nn.Module):
+    """Per-sample stochastic depth (the JAX efficientnet's residual
+    branch, "row" mode): in train mode a whole sample's branch is kept
+    with probability ``1 − p`` — one [B, 1, 1, 1] mask — and scaled by
+    ``1/(1 − p)``; the identity in eval mode or at ``p = 0``. Masks from
+    ``self.generator`` as :class:`Dropout`'s."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = _keep_mask((x.shape[0], 1, 1, 1), x, keep, self.generator, "StochasticDepth")
+        return _scaled_select(x, mask, keep)
+
+
+def set_rng(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Every :class:`Dropout` and :class:`StochasticDepth` of ``model``
+    draws its train-mode masks from ``generator`` (the data shard's stream)."""
+    for m in model.modules():
+        if isinstance(m, (Dropout, StochasticDepth)):
+            m.generator = generator
+
+
+def has_randomness(model: nn.Module) -> bool:
+    """Whether ``model``'s train-mode forward draws any mask."""
+    return any(isinstance(m, (Dropout, StochasticDepth)) and m.p > 0 for m in model.modules())
 
 
 class Dense(nn.Linear):

@@ -1,6 +1,7 @@
 """Weights across the two packages: the JAX package's flax variable tree
 (``{"params": ..., "batch_stats": ...}`` as numpy arrays) ↔ this port's
-``state_dict``, for resnet18/34 and the vits.
+``state_dict``, for every ported model: resnet18/34, the vits and the
+rest of the CNN zoo.
 
 resnet18/34:
 
@@ -32,6 +33,18 @@ the port's quantized model (``ops.quantize.quantize_model``) through
 :func:`from_flax_quantized`: int8 kernels transposed as above into ``q``,
 per-output-channel scales as they are.
 
+The CNN zoo — alexnet, vgg11_bn, squeezenet1_0, densenet121 (any block
+config), inception_v3, mobilenet_v2 and efficientnet_b0 — carries the
+flax module paths as its state names (``a/b/c`` ↔ ``a.b.c``), so one walk
+maps every module by its leaves: a ``kernel`` of four dims is a
+convolution (HWIO ↔ OIHW; a depthwise ``[kh, kw, 1, C]`` ↔ ``[C, 1, kh,
+kw]`` by the same transpose), of two dims a dense layer, ``scale`` with
+the batch stats a batchnorm. The dense heads are renamed: flax ``head`` ↔
+``fc`` and inception's ``AuxLogits/aux_head`` ↔ ``AuxLogits.fc``;
+squeezenet's convolution ``head`` keeps its name. alexnet's and vgg's
+first dense after the flatten, ``fc1``, reads the pooled map in HWC order
+in flax and CHW in the port: its rows are permuted both ways.
+
 Across layouts of the auto step's levers (``train/state.place_model``): a
 full state_dict → one rank's blocks on a (data, model) mesh and a lever
 set (:func:`shard_state_dict`, by ``parallel.mesh.param_specs``), and
@@ -47,6 +60,103 @@ import torch
 
 _STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 _VIT_HEADS = {"vit_s16": 6, "vit_b16": 12}
+_ZOO = ("alexnet", "vgg11_bn", "squeezenet1_0", "densenet121", "inception_v3", "mobilenet_v2",
+        "efficientnet_b0")
+# The dense after the flatten, and its pooled map's side (HWC in flax).
+_FLATTEN = {"alexnet": ("fc1", 6), "vgg11_bn": ("fc1", 7)}
+
+
+def _zoo_flax_path(prefix: str) -> str:
+    """A zoo state-name prefix → its flax module path."""
+    parts = prefix.split(".")
+    if parts == ["fc"]:
+        return "head"
+    if parts == ["AuxLogits", "fc"]:
+        return "AuxLogits/aux_head"
+    return "/".join(parts)
+
+
+def _zoo_prefix(path: str) -> str:
+    """A zoo flax module path → its state-name prefix (the inverse of
+    :func:`_zoo_flax_path`; squeezenet's conv ``head`` keeps its name)."""
+    if path == "AuxLogits/aux_head":
+        return "AuxLogits.fc"
+    return path.replace("/", ".")
+
+
+def _hwc_to_chw_rows(kernel: np.ndarray, side: int) -> np.ndarray:
+    """A flax dense kernel [side·side·C, out] whose rows read an HWC
+    flatten → the same kernel's rows in CHW order."""
+    c = kernel.shape[0] // (side * side)
+    return kernel.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(kernel.shape)
+
+
+def _chw_to_hwc_rows(kernel: np.ndarray, side: int) -> np.ndarray:
+    c = kernel.shape[0] // (side * side)
+    return kernel.reshape(c, side, side, -1).transpose(1, 2, 0, 3).reshape(kernel.shape)
+
+
+def _zoo_from_flax(params: Mapping[str, Any], stats: Mapping[str, Any],
+                   arch: str) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    flat_name, side = _FLATTEN.get(arch, (None, 0))
+
+    def walk(tree: Mapping[str, Any], path: list[str]) -> None:
+        if "kernel" in tree or "scale" in tree:
+            fpath = "/".join(path)
+            prefix = _zoo_prefix(fpath)
+            if "scale" in tree:
+                s = _get(stats, fpath)
+                sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(tree["scale"]), _t(tree["bias"])
+                sd[f"{prefix}.running_mean"] = _t(s["mean"])
+                sd[f"{prefix}.running_var"] = _t(s["var"])
+                sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+                return
+            kernel = np.asarray(tree["kernel"])
+            if fpath == "head" and kernel.ndim == 2:
+                prefix = "fc"
+            if kernel.ndim == 4:
+                sd[f"{prefix}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
+            else:
+                if fpath == flat_name:
+                    kernel = _hwc_to_chw_rows(kernel, side)
+                sd[f"{prefix}.weight"] = _t(kernel.T)
+            if "bias" in tree:
+                sd[f"{prefix}.bias"] = _t(tree["bias"])
+            return
+        for key, sub in tree.items():
+            walk(sub, path + [key])
+
+    walk(params, [])
+    return sd
+
+
+def _zoo_to_flax(state_dict: Mapping[str, torch.Tensor], arch: str) -> dict[str, Any]:
+    params: dict = {}
+    stats: dict = {}
+    flat_name, side = _FLATTEN.get(arch, (None, 0))
+
+    def n(key: str) -> np.ndarray:  # a copy: never a view of the module's tensor
+        return state_dict[key].detach().float().cpu().numpy().copy()
+
+    prefixes = dict.fromkeys(k.rpartition(".")[0] for k in state_dict)
+    for prefix in prefixes:
+        fpath = _zoo_flax_path(prefix)
+        if f"{prefix}.running_mean" in state_dict:
+            _put(params, fpath, {"scale": n(f"{prefix}.weight"), "bias": n(f"{prefix}.bias")})
+            _put(stats, fpath, {"mean": n(f"{prefix}.running_mean"),
+                                "var": n(f"{prefix}.running_var")})
+            continue
+        w = n(f"{prefix}.weight")
+        if w.ndim == 4:
+            leaves = {"kernel": np.transpose(w, (2, 3, 1, 0))}
+        else:
+            kernel = np.ascontiguousarray(w.T)
+            leaves = {"kernel": _chw_to_hwc_rows(kernel, side) if fpath == flat_name else kernel}
+        if f"{prefix}.bias" in state_dict:
+            leaves["bias"] = n(f"{prefix}.bias")
+        _put(params, fpath, leaves)
+    return {"params": params, "batch_stats": stats}
 
 
 def _module_pairs(arch: str) -> list[tuple[str, str, str]]:
@@ -166,6 +276,8 @@ def from_flax_variables(variables: Mapping[str, Any], arch: str) -> dict[str, to
     (f32 CPU tensors)."""
     if arch in _VIT_HEADS:
         return _vit_from_flax(variables["params"])
+    if arch in _ZOO:
+        return _zoo_from_flax(variables["params"], variables.get("batch_stats", {}), arch)
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
 
@@ -195,6 +307,8 @@ def to_flax_variables(
     architecture's)."""
     if arch in _VIT_HEADS:
         return _vit_to_flax(state_dict, num_heads or _VIT_HEADS[arch])
+    if arch in _ZOO:
+        return _zoo_to_flax(state_dict, arch)
     params: dict = {}
     stats: dict = {}
 

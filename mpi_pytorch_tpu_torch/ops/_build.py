@@ -58,20 +58,19 @@ SIGNATURES = {
     "mpt_stem_bwd_parts": (_I, _I, _I, _I),
     # the predict head K4, bf16 (tensor cores) and f32: feats, w, bias,
     # labels, loss, pred, part_mlp, part_arg, B, D, V, n_split,
-    # tiles_per_split, stream
-    "mpt_head_predict_bf16": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
-    "mpt_head_predict_f32": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
-    # the tensor-core heads' (K4, K5, K7): rows per CTA for (B, D, element
-    # bytes), 0 when D is too wide; vocab rows per tile
-    "mpt_head_tc_tile_rows": (_I, _I, _I),
+    # tiles_per_split, then bf16's route (0 resident feats, 1 streamed) and
+    # rows a CTA, or f32's rows a CTA; stream
+    "mpt_head_predict_bf16": (_P,) * 8 + (_I, _I, _I, _I, _I, _I, _I, _P),
+    "mpt_head_predict_f32": (_P,) * 8 + (_I, _I, _I, _I, _I, _I, _P),
+    # the tensor-core heads' (K4, K5, K7) vocab rows per tile
     "mpt_head_tc_tile_vocab": (),
     # feats, feats_q (scratch), w_q, scale_v, bias, labels, loss, pred,
-    # part_mlp, part_arg, B, D, V, n_split, tiles_per_split, act_scale,
-    # dtype, stream
-    "mpt_head_predict_int8": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _I, _P),
+    # part_mlp, part_arg, B, D, V, n_split, tiles_per_split, route, rows,
+    # act_scale, dtype, stream
+    "mpt_head_predict_int8": (_P,) * 10 + (_I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # feats, w, bias, labels, loss, m, l, part_mlp,
-    # B, D, V, n_split, tiles_per_split, stream
-    "mpt_head_ce_fwd": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
+    # B, D, V, n_split, tiles_per_split, route, rows, stream
+    "mpt_head_ce_fwd": (_P,) * 8 + (_I, _I, _I, _I, _I, _I, _I, _P),
     # feats, w, bias, labels, m, l, g, dlog, dw, db, part, dfeats,
     # B, D, V, n_ctas, n_split, tiles_per_split, stream
     "mpt_head_ce_bwd": (_P,) * 12 + (_I, _I, _I, _I, _I, _I, _P),

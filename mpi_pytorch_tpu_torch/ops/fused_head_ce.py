@@ -24,7 +24,9 @@ back ``[V, D]`` too.
 
 On a CUDA tensor :func:`head_predict` launches a kernel or raises: bf16
 feats and W through the wgmma kernel of ``csrc/head_predict_tc.cu``
-(TMA-fed, the softmax and argmax folded in registers), or f32 feats and W
+(TMA-fed, the softmax and argmax folded in registers; a D too wide for a
+resident feats tile, 2048 and up, takes its streamed route, :func:`tc_route`),
+or f32 feats and W
 through that file's f32 wgmma kernel (an f32 model keeps an f32 head, as
 the JAX function's f32 kernel does: each f32 product is six exact bf16
 products of three-term splits of feats and W, summed smallest first, the
@@ -50,8 +52,10 @@ import torch.nn.functional as F
 from mpi_pytorch_tpu_torch.ops import _build
 
 # Launches of head_predict's kernels (one per call on the card): the bf16
-# tensor-core kernel, and the f32 one.
+# tensor-core kernel on its resident-feats route, on its streamed route
+# (a D too wide for a resident feats tile: tc_route), and the f32 one.
 counter = _build.LaunchCounter("fused_head_ce.counter")
+counter_wide = _build.LaunchCounter("fused_head_ce.counter_wide")
 counter_f32 = _build.LaunchCounter("fused_head_ce.counter_f32")
 # Launches of the training op's forward and backward kernels (one per call
 # of each on the card).
@@ -108,19 +112,82 @@ def split_geometry(
     return -(-v_tiles // tiles_per_split), tiles_per_split
 
 
+# csrc/head_predict_tc.cuh's shared-memory plan, for tc_route: a block's
+# limit, the fixed part (alignment slack, barriers, two column buffers),
+# one W stage (128 vocab rows × 128 bytes), a feats chunk row, the ring's
+# bounds, and the f32 route's per-stage barrier pair.
+_SMEM_LIMIT = 232448
+_SMEM_FIXED = 1024 + 8 * (2 * 8 + 1) + 8 + 2 * (2 * 128 * 4)
+_STAGE_BYTES = 128 * 128
+_CHUNK = 128
+_MIN_STAGES, _MAX_STAGES = 3, 8
+# The bf16 and int8 routes' codes in the kernels' C interface.
+ROUTE_CODE = {"resident": 0, "streamed": 1}
+# The widest feats row (D × element bytes) the resident route takes by
+# default. On an NVIDIA H100 80GB HBM3 at 700 W the two routes ran within
+# their spread (−2.4 to +3 %) up to a 1 KB row (bf16 D = 512, int8
+# D ≤ 1024) and the streamed one 0–49 % faster beyond it (chip_smoke.py
+# check_head_routes, B = 64 and 512).
+_RESIDENT_ROW_BYTES = 1024
+
+
+def _ring_stages(left: int, stage_bytes: int, least: int) -> int:
+    n = left // stage_bytes if left >= 0 else 0
+    return 0 if n < least else min(n, _MAX_STAGES)
+
+
+def tc_route(rows: int, d: int, elem_bytes: int, route: str | None = None) -> tuple[str, int]:
+    """(route, feats rows a CTA) of the tensor-core heads for ``rows``
+    feats rows of ``d`` ``elem_bytes``-byte elements: the plan the kernels
+    of ``csrc/head_predict_tc.cu`` launch with (they refuse a resident
+    tile that does not fit).
+
+    - bf16 (2) and int8 (1), ``"resident"`` for a feats row of at most
+      ``_RESIDENT_ROW_BYTES`` (bf16 D ≤ 512, int8 D ≤ 1024): the CTA's
+      feats tile (64 rows a consumer warpgroup, all of D) stays in shared
+      memory while W streams through a ring of at least 3 stages beside it
+      — two warpgroups (128 rows) above 64 rows where that fits, else one;
+    - ``"streamed"`` for a wider row: each ring stage carries the feats
+      chunk beside the W chunk, so the whole D is summed in registers tile
+      by tile with feats re-read from L2 — two warpgroups above 64 rows,
+      at any D (the resident tile leaves fewer than 3 stages from bf16
+      D = 1408 and int8 D = 2816 on an H100's 227 KB);
+    - f32 (4), ``"f32"``: 64 rows above 8 where their term tiles fit
+      (D ≤ 512), else 8 (up to D = 4096 and beyond).
+
+    ``route`` forces ``"resident"`` or ``"streamed"`` (bf16, int8), with
+    its rows a CTA as above; a resident tile that does not fit raises."""
+    if elem_bytes == 4:
+        terms = lambda n: 3 * (-(-d * 2 // _CHUNK)) * n * _CHUNK
+        fits = lambda n: _ring_stages(_SMEM_LIMIT - 1024 - terms(n) - 4 * n,
+                                      _STAGE_BYTES + 16, 2) > 0
+        return "f32", (64 if rows > 8 and fits(64) else 8)
+    nk = -(-d * elem_bytes // _CHUNK)
+    left = _SMEM_LIMIT - _SMEM_FIXED
+
+    def resident(c: int) -> bool:
+        return _ring_stages(left - nk * 64 * c * _CHUNK, _STAGE_BYTES, _MIN_STAGES) > 0
+
+    if route is None:
+        route = "resident" if d * elem_bytes <= _RESIDENT_ROW_BYTES else "streamed"
+    if route == "streamed":
+        return "streamed", 128 if rows > 64 else 64
+    if route != "resident" or not resident(1):
+        raise ValueError(f"no {route!r} route for D={d} of {elem_bytes}-byte elements")
+    return "resident", 128 if rows > 64 and resident(2) else 64
+
+
 def tc_geometry(rows: int, d: int, vocab: int, elem_bytes: int, num_sms: int,
-                what: str) -> tuple[int, int]:
-    """The split geometry of the tensor-core heads (K4 bf16 and f32, K5,
-    K7) for feats of ``elem_bytes``-byte elements; raises when D is too
-    wide for their resident feats tile."""
+                route: str | None = None) -> tuple[int, int, str, int]:
+    """The plan of the tensor-core heads (K4 bf16 and f32, K5, K7) for
+    feats of ``elem_bytes``-byte elements: ``(n_split, tiles_per_split,
+    route, rows a CTA)`` — :func:`tc_route`'s route and row tile, and the
+    vocab splits over the library's tiles."""
+    route, block_rows = tc_route(rows, d, elem_bytes, route)
     lib = _build.load_library()
-    block_rows = lib.mpt_head_tc_tile_rows(rows, d, elem_bytes)
-    if block_rows == 0:
-        raise ValueError(
-            f"{what} kernel keeps a feats tile in shared memory: D={d} is too wide"
-        )
-    return split_geometry(rows, vocab, num_sms, block_rows, lib.mpt_head_tc_tile_vocab(),
-                          _TC_CTAS_PER_SM)
+    n_split, tiles = split_geometry(rows, vocab, num_sms, block_rows,
+                                    lib.mpt_head_tc_tile_vocab(), _TC_CTAS_PER_SM)
+    return n_split, tiles, route, block_rows
 
 
 def check_shapes(feats, w, b, labels, what: str = "head_predict") -> None:
@@ -148,11 +215,14 @@ def check_kernel_operands(what: str, dev: torch.device, **tensors: torch.Tensor)
 
 
 def head_predict(
-    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor
+    feats: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(per-row CE f32 [B], argmax int32 [B]) of ``softmax(feats @ wᵀ + b)``.
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    Forward only: the predictions path never backpropagates."""
+    Forward only: the predictions path never backpropagates. ``route``
+    forces the bf16 kernel's route (:func:`tc_route`), to time one against
+    the other."""
     check_shapes(feats, w, b, labels)
     if _build.on_cpu(feats, "head_predict"):
         return head_predict_reference(feats, w, b, labels)
@@ -176,12 +246,13 @@ def head_predict(
     dev = feats.device
     check_kernel_operands("head_predict", dev, feats=feats, w=w, b=b, labels=labels)
     lib = _build.load_library()
-    n_split, tiles_per_split = tc_geometry(bsz, d, vocab, feats.element_size(),
-                                           _num_sms(dev.index), "head_predict")
+    n_split, tiles_per_split, route, rows = tc_geometry(
+        bsz, d, vocab, feats.element_size(), _num_sms(dev.index), route)
     if feats.dtype == torch.bfloat16:
-        entry, launches = lib.mpt_head_predict_bf16, counter
+        entry, plan = lib.mpt_head_predict_bf16, (ROUTE_CODE[route], rows)
+        launches = counter_wide if route == "streamed" else counter
     else:
-        entry, launches = lib.mpt_head_predict_f32, counter_f32
+        entry, plan, launches = lib.mpt_head_predict_f32, (rows,), counter_f32
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
     loss = torch.empty((bsz,), dtype=torch.float32, device=dev)
@@ -190,7 +261,7 @@ def head_predict(
         code = entry(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), pred.data_ptr(), part_mlp.data_ptr(), part_arg.data_ptr(),
-            bsz, d, vocab, n_split, tiles_per_split, _build.stream(dev),
+            bsz, d, vocab, n_split, tiles_per_split, *plan, _build.stream(dev),
         )
     _build.check(code, "head_predict")
     launches.add()
@@ -254,8 +325,7 @@ def _ce_forward(feats, w, b, labels):
     check_kernel_operands("fused_head_ce forward", dev, feats=feats, w=w, b=b, labels=labels)
     bsz, d = feats.shape
     vocab = w.shape[0]
-    n_split, tiles_per_split = tc_geometry(bsz, d, vocab, 2, _num_sms(dev.index),
-                                           "fused_head_ce forward")
+    n_split, tiles_per_split, route, rows = tc_geometry(bsz, d, vocab, 2, _num_sms(dev.index))
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     loss, m, l = (torch.empty((bsz,), dtype=torch.float32, device=dev) for _ in range(3))
     lib = _build.load_library()
@@ -263,7 +333,8 @@ def _ce_forward(feats, w, b, labels):
         code = lib.mpt_head_ce_fwd(
             feats.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), m.data_ptr(), l.data_ptr(), part_mlp.data_ptr(),
-            bsz, d, vocab, n_split, tiles_per_split, _build.stream(dev),
+            bsz, d, vocab, n_split, tiles_per_split, ROUTE_CODE[route], rows,
+            _build.stream(dev),
         )
     _build.check(code, "fused_head_ce forward")
     ce_forward_counter.add()

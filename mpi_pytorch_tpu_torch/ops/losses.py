@@ -34,11 +34,29 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return masked_ce_sum(logits, labels) / torch.clamp((labels >= 0).sum(), min=1)
 
 
-def classification_loss(outputs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The training loss of a single-headed classifier (the JAX function
-    also takes inception's ``(logits, aux)`` pair, which no ported model
-    returns)."""
-    return cross_entropy(outputs, labels)
+# The weight of inception_v3's auxiliary classifier loss (the JAX
+# package's AUX_LOSS_WEIGHT).
+AUX_LOSS_WEIGHT = 0.4
+
+
+def classification_ce_sum(outputs, labels: torch.Tensor) -> torch.Tensor:
+    """The masked CE sum of a model's train-mode output: of the logits, or
+    for inception's ``(logits, aux)`` pair ``CE(logits) + 0.4·CE(aux)``,
+    each summed over the rows with ``label >= 0``. Over a valid count it is
+    :func:`classification_loss`; the train steps divide it by the count
+    their mode weighs with (the global one in auto mode, the rank's in
+    spmd mode)."""
+    if isinstance(outputs, tuple):
+        logits, aux = outputs
+        return masked_ce_sum(logits, labels) + AUX_LOSS_WEIGHT * masked_ce_sum(aux, labels)
+    return masked_ce_sum(outputs, labels)
+
+
+def classification_loss(outputs, labels: torch.Tensor) -> torch.Tensor:
+    """The training loss: the masked mean CE of the logits, or for
+    inception's train-mode ``(logits, aux)`` pair ``CE(logits) +
+    0.4·CE(aux)`` (the JAX ``classification_loss``)."""
+    return classification_ce_sum(outputs, labels) / torch.clamp((labels >= 0).sum(), min=1)
 
 
 def accuracy_count(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -44,19 +44,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpi_pytorch_tpu_torch.models.common import SameConv2d, same_padding
 from mpi_pytorch_tpu_torch.models.vit import VisionTransformer
 from mpi_pytorch_tpu_torch.ops import _build
 from mpi_pytorch_tpu_torch.ops.fused_head_ce import (
     _num_sms,
     check_kernel_operands,
+    ROUTE_CODE,
     check_shapes,
     tc_geometry,
 )
 from mpi_pytorch_tpu_torch.train.step import ingest_images
 
 # Launches of the int8 head kernel (one per head_predict_int8 call on the
-# card).
+# card), on its resident-feats route and on its streamed route (D = 4096).
 counter = _build.LaunchCounter("quantize.counter")
+counter_wide = _build.LaunchCounter("quantize.counter_wide")
 
 
 def _f32(x) -> float:
@@ -121,9 +124,13 @@ class QuantizedConv2d(nn.Module):
         self.register_buffer("bias", None if conv.bias is None else conv.bias.detach().float())
         self.stride, self.padding = conv.stride, conv.padding
         self.dilation, self.groups = conv.dilation, conv.groups
+        # flax 'SAME' (squeezenet's stem): its uneven padding, computed per call.
+        self.same = isinstance(conv, SameConv2d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.same:
+            x = same_padding(x, tuple(self.q.shape[2:]), self.stride)
         return F.conv2d(x, dequantize(self.q, self.scale).to(x.dtype), bias, self.stride,
                         self.padding, self.dilation, self.groups)
 
@@ -151,7 +158,8 @@ class QuantizedDense(nn.Module):
 def head_module(model: nn.Module) -> nn.Module | None:
     """The classifier head the fused int8 kernel can take: ``model.fc`` when
     it is a dense layer (2-D weight), else None — a conv-shaped head
-    dequantizes like any convolution (the JAX ``head_kernel_key``)."""
+    (squeezenet1_0's ``head``) dequantizes like any convolution (the JAX
+    ``head_kernel_key``)."""
     fc = getattr(model, "fc", None)
     return fc if isinstance(fc, (nn.Linear, QuantizedDense)) else None
 
@@ -258,6 +266,7 @@ def int8_logits(
 def head_predict_int8_reference(
     feats: torch.Tensor, w_q: torch.Tensor, b: torch.Tensor, labels: torch.Tensor,
     w_scale: torch.Tensor | None, act_scale, scale_v: torch.Tensor | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version: :func:`int8_logits`, then CE and first-index
     argmax. (loss f32 [B], 0 where label < 0; pred int32 [B])."""
@@ -272,12 +281,15 @@ def head_predict_int8_reference(
 def head_predict_int8(
     feats: torch.Tensor, w_q: torch.Tensor, b: torch.Tensor, labels: torch.Tensor,
     w_scale: torch.Tensor | None, act_scale, scale_v: torch.Tensor | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(per-row CE f32 [B], argmax int32 [B]) of the int8 head
     ``softmax(dequant(q(feats) @ w_qᵀ) + b)``: feats float [B, D], w_q int8
     [V, D], b f32 [V], ``w_scale`` f32 [V] and ``act_scale``, or the
     precomputed ``scale_v`` (:func:`combined_scale`). The CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors. ``route`` forces the
+    kernel's route (``fused_head_ce.tc_route``), to time one against the
+    other."""
     check_shapes(feats, w_q, b, labels, "head_predict_int8")
     if scale_v is None:
         scale_v = combined_scale(w_scale, act_scale)
@@ -305,8 +317,8 @@ def head_predict_int8(
     dev = feats.device
     check_kernel_operands("head_predict_int8", dev, feats=feats, w_q=w_q, b=b, labels=labels,
                           scale_v=scale_v)
-    n_split, tiles_per_split = tc_geometry(bsz, d, vocab, 1, _num_sms(dev.index),
-                                           "head_predict_int8")
+    n_split, tiles_per_split, route, rows = tc_geometry(bsz, d, vocab, 1, _num_sms(dev.index),
+                                                        route)
     feats_q = torch.empty((bsz, d), dtype=torch.int8, device=dev)
     part_mlp = torch.empty((3, n_split, bsz), dtype=torch.float32, device=dev)
     part_arg = torch.empty((n_split, bsz), dtype=torch.int32, device=dev)
@@ -318,10 +330,11 @@ def head_predict_int8(
             feats.data_ptr(), feats_q.data_ptr(), w_q.data_ptr(), scale_v.data_ptr(),
             b.data_ptr(), labels.data_ptr(), loss.data_ptr(), pred.data_ptr(),
             part_mlp.data_ptr(), part_arg.data_ptr(), bsz, d, vocab, n_split,
-            tiles_per_split, act, _build.DTYPE_CODE[feats.dtype], _build.stream(dev),
+            tiles_per_split, ROUTE_CODE[route], rows, act, _build.DTYPE_CODE[feats.dtype],
+            _build.stream(dev),
         )
     _build.check(code, "head_predict_int8")
-    counter.add()
+    (counter_wide if route == "streamed" else counter).add()
     return loss, pred
 
 

@@ -196,10 +196,17 @@ def shard_first_divisible(shape, size: int) -> int | None:
     return None
 
 
+# The module names of the ported models' classification heads (JAX
+# ``head``/``aux_head``): the dense ``fc`` (inception's auxiliary one is
+# ``AuxLogits.fc``) and squeezenet's 1×1 convolution ``head``.
+HEAD_NAMES = ("fc", "head")
+
+
 def is_head_param(name: str) -> tuple[bool, bool]:
     """(is_head_param, is_kernel) for a parameter name (JAX
-    ``is_head_kernel``): every ported model's head is ``fc``."""
-    return name.split(".")[0] == "fc", name.endswith(".weight")
+    ``is_head_kernel``): a module named in ``HEAD_NAMES`` anywhere on its
+    path."""
+    return any(p in HEAD_NAMES for p in name.split(".")[:-1]), name.endswith(".weight")
 
 
 def param_specs(shapes: dict[str, tuple], data_size: int, model_size: int,

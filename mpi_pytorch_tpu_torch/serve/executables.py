@@ -8,7 +8,8 @@ algorithm search for each new shape. ``warmup()`` runs every bucket once
 on filler rows so both happen before traffic is accepted.
 
 The fused head (``cfg.fused_head_eval``) streams argmax only, so it forces
-``topk=1`` with a logged warning. Its weights are cut once here: W to the
+``topk=1`` with a logged warning; a model with no dense head
+(squeezenet1_0) serves through the plain step, also with a warning. Its weights are cut once here: W to the
 compute dtype as a K-major [V, D] copy and b to f32, reused by every
 call (the JAX wrapper re-casts W per call; the rounding is the same).
 
@@ -32,6 +33,7 @@ from torch import nn
 from mpi_pytorch_tpu_torch.evaluate import (
     COMPUTE_DTYPES,
     build_int8_inference,
+    fused_head_applies,
     head_weights,
     make_predict_step,
 )
@@ -64,7 +66,7 @@ class BucketExecutables:
         self.buckets = parse_buckets(cfg.parsed_serve_buckets())
         self.device = device
         self.topk = int(cfg.serve_topk)
-        self.fused_head = bool(cfg.fused_head_eval)
+        self.fused_head = fused_head_applies(cfg, model, logger)
         if self.fused_head and self.topk > 1:
             if logger is not None:
                 logger.warning(

@@ -3,8 +3,12 @@
 The JAX state is one immutable pytree (params, batch stats, optimizer
 state, step, rng). Here the model module holds the parameters and the
 batchnorm running statistics, the torch optimizer holds the moments, and
-the state adds the step counter and a generator (the JAX ``rng``; the
-ported models draw no random numbers in training).
+the state adds the step counter and a generator (the JAX ``rng``): the
+train-mode masks of dropout and stochastic depth come from it, re-seeded
+each step from ``rng_seed``, the data shard and the step (:func:`step_seed`,
+the JAX step's ``fold_in(rng, step)``), one stream a data shard: the ranks
+of a model group (``--mesh.model-parallel``) hold the same rows and draw
+the same masks.
 
 ``make_optimizer`` reproduces ``optax.adam`` / ``sgd(momentum=0.9)`` /
 ``adamw`` and optax's schedule functions: the learning rate of step ``t``
@@ -442,6 +446,12 @@ def place_model(model: nn.Module, mesh: Mesh, *, fsdp: bool = False,
         dim = shard_first_divisible(shape, data.size) if zero and data.size > 1 else None
         moments[n] = (specs[n] if specs[n].sharded
                       else ShardSpec(DATA_AXIS, dim) if dim is not None else REPLICATED)
+    others = [n for n, sp in specs.items() if sp.axis == MODEL_AXIS and not n.startswith("fc.")]
+    if others:
+        raise NotImplementedError(
+            f"the vocab-sharded head is ported for the dense head fc only; {', '.join(others)} "
+            "is not ported yet (ROADMAP A9)"
+        )
     if specs.get("fc.weight", REPLICATED).axis == MODEL_AXIS:
         model.fc = VocabParallelDense.from_dense(model.fc, mesh.model)
     for n, spec in specs.items():
@@ -495,6 +505,12 @@ def load_full_state_dict(model: nn.Module, placement: Placement | None,
         (placement.held[key] if key in placement.specs else buffers[key]).copy_(mine[key])
 
 
+def step_seed(seed: int, shard: int, step: int) -> int:
+    """The seed of step ``step``'s masks on data shard ``shard`` of a run
+    seeded ``seed``: distinct for each (shard, step) of a run."""
+    return ((seed * 1_000_003 + shard) * 1_000_003 + step) % (1 << 63)
+
+
 @dataclass
 class TrainState:
     """Everything one train step reads and advances. ``step`` counts the
@@ -508,6 +524,18 @@ class TrainState:
     step: int = 0
     generator: torch.Generator | None = None
     placement: Placement | None = None
+    # The seed of the train-mode masks (see :meth:`masks_generator`).
+    rng_seed: int | None = None
+
+    def masks_generator(self, shard: int) -> torch.Generator | None:
+        """The generator this step's dropout and stochastic-depth masks
+        come from: ``generator`` re-seeded with ``step_seed(rng_seed, shard,
+        step)`` (when ``rng_seed`` is set), so step t of data shard s draws
+        the same masks in a resumed run as in an unbroken one, and each
+        shard its own."""
+        if self.generator is not None and self.rng_seed is not None:
+            self.generator.manual_seed(step_seed(self.rng_seed, shard, self.step))
+        return self.generator
 
     def set_learning_rate(self) -> None:
         """The schedule's rate for this step onto every param group."""

@@ -60,15 +60,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpi_pytorch_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-from mpi_pytorch_tpu_torch.models.common import BatchNorm, VocabParallelDense
+from mpi_pytorch_tpu_torch.models.common import BatchNorm, VocabParallelDense, set_rng
 from mpi_pytorch_tpu_torch.ops.losses import (
     accuracy_count,
-    masked_ce_sum,
+    classification_ce_sum,
     valid_count,
     vocab_parallel_accuracy_count,
     vocab_parallel_ce_sum,
 )
-from mpi_pytorch_tpu_torch.parallel import collectives
+from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.parallel.collectives import Chain
 from mpi_pytorch_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -120,18 +120,21 @@ def metrics_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> dict[str,
     }
 
 
-def head_terms(model: nn.Module, logits: torch.Tensor,
+def head_terms(model: nn.Module, outputs,
                labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(masked CE sum with autograd, correct count) of ``model``'s logits:
-    over the vocab shards of a
+    """(masked CE sum with autograd, correct count) of ``model``'s train
+    output: over the vocab shards of a
     :class:`~mpi_pytorch_tpu_torch.models.common.VocabParallelDense` head
     (each rank of the model axis holds a block of the classes), else of
-    the whole logits."""
+    the whole logits — for inception's ``(logits, aux)`` pair the CE sum
+    with 0.4 of the auxiliary one (``ops.losses.classification_ce_sum``)
+    and the logits' correct count."""
     fc = getattr(model, "fc", None)
     if isinstance(fc, VocabParallelDense):
-        return (vocab_parallel_ce_sum(logits, labels, fc.vocab_start, fc.axis),
-                vocab_parallel_accuracy_count(logits.detach(), labels, fc.vocab_start, fc.axis))
-    return masked_ce_sum(logits, labels), accuracy_count(logits.detach(), labels)
+        return (vocab_parallel_ce_sum(outputs, labels, fc.vocab_start, fc.axis),
+                vocab_parallel_accuracy_count(outputs.detach(), labels, fc.vocab_start, fc.axis))
+    logits = outputs[0] if isinstance(outputs, tuple) else outputs
+    return classification_ce_sum(outputs, labels), accuracy_count(logits.detach(), labels)
 
 
 def model_metrics(model: nn.Module, logits: torch.Tensor,
@@ -571,6 +574,10 @@ def _make_step(compute_dtype: torch.dtype, bad_step_skip: bool, sync: _GradSync 
         model = state.model
         model.train()
         data, model_axis = axes()
+        # This step's dropout and stochastic-depth masks: the data shard's
+        # stream. The ranks of a model group hold the same rows, so they
+        # draw the same masks and the vocab-sharded head sees one trunk.
+        set_rng(model, state.masks_generator(data.index))
         saved = [t.clone() for t in _running_stats(model)] if bad_step_skip else None
         model.zero_grad(set_to_none=True)
         count = valid_count(labels)

@@ -363,7 +363,8 @@ def build_training(cfg: Config, device: torch.device, mesh: Mesh | None = None):
     )
     state = TrainState(
         model=model, optimizer=optimizer, schedule=schedule,
-        generator=torch.Generator().manual_seed(cfg.seed + 1), placement=placement,
+        generator=torch.Generator(device=device).manual_seed(cfg.seed + 1),
+        placement=placement, rng_seed=cfg.seed + 1,
     )
     return state, (train_manifest, test_manifest, loader)
 

@@ -74,6 +74,17 @@ LR = 4e-4
 HERE = os.path.dirname(os.path.abspath(__file__))
 # Two threads a rank: the ranks and the suite's workers share the cores.
 RANK_ENV = {"MPT_PLATFORM": "cpu", "OMP_NUM_THREADS": "2"}
+# One intra-op thread a test process, unless its environment sets the
+# count (the ranks' ``RANK_ENV``, which import this file too). The suite
+# runs its files on six xdist workers, and each worker imports every test
+# file when it collects, so this line sets every worker's torch to one
+# thread: torch's default, a thread a core in each of six workers (and in
+# the ranks they start), oversubscribes the cores many times over, and its
+# spinning OpenMP pool then slowed the port's files 2–100× (a module
+# fixture of test_torch_device_cache.py: 8.3 s alone, 784 s in the suite).
+# A one-process twin of a rank run still runs under ``rank_threads``.
+if "OMP_NUM_THREADS" not in os.environ:
+    torch.set_num_threads(1)
 
 
 @contextlib.contextmanager

@@ -58,12 +58,12 @@ SIX_PAIR_GAP = 1e-6
 
 def _constant(name: str) -> int:
     """A plain ``constexpr int`` of the kernel source."""
-    src = (CSRC / "head_predict_tc.cu").read_text()
+    src = (CSRC / "head_predict_tc.cuh").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def f32_rows(rows: int, d: int) -> int:
-    """The f32 kernel's batch rows a CTA (its ``f32_rows``): 64 above
+    """The f32 kernel's batch rows a CTA (``fused_head_ce.tc_route``'s): 64 above
     B = 8 where two W stages fit beside 64 rows of feats terms, else 8."""
     limit, stage, most = _constant("kSmemLimit"), 128 * 128, _constant("kMaxStages")
 

@@ -1,5 +1,5 @@
 """What the design of the tensor-core heads decides (K4's bf16 route, K7
-and the training forward K5, ``csrc/head_predict_tc.cu``), held on the CPU
+and the training forward K5, ``csrc/head_predict_tc.cu`` and ``.cuh``), held on the CPU
 against the JAX package.
 
 A CUDA kernel cannot run here, so :func:`emulate_tc_head` repeats the
@@ -60,7 +60,7 @@ def _constants(source: str) -> dict[str, int]:
     return consts
 
 
-TC = _constants("head_predict_tc.cu")
+TC = _constants("head_predict_tc.cuh")
 TC_TILE_VOCAB = TC["kBN"]
 
 
@@ -75,9 +75,10 @@ def tc_ring_stages(consumers: int, d: int, elem_bytes: int) -> int:
 
 
 def tc_tile_rows(rows: int, d: int, elem_bytes: int) -> int:
-    """Rows a CTA of the tensor-core heads takes (the kernel's
-    ``consumer_groups`` × 64): two consumer warpgroups above B = 64 where
-    their feats tile fits, else one; 0 when not even one fits."""
+    """Rows a CTA of the tensor-core heads takes on the resident route
+    (consumer warpgroups × 64, as ``fused_head_ce.tc_route`` plans them):
+    two consumer warpgroups above B = 64 where their feats tile fits, else
+    one; 0 when not even one fits."""
     if rows > 64 and tc_ring_stages(2, d, elem_bytes):
         return 128
     return 64 if tc_ring_stages(1, d, elem_bytes) else 0

@@ -89,7 +89,7 @@ def test_kernel_modules_import_without_nvcc():
     assert out.returncode == 0, out.stderr
     assert (
         "['flash_attention.cu', 'fused_attention_small.cu', 'fused_head_ce_bwd.cu', "
-        "'fused_stem.cu', 'head_predict_tc.cu', 'runtime.cu']"
+        "'fused_stem.cu', 'head_predict_tc.cu', 'head_predict_wide.cu', 'runtime.cu']"
         in out.stdout
     )
 

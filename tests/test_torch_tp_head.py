@@ -35,6 +35,9 @@ layout on the world (``create_mesh(MeshConfig(model_parallel=2))``: rank
   data index) equal to the streaming step bit for bit;
 - 15 classes at mp = 2: the head stays whole on every rank (as JAX's
   ``param_specs`` replicates it), and the step is the one-process one;
+- alexnet in train mode (dropout 0.5 before fc1 and fc2) on 1 × 2: the
+  two ranks of a model group draw the same masks, the one-process step's
+  on the same rows, so the losses, grad norms and state are that step's;
 - the vocab-parallel CE sum, its gradient and the first-index argmax on
   each model group against ``masked_ce_sum``, ``F.cross_entropy``'s
   gradient, ``torch.argmax`` and ``jnp.argmax`` of the whole logits, with
@@ -63,7 +66,7 @@ from mpi_pytorch_tpu_torch import checkpoint as ckpt
 from mpi_pytorch_tpu_torch import evaluate as port_evaluate
 from mpi_pytorch_tpu_torch.config import MeshConfig, parse_config
 from mpi_pytorch_tpu_torch.data.manifest import load_manifests
-from mpi_pytorch_tpu_torch.models.common import VocabParallelDense
+from mpi_pytorch_tpu_torch.models.common import Dropout, VocabParallelDense
 from mpi_pytorch_tpu_torch.models.registry import prepare_for_training
 from mpi_pytorch_tpu_torch.models.vit import VisionTransformer
 from mpi_pytorch_tpu_torch.ops.losses import (
@@ -151,6 +154,43 @@ def _run(state: TrainState, mesh, batches, rows: slice) -> dict:
     return out
 
 
+ALEX_SAMPLE = 97  # alexnet's state compared: every 97th entry of each tensor
+
+
+def alexnet_state(mesh=None) -> TrainState:
+    """alexnet (dropout 0.5 before fc1 and fc2) with the 10-class head,
+    seeded, its masks from the state's generator; placed over ``mesh``
+    (None: one process)."""
+    state = placed_state("sgd", mesh, model_name="alexnet")
+    state.generator, state.rng_seed = torch.Generator(), 7
+    return state
+
+
+def _dropout_run(state: TrainState, mesh, rows: slice) -> dict:
+    """:func:`_run`'s two steps on a dropout model in train mode, with a
+    digest of the generator's state at each mask a Dropout draws (the same
+    state draws the same mask) and every ``ALEX_SAMPLE``-th entry of each
+    tensor of the state after each step (the whole of it is ~0.2 GB)."""
+    import hashlib
+
+    masks = []
+    hooks = [m.register_forward_pre_hook(lambda m, _: masks.append(
+        hashlib.sha256(m.generator.get_state().numpy().tobytes()).hexdigest()))
+        for m in state.model.modules() if isinstance(m, Dropout)]
+    step = make_train_step(torch.float32, mesh=mesh)
+    out = {"metrics": [], "states": []}
+    for images, labels in _batches():
+        m = step(state, torch.from_numpy(images[rows]), torch.from_numpy(labels[rows]))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["states"].append({k: v.ravel()[::ALEX_SAMPLE].copy()
+                              for k, v in numpy_state(state).items()})
+    for h in hooks:
+        h.remove()
+    out["masks"] = masks
+    out["trunk"] = _trunk_digest(state) if state.placement is not None else None
+    return out
+
+
 def _run_cached(state: TrainState, mesh) -> dict:
     """:func:`_run`'s steps through the device cache's step: each batch's
     rows held as the cache holds them (this data index's half) and
@@ -218,6 +258,7 @@ def tp_worker(payload: dict) -> dict:
     out["vit_1x2"] = _run(vit_state(pair), pair, vit_batches(), every)
     out["resnet15_1x2"] = _run(placed_state("sgd", pair, num_classes=15, **PLAIN), pair,
                                _batches(), every)
+    out["alexnet_1x2"] = _dropout_run(alexnet_state(pair), pair, every)
     fsdp = placed_state("sgd", mesh, fsdp=True, **PLAIN)
     out["resnet_2x2_fsdp"] = _run(fsdp, mesh, _batches(), half)
     out["resnet_2x2_fsdp_cached"] = _run_cached(
@@ -348,7 +389,31 @@ def test_the_device_cache_takes_the_levers(world):
             assert_states_close(a, b, "cached", 0, 0)
 
 
-@pytest.mark.parametrize("case", ["resnet_1x2", "vit_1x2", "resnet15_1x2", "resnet_2x2_fsdp"])
+def test_tp_dropout_model_draws_one_mask_a_model_group(world):
+    """alexnet in train mode on the 1 × 2 pairs: every rank draws the
+    masks of its data shard (the pairs' data index is 0), which are the
+    one-process step's, so the losses and grad norms (rtol 1e-5) and every
+    ``ALEX_SAMPLE``-th entry of the state after each step (rtol 1e-5 plus
+    atol 2e-6) are the one-process step's on the same rows."""
+    with rank_threads():
+        ref = _dropout_run(alexnet_state(), None, slice(0, 8))
+    assert len(ref["masks"]) == 4 and len(set(ref["masks"])) == 4
+    for r in world:
+        got = r["alexnet_1x2"]
+        assert got["masks"] == ref["masks"], f"rank {r['rank']}"
+        for a, b in zip(got["metrics"], ref["metrics"]):
+            assert (a["count"], a["correct"]) == (b["count"], b["correct"])
+            np.testing.assert_allclose([a["loss"], a["grad_norm"]], [b["loss"], b["grad_norm"]],
+                                       rtol=1e-5, atol=0, err_msg=f"rank {r['rank']}")
+        for i, (a, b) in enumerate(zip(got["states"], ref["states"])):
+            assert a.keys() == b.keys()
+            for k, v in b.items():
+                np.testing.assert_allclose(a[k], v, rtol=1e-5, atol=2e-6,
+                                           err_msg=f"rank {r['rank']} step {i + 1} {k}")
+
+
+@pytest.mark.parametrize("case", ["resnet_1x2", "vit_1x2", "resnet15_1x2", "resnet_2x2_fsdp",
+                                  "alexnet_1x2"])
 def test_the_trunk_is_equal_on_every_model_rank(world, case):
     for a, b in ((0, 1), (2, 3)):
         assert world[a][case]["trunk"] == world[b][case]["trunk"], (case, a, b)
