@@ -83,8 +83,8 @@ Phases (any failure raises and the script exits non-zero):
    names, and ``--quantize-eval`` with the fused head launches K7;
 6b2. the device-resident training set (``train_resnet18_cached``): the
    fused run's configuration through ``trainer.train`` with
-   ``device_cache``, and with ``device_cache`` and ``scan_epoch``, in turns
-   (cached, scanned, scanned, cached): the cache holds the 2 560 train
+   ``device_cache``, then with ``device_cache`` and ``scan_epoch``: the
+   cache holds the 2 560 train
    rows in f32 (503.3 MB), K2 and K3 launch once a step and K1 once a
    validation batch (validation from the cache), each run's step-1 loss
    within 1e-3 of the streaming run's, the losses fall, epoch 0's first
@@ -102,7 +102,7 @@ Phases (any failure raises and the script exits non-zero):
    once a validation batch, K1 and K4 once an eval batch (the metrics
    records' launches), one checkpoint, the step-1 loss within 1e-3 of the
    one-process run's, the CSV in manifest order; then two ranks on the one
-   card over gloo (``parallel.launch.run_world``): three auto-mode f32
+   card over gloo (``parallel.launch.run_world``): two auto-mode f32
    steps against one process on the whole batches (losses and step-1
    grad norm rtol 1e-4, ``bn1``'s running statistics rtol 1e-5, K2 and
    K3 once a step on each rank), the share of a step the collectives
@@ -117,7 +117,7 @@ Phases (any failure raises and the script exits non-zero):
    --grad-sync-buckets 25`` under ``torchrun --nproc-per-node 1`` (a NCCL
    world of one; K2 and K3 once a step; its checkpoint through the
    evaluate CLI); two gloo ranks on the card, resnet18 at full width in
-   f32, SGD, three steps each of the baseline, ZeRO, 25 and 4 MiB buckets,
+   f32, SGD, two steps each of the baseline, ZeRO, 25 and 4 MiB buckets,
    and ZeRO with buckets (losses, parameters and statistics rtol 1e-6
    against the baseline; K2 and K3 once a step on each rank; each rank's
    moment bytes the formula's; the plans and a timed step's share of the
@@ -130,8 +130,8 @@ Phases (any failure raises and the script exits non-zero):
    ``--zero-optimizer true --fsdp true --accum-steps 4`` under ``torchrun
    --nproc-per-node 1`` (a NCCL world of one; K2 and K3 four times a
    step; its checkpoint through the evaluate CLI with the fused head);
-   two gloo ranks on the card, resnet18 at full width in f32, SGD, three
-   steps each of the auto baseline, ZeRO-1, FSDP, 2 microbatches, FSDP
+   two gloo ranks on the card, resnet18 at full width in f32, TF32 off,
+   SGD, two steps each of the auto baseline, ZeRO-1, FSDP, 2 microbatches, FSDP
    with 2 microbatches and the TP head as 1 × 2 (ZeRO-1 and FSDP rtol 1e-6
    against the baseline; TP rtol 1e-5 against one process on the same
    rows; accumulation against its one-process twin; K2 and K3 once a
@@ -175,6 +175,40 @@ Phases (any failure raises and the script exits non-zero):
    plain path's); vgg11_bn's fused evaluate on the streamed route (the
    same rule) and its ``--quantize-eval`` (K7 streamed); squeezenet1_0's
    fallback (no K4 launch, the warning, the plain path's CSV exactly).
+   Phase 11's kill (c) and gloo ranks (e) run beside densenet121's CLIs,
+   after every timed part of this phase.
+
+11. robust training (``robust_training``): the phase 6 fused run's
+   configuration (resnet18, 64 500 classes, 128 px, bf16, Adam 4e-4, fused
+   stem, synthetic f32 rows) on 1 024 train rows (8 steps an epoch), two
+   epochs, two checkpoints kept: (a) the reference through
+   ``train.trainer.train`` with validation (two runs of it repeated
+   bitwise on the card, PERF.md); (b) ``MPT_FAULT_PREEMPT_AT_STEP`` after
+   epoch 1's fourth step: the run returns preempted with a dirty epoch-0
+   checkpoint whose sidecar holds the cursor (1, 4), and
+   ``from_checkpoint`` resumes there — every (epoch, step) once over the
+   two runs, each resumed loss within 1e-3 of (a)'s, the final parameters
+   ``torch.equal`` to (a)'s; (c) the train CLI
+   SIGKILLed by ``MPT_FAULT_KILL_AT_STEP`` at epoch 1's last step (return
+   code −9, only epoch 0's checkpoint left) and its CLI resume from epoch
+   0 (its first step's loss within 1e-3 of the killed run's at the same
+   step: the same checkpoint and batch, another process); and (a)'s checkpoints with epoch 1's file cut to half its bytes:
+   the resume writes a ``corrupt_checkpoint`` anomaly, restores epoch 0
+   and runs epoch 1 again, its loss within 1e-3 of (a)'s; (d)
+   ``--bad-step-policy rollback`` with ``MPT_FAULT_NONFINITE_AT_STEP`` in
+   epoch 1: a ``fault`` then a ``rollback`` record, epoch 1 replayed from
+   epoch 0's checkpoint, every later loss finite, the last epoch's loss
+   within 1e-3 of (a)'s; (e) two gloo ranks sharing the card in f32, spmd
+   mode, ZeRO, heartbeats every step, rank 1 delayed
+   (``MPT_FAULT_DELAY_STEP_MS``): the heartbeats flag rank 1, the
+   watchdog stops both ranks at epoch 1's boundary on ``straggler_streak``
+   with one checkpoint of ``data=2`` and two ZeRO shards, which ``torchrun
+   --nproc-per-node 1`` (NCCL) resumes as ``data=1``. K2 and K3 launch
+   once a step in every run. (a), (b), (c)'s truncation and (d) run one
+   at a time with nothing beside them; (c)'s kill and (e), whose checks
+   are not times, run beside phase 10's densenet121 CLIs. One
+   ``robust_training`` line; each phase's wall seconds in the
+   ``phase_walls_s`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a card it exits 2 and prints
@@ -188,6 +222,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2021,7 +2056,8 @@ def evaluate_resnet18(dev, run_dir: str) -> None:
 
 
 CACHE_STEPS_HELD = (0, 1, 2, TRAIN_STEPS_PER_EPOCH - 1)  # epoch 0's first three, its tail
-CACHE_TURNS = ("cached", "scanned", "scanned", "cached")  # the two modes in turns
+# One run a mode, for the script's clock: every check holds on each run.
+CACHE_TURNS = ("cached", "scanned")
 
 
 def _cache_mb(rows: int, image: int, itemsize: int) -> str:
@@ -2034,7 +2070,7 @@ def train_resnet18_cached(dev, fused_run: dict) -> dict:
     ``trainer.train``: the fused run's configuration (resnet18, 64 500
     classes, 128 px, bf16, Adam 4e-4, fused stem, the DEBUG sample's 2 560
     train rows, two epochs, validation) with ``device_cache``, and with
-    ``device_cache`` and ``scan_epoch``, in turns (``CACHE_TURNS``),
+    ``device_cache`` and ``scan_epoch`` (``CACHE_TURNS``),
     beside the streaming fused run that :func:`train_resnet18` made.
     Held, on every run: the cache holds 2 560 f32 rows,
     503.3 MB (the trainer's log line); K2 and K3 launch once a step and K1
@@ -2162,7 +2198,8 @@ def train_resnet18_cached(dev, fused_run: dict) -> dict:
 
 
 DP_RANKS = 2  # ranks sharing the one card in the gloo check
-DP_STEPS = 3
+# Two (three before phase 11 needed the time): every check holds on them.
+DP_STEPS = 2
 
 
 def _torchrun(module: str, argv: list[str], timeout: int) -> tuple[float, str]:
@@ -2204,8 +2241,8 @@ def _dp_cli(tmp: str) -> list[str]:
     ]
 
 
-def _dp_batches(dev, shape: dict):
-    """Three f32-step batches of ``shape`` (uint8 images, seeded), and an
+def _dp_batches(dev, shape: dict, steps: int = DP_STEPS):
+    """``steps`` f32-step batches of ``shape`` (uint8 images, seeded), and an
     uneven one for the spmd step: rank 1's half holds an eighth of the
     batch as valid rows (16 of 128)."""
     rng = np.random.default_rng(SEED + 6)
@@ -2213,11 +2250,11 @@ def _dp_batches(dev, shape: dict):
     batches = [
         (torch.from_numpy(rng.integers(0, 256, (n, img, img, 3), dtype=np.uint8)).to(dev),
          torch.from_numpy(rng.integers(0, shape["classes"], (n,), dtype=np.int32)).to(dev))
-        for _ in range(DP_STEPS + 1)
+        for _ in range(steps + 1)
     ]
     uneven = batches[-1][1].clone()
     uneven[n // 2 + n // 8:] = -1
-    return batches[:DP_STEPS], (batches[-1][0], uneven)
+    return batches[:steps], (batches[-1][0], uneven)
 
 
 def _dp_state(dev, sync: bool, classes: int):
@@ -2247,10 +2284,10 @@ def _sync(dev) -> None:
 def dp_rank(payload: dict) -> dict:
     """One of ``DP_RANKS`` ranks on ``payload["device"]`` (the one card)
     over gloo (``data_parallel``):
-    three auto-mode f32 steps on its rows of each batch, one step profiled
+    two auto-mode f32 steps on its rows of each batch, one step profiled
     (where the step's card time and the collectives' time go), one
     spmd-mode step on the uneven batch, then its half of the device cache
-    (:func:`_dp_cache_walk`) and three cached auto f32 steps from it."""
+    (:func:`_dp_cache_walk`) and two cached auto f32 steps from it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2433,7 +2470,7 @@ def data_parallel(dev, fused_run: dict) -> dict:
 
     (b) ``DP_RANKS`` ranks on this one card over gloo (NCCL refuses two
     ranks on one card), each a process (``parallel.launch.run_world``):
-    three auto-mode f32 steps (TF32 off) on their rows of resident batches,
+    two auto-mode f32 steps (TF32 off) on their rows of resident batches,
     against this process taking the whole batches — losses and the step-1
     grad norm rtol 1e-4, ``bn1``'s running statistics rtol 1e-5 plus atol
     1e-6, K2 and K3 once a step on every rank. SGD, as the CPU tests: Adam
@@ -2441,7 +2478,7 @@ def data_parallel(dev, fused_run: dict) -> dict:
     one spmd-mode step on a batch whose halves hold 64 and 16 valid rows:
     every rank's running statistics bitwise equal, and the reported loss
     the count-weighted mean of the ranks' own masked means (rtol 1e-6);
-    then three cached auto steps on each rank's half of the device cache
+    then two cached auto steps on each rank's half of the device cache
     (:func:`_dp_cached_check`).
     Returns K2's and K3's launches in the phase."""
     from mpi_pytorch_tpu_torch.data.manifest import load_manifests
@@ -2477,7 +2514,7 @@ def data_parallel(dev, fused_run: dict) -> dict:
             if val.get("launches") != {"fused_stem.counter": val_batches}:
                 raise AssertionError(f"torchrun train validation: {val}")
             saved = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
-            if saved != ["ckpt_00000.pt"]:
+            if saved != ["ckpt_00000.pt", "ckpt_00000.pt.manifest.json"]:  # and its sidecar
                 raise AssertionError(f"torchrun train: checkpoints {saved}")
             gap = abs(steps[0]["loss"] / fused_run["step_losses"][0] - 1)
             if gap > 1e-3:
@@ -2572,7 +2609,7 @@ def data_parallel(dev, fused_run: dict) -> dict:
             "gloo_rank": ranks[0]["launches"], "gloo_rank_cached": ranks[0]["cached_launches"]}
 
 
-LEVER_STEPS = 3
+LEVER_STEPS = 2  # three before phase 11 needed the time
 # Phase 6d's configurations: (pods, zero_opt_state, grad_sync_buckets MiB);
 # the first of each world is the reference the others are held against.
 LEVER_RUNS_2 = {"baseline": (1, False, 0.0), "zero": (1, True, 0.0),
@@ -2811,7 +2848,7 @@ def grad_sync_levers(dev) -> dict:
     checkpoint through the evaluate CLI.
 
     (b) Two gloo ranks on the card (``LEVER_RUNS_2``): the baseline, ZeRO,
-    buckets at 25 and 4 MiB, ZeRO with 25 MiB buckets, three SGD steps
+    buckets at 25 and 4 MiB, ZeRO with 25 MiB buckets, two SGD steps
     each; losses, parameters and statistics rtol 1e-6 against the
     baseline (the same two-term sums: 0 expected); K2 and K3 once a step
     on each rank; each rank's moment bytes Σ ⌈numel/2⌉·4; the plans and
@@ -2893,7 +2930,9 @@ def grad_sync_levers(dev) -> dict:
     return launches
 
 
-AUTO_STEPS = 3
+# Two steps, for the script's clock: every check holds on them while the
+# ranks evaluate in f32, as the world of one does (auto_rank).
+AUTO_STEPS = 2
 # Phase 6e's runs: the (data, model) layout's model size, ZeRO-1, FSDP and
 # the microbatches a step. On two ranks every run but the TP one is 2 × 1.
 AUTO_RUNS_2 = {"baseline": (1, False, False, 1), "zero": (1, True, False, 1),
@@ -2970,12 +3009,16 @@ def auto_rank(payload: dict) -> dict:
     from mpi_pytorch_tpu_torch.train.state import full_state_dict, placed_bytes
     from mpi_pytorch_tpu_torch.train.step import make_train_step
 
+    # TF32 off for the whole rank, the evaluate after the steps included:
+    # the world of one it is held against evaluates in f32 (cuDNN's
+    # convolutions default to TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(payload["device"])
     distributed.maybe_initialize_distributed(dev, backend_name="gloo")
     rank = distributed.rank()
     shape = payload["shape"]
-    batches, _ = _dp_batches(dev, shape)
+    batches, _ = _dp_batches(dev, shape, AUTO_STEPS)
     meshes = {mp: create_mesh(MeshConfig(model_parallel=mp))
               for mp in sorted({run[0] for run in payload["runs"].values()})}
     out = {"rank": rank, "runs": {}, "peak_mb": 0.0}
@@ -3116,8 +3159,8 @@ def _one_process(dev, batches, accum: int = 1) -> tuple[list[float], list[float]
     return losses, norms, full
 
 
-# The 2 × 2 run's absolute slack beyond rtol 1e-5 against 2 × 1, after
-# three steps: the TP head's split dfeats and vocab-parallel CE round apart
+# The 2 × 2 run's absolute slack beyond rtol 1e-5 against 2 × 1, measured
+# after three steps: the TP head's split dfeats and vocab-parallel CE round apart
 # (~1e-7 relative) and the batchnorm backward amplifies it — 1.6e-6 on a
 # running mean when this phase ran on the CPU at 64 px; the tests' atol for sums
 # in another order (tests/test_torch_dp_step.py).
@@ -3188,7 +3231,8 @@ def _csv_agreement(tp_rows: list[str], one_rows: list[str], eval_argv: list[str]
         raise AssertionError(
             f"2 × 2 evaluate CSV against the world of one's: {int(agree.sum())}/{len(one)} "
             f"agree, {int(agree[clear].sum())}/{int(clear.sum())} on rows with a top-2 gap "
-            f"above {E2E_GAP_F32}·|max|")
+            f"above {E2E_GAP_F32}·|max|; the differing rows' gaps "
+            f"{dict(zip(np.nonzero(~agree)[0].tolist(), gap[~agree].tolist()))}")
     del model
     return agree, clear, gap
 
@@ -3214,7 +3258,7 @@ def auto_levers(dev) -> dict:
     and K3 four times a step, its checkpoint through the evaluate CLI with
     the fused head (K1 and K4 once a batch).
 
-    (b) Two gloo ranks on the card (``AUTO_RUNS_2``, three SGD steps each,
+    (b) Two gloo ranks on the card (``AUTO_RUNS_2``, ``AUTO_STEPS`` SGD steps each,
     f32, TF32 off): ZeRO-1 and FSDP against the baseline (parameters and
     statistics rtol 1e-6, the losses equal: two-term sums, 0 expected);
     the TP head as 1 × 2 against this process on the same rows (losses
@@ -3252,7 +3296,7 @@ def auto_levers(dev) -> dict:
     cli = _Beside(_auto_torchrun, dev, card)  # beside the gloo ranks, as in phase 6d
     out = {}
     shape = {"batch": TRAIN_BATCH, "image": IMG, "classes": V}
-    batches, _ = _dp_batches(dev, shape)
+    batches, _ = _dp_batches(dev, shape, AUTO_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         two = run_world("chip_smoke:auto_rank", 2, {
@@ -3411,7 +3455,8 @@ def train_vit(dev) -> dict:
             losses = summary.step_losses
             if len(losses) != steps or not np.all(np.isfinite(losses)):
                 raise AssertionError(f"vit_s16 {impl} training: step losses {losses}")
-            if saved != [f"ckpt_{VIT_EPOCHS - 1:05d}.pt"] or summary.val_accuracy is None:
+            last = f"ckpt_{VIT_EPOCHS - 1:05d}.pt"
+            if saved != [last, last + ".manifest.json"] or summary.val_accuracy is None:
                 raise AssertionError(f"vit_s16 {impl}: checkpoints {saved}, val {summary.val_accuracy}")
             runs[impl] = {"step_losses": losses, "wall_s": wall, "epoch_losses": summary.epoch_losses,
                           "epoch_times_s": summary.epoch_times,
@@ -4120,7 +4165,8 @@ def _zoo_densenet_clis(dev, tmp: str, train) -> dict:
     if len(vals) != n_epochs or any(set(v.get("launches", {})) != {"fused_stem.counter"}
                                     for v in vals):
         raise AssertionError(f"densenet121 validation: {vals}")
-    if sorted(os.listdir(os.path.join(tmp, "checkpoints"))) != [f"ckpt_{n_epochs - 1:05d}.pt"]:
+    last = f"ckpt_{n_epochs - 1:05d}.pt"
+    if sorted(os.listdir(os.path.join(tmp, "checkpoints"))) != [last, last + ".manifest.json"]:
         raise AssertionError("densenet121 train CLI: no checkpoint")
     epoch, val = epochs[-1], vals[-1]
     fused_csv = os.path.join(tmp, "fused.csv")
@@ -4216,12 +4262,15 @@ def _zoo_squeezenet_eval(dev, tmp: str) -> dict:
     return {"rows": len(fused), "k4_launches": 0, "warning": True}
 
 
-def zoo(dev, gen) -> dict:
+def zoo(dev, gen, untimed=()) -> tuple[dict, list]:
     """Phase 10, the rest of the CNN zoo: the wide heads (K4, K7), each of
     the seven models' two training steps at full width, densenet121
-    through the CLIs, vgg11_bn's and squeezenet1_0's evaluate. Returns the
-    kernels line's rows for the wide heads, with their launches on the
-    phase's main path (vgg11_bn's fused evaluate, and its quantize-eval)."""
+    through the CLIs, vgg11_bn's and squeezenet1_0's evaluate. Each of
+    ``untimed`` (functions of no argument) runs in a thread of its own
+    beside densenet121's CLIs, where nothing is timed. Returns the kernels
+    line's rows for the wide heads, with their launches on the phase's
+    main path (vgg11_bn's fused evaluate, and its quantize-eval), and what
+    each of ``untimed`` returned."""
     from mpi_pytorch_tpu_torch.hardware import card_report
 
     t0 = time.perf_counter()
@@ -4232,13 +4281,16 @@ def zoo(dev, gen) -> dict:
     models = {name: _zoo_model_steps(dev, name) for name in ZOO_BATCH}
     with tempfile.TemporaryDirectory() as dense_tmp:
         # densenet121's train CLI runs beside vgg11_bn's and squeezenet1_0's
-        # short runs (a process of its own on the card; nothing timed then).
+        # short runs, and ``untimed`` beside all three (processes of their
+        # own on the card; nothing timed then).
         train = _zoo_densenet_train(dense_tmp)
+        beside = [_Beside(fn) for fn in untimed]
         with tempfile.TemporaryDirectory() as tmp:
             vgg = _zoo_vgg_eval(dev, tmp)
         with tempfile.TemporaryDirectory() as tmp:
             squeeze = _zoo_squeezenet_eval(dev, tmp)
         densenet = _zoo_densenet_clis(dev, dense_tmp, train)
+        done = [b.result() for b in beside]
     rows["bf16"]["launches"] = vgg["wide_launches"]
     rows["int8"]["launches"] = vgg["int8_wide_launches"]
     log({"zoo": {"card": card_report().splitlines()[0], "wide_heads_s": heads_s,
@@ -4247,7 +4299,388 @@ def zoo(dev, gen) -> dict:
                             for k, v in models.items()},
                  "densenet121_clis": densenet, "vgg11_bn_evaluate": vgg,
                  "squeezenet1_0_evaluate": squeeze, "phase_s": time.perf_counter() - t0}})
-    return rows
+    return rows, done
+
+
+# Phase 11 (robust_training): the phase 6 fused run's configuration on a
+# DEBUG sample of 1 280 rows (1 024 train rows: 8 steps of 128 an epoch),
+# two epochs, two checkpoints kept. Part (e): two gloo ranks sharing the
+# card with 32 global rows (2 steps an epoch, 16 rows a rank), rank 1
+# delayed ROBUST_DELAY_MS a step. A rank is flagged while its step takes
+# over ROBUST_THRESHOLD × the median of the two, t + d > τ(t + d/2), so
+# d > t·(τ − 1)/(1 − τ/2): at τ = 1.2 the delay must exceed half a step
+# (a gloo step of the full-width f32 model, 177 MB through the host, took
+# 3.7–4.9 s on the card; at the default τ = 1.5 a 5 s delay fell short).
+# 8 s holds up to 16 s steps, for the ranks share the card and the host
+# with phase 10's CLIs.
+ROBUST_ROWS, ROBUST_STEPS, ROBUST_EPOCHS = 1280, 8, 2
+ROBUST_RANK_ROWS, ROBUST_RANK_BATCH, ROBUST_RANK_STEPS = 80, 32, 2
+ROBUST_DELAY_MS, ROBUST_THRESHOLD = 8000, 1.2
+# A resumed or replayed step's loss against the reference run's.
+ROBUST_LOSS_GAP = 1e-3
+
+
+# The gates a phase 11 run may set: a subprocess gets each empty (off)
+# unless it is its own, so that no gate of this process's environment
+# (the in-process runs set theirs there) reaches it.
+_ROBUST_GATES = ("MPT_FAULT_PREEMPT_AT_STEP", "MPT_FAULT_NONFINITE_AT_STEP",
+                 "MPT_FAULT_KILL_AT_STEP", "MPT_FAULT_DELAY_STEP_MS", "MPT_FAULT_DELAY_PROCESS")
+
+
+def _robust_sub(args: list[str], timeout: int, **gates) -> subprocess.CompletedProcess:
+    """``python args`` from the checkout's root under exactly ``gates``."""
+    env = {**os.environ, **{g: "" for g in _ROBUST_GATES}, **gates, "PYTHONPATH":
+           os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)}
+    return subprocess.run([sys.executable, *args], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def _robust_argv(tmp: str, **flags) -> list[str]:
+    """The train CLI's flags of a phase 11 run in ``tmp`` (``flags``:
+    more, ``--kebab-case`` from their field names)."""
+    base = {
+        "model_name": "resnet18", "num_classes": V, "image_size": IMG,
+        "batch_size": TRAIN_BATCH, "compute_dtype": "bfloat16", "learning_rate": LR,
+        "optimizer": "adam", "fused_stem": "true", "synthetic_data": "true",
+        "debug": "true", "debug_sample_size": ROBUST_ROWS,
+        "test_csv": REPO / "data" / "test_sample.csv", "num_epochs": ROBUST_EPOCHS,
+        "validate": "false", "checkpoint_dir": os.path.join(tmp, "checkpoints"),
+        "keep_checkpoints": 2, "log_file": os.path.join(tmp, "training.log"),
+        "metrics_file": os.path.join(tmp, "metrics.jsonl"), "log_every_steps": 0,
+        "seed": SEED, **flags,
+    }
+    return [a for k, v in base.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def _robust_cfg(tmp: str, **flags):
+    from mpi_pytorch_tpu_torch.config import parse_config
+
+    return parse_config(_robust_argv(tmp, **flags))
+
+
+def _robust_run(cfg, dev, gates: dict | None = None) -> dict:
+    """``train.trainer.train(cfg)`` in this process under the fault
+    ``gates``; K2's and K3's counts set to 0 just before and read just
+    after; the step records the run wrote."""
+    from mpi_pytorch_tpu_torch.ops import fused_stem
+    from mpi_pytorch_tpu_torch.train.trainer import train
+    from mpi_pytorch_tpu_torch.utils import env
+
+    before = len(_records(cfg.metrics_file)) if os.path.exists(cfg.metrics_file) else 0
+    os.environ.update(gates or {})
+    env.reset_fault_counters()
+    fused_stem.argmax_counter.reset()
+    fused_stem.backward_counter.reset()
+    t0 = time.perf_counter()
+    try:
+        summary = train(cfg, device=dev)
+    finally:
+        for name in gates or {}:
+            del os.environ[name]
+        env.reset_fault_counters()
+    wall = time.perf_counter() - t0
+    records = _records(cfg.metrics_file)[before:]
+    torch.cuda.empty_cache()
+    return {"summary": summary, "wall_s": wall, "records": records,
+            "steps": [r for r in records if r["kind"] == "step"],
+            "launches": {"stem_pool_argmax": fused_stem.argmax_counter.count,
+                         "stem_pool_backward": fused_stem.backward_counter.count}}
+
+
+def _once_a_step(run: dict, what: str) -> None:
+    """K2 and K3 launched once for each step the run ran."""
+    steps = len(run["steps"])
+    if not steps or set(run["launches"].values()) != {steps}:
+        raise AssertionError(f"phase 11 {what}: {steps} steps, launches {run['launches']}")
+
+
+def _final_model(cfg) -> dict:
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+
+    return torch.load(ckpt.latest_checkpoint(cfg.checkpoint_dir), map_location="cpu",
+                      weights_only=True)["model"]
+
+
+def _loss_gaps(steps: list[dict], ref: dict) -> float:
+    """The largest relative gap of ``steps``' losses to the reference
+    run's at the same (epoch, step)."""
+    return max(abs(s["loss"] / ref[(s["epoch"], s["step"])] - 1) for s in steps)
+
+
+def robust_rank(payload: dict) -> dict:
+    """One rank of phase 11 (e): gloo on the one card, the train CLI's
+    configuration ``payload["argv"]`` through ``train.trainer.train``
+    (rank 1 delayed by the gates of its environment); its preemption,
+    epochs, steps and K2's and K3's launches."""
+    from mpi_pytorch_tpu_torch.config import parse_config
+    from mpi_pytorch_tpu_torch.ops import fused_stem
+    from mpi_pytorch_tpu_torch.parallel import distributed
+    from mpi_pytorch_tpu_torch.train.trainer import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(payload["device"])
+    distributed.maybe_initialize_distributed(dev, backend_name="gloo")
+    fused_stem.argmax_counter.reset()
+    fused_stem.backward_counter.reset()
+    t0 = time.perf_counter()
+    summary = train(parse_config(payload["argv"]), device=dev)
+    return {"preempted": summary.preempted, "epochs_run": summary.epochs_run,
+            "steps": len(summary.step_losses), "wall_s": time.perf_counter() - t0,
+            "launches": {"stem_pool_argmax": fused_stem.argmax_counter.count,
+                         "stem_pool_backward": fused_stem.backward_counter.count}}
+
+
+def _robust_ranks(dev, root: str) -> dict:
+    """Phase 11 (e): two gloo ranks at full width in f32, spmd mode, ZeRO,
+    heartbeats every step, rank 1 delayed: both stop at one epoch
+    boundary with one checkpoint of ``data=2``; then ``torchrun
+    --nproc-per-node 1`` (NCCL) resumes it as a world of one."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.parallel.launch import run_world
+
+    tmp = os.path.join(root, "e")
+    argv = _robust_argv(tmp, compute_dtype="float32", spmd_mode="true", zero_opt_state="true",
+                        heartbeat_every_steps=1, step_metrics="true",
+                        preempt_straggler_beats=2, straggler_threshold=ROBUST_THRESHOLD,
+                        debug_sample_size=ROBUST_RANK_ROWS, batch_size=ROBUST_RANK_BATCH)
+    t0 = time.perf_counter()
+    ranks = run_world("chip_smoke:robust_rank", 2, {"device": str(dev), "argv": argv},
+                      timeout_s=400, env={**{g: "" for g in _ROBUST_GATES},
+                                          "MPT_FAULT_DELAY_STEP_MS": str(ROBUST_DELAY_MS),
+                                          "MPT_FAULT_DELAY_PROCESS": "1"})
+    ranks_wall = time.perf_counter() - t0
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    records = _records(metrics)
+    beats = [r for r in records if r["kind"] == "heartbeat"]
+    faults = [r for r in records if r["kind"] == "fault"]
+    paths = ckpt.checkpoint_paths(os.path.join(tmp, "checkpoints"))
+    manifest = ckpt.read_manifest(paths[0]) if paths else {}
+    stopped = [(r["preempted"], r["epochs_run"], r["steps"]) for r in ranks]
+    if (stopped != [(True, 1, ROBUST_RANK_STEPS)] * 2
+            or any(r["launches"] != {"stem_pool_argmax": ROBUST_RANK_STEPS,
+                                     "stem_pool_backward": ROBUST_RANK_STEPS} for r in ranks)
+            or len(beats) != ROBUST_RANK_STEPS or any(b["stragglers"] != [1] for b in beats)
+            or [(f["reason"], f.get("streak")) for f in faults] != [("straggler_streak", 2)]
+            or [ckpt.checkpoint_epoch(p) for p in paths] != [0]
+            or manifest.get("mesh_shape") != {"data": 2, "model": 1}
+            or manifest.get("zero_shards") != 2):
+        raise AssertionError(f"phase 11 (e): ranks {ranks}, beats {beats}, faults {faults}, "
+                             f"checkpoints {paths}, manifest {manifest}")
+    t0 = time.perf_counter()
+    proc = _robust_sub(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                        "-m", "mpi_pytorch_tpu_torch.train", *argv, "--from-checkpoint", "true"],
+                       timeout=300)
+    wall, out = time.perf_counter() - t0, proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11 (e) world of one exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    after = _records(metrics)[len(records):]
+    resume = [r for r in after if r["kind"] == "resume"]
+    epochs = [r for r in after if r["kind"] == "epoch"]
+    steps = [r for r in after if r["kind"] == "step"]
+    if ("NCCL" not in out and "nccl" not in out) or len(resume) != 1 \
+            or (resume[0]["from_mesh"], resume[0]["to_mesh"]) != ("data=2,model=1",
+                                                                  "data=1,model=1") \
+            or len(epochs) != 1 or len(steps) != ROBUST_RANK_STEPS \
+            or not all(np.isfinite(s["loss"]) for s in steps) \
+            or set(epochs[0].get("launches", {}).values()) != {ROBUST_RANK_STEPS}:
+        raise AssertionError(f"phase 11 (e) world of one: resume {resume}, epochs {epochs}, "
+                             f"steps {steps}\n{out[-3000:]}")
+    return {"ranks_wall_s": ranks_wall, "one_wall_s": wall, "stopped": stopped,
+            "beats": [b["step_ms"] for b in beats], "fault": faults[0],
+            "resume": {k: resume[0][k] for k in ("from_mesh", "to_mesh", "strategy",
+                                                 "zero_shards_from", "zero_shards_to")},
+            "one_launches": epochs[0]["launches"], "one_losses": [s["loss"] for s in steps],
+            "rank_launches": [r["launches"] for r in ranks]}
+
+
+def _robust_kill(root: str) -> dict:
+    """Phase 11 (c), the kill: the train CLI SIGKILLed by
+    ``MPT_FAULT_KILL_AT_STEP`` at epoch 1's last step (return code −9),
+    then ``--from-checkpoint true`` continues from epoch 0's checkpoint
+    and finishes. Validation after epoch 0 and eight steps give epoch 0's
+    write in flight its time to land before the kill; a ``.tmp`` left
+    beside it would be ignored."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+
+    tmp = os.path.join(root, "c")
+    argv = ["-m", "mpi_pytorch_tpu_torch.train", *_robust_argv(tmp, validate="true")]
+    t0 = time.perf_counter()
+    killed = _robust_sub(argv, 300, MPT_FAULT_KILL_AT_STEP=str(2 * ROBUST_STEPS))
+    kill_wall = time.perf_counter() - t0
+    ckpt_dir = os.path.join(tmp, "checkpoints")
+    left = sorted(os.listdir(ckpt_dir))
+    if killed.returncode != -9 or [ckpt.checkpoint_epoch(p) for p in
+                                   ckpt.checkpoint_paths(ckpt_dir)] != [0]:
+        raise AssertionError(f"phase 11 (c): the killed run exited {killed.returncode}, left "
+                             f"{left}\n{killed.stdout[-2000:]}\n{killed.stderr[-2000:]}")
+    records = _records(os.path.join(tmp, "metrics.jsonl"))
+    t0 = time.perf_counter()
+    proc = _robust_sub(argv + ["--from-checkpoint", "true"], 300)
+    resume_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11 (c) resume exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    after = _records(os.path.join(tmp, "metrics.jsonl"))[len(records):]
+    resume = [r for r in after if r["kind"] == "resume"]
+    epochs = [r for r in after if r["kind"] == "epoch"]
+    if ([(r["epoch"], r["corrupt_skipped"]) for r in resume] != [(0, 0)]
+            or [r["epoch"] for r in epochs] != [1]
+            or set(epochs[0].get("launches", {}).values()) != {ROBUST_STEPS}):
+        raise AssertionError(f"phase 11 (c) resume after the kill: {after}")
+    kills = [r for r in records if r["kind"] == "fault"]
+    # The killed run's epoch-1 steps and the resume's start from the same
+    # epoch-0 checkpoint on the same batches; in two processes cuDNN picks
+    # its algorithms apart, so the first step (the same weights) is held
+    # at ROBUST_LOSS_GAP, as phase 6 holds its twin's.
+    killed_steps = {(r["epoch"], r["step"]): r["loss"] for r in records if r["kind"] == "step"}
+    steps = {(r["epoch"], r["step"]): r["loss"] for r in after if r["kind"] == "step"}
+    gap = abs(steps[(1, 0)] / killed_steps[(1, 0)] - 1)
+    if gap > ROBUST_LOSS_GAP:
+        raise AssertionError(f"phase 11 (c): the resume's first loss {steps[(1, 0)]} against "
+                             f"the killed run's {killed_steps[(1, 0)]}")
+    return {"rc": killed.returncode, "left": left, "kill_wall_s": kill_wall,
+            "resume_wall_s": resume_wall, "kill": kills[-1] if kills else None,
+            "step_1_0_gap_to_killed_run": gap, "epoch1_loss": epochs[0]["loss"],
+            "resume_launches": epochs[0]["launches"]}
+
+
+def robust_untimed(dev) -> tuple:
+    """Phase 11's parts that run beside phase 10's densenet121 CLIs (see
+    :func:`zoo`), each with a directory of its own: (c)'s kill and its
+    resume, and (e). Their walls are read with other processes on the
+    card (``UNTIMED``); their checks are not times."""
+
+    def kill() -> dict:
+        with tempfile.TemporaryDirectory() as root:
+            return _robust_kill(root)
+
+    def ranks() -> dict:
+        with tempfile.TemporaryDirectory() as root:
+            return _robust_ranks(dev, root)
+
+    return kill, ranks
+
+
+# Beside the walls of phase 11 (c)'s kill and of (e).
+UNTIMED = "read beside phase 10's densenet121 CLIs and each other"
+
+
+def robust_training(dev, kill: dict, ranks: dict) -> dict:
+    """Phase 11: robust training through ``train.trainer.train`` and the
+    train CLI at full width — (a) the reference run; (b) a preemption mid
+    epoch 1 (``MPT_FAULT_PREEMPT_AT_STEP``: a dirty checkpoint with the
+    cursor) and the exact-step resume, bitwise (a)'s; (c) a SIGKILL in
+    epoch 1 (``MPT_FAULT_KILL_AT_STEP``, the CLI) and its resume, and a
+    truncated newest checkpoint walked past; (d) ``--bad-step-policy
+    rollback`` on a NaN batch (``MPT_FAULT_NONFINITE_AT_STEP``); (e) two
+    gloo ranks stopped by the straggler watchdog, resumed as a NCCL world
+    of one. (a), (b), (c)'s truncation and (d) run here, one at a time
+    with nothing beside them; ``kill`` and ``ranks`` are what (c)'s kill
+    and (e) returned beside phase 10 (:func:`robust_untimed`). Returns
+    K2's and K3's launches over (a), (b), (c)'s truncation and (d)."""
+    from mpi_pytorch_tpu_torch import checkpoint as ckpt
+    from mpi_pytorch_tpu_torch.hardware import card_report
+
+    card = card_report().splitlines()[0]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the reference.
+        ref_cfg = _robust_cfg(os.path.join(root, "a"), validate="true")
+        a = _robust_run(ref_cfg, dev)
+        _once_a_step(a, "(a)")
+        if len(a["steps"]) != ROBUST_STEPS * ROBUST_EPOCHS:
+            raise AssertionError(f"phase 11 (a): {len(a['steps'])} steps")
+        ref = {(s["epoch"], s["step"]): s["loss"] for s in a["steps"]}
+        # The checkpoint layer's numbers, from (a)'s log: each save's stall
+        # of the epoch loop (the snapshot to the host) and the writer
+        # thread's seconds, which the next epoch overlaps.
+        with open(ref_cfg.log_file) as f:
+            a_log = f.read()
+        stalls = [float(x) for x in re.findall(r"checkpoint dispatched: \S+ \(([0-9.]+) s stall",
+                                                a_log)]
+        writes = [(int(n), float(w)) for n, w in re.findall(
+            r"checkpoint writes: (\d+), ([0-9.]+) s on the writer thread", a_log)]
+        ref_model = _final_model(ref_cfg)
+        # (b) preempted after step 12 (epoch 1 step 3), then resumed. The
+        # card's training repeats bitwise in one process (two runs of (a),
+        # PERF.md), so the resumed run must end on (a)'s bits.
+        cut_cfg = _robust_cfg(os.path.join(root, "b"))
+        cut = _robust_run(cut_cfg, dev, {"MPT_FAULT_PREEMPT_AT_STEP": str(ROBUST_STEPS + 4)})
+        latest = ckpt.latest_checkpoint(cut_cfg.checkpoint_dir)
+        cursor = ckpt.read_manifest(latest)["data_cursor"]
+        if not (cut["summary"].preempted and ckpt.checkpoint_epoch(latest) == 0
+                and os.path.exists(latest + ".dirty")
+                and (cursor["epoch"], cursor["step_in_epoch"]) == (1, 4)):
+            raise AssertionError(f"phase 11 (b): preempted {cut['summary'].preempted}, "
+                                 f"{latest}, cursor {cursor}")
+        resumed = _robust_run(_robust_cfg(os.path.join(root, "b"), from_checkpoint="true"), dev)
+        resume = [r for r in resumed["records"] if r["kind"] == "resume"]
+        pairs = [(s["epoch"], s["step"]) for s in cut["steps"] + resumed["steps"]]
+        b_gap = _loss_gaps(resumed["steps"], ref)
+        b_equal = all(torch.equal(v, ref_model[k]) for k, v in _final_model(cut_cfg).items())
+        if ([(r["cursor_epoch"], r["cursor_step"]) for r in resume] != [(1, 4)]
+                or sorted(pairs) != sorted(ref) or len(pairs) != len(set(pairs))
+                or b_gap > ROBUST_LOSS_GAP or not b_equal):
+            raise AssertionError(f"phase 11 (b): resume {resume}, pairs {pairs}, loss gap "
+                                 f"{b_gap}, final parameters equal (a)'s: {b_equal}")
+        for run, what in ((cut, "(b) preempted"), (resumed, "(b) resumed")):
+            _once_a_step(run, what)
+        # (c) (a)'s checkpoints with epoch 1's file cut to half its bytes.
+        shutil.copytree(os.path.join(root, "a", "checkpoints"),
+                        os.path.join(root, "c2", "checkpoints"))
+        torn_cfg = _robust_cfg(os.path.join(root, "c2"), from_checkpoint="true")
+        newest = ckpt.latest_checkpoint(torn_cfg.checkpoint_dir)
+        with open(newest, "r+b") as f:
+            f.truncate(os.path.getsize(newest) // 2)
+        torn = _robust_run(torn_cfg, dev)
+        kinds = [(r["kind"], r.get("reason"), r["epoch"]) for r in torn["records"]
+                 if r["kind"] in ("anomaly", "resume")]
+        epochs = [r for r in torn["records"] if r["kind"] == "epoch"]
+        c_gap = abs(epochs[-1]["loss"] / a["summary"].epoch_losses[-1] - 1) if epochs else None
+        if kinds != [("anomaly", "corrupt_checkpoint", 1), ("resume", None, 0)] \
+                or [r["epoch"] for r in epochs] != [1] or c_gap > ROBUST_LOSS_GAP:
+            raise AssertionError(f"phase 11 (c) corrupt: records {kinds}, epochs {epochs}")
+        _once_a_step(torn, "(c) corrupt")
+        # (d) a NaN batch at step 11 (epoch 1 step 2): rolled back at step 3.
+        rb_cfg = _robust_cfg(os.path.join(root, "d"), bad_step_policy="rollback")
+        rb = _robust_run(rb_cfg, dev, {"MPT_FAULT_NONFINITE_AT_STEP": str(ROBUST_STEPS + 3)})
+        trail = [(r["kind"], r["reason"]) for r in rb["records"] if r["kind"] in
+                 ("fault", "rollback")]
+        after = rb["steps"][ROBUST_STEPS + 4:]
+        d_gap = abs(rb["summary"].epoch_losses[-1] / a["summary"].epoch_losses[-1] - 1)
+        if (trail != [("fault", "injected_nonfinite"), ("rollback", "nonfinite_streak")]
+                or len(rb["steps"]) != 2 * ROBUST_STEPS + 4
+                or not all(np.isfinite(s["loss"]) for s in after) or d_gap > ROBUST_LOSS_GAP):
+            raise AssertionError(f"phase 11 (d): trail {trail}, {len(rb['steps'])} steps, "
+                                 f"epoch-loss gap {d_gap}")
+        _once_a_step(rb, "(d)")
+        # The kill's process trained its own epoch 0, another process's
+        # rounding from (a)'s: its epoch-1 loss against (a)'s is logged.
+        c = dict(kill, kill_timing=UNTIMED)
+        c["epoch1_loss_gap_to_a"] = abs(c["epoch1_loss"] / a["summary"].epoch_losses[-1] - 1)
+    launches = {k: sum(run["launches"][k] for run in (a, cut, resumed, torn, rb))
+                for k in a["launches"]}
+    log({"robust_training": {
+        "card": card, "wall_s": time.perf_counter() - t_phase,
+        "a": {"wall_s": a["wall_s"], "steps": len(a["steps"]),
+              "save_stall_s": stalls, "writes": writes,
+              "launches": a["launches"], "epoch_losses": a["summary"].epoch_losses},
+        "b": {"wall_s": [cut["wall_s"], resumed["wall_s"]], "cursor": [1, 4],
+              "steps": [len(cut["steps"]), len(resumed["steps"])],
+              "launches": [cut["launches"], resumed["launches"]], "max_loss_gap": b_gap,
+              "final_params_equal_a": b_equal, "records": len(cut["records"])
+              + len(resumed["records"])},
+        "c": {**c, "corrupt_wall_s": torn["wall_s"],
+              "corrupt_records": kinds, "corrupt_epoch1_loss_gap": c_gap,
+              "corrupt_launches": torn["launches"]},
+        "d": {"wall_s": rb["wall_s"], "trail": trail, "steps": len(rb["steps"]),
+              "launches": rb["launches"], "epoch1_loss_gap": d_gap,
+              "records": len(rb["records"])},
+        "e": dict(ranks, timing=UNTIMED),
+    }})
+    return launches
 
 
 def main() -> int:
@@ -4286,6 +4719,15 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
+    # Each phase's wall seconds, logged before the kernels line: where the
+    # script's time limit goes.
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     check_ingest(dev)
     stem = check_stem(dev, gen)
     stem_argmax = check_stem_argmax(dev, gen)
@@ -4299,6 +4741,7 @@ def main() -> int:
     head_int8 = check_head_int8(dev, gen)
     head_ce_fwd, head_ce_bwd = check_head_ce_train(dev, gen)
     check_topk_ties(dev, gen)
+    lap("3_kernels")
     launches = serve_resnet18(dev)
     stem["launches"], head["launches"] = launches["stem"], launches["head"]
     head_f32["launches"] = serve_resnet18_f32(dev)
@@ -4308,31 +4751,42 @@ def main() -> int:
     head_ce_fwd["launches"] = ce_launches["head_ce_forward"]
     head_ce_bwd["launches"] = ce_launches["head_ce_backward"]
     serve_vit(dev)
+    lap("4_5_serve")
     with tempfile.TemporaryDirectory() as run_dir:
         fused_run = train_resnet18(dev, run_dir)
         evaluate_resnet18(dev, run_dir)
+    lap("6_6b_train_evaluate")
     # K1's, K2's and K3's launches on the device-cache path (PERF.md's
     # third figure of their rows; the kernels line keeps the main path's).
     log({"cached_launches": train_resnet18_cached(dev, fused_run)})
+    lap("6b2_device_cache")
     stem_argmax["launches"] = fused_run["launches"]["stem_pool_argmax"]
     stem_backward["launches"] = fused_run["launches"]["stem_pool_backward"]
     dp_launches = data_parallel(dev, fused_run)
     # K2's and K3's launches in the data-parallel phase: the second figure
     # of their rows in PERF.md (the kernels line keeps the main path's).
     log({"dp_launches": dp_launches})
+    lap("6c_data_parallel")
     # K2's and K3's launches in phase 6d, a run at a time.
     log({"lever_launches": grad_sync_levers(dev)})
+    lap("6d_grad_sync_levers")
     # K2's and K3's launches in phase 6e, a run at a time.
     log({"auto_lever_launches": auto_levers(dev)})
+    lap("6e_auto_levers")
     vit_launches = train_vit(dev)
+    lap("7_train_vit")
     train_step_checks(dev)
     vit_launches.update(vit_step_checks(dev))
+    lap("8_step_checks")
     # The padded rows read 0: vit_s16's heads are 64 wide, and train_vit
     # fails if its runs launch a padded kernel.
     for row in (attn_fwd, attn_fwd_f32, attn_fwd_ffma, attn_bwd, attn_bwd_f32, attn_bwd_pad, flash,
                 flash_f32, flash_pad):
         row["launches"] = vit_launches[row["name"]]
-    wide = zoo(dev, gen)
+    # Phase 11's kill (c) and its gloo ranks (e), beside phase 10's
+    # densenet121 CLIs, where nothing is timed.
+    wide, (robust_kill, robust_ranks) = zoo(dev, gen, robust_untimed(dev))
+    lap("10_zoo")
     train_time_breakdown(dev, "resnet18 fused stem 128 px", {"fused_stem": True}, {"fused": True}, IMG)
     for attn_impl, image in VIT_RUNS.items():
         train_time_breakdown(
@@ -4340,6 +4794,11 @@ def main() -> int:
             {"model_name": "vit_s16", "attn_impl": attn_impl, "width": image, "height": image},
             {"model_name": "vit_s16", "attn_impl": attn_impl, "image_size": image}, image,
         )
+    lap("9_breakdown")
+    # K2's and K3's launches in phase 11, its runs (a), (b), (c) and (d).
+    log({"robust_launches": robust_training(dev, robust_kill, robust_ranks)})
+    lap("11_robust_training")
+    log({"phase_walls_s": walls})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = (stem, stem_argmax, stem_backward, head, wide["bf16"], head_f32, head_ce_fwd, head_ce_bwd,

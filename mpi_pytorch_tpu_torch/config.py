@@ -236,11 +236,41 @@ class Config:
     track_best: bool = False
     # Evaluate: load the checkpoint best.json names instead of the latest.
     use_best: bool = False
+    # A checkpoint every this many epochs (0: none but the preemption save).
+    checkpoint_every_epochs: int = 1
+    # The large f32 Adam moments stored in bf16 (restore casts them back):
+    # half the moment bytes, lossy for the moments only.
+    ckpt_bf16_moments: bool = False
 
-    # --- recovery: abort (raise on a non-finite step) | skip (discard it) ---
+    # --- elastic resume / preemption (train/elastic.py) ---
+    # Bounded retry with backoff (resume_backoff_s · 2^attempt) around the
+    # resume side's mesh build and state placement.
+    resume_retries: int = 3
+    resume_backoff_s: float = 0.5
+    # A sentinel file: when it exists the watchdog stops the run at the
+    # next safe boundary, saves and exits 0 ("" reads MPT_PREEMPT_FILE).
+    preempt_file: str = ""
+    # Preempt after this many consecutive straggler beats / non-finite
+    # grad-norm steps (0 disables).
+    preempt_straggler_beats: int = 0
+    preempt_nonfinite_steps: int = 0
+
+    # --- recovery from a bad (non-finite) step: abort (raise) | skip
+    # (discard the update) | rollback (restore the last good checkpoint
+    # in-process, train/elastic.RollbackPolicy) ---
     bad_step_policy: str = "abort"
     # skip: consecutive discarded steps before aborting anyway.
     max_skipped_steps: int = 10
+    # rollback triggers: consecutive non-finite steps, and (0 = off) a loss
+    # over rollback_loss_drift × the mean of the first
+    # rollback_drift_warmup finite losses.
+    rollback_nonfinite_steps: int = 2
+    rollback_loss_drift: float = 0.0
+    rollback_drift_warmup: int = 5
+    # rollback bounds: restores before aborting, and the learning-rate
+    # scale applied on each one (1.0 keeps the rate).
+    max_rollbacks: int = 3
+    rollback_lr_backoff: float = 1.0
 
     # --- evaluation ---
     # evaluate: one CSV row (file_name, predicted_label,
@@ -255,6 +285,17 @@ class Config:
     eval_log_file: str = "evaluation.log"
     metrics_file: str = "metrics.jsonl"  # structured JSONL metrics; "" disables
     log_every_steps: int = 10
+    # Per-step health records (obs/health.py: data-wait and step ms, live
+    # device bytes), one host sync a step.
+    step_metrics: bool = False
+    # A non-finite loss writes a kind="anomaly" record and aborts
+    # (bad_step_policy=abort only).
+    nan_sentinel: bool = True
+    # Every N steps the ranks exchange their mean step time and flag any
+    # rank slower than straggler_threshold × the median (obs/heartbeat.py;
+    # 0 = off).
+    heartbeat_every_steps: int = 0
+    straggler_threshold: float = 1.5
 
     # --- online serving ---
     serve_buckets: str = "1,8,32,128,512"
@@ -316,15 +357,7 @@ class Config:
                 "track_best needs validation accuracy to rank checkpoints "
                 "(set validate=True, or drop track_best)"
             )
-        if self.bad_step_policy not in ("abort", "skip"):
-            raise ValueError(
-                f"bad_step_policy must be abort|skip, got {self.bad_step_policy!r} "
-                "(rollback is not ported yet)"
-            )
-        if self.max_skipped_steps < 1:
-            raise ValueError(
-                f"max_skipped_steps must be >= 1, got {self.max_skipped_steps}"
-            )
+        self._validate_recovery()
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32|bfloat16, got {self.compute_dtype}"
@@ -422,6 +455,97 @@ class Config:
                     f"{self.width}x{self.height} gives "
                     f"{post_conv(self.width)}x{post_conv(self.height)}"
                 )
+
+    def _validate_recovery(self) -> None:
+        """The JAX package's checks of the elastic, preemption, bad-step
+        and heartbeat knobs, in its words."""
+        if self.resume_retries < 0:
+            raise ValueError(
+                f"resume_retries must be >= 0 (0 = one attempt, no retry), "
+                f"got {self.resume_retries}"
+            )
+        if self.resume_backoff_s < 0:
+            raise ValueError(
+                f"resume_backoff_s must be >= 0, got {self.resume_backoff_s}"
+            )
+        if self.preempt_straggler_beats < 0:
+            raise ValueError(
+                f"preempt_straggler_beats must be >= 0 (0 disables), "
+                f"got {self.preempt_straggler_beats}"
+            )
+        if self.preempt_nonfinite_steps < 0:
+            raise ValueError(
+                f"preempt_nonfinite_steps must be >= 0 (0 disables), "
+                f"got {self.preempt_nonfinite_steps}"
+            )
+        if self.preempt_straggler_beats > 0 and self.heartbeat_every_steps <= 0:
+            raise ValueError(
+                "preempt_straggler_beats counts heartbeat beats; it needs "
+                "--heartbeat-every-steps > 0 to ever observe one"
+            )
+        if self.preempt_nonfinite_steps > 0 and not self.step_metrics:
+            raise ValueError(
+                "preempt_nonfinite_steps counts per-step grad norms; it "
+                "needs --step-metrics true to ever observe one"
+            )
+        if self.bad_step_policy not in ("abort", "skip", "rollback"):
+            raise ValueError(
+                f"bad_step_policy must be abort|skip|rollback, "
+                f"got {self.bad_step_policy!r}"
+            )
+        if self.max_skipped_steps < 1:
+            raise ValueError(
+                f"max_skipped_steps must be >= 1, got {self.max_skipped_steps}"
+            )
+        if self.rollback_nonfinite_steps < 1:
+            raise ValueError(
+                f"rollback_nonfinite_steps must be >= 1, "
+                f"got {self.rollback_nonfinite_steps}"
+            )
+        if self.rollback_loss_drift != 0.0 and self.rollback_loss_drift <= 1.0:
+            raise ValueError(
+                "rollback_loss_drift is a ratio vs the warmup-baseline loss "
+                f"and must be > 1.0 (0 disables), got {self.rollback_loss_drift}"
+            )
+        if self.rollback_drift_warmup < 1:
+            raise ValueError(
+                f"rollback_drift_warmup must be >= 1, "
+                f"got {self.rollback_drift_warmup}"
+            )
+        if self.max_rollbacks < 1:
+            raise ValueError(
+                f"max_rollbacks must be >= 1, got {self.max_rollbacks}"
+            )
+        if not 0.0 < self.rollback_lr_backoff <= 1.0:
+            raise ValueError(
+                "rollback_lr_backoff is a per-rollback LR scale in (0, 1] "
+                f"(1.0 = no backoff), got {self.rollback_lr_backoff}"
+            )
+        if self.bad_step_policy == "rollback":
+            if self.scan_epoch:
+                raise ValueError(
+                    "bad_step_policy='rollback' watches per-step host "
+                    "values; scan_epoch runs the whole epoch as one "
+                    "device-side scan with no step boundaries — use "
+                    "bad_step_policy='skip' (guarded inside the scan) or "
+                    "drop scan_epoch"
+                )
+            if self.checkpoint_every_epochs < 1:
+                raise ValueError(
+                    "bad_step_policy='rollback' restores the last good "
+                    "checkpoint; it needs checkpoint_every_epochs >= 1 to "
+                    "ever have one"
+                )
+        if self.heartbeat_every_steps < 0:
+            raise ValueError(
+                f"heartbeat_every_steps must be >= 0 (0 disables), "
+                f"got {self.heartbeat_every_steps}"
+            )
+        if self.straggler_threshold <= 1.0:
+            raise ValueError(
+                "straggler_threshold is a multiple of the median step time "
+                f"and must be > 1.0, got {self.straggler_threshold}"
+            )
 
     def _validate_parallel(self) -> None:
         """The mesh, and the JAX package's checks on the levers of both

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import hashlib
 from typing import Sequence
 
 import numpy as np
@@ -51,6 +52,21 @@ class Manifest:
             category_ids=self.category_ids[idx],
             img_dir=self.img_dir,
         )
+
+
+def manifest_fingerprint(manifest: Manifest) -> str:
+    """A stable digest of a manifest's identity (size, filenames, labels),
+    16 hex characters — the exact-step resume cursor stamps it into the
+    checkpoint's topology sidecar, so a resume proves the saved offset
+    still walks the same dataset. Order-sensitive: a reordered CSV is a
+    different walk."""
+    h = hashlib.sha1()
+    h.update(str(len(manifest)).encode())
+    for name in manifest.filenames:
+        h.update(name.encode())
+        h.update(b"\0")
+    h.update(np.ascontiguousarray(manifest.labels).tobytes())
+    return h.hexdigest()[:16]
 
 
 def _read_csv(path: str) -> tuple[list[str], np.ndarray]:

@@ -36,6 +36,7 @@ import torch.distributed as dist
 
 from mpi_pytorch_tpu_torch.config import MeshConfig
 from mpi_pytorch_tpu_torch.parallel import distributed
+from mpi_pytorch_tpu_torch.utils.env import fault_countdown
 
 # The nested axes' names are fixed, as in the JAX package: the traffic
 # ledger books a collective over ``pod`` as cross-pod (DCN) bytes.
@@ -77,6 +78,11 @@ def create_mesh(cfg: MeshConfig | None = None) -> Mesh:
     """The layout of ``cfg`` over the current world (one rank for one
     process). Every rank must call it at the same point: a nested layout
     creates its process groups collectively."""
+    if fault_countdown("MPT_FAULT_BACKEND_WEDGE_N"):
+        # The wedged-backend-init scenario, absorbed by the resume side's
+        # retry loop (train/elastic.with_retries). Every rank reads the
+        # same gate, so every rank raises before any group is made.
+        raise RuntimeError("injected fault: backend init wedged (MPT_FAULT_BACKEND_WEDGE_N)")
     cfg = cfg or MeshConfig()
     world, rank = distributed.world_size(), distributed.rank()
     cfg.check_world(world)
@@ -153,6 +159,30 @@ def data_axis(mesh: Mesh) -> Axis:
     if is_hierarchical(mesh):
         return Axis(DATA_AXIS, data_axis_size(mesh), distributed.rank())
     return mesh.axes[0]
+
+
+def mesh_topology(mesh: Mesh) -> dict:
+    """The world shape of ``mesh`` as plain JSON-able data (JAX
+    ``mesh_topology``): the vocabulary of the checkpoint's topology
+    sidecar and the ``kind="resume"`` record. One device a rank, so the
+    device and process counts are both the world size; the axes in JAX's
+    order, ``(data, model)`` flat and ``(pod, ici, model)`` nested."""
+    axes = [*mesh.axes, mesh.model]
+    return {
+        "device_count": distributed.world_size(),
+        "process_count": distributed.world_size(),
+        "mesh_axes": [a.name for a in axes],
+        "mesh_shape": {a.name: a.size for a in axes},
+    }
+
+
+def describe_topology(topo: dict | None) -> str:
+    """``"8 devices (data=8, model=1)"`` — a :func:`mesh_topology` dict for
+    logs; a checkpoint without a sidecar (None) reads as unknown."""
+    if not topo:
+        return "unknown (legacy checkpoint, no manifest)"
+    axes = ", ".join(f"{a}={s}" for a, s in topo.get("mesh_shape", {}).items())
+    return f"{topo.get('device_count', '?')} devices ({axes})"
 
 
 def data_coords(model_parallel: int = 1) -> tuple[int, int]:

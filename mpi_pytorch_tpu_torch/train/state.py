@@ -526,6 +526,9 @@ class TrainState:
     placement: Placement | None = None
     # The seed of the train-mode masks (see :meth:`masks_generator`).
     rng_seed: int | None = None
+    # The bad-step rollback's learning-rate backoff, applied to every rate
+    # the schedule gives (``--rollback-lr-backoff``, compounded per rollback).
+    lr_scale: float = 1.0
 
     def masks_generator(self, shard: int) -> torch.Generator | None:
         """The generator this step's dropout and stochastic-depth masks
@@ -538,8 +541,9 @@ class TrainState:
         return self.generator
 
     def set_learning_rate(self) -> None:
-        """The schedule's rate for this step onto every param group."""
-        lr = self.schedule(self.step)
+        """The schedule's rate for this step, times ``lr_scale``, onto
+        every param group."""
+        lr = self.schedule(self.step) * self.lr_scale
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 

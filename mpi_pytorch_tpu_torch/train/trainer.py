@@ -49,24 +49,45 @@ step's metrics until the epoch ends (``make_scanned_epoch``); with
 ``val_on_train`` validation comes from the cache too
 (:func:`evaluate_cached`).
 
-Elastic resume, rollback, preemption, the host cache and the run
-telemetry of the JAX trainer are not ported yet.
+Robust training (``train/elastic.py``; JAX ``_train_impl``): every
+checkpoint carries the topology sidecar with the exact-step data cursor
+(:func:`data_cursor`) and is written by ``checkpoint.AsyncCheckpointer``
+every ``checkpoint_every_epochs``; ``from_checkpoint`` resumes through
+``elastic.restore_latest`` (walking back past corrupt files, resharding
+onto this run's layout, the mesh build and the placement retried with
+backoff) and continues at the cursor's step when :func:`validate_cursor`
+accepts it, replaying the epoch otherwise. ``PreemptionGuard`` and the
+watchdog (SIGTERM, the sentinel file, the straggler and non-finite
+streaks, the injected gates) stop the run at a safe boundary — the next
+step in a world of one, the next epoch, agreed by every rank
+(:func:`_stop_agreed`), in a larger one — and save what it would lose;
+``bad_step_policy="rollback"`` restores the last good checkpoint
+in-process. ``obs/health.py`` and ``obs/heartbeat.py`` write the per-step
+and heartbeat records. The host cache and the rest of the run telemetry
+of the JAX trainer (its tracer, live registry, SLO monitor and flight
+recorder) are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+import signal
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
 
 from mpi_pytorch_tpu_torch import checkpoint as ckpt
 from mpi_pytorch_tpu_torch.config import Config
-from mpi_pytorch_tpu_torch.data.manifest import Manifest, load_manifests
+from mpi_pytorch_tpu_torch.data.manifest import Manifest, load_manifests, manifest_fingerprint
 from mpi_pytorch_tpu_torch.data.pipeline import DataLoader, epoch_order
 from mpi_pytorch_tpu_torch.models.common import set_batchnorm_sync
 from mpi_pytorch_tpu_torch.models.registry import create_model_bundle, prepare_for_training
+from mpi_pytorch_tpu_torch.obs.health import NonFiniteLossError, StepHealth
+from mpi_pytorch_tpu_torch.obs.heartbeat import Heartbeat
 from mpi_pytorch_tpu_torch.ops._build import launch_counts
 from mpi_pytorch_tpu_torch.parallel import collectives, distributed
 from mpi_pytorch_tpu_torch.parallel.mesh import (
@@ -99,14 +120,8 @@ from mpi_pytorch_tpu_torch.train.step import (
     make_train_step,
     synced_params,
 )
+from mpi_pytorch_tpu_torch.train import elastic
 from mpi_pytorch_tpu_torch.utils.logging import MetricsWriter, init_logger
-
-
-class NonFiniteLossError(RuntimeError):
-    """A training step produced a non-finite loss or gradient norm (under
-    ``bad_step_policy=abort``, or after ``max_skipped_steps`` consecutive
-    skips)."""
-
 
 @dataclass
 class TrainSummary:
@@ -121,6 +136,111 @@ class TrainSummary:
     step_losses: list = field(default_factory=list)
     best_accuracy: float | None = None  # track_best: best val acc this run
     cache_build_s: float | None = None  # device_cache: seconds to build it
+    preempted: bool = False  # stopped by the watchdog, progress saved
+
+
+class PreemptionGuard:
+    """Graceful SIGTERM/SIGINT: the FIRST signal only sets a flag the
+    train loop polls (through the watchdog), so the run stops at the next
+    safe boundary, saves what it would lose, drains the checkpoint writer
+    and returns with ``summary.preempted`` (exit code 0). A SECOND signal
+    restores the previous handler and re-raises — the escape hatch if the
+    drain itself wedges. Installed only from the main thread (Python allows
+    ``signal.signal`` nowhere else); elsewhere it is inert."""
+
+    SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self) -> None:
+        self.triggered = False
+        self._previous: dict[int, Any] = {}
+
+    def __enter__(self) -> "PreemptionGuard":
+        if threading.current_thread() is threading.main_thread():
+            for sig in self.SIGNALS:
+                self._previous[sig] = signal.signal(sig, self._handle)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for sig, prev in self._previous.items():
+            signal.signal(sig, prev)
+        self._previous.clear()
+
+    def _handle(self, signum, frame) -> None:
+        if self.triggered:  # the second signal: the original behavior
+            prev = self._previous.get(signum)
+            signal.signal(signum, prev if prev is not None else signal.SIG_DFL)
+            signal.raise_signal(signum)
+            return
+        self.triggered = True
+
+
+def _global_max(value: float, device: torch.device) -> float:
+    """The max of every rank's ``value`` (one process: itself) — the one
+    all-reduce the host-side decisions that gate a collective go through."""
+    if distributed.world_size() == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.float32, device=device)
+    return float(collectives.all_reduce(t, "max")[0])
+
+
+def _stop_agreed(stop: bool, device: torch.device) -> bool:
+    """The epoch-boundary stop: every rank stops or none does (a rank that
+    stops alone leaves the others waiting in the next collective).
+    ``stop`` is this rank's watchdog verdict."""
+    return _global_max(1.0 if stop else 0.0, device) > 0.0
+
+
+def data_cursor(cfg: Config, fingerprint: str, n_steps: int, next_epoch: int,
+                step_in_epoch: int) -> dict:
+    """The exact-step resume cursor stamped into every checkpoint's
+    sidecar: where the run continues — ``(epoch, step_in_epoch)`` of the
+    deterministic global walk — and what must still hold for that offset
+    to mean the same samples: the shuffle (seed, shuffle), the global batch
+    and the epoch's step count, the rank count (each rank's shard derives
+    from it) and the global train manifest's fingerprint.
+    :func:`validate_cursor` checks each field."""
+    return {
+        "epoch": int(next_epoch),
+        "step_in_epoch": int(step_in_epoch),
+        "seed": int(cfg.seed),
+        "shuffle": bool(cfg.shuffle),
+        "global_batch": int(cfg.batch_size),
+        "drop_remainder": bool(cfg.drop_remainder),
+        "processes": int(distributed.world_size()),
+        "steps_per_epoch": int(n_steps),
+        "manifest_fingerprint": fingerprint,
+    }
+
+
+def validate_cursor(cursor, *, cfg: Config, fingerprint: str, n_steps: int,
+                    start_epoch: int) -> tuple[int, str | None]:
+    """``(start_step, None)`` when ``cursor`` still describes this run's
+    walk, else ``(0, why)``: the caller records why and replays the epoch,
+    never misaligning silently."""
+    if not isinstance(cursor, dict):
+        return 0, "no data cursor in the checkpoint's topology manifest"
+    expected = {
+        "epoch": start_epoch,
+        "seed": int(cfg.seed),
+        "shuffle": bool(cfg.shuffle),
+        "global_batch": int(cfg.batch_size),
+        "drop_remainder": bool(cfg.drop_remainder),
+        "processes": int(distributed.world_size()),
+        "steps_per_epoch": int(n_steps),
+        "manifest_fingerprint": fingerprint,
+    }
+    for key, want in expected.items():
+        got = cursor.get(key)
+        if got != want:
+            return 0, f"cursor {key}={got!r} != current {want!r}"
+    step = int(cursor.get("step_in_epoch", 0))
+    if not 0 <= step < max(n_steps, 1):
+        return 0, f"cursor step_in_epoch={step} outside 0..{n_steps - 1}"
+    if step and cfg.scan_epoch:
+        # A scanned epoch runs whole: it never stops mid-way itself, and a
+        # partial one is replayed.
+        return 0, "mid-epoch cursor with scan_epoch=True (scan is all-or-nothing)"
+    return step, None
 
 
 def pad_batch(images: np.ndarray, labels: np.ndarray, target: int):
@@ -438,8 +558,8 @@ def evaluate_cached(cfg: Config, model: torch.nn.Module, dataset: torch.Tensor,
 
 
 def train(cfg: Config, device: str | torch.device | None = None) -> TrainSummary:
-    """Train ``cfg.num_epochs`` epochs (from the latest checkpoint with
-    ``from_checkpoint``) on ``device`` (default: this rank's card,
+    """Train ``cfg.num_epochs`` epochs (from the latest loadable checkpoint
+    with ``from_checkpoint``) on ``device`` (default: this rank's card,
     ``distributed.rank_device``); see the module docstring. Joins the
     world the environment describes first (torchrun's). On a card, cuDNN
     picks its algorithms by measuring (``torch.backends.cudnn.benchmark``):
@@ -450,8 +570,22 @@ def train(cfg: Config, device: str | torch.device | None = None) -> TrainSummary
         torch.backends.cudnn.benchmark = True
     logger = init_logger("MPT", cfg.log_file)
     metrics = MetricsWriter(cfg.metrics_file)
+    # Run telemetry (obs/), inert unless its knobs are set. Under a
+    # bad-step policy the policy answers a non-finite step, not the
+    # sentinel's abort.
+    health = StepHealth(metrics, step_metrics=cfg.step_metrics,
+                        nan_sentinel=cfg.nan_sentinel and cfg.bad_step_policy == "abort")
+    heartbeat = Heartbeat(metrics, every_steps=cfg.heartbeat_every_steps,
+                          threshold=cfg.straggler_threshold, batch_images=cfg.batch_size)
+    if heartbeat.enabled and cfg.device_cache and cfg.scan_epoch:
+        logger.warning(
+            "heartbeat_every_steps=%d has no effect with scan_epoch=True "
+            "(the epoch is one device-side scan; no per-step host "
+            "boundaries to exchange step times at)", cfg.heartbeat_every_steps,
+        )
+        heartbeat.enabled = False
     try:
-        return _train(cfg, dev, logger, metrics)
+        return _train(cfg, dev, logger, metrics, health, heartbeat)
     finally:
         metrics.close()
 
@@ -533,10 +667,238 @@ def _log_placement(cfg: Config, state: TrainState, mesh: Mesh, logger,
     metrics.write(record)
 
 
-def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> TrainSummary:
+def _cursor_start(cfg: Config, info: dict, *, fingerprint: str, n_steps: int, epoch: int,
+                  metrics: MetricsWriter, logger, rollback: bool = False) -> int:
+    """The step a resumed (or rolled-back) run continues epoch ``epoch``
+    at: the restored checkpoint's data cursor when it validates, else 0 —
+    a ``kind="anomaly"`` ``cursor_mismatch`` record where the checkpoint
+    had a cursor or was dirty (JAX ``trainer.py:1078-1100``)."""
+    cursor = (info.get("manifest") or {}).get("data_cursor")
+    dirty = os.path.exists(info["path"] + ".dirty")
+    step, why = validate_cursor(cursor, cfg=cfg, fingerprint=fingerprint, n_steps=n_steps,
+                                start_epoch=epoch)
+    if why is not None and (cursor is not None or dirty):
+        metrics.write({"kind": "anomaly", "reason": "cursor_mismatch", "epoch": epoch,
+                       "detail": why})
+        if rollback:
+            logger.warning("rollback cursor unavailable (%s) — replaying epoch %d from step 0",
+                           why, epoch)
+        else:
+            logger.warning(
+                "exact-step resume unavailable (%s) — replaying epoch %d from step 0%s",
+                why, epoch, " (DIRTY checkpoint: the replay double-applies the partial "
+                "epoch's updates)" if dirty else "",
+            )
+    elif step and not rollback:
+        logger.info(
+            "exact-step resume: continuing epoch %d at step %d (fast-forwarding %d "
+            "consumed batch(es) without decoding)", epoch, step, step,
+        )
+    return step
+
+
+@dataclass
+class _Run:
+    """The epoch loop's state (the JAX ``_train_impl``'s locals) and the
+    parts of the loop that read or move it: a save with its sidecar, the
+    in-process rollback, a step's bookkeeping and the preemption save.
+    The cursor (``epoch``, ``next_start_step``: an exact-step resume
+    enters its first epoch mid-way, a rollback jumps back) rewinds with
+    ``last_completed_epoch`` and ``last_saved_epoch``."""
+
+    cfg: Config
+    state: TrainState
+    mesh: Mesh
+    logger: Any
+    metrics: MetricsWriter
+    health: StepHealth
+    summary: TrainSummary
+    fingerprint: str
+    n_steps: int
+    zero_shards_to: int
+    topology: dict
+    rollback_policy: elastic.RollbackPolicy | None
+    start_epoch: int
+    epoch: int
+    next_start_step: int
+    # A lambda: this module loads while ``checkpoint`` is still loading.
+    checkpointer: ckpt.AsyncCheckpointer = field(default_factory=lambda: ckpt.AsyncCheckpointer())
+    last_completed_epoch: int = -1
+    last_saved_epoch: int = -1
+    epoch_loss: float = float("nan")
+    rollbacks_done: int = 0
+    # Consecutive skipped steps, carried across epochs as the JAX trainer
+    # carries them, and the run's total.
+    skip_streak: int = 0
+    steps_skipped_total: int = 0
+    # The epoch's kept steps: their losses and valid-row counts.
+    losses: list = field(default_factory=list)
+    counts: list = field(default_factory=list)
+
+    def save(self, at_epoch: int, loss: float, cursor: tuple[int, int], *,
+             dirty: bool = False, on_durable=None) -> str:
+        """Dispatch epoch ``at_epoch``'s checkpoint with the topology
+        sidecar and ``cursor`` — (the epoch, the step) the run continues
+        at — as its data cursor."""
+        cfg = self.cfg
+        t_save = time.perf_counter()
+        path = self.checkpointer.save(
+            cfg.checkpoint_dir, epoch=at_epoch, state=self.state, loss=loss,
+            keep=cfg.keep_checkpoints, on_durable=on_durable, dirty=dirty,
+            moments_bf16=cfg.ckpt_bf16_moments,
+            manifest=dict(self.topology, data_cursor=data_cursor(
+                cfg, self.fingerprint, self.n_steps, *cursor)),
+        )
+        self.summary.checkpoint_path = path
+        self.logger.info("checkpoint dispatched: %s (%.2f s stall%s)", path,
+                         time.perf_counter() - t_save, ", dirty" if dirty else "")
+        return path
+
+    def rollback(self, at_epoch: int, at_step: int, reason: str) -> None:
+        """``--bad-step-policy rollback``: drain the writer, restore the
+        newest loadable checkpoint in-process (``restore_latest`` and the
+        placement, as a restart would), scale the learning rate by
+        ``rollback_lr_backoff``, and move the cursor to the restored one.
+        Every rank calls it at the same step: the trigger reads globally
+        reduced values."""
+        cfg, metrics = self.cfg, self.metrics
+        self.checkpointer.drain()
+        if self.rollbacks_done >= cfg.max_rollbacks:
+            metrics.write({
+                "kind": "anomaly", "reason": "rollback_limit", "epoch": at_epoch,
+                "step": at_step,
+                "detail": f"{self.rollbacks_done} rollbacks hit "
+                          f"max_rollbacks={cfg.max_rollbacks}",
+            })
+            raise elastic.RollbackLimitError(
+                f"bad-step rollback requested ({reason} at epoch {at_epoch} "
+                f"step {at_step}) but {self.rollbacks_done} rollback(s) already "
+                f"hit --max-rollbacks={cfg.max_rollbacks}; aborting — see "
+                "the kind='rollback' trail in the metrics stream"
+            )
+        self.rollbacks_done += 1
+        res = elastic.restore_latest(cfg.checkpoint_dir, self.state, self.mesh,
+                                     metrics=metrics, logger=self.logger,
+                                     zero_shards_to=self.zero_shards_to)
+        if res is None:
+            raise elastic.RollbackLimitError(
+                f"bad-step rollback requested ({reason} at epoch {at_epoch} "
+                f"step {at_step}) but no checkpoint exists in "
+                f"{cfg.checkpoint_dir} to restore"
+            )
+        payload, ckpt_epoch, _, info = res
+        elastic.with_retries(
+            lambda: elastic.checked_place(self.state, payload),
+            what="rollback state placement (device_put)", retries=cfg.resume_retries,
+            backoff_s=cfg.resume_backoff_s, logger=self.logger)
+        # The scale multiplies every rate the schedule gives from here on.
+        self.state.lr_scale *= cfg.rollback_lr_backoff
+        self.rollback_policy.after_rollback()
+        # The epoch bookkeeping rewinds with the state.
+        self.last_completed_epoch = self.last_saved_epoch = ckpt_epoch
+        self.epoch = ckpt_epoch + 1
+        self.next_start_step = _cursor_start(
+            cfg, info, fingerprint=self.fingerprint, n_steps=self.n_steps, epoch=self.epoch,
+            metrics=metrics, logger=self.logger, rollback=True)
+        metrics.write({
+            "kind": "rollback", "epoch": at_epoch, "step": at_step, "reason": reason,
+            "restored_epoch": ckpt_epoch, "rollbacks": self.rollbacks_done,
+            "lr_scale": round(self.state.lr_scale, 6), "path": info["path"],
+        })
+        self.logger.warning(
+            "bad-step rollback #%d/%d (%s at epoch %d step %d): restored "
+            "%s in-process, continuing at epoch %d step %d%s",
+            self.rollbacks_done, cfg.max_rollbacks, reason, at_epoch, at_step,
+            info["path"], self.epoch, self.next_start_step,
+            f", LR scaled to {self.state.lr_scale:g}x" if cfg.rollback_lr_backoff != 1.0 else "",
+        )
+
+    def settle(self, step_i: int, m: dict, data_wait_s: float | None = None,
+               step_s: float | None = None) -> None:
+        """Step ``step_i`` of the current epoch read back: its record, the
+        skip policy's streak, the sentinel, and the epoch's loss terms."""
+        cfg, epoch = self.cfg, self.epoch
+        skip = cfg.bad_step_policy == "skip"
+        loss, count = float(m["loss"]), int(m["count"])
+        grad_norm = float(m["grad_norm"])
+        skipped = bool(m["skipped"]) if skip else False
+        self.steps_skipped_total += int(skipped)
+        self.summary.step_losses.append(loss)
+        if self.health.enabled:
+            self.health.on_step(epoch, step_i, {"loss": loss, "grad_norm": grad_norm},
+                                data_wait_s, step_s,
+                                skipped=int(skipped) if skip else None,
+                                steps_skipped=self.steps_skipped_total if skip else None)
+        else:
+            record = {"kind": "step", "epoch": epoch, "step": step_i, "loss": loss,
+                      "grad_norm": grad_norm}
+            if skip:
+                record["skipped"] = int(skipped)
+            self.metrics.write(record)
+        if skipped:
+            self.skip_streak += 1
+            self.logger.warning(
+                "bad step skipped (non-finite update) at epoch %d step %d — "
+                "state unchanged, %d consecutive", epoch, step_i, self.skip_streak,
+            )
+            if self.skip_streak >= cfg.max_skipped_steps:
+                raise NonFiniteLossError(
+                    f"{self.skip_streak} consecutive non-finite steps were skipped "
+                    f"(epoch {epoch}) — hit max_skipped_steps={cfg.max_skipped_steps}"
+                )
+            return
+        self.skip_streak = 0
+        if self.rollback_policy is None and cfg.nan_sentinel \
+                and not (np.isfinite(loss) and np.isfinite(grad_norm)):
+            raise NonFiniteLossError(
+                f"non-finite step at epoch {epoch} step {step_i}: loss {loss}, "
+                f"grad_norm {grad_norm} (bad_step_policy=abort)"
+            )
+        self.losses.append(loss)
+        self.counts.append(count)
+        if cfg.log_every_steps and (step_i + 1) % cfg.log_every_steps == 0:
+            self.logger.info("epoch %d step %d loss %.4f", epoch, step_i + 1, loss)
+
+    def preemption_save(self, interrupted: tuple[int, int, int, int] | None) -> None:
+        """Save what a preemption would lose (JAX ``trainer.py:1822-1896``):
+        stopped mid-epoch after running steps (``interrupted``: the epoch,
+        the next step, the steps run in it this session, its start step),
+        the state DIRTY under the last completed epoch with the interrupted
+        step's cursor (nothing when no epoch completed, or when that file is
+        the one ``best.json`` pins: its integrity outranks the partial
+        steps); stopped at an epoch boundary, the completed epochs not saved
+        yet. A stop before any new step saves nothing: the checkpoint on
+        disk already holds this state."""
+        cfg, completed = self.cfg, self.last_completed_epoch
+        best = ckpt.best_marker(cfg.checkpoint_dir) if cfg.track_best else None
+        best_is_target = bool(
+            best and completed >= 0
+            and best.get("checkpoint") == os.path.basename(ckpt._ckpt_path(cfg.checkpoint_dir,
+                                                                           completed)))
+        if interrupted is not None and interrupted[2] > 0 and completed >= 0 \
+                and not best_is_target:
+            int_epoch, int_step, _, _ = interrupted
+            path = self.save(completed, self.epoch_loss, (int_epoch, int_step), dirty=True)
+            self.logger.info("preemption checkpoint dispatched: %s (dirty; cursor epoch %d "
+                             "step %d)", path, int_epoch, int_step)
+        elif (completed >= self.start_epoch and completed != self.last_saved_epoch
+              and (interrupted is None or interrupted[3] == 0)):
+            path = self.save(completed, self.epoch_loss, (completed + 1, 0))
+            self.logger.info("preemption checkpoint dispatched: %s", path)
+
+
+def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter, health: StepHealth,
+           heartbeat: Heartbeat) -> TrainSummary:
     # The rank layout before the model: a nested or (data, model) one
     # makes its process groups collectively, and the levers shard over it.
-    mesh = create_mesh(cfg.mesh)
+    # On the resume side its build is retried with backoff: a transiently
+    # wedged backend costs attempts, not the resume.
+    if cfg.from_checkpoint:
+        mesh = elastic.with_retries(
+            lambda: create_mesh(cfg.mesh), what="backend init (mesh build)",
+            retries=cfg.resume_retries, backoff_s=cfg.resume_backoff_s, logger=logger)
+    else:
+        mesh = create_mesh(cfg.mesh)
     state, (train_manifest, test_manifest, loader) = build_training(cfg, dev, mesh)
     world, rank = distributed.world_size(), distributed.rank()
     data = data_axis(mesh)
@@ -555,16 +917,31 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
         if cfg.spmd_mode or mesh.model.size > 1 else "",
         f", {cfg.accum_steps} microbatches a step" if cfg.accum_steps > 1 else "",
     )
+    # The exact-step cursor lives in the global walk's sample space: the
+    # GLOBAL train manifest's fingerprint.
+    fingerprint = manifest_fingerprint(train_manifest)
     summary = TrainSummary()
+    # The ZeRO shard count of a --zero-opt-state run (the ici size on a
+    # nested mesh), the resume record's zero_shards_to.
+    zero_shards_to = zero_shard_axis(mesh)[1] if cfg.spmd_mode and cfg.zero_opt_state else 0
     start_epoch = 0
+    resume_info = None
     if cfg.from_checkpoint:
-        path = ckpt.latest_checkpoint(cfg.checkpoint_dir)
-        if path is None:
+        # The newest LOADABLE checkpoint (a corrupt one falls back to the
+        # previous), resharded onto this layout, the placement retried.
+        res = elastic.restore_latest(cfg.checkpoint_dir, state, mesh, metrics=metrics,
+                                     logger=logger, zero_shards_to=zero_shards_to)
+        if res is None:
             logger.info("from_checkpoint=True but no checkpoint found; fresh start")
         else:
-            epoch, last_loss = ckpt.restore_checkpoint(path, state)
+            payload, epoch, last_loss, resume_info = res
+            elastic.with_retries(
+                lambda: elastic.checked_place(state, payload),
+                what="state placement (device_put)", retries=cfg.resume_retries,
+                backoff_s=cfg.resume_backoff_s, logger=logger)
             start_epoch = epoch + 1
-            logger.info("resumed from %s (epoch %d, loss %.4f)", path, start_epoch, last_loss)
+            logger.info("resumed from %s (epoch %d, loss %.4f)", resume_info["path"],
+                        start_epoch, last_loss)
     # Rank 0's parameters and buffers on every rank, fresh or resumed
     # (≙ the JAX trainer placing its state on the mesh).
     sync_state(state)
@@ -606,8 +983,19 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
         epoch_fn = None
         n_steps = global_step_count(len(train_manifest), loader.batch_size, cfg.drop_remainder,
                                     data.size)
+    # Exact-step resume: the restored cursor, validated against this walk.
+    start_step = 0
+    if resume_info is not None:
+        start_step = _cursor_start(cfg, resume_info, fingerprint=fingerprint, n_steps=n_steps,
+                                   epoch=start_epoch, metrics=metrics, logger=logger)
     plan = (_log_bucket_plan(cfg, state, mesh, logger)
             if cfg.spmd_mode and cfg.grad_sync_buckets > 0 else {})
+    if heartbeat.enabled and heartbeat.every > n_steps:
+        logger.warning(
+            "heartbeat_every_steps=%d exceeds the %d step(s) per epoch — no "
+            "heartbeat will ever fire (beats never span epoch boundaries); "
+            "lower it to at most the per-epoch step count", heartbeat.every, n_steps,
+        )
     # The first step's collective traffic is read from the ledger (spmd);
     # the placement is logged after it (the auto levers).
     ledger_pending = cfg.spmd_mode
@@ -615,134 +1003,261 @@ def _train(cfg: Config, dev: torch.device, logger, metrics: MetricsWriter) -> Tr
     val_loader = None
     total_images = 0
     total_time = 0.0
-    # Consecutive skipped steps, carried across epochs as the JAX
-    # trainer carries them.
-    skip_streak = 0
-    for epoch in range(start_epoch, cfg.num_epochs):
-        t0 = time.perf_counter()
-        launches0 = launch_counts()
-        losses, counts = [], []
-        # A step's metrics are read on the host one step late, so the
-        # host queues step i+1 before waiting for step i.
-        pending = None
-
-        def settle(step_i: int, m: dict) -> None:
-            nonlocal skip_streak
-            loss, count = float(m["loss"]), int(m["count"])
-            skipped = bool(m["skipped"]) if skip else False
-            summary.step_losses.append(loss)
-            record = {"kind": "step", "epoch": epoch, "step": step_i, "loss": loss,
-                      "grad_norm": float(m["grad_norm"])}
-            if skip:
-                record["skipped"] = int(skipped)
-            metrics.write(record)
-            if skipped:
-                skip_streak += 1
-                logger.warning(
-                    "bad step skipped (non-finite update) at epoch %d step %d — "
-                    "state unchanged, %d consecutive", epoch, step_i, skip_streak,
-                )
-                if skip_streak >= cfg.max_skipped_steps:
-                    raise NonFiniteLossError(
-                        f"{skip_streak} consecutive non-finite steps were skipped "
-                        f"(epoch {epoch}) — hit max_skipped_steps={cfg.max_skipped_steps}"
+    # The guard stays installed through the preemption save and the final
+    # drain: a first signal then is absorbed, a second one falls through.
+    guard = PreemptionGuard()
+    faults = elastic.FaultInjector(metrics=metrics)
+    if faults.active:
+        logger.warning(
+            "fault injection armed: kill_at_step=%d delay_step_ms=%d "
+            "dcn_delay_ms=%d nonfinite_at_step=%d preempt_at_step=%d "
+            "(MPT_FAULT_* gates)", faults.kill_at_step, faults.delay_ms,
+            faults.dcn_delay_ms, faults.nonfinite_at_step, faults.preempt_at_step,
+        )
+    poison = bool(faults.nonfinite_at_step) and not cfg.device_cache \
+        and loader.image_dtype != np.uint8
+    if faults.nonfinite_at_step and not poison:
+        logger.warning(
+            "MPT_FAULT_NONFINITE_AT_STEP has no effect on this run: the "
+            "gate NaN-poisons streaming float batches, and this run feeds "
+            "%s", "device-cache indices" if cfg.device_cache else "uint8 pixels",
+        )
+    hier = is_hierarchical(mesh)
+    if faults.dcn_delay_ms and not hier:
+        logger.warning(
+            "MPT_FAULT_DCN_DELAY_MS has no effect on this run: a flat mesh "
+            "has no cross-pod phase to slow down (set --mesh-pods > 1)"
+        )
+    watchdog = elastic.PreemptionWatchdog(
+        guard, preempt_file=cfg.preempt_file, straggler_beats=cfg.preempt_straggler_beats,
+        nonfinite_steps=cfg.preempt_nonfinite_steps, heartbeat=heartbeat, health=health,
+        metrics=metrics, logger=logger, injector=faults,
+    )
+    if cfg.bad_step_policy != "abort":
+        logger.info(
+            "bad-step policy '%s': the NaN sentinel's hard abort is "
+            "replaced by the policy (per-step host sync enabled to observe "
+            "loss/grad norm)", cfg.bad_step_policy,
+        )
+    rollback_policy = (
+        elastic.RollbackPolicy(nonfinite_steps=cfg.rollback_nonfinite_steps,
+                               loss_drift=cfg.rollback_loss_drift,
+                               drift_warmup=cfg.rollback_drift_warmup)
+        if cfg.bad_step_policy == "rollback" else None
+    )
+    # The per-step telemetry and the rollback read each step's values as
+    # it completes (one host sync a step); otherwise a step's metrics are
+    # read one step late, so the host queues step i+1 before waiting.
+    sync_each = health.enabled or heartbeat.enabled or rollback_policy is not None
+    run = _Run(
+        cfg=cfg, state=state, mesh=mesh, logger=logger, metrics=metrics, health=health,
+        summary=summary, fingerprint=fingerprint, n_steps=n_steps,
+        zero_shards_to=zero_shards_to, rollback_policy=rollback_policy,
+        # The topology stamp of every checkpoint this run writes.
+        topology=elastic.topology_manifest(
+            mesh, zero_opt_state=bool(zero_shards_to), spmd_mode=cfg.spmd_mode,
+            optimizer=state.optimizer if zero_shards_to else None),
+        start_epoch=start_epoch, epoch=start_epoch, next_start_step=start_step,
+        last_completed_epoch=start_epoch - 1,
+    )
+    checkpointer = run.checkpointer
+    # (epoch, next step, steps run in it this session, its start step) of
+    # a mid-epoch stop.
+    interrupted = None
+    with guard:
+        try:
+            while run.epoch < cfg.num_epochs:
+                epoch = run.epoch
+                if _stop_agreed(watchdog.should_stop(epoch=epoch), dev):
+                    summary.preempted = True
+                    logger.info(
+                        "preemption signal: stopping before epoch %d "
+                        "(progress saved; auto-resume continues from the latest "
+                        "checkpoint)", epoch,
                     )
-                return
-            skip_streak = 0
-            if not (np.isfinite(loss) and np.isfinite(record["grad_norm"])):
-                raise NonFiniteLossError(
-                    f"non-finite step at epoch {epoch} step {step_i}: loss {loss}, "
-                    f"grad_norm {record['grad_norm']} (bad_step_policy=abort)"
+                    break
+                start_step_this, run.next_start_step = run.next_start_step, 0
+                t0 = time.perf_counter()
+                launches0 = launch_counts()
+                heartbeat.start_epoch()  # beats never span epoch boundaries
+                run.losses, run.counts = [], []
+                rollback_trigger = None
+                stopped_mid_epoch = False
+                if cfg.device_cache:
+                    idx_all, valid_all = epoch_indices(cfg, n_cache, epoch, n_steps, dev)
+                if epoch_fn is not None:
+                    # The scanned epoch: the whole epoch queued, its [n_steps]
+                    # metrics read once, then checked and recorded step by step
+                    # as the per-step path would have (JAX: trainer.py:1440-1500);
+                    # a cursor never enters it mid-way (validate_cursor).
+                    if n_steps:
+                        arrays = epoch_fn(state, dataset, labels_all, idx_all, valid_all)
+                        if placement_pending:
+                            placement_pending = False
+                            _log_placement(cfg, state, mesh, logger, metrics, epoch, 0)
+                        host = {k: v.tolist() for k, v in arrays.items()}
+                        for step_i in range(n_steps):
+                            run.settle(step_i, {k: v[step_i] for k, v in host.items()})
+                else:
+                    if cfg.device_cache:
+                        step_args = ((dataset, labels_all, i, v) for i, v in
+                                     zip(idx_all[start_step_this:], valid_all[start_step_this:]))
+                    else:
+                        batches = synchronized_batches(loader, epoch, n_steps,
+                                                       start_step=start_step_this)
+                        if poison:
+                            batches = faults.poison_batches(batches, epoch)
+                        step_args = (to_device(*pad_batch(images, labels, loader.batch_size), dev)
+                                     for images, labels in batches)
+                    pending = None
+                    step_i = start_step_this - 1
+                    try:
+                        while True:
+                            t_ingest = time.perf_counter()
+                            args = next(step_args, None)
+                            if args is None:
+                                break
+                            data_wait_s = time.perf_counter() - t_ingest
+                            step_i += 1
+                            # A world of one stops at this step boundary; a
+                            # larger one only at the agreed epoch boundary (a
+                            # rank breaking alone would strand the others).
+                            if watchdog.should_stop(epoch=epoch, step=step_i) and world == 1:
+                                stopped_mid_epoch = True
+                                break
+                            if ledger_pending:
+                                collectives.LEDGER.reset()
+                            t_step = time.perf_counter()
+                            m = train_step(state, *args)
+                            if sync_each and dev.type == "cuda":
+                                torch.cuda.synchronize(dev)
+                            # Inside the timed region: a faked straggler's
+                            # delay lands in the step time the heartbeat reads.
+                            faults.maybe_delay()
+                            faults.maybe_dcn_delay(hier)
+                            step_s = time.perf_counter() - t_step
+                            if ledger_pending:
+                                ledger_pending = False
+                                _log_grad_sync(cfg, state, mesh, logger, metrics, plan, epoch,
+                                               step_i)
+                            if placement_pending:
+                                placement_pending = False
+                                _log_placement(cfg, state, mesh, logger, metrics, epoch, step_i)
+                            if sync_each:
+                                run.settle(step_i, m, data_wait_s, step_s)
+                                heartbeat.on_step(epoch, step_i, step_s)
+                                if rollback_policy is not None:
+                                    reason = rollback_policy.observe(float(m["loss"]),
+                                                                     float(m["grad_norm"]))
+                                    if reason is not None:
+                                        rollback_trigger = (reason, step_i)
+                                        break
+                            else:
+                                if pending is not None:
+                                    run.settle(*pending)
+                                pending = (step_i, m)
+                            faults.after_step(epoch, step_i)
+                    finally:
+                        step_args.close()  # stops the loader's producer thread
+                    if pending is not None:
+                        run.settle(*pending)
+                if rollback_trigger is not None:
+                    # Restore the last good checkpoint in-process and jump the
+                    # cursor back to it; the partial epoch's bookkeeping goes
+                    # with the poisoned state.
+                    reason, at_step = rollback_trigger
+                    run.rollback(epoch, at_step, reason)
+                    continue
+                if stopped_mid_epoch:
+                    summary.preempted = True
+                    interrupted = (epoch, step_i, step_i - start_step_this, start_step_this)
+                    logger.info(
+                        "preemption signal: stopping mid-epoch %d at step "
+                        "boundary %d (partial-epoch state — saved dirty with an "
+                        "exact-step data cursor; resume continues at step %d "
+                        "when the cursor validates, replaying zero optimizer "
+                        "steps)", epoch, step_i, step_i,
+                    )
+                    break
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                dt = time.perf_counter() - t0
+                n_valid = float(sum(run.counts))
+                run.epoch_loss = epoch_loss = (
+                    float(np.dot(run.losses, run.counts) / n_valid) if n_valid else float("nan")
                 )
-            losses.append(loss)
-            counts.append(count)
-            if cfg.log_every_steps and (step_i + 1) % cfg.log_every_steps == 0:
-                logger.info("epoch %d step %d loss %.4f", epoch, step_i + 1, loss)
+                ips = n_valid / dt if dt > 0 else 0.0
+                total_images += int(n_valid)
+                total_time += dt
+                logger.info("Epoch: %d, Loss: %.6f, Time: %.2f s, %.1f img/s", epoch, epoch_loss,
+                            dt, ips)
+                metrics.write({"kind": "epoch", "epoch": epoch, "loss": epoch_loss, "time_s": dt,
+                               "images_per_sec": ips, **launches_since(launches0)})
+                if run.losses and n_valid:
+                    health.check_epoch(epoch, epoch_loss)
+                summary.epoch_times.append(dt)
+                summary.epoch_losses.append(epoch_loss)
+                summary.epochs_run += 1
+                summary.final_loss = epoch_loss
 
-        if cfg.device_cache:
-            idx_all, valid_all = epoch_indices(cfg, n_cache, epoch, n_steps, dev)
-        if epoch_fn is not None:
-            # The scanned epoch: the whole epoch queued, its [n_steps]
-            # metrics read once, then checked and recorded step by step
-            # as the per-step path would have (JAX: trainer.py:1440-1500).
-            if n_steps:
-                arrays = epoch_fn(state, dataset, labels_all, idx_all, valid_all)
-                if placement_pending:
-                    placement_pending = False
-                    _log_placement(cfg, state, mesh, logger, metrics, epoch, 0)
-                host = {k: v.tolist() for k, v in arrays.items()}
-                for step_i in range(n_steps):
-                    settle(step_i, {k: v[step_i] for k, v in host.items()})
-        else:
-            if cfg.device_cache:
-                step_args = ((dataset, labels_all, i, v) for i, v in zip(idx_all, valid_all))
-            else:
-                step_args = (
-                    to_device(*pad_batch(images, labels, loader.batch_size), dev)
-                    for images, labels in synchronized_batches(loader, epoch, n_steps))
-            for step_i, args in enumerate(step_args):
-                if ledger_pending:
-                    collectives.LEDGER.reset()
-                m = train_step(state, *args)
-                if ledger_pending:
-                    ledger_pending = False
-                    _log_grad_sync(cfg, state, mesh, logger, metrics, plan, epoch, step_i)
-                if placement_pending:
-                    placement_pending = False
-                    _log_placement(cfg, state, mesh, logger, metrics, epoch, step_i)
-                if pending is not None:
-                    settle(*pending)
-                pending = (step_i, m)
-            if pending is not None:
-                settle(*pending)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        n_valid = float(sum(counts))
-        epoch_loss = (
-            float(np.dot(losses, counts) / n_valid) if n_valid else float("nan")
-        )
-        ips = n_valid / dt if dt > 0 else 0.0
-        total_images += int(n_valid)
-        total_time += dt
-        logger.info("Epoch: %d, Loss: %.6f, Time: %.2f s, %.1f img/s", epoch, epoch_loss, dt, ips)
-        metrics.write({"kind": "epoch", "epoch": epoch, "loss": epoch_loss, "time_s": dt,
-                       "images_per_sec": ips, **launches_since(launches0)})
-        summary.epoch_times.append(dt)
-        summary.epoch_losses.append(epoch_loss)
-        summary.epochs_run += 1
-        summary.final_loss = epoch_loss
+                path = None
+                if cfg.checkpoint_every_epochs and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
+                    # A clean epoch-E save resumes at (E+1, step 0).
+                    path = run.save(epoch, epoch_loss, (epoch + 1, 0))
+                    run.last_saved_epoch = epoch
 
-        path = ckpt.save_checkpoint(
-            cfg.checkpoint_dir, epoch=epoch, state=state, loss=epoch_loss,
-            keep=cfg.keep_checkpoints,
-        )
-        summary.checkpoint_path = path
-        logger.info("checkpoint written: %s", path)
-
-        if cfg.validate:
-            # The reference validates on the TRAIN split (main.py:104-112);
-            # val_on_train=False validates on the test split.
-            val_manifest = train_manifest if cfg.val_on_train else test_manifest
-            launches0 = launch_counts()
-            if cfg.device_cache and cfg.val_on_train:
-                # The cached train set is the validation set.
-                acc, vloss = evaluate_cached(cfg, state.model, dataset, labels_all, data)
-            else:
-                if val_loader is None:
-                    val_loader = make_eval_loader(cfg, val_manifest)
-                acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader, data)
-            summary.val_accuracy = acc
-            logger.info("Accuracy of the network: %.4f (val_on_train=%s)", acc, cfg.val_on_train)
-            metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss,
-                           **launches_since(launches0)})
-            if cfg.track_best and acc > best_accuracy:
-                # The epoch's checkpoint was saved (synchronously) above,
-                # so the marker never names a file that is not there.
-                best_accuracy = summary.best_accuracy = acc
-                ckpt.write_best_marker(cfg.checkpoint_dir, epoch=epoch, accuracy=acc,
-                                       ckpt_path=path)
-                logger.info("best checkpoint so far: %s (val acc %.4f)", path, acc)
+                if cfg.validate:
+                    # The reference validates on the TRAIN split (main.py:104-112);
+                    # val_on_train=False validates on the test split.
+                    val_manifest = train_manifest if cfg.val_on_train else test_manifest
+                    launches0 = launch_counts()
+                    if cfg.device_cache and cfg.val_on_train:
+                        # The cached train set is the validation set.
+                        acc, vloss = evaluate_cached(cfg, state.model, dataset, labels_all, data)
+                    else:
+                        if val_loader is None:
+                            val_loader = make_eval_loader(cfg, val_manifest)
+                        acc, vloss = evaluate_manifest(cfg, state.model, val_manifest, val_loader,
+                                                       data)
+                    summary.val_accuracy = acc
+                    logger.info("Accuracy of the network: %.4f (val_on_train=%s)", acc,
+                                cfg.val_on_train)
+                    metrics.write({"kind": "val", "epoch": epoch, "accuracy": acc, "loss": vloss,
+                                   **launches_since(launches0)})
+                    if cfg.track_best and acc > best_accuracy:
+                        # best.json is published only once the file it names
+                        # is durable: after this epoch's write in flight, or
+                        # by the writer itself after a save made for it.
+                        best_accuracy = summary.best_accuracy = acc
+                        if run.last_saved_epoch == epoch:
+                            checkpointer.wait()
+                            ckpt.write_best_marker(cfg.checkpoint_dir, epoch=epoch, accuracy=acc,
+                                                   ckpt_path=path)
+                        else:
+                            path = run.save(
+                                epoch, epoch_loss, (epoch + 1, 0),
+                                on_durable=lambda p, _e=epoch, _a=acc: ckpt.write_best_file(
+                                    cfg.checkpoint_dir, epoch=_e, accuracy=_a, ckpt_path=p))
+                            run.last_saved_epoch = epoch
+                        logger.info("best checkpoint so far: %s (val acc %.4f)", path, acc)
+                run.last_completed_epoch = epoch
+                run.epoch = epoch + 1
+        except BaseException:
+            # Drain the write in flight on the failure path too, but never
+            # let a writer error replace the error the user needs to see.
+            try:
+                checkpointer.wait()
+            except BaseException as werr:
+                logger.warning("background checkpoint write also failed: %s", werr)
+            raise
+        if summary.preempted and cfg.checkpoint_every_epochs:
+            run.preemption_save(interrupted)
+        # The last write lands before a caller reads the file, and a writer
+        # error fails the run; then every rank may read rank 0's files.
+        checkpointer.drain()
+    if checkpointer.write_s:
+        logger.info("checkpoint writes: %d, %.2f s on the writer thread",
+                    len(checkpointer.write_s), sum(checkpointer.write_s))
     summary.images_per_sec = total_images / total_time if total_time > 0 else 0.0
     return summary
 

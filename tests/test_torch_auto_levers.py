@@ -555,7 +555,9 @@ def test_the_cli_runs_zero_fsdp_and_accumulation(world):
     assert [len(r["cli"]["step_losses"]) for r in world] == [2, 2]
     assert world[0]["cli"]["step_losses"] == world[1]["cli"]["step_losses"]
     assert np.isfinite(world[0]["cli"]["step_losses"]).all()
-    assert sorted(os.listdir(os.path.join(tmp, "cli", "ckpt"))) == ["ckpt_00000.pt"]
+    # The checkpoint and its topology sidecar.
+    assert sorted(os.listdir(os.path.join(tmp, "cli", "ckpt"))) == [
+        "ckpt_00000.pt", "ckpt_00000.pt.manifest.json"]
     payload = torch.load(world[0]["cli"]["checkpoint"], map_location="cpu", weights_only=True)
     model = create_model_bundle("resnet18", 64, seed=0, fused_stem=True).model
     assert {k: v.shape for k, v in payload["model"].items()} == {

@@ -544,7 +544,9 @@ def test_the_cli_runs_zero_and_buckets(world):
     assert [len(r["cli"]["step_losses"]) for r in world] == [2, 2]
     assert world[0]["cli"]["step_losses"] == world[1]["cli"]["step_losses"]
     assert np.isfinite(world[0]["cli"]["step_losses"]).all()
-    assert sorted(os.listdir(os.path.join(tmp, "cli", "ckpt"))) == ["ckpt_00000.pt"]
+    # The checkpoint and its topology sidecar.
+    assert sorted(os.listdir(os.path.join(tmp, "cli", "ckpt"))) == [
+        "ckpt_00000.pt", "ckpt_00000.pt.manifest.json"]
     payload = torch.load(world[0]["cli"]["checkpoint"], map_location="cpu", weights_only=True)
     for i, st in payload["optimizer"]["state"].items():
         assert st["exp_avg"].shape == payload["model"][_param_names()[i]].shape

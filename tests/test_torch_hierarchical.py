@@ -290,7 +290,9 @@ def test_the_cli_runs_two_pods(world):
     with open(os.path.join(tmp, "cli", "metrics.jsonl")) as f:
         (sync,) = [r for r in map(json.loads, f) if r["kind"] == "grad_sync"]
     assert sync["dcn_by_op"].keys() == {"all_reduce"} and sync["dcn_bytes_per_step"] > 0
-    assert os.listdir(os.path.join(tmp, "cli", "ckpt")) == ["ckpt_00000.pt"]
+    # The checkpoint and its topology sidecar.
+    assert sorted(os.listdir(os.path.join(tmp, "cli", "ckpt"))) == [
+        "ckpt_00000.pt", "ckpt_00000.pt.manifest.json"]
 
 
 def test_layout_helpers_on_one_process():

@@ -61,7 +61,8 @@ def test_parse_config_flags(monkeypatch):
     with pytest.raises(ValueError, match="weight_decay"):
         parse_config(["--weight-decay", "0.1"])  # only adamw decays
     with pytest.raises(ValueError, match="bad_step_policy"):
-        parse_config(["--bad-step-policy", "rollback"])
+        # rollback restores a checkpoint, so it needs the periodic saves
+        parse_config(["--bad-step-policy", "rollback", "--checkpoint-every-epochs", "0"])
     monkeypatch.setenv("MPT_NUM_EPOCHS", "3")
     assert parse_config([]).num_epochs == 3
 
